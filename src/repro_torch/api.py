@@ -1,0 +1,265 @@
+"""The session-style front door (PyTorch port of ``repro.api``).
+
+One call builds a started engine on the card:
+
+    import repro_torch as veilgraph
+
+    with veilgraph.session((src, dst), algorithm="pagerank") as s:
+        s.add_edges(new_src, new_dst)
+        result = s.query()
+        print(result.top(10), result.stats.vertex_ratio)
+
+``graph_source`` may be a ``(src, dst)`` edge-array pair, a named synthetic
+dataset (``repro_torch.graph.generators.DATASETS``) or an
+:class:`~repro_torch.stream.EdgeStream` (then ``s.play()`` replays its
+chunks, one query per chunk).  The session runs on the CUDA device unless
+``device=`` names another one; with no device given and no GPU present it
+raises.  Capacities are sized from the source when no
+:class:`EngineConfig` is given, with hot buffers at full capacity so a
+fresh session never falls back to exact.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Iterator, Optional, Tuple, Union
+
+import numpy as np
+
+from repro_torch.core.algorithm import (Action, StreamingAlgorithm,
+                                        algorithm_factory,
+                                        available_algorithms,
+                                        factory_accepts, make_algorithm)
+from repro_torch.core.engine import (CONFIG_FIELDS, EngineConfig, QueryStats,
+                                     VeilGraphEngine)
+from repro_torch.graph.generators import DATASETS, generate
+from repro_torch.stream import EdgeStream
+
+GraphSource = Union[str, Tuple[np.ndarray, np.ndarray], EdgeStream]
+
+
+def _result_valid(scores: np.ndarray, active: np.ndarray) -> np.ndarray:
+    """Vertices whose result value is an answer, not padding: active, and
+    not a ⊕-identity sentinel (±∞, int extrema)."""
+    valid = np.asarray(active, bool).copy()
+    if np.issubdtype(scores.dtype, np.floating):
+        valid &= np.isfinite(scores)
+    elif np.issubdtype(scores.dtype, np.integer):
+        info = np.iinfo(scores.dtype)
+        valid &= (scores != info.max) & (scores != info.min)
+    return valid
+
+
+def _top_ids(scores: np.ndarray, k: int, *, descending: bool = True,
+             valid: Optional[np.ndarray] = None) -> np.ndarray:
+    """Ids of the k best-ranked vertices (stable ties), invalid ones
+    dropped."""
+    order = np.argsort(-scores if descending else scores, kind="stable")
+    if valid is not None:
+        order = order[valid[order]]
+    return order[:k]
+
+
+@dataclass
+class QueryResult:
+    """One served query: the result vector (a host array) plus the
+    engine's stats row.  ``valid`` masks the entries that are answers."""
+
+    scores: np.ndarray
+    stats: QueryStats
+    valid: Optional[np.ndarray] = None
+    descending: bool = True
+
+    @property
+    def action(self) -> str:
+        return self.stats.action
+
+    def top(self, k: int = 10) -> np.ndarray:
+        return _top_ids(self.scores, k, descending=self.descending,
+                        valid=self.valid)
+
+
+class VeilGraphSession:
+    """A started engine plus the streaming conveniences around it; a
+    context manager, so OnStop fires on exit.  The engine is at
+    ``.engine``."""
+
+    def __init__(self, engine: VeilGraphEngine,
+                 stream: Optional[EdgeStream] = None):
+        self.engine = engine
+        self.stream = stream
+
+    @property
+    def algorithm(self) -> StreamingAlgorithm:
+        """The :class:`StreamingAlgorithm` instance the engine runs."""
+        return self.engine.algorithm
+
+    @property
+    def scores(self) -> np.ndarray:
+        """Current score vector, copied to the host."""
+        return self.engine.ranks.cpu().numpy()
+
+    @property
+    def stats_log(self):
+        """One :class:`QueryStats` per served query (index 0 = the initial
+        exact compute)."""
+        return self.engine.stats_log
+
+    def _active(self) -> np.ndarray:
+        return self.engine.state.node_active.cpu().numpy()
+
+    def top(self, k: int = 10) -> np.ndarray:
+        """Ids of the k best-ranked vertices under the current scores."""
+        scores = self.scores
+        return _top_ids(scores, k, descending=self.algorithm.rank_descending,
+                        valid=_result_valid(scores, self._active()))
+
+    def add_edges(self, src, dst) -> "VeilGraphSession":
+        """Buffer edge additions; applied at the next :meth:`query`."""
+        self.engine.register_add_edges(np.asarray(src), np.asarray(dst))
+        return self
+
+    def remove_edges(self, src, dst) -> "VeilGraphSession":
+        """Buffer edge removals (resolved to live slots at apply time)."""
+        self.engine.register_remove_edges(np.asarray(src), np.asarray(dst))
+        return self
+
+    def query(self, msg: Optional[Dict] = None) -> QueryResult:
+        """Serve one query: apply buffered updates, let the OnQuery policy
+        pick repeat / approximate / exact, run it and wrap the answer."""
+        scores, stats = self.engine.query(msg)
+        return QueryResult(
+            scores=scores, stats=stats,
+            valid=_result_valid(scores, self._active()),
+            descending=self.algorithm.rank_descending)
+
+    def play(self) -> Iterator[QueryResult]:
+        """Replay the attached stream: one update chunk + one query each."""
+        if self.stream is None:
+            raise ValueError(
+                "session was not built from an EdgeStream; feed updates "
+                "with add_edges()/query() instead")
+        for s, d in self.stream:
+            self.add_edges(s, d)
+            yield self.query()
+
+    def close(self):
+        """Fire the OnStop UDF (also on ``with``-block exit)."""
+        self.engine.stop()
+
+    def __enter__(self) -> "VeilGraphSession":
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+
+def _resolve_source(graph_source: GraphSource):
+    """-> (init_src, init_dst, stream_or_none, node_hint, edge_hint)."""
+    if isinstance(graph_source, str):
+        try:
+            spec = DATASETS[graph_source]
+        except KeyError:
+            raise KeyError(
+                f"unknown dataset {graph_source!r}; available: "
+                f"{', '.join(sorted(DATASETS))}") from None
+        src, dst = generate(spec)
+        return src, dst, None, spec.nodes, src.shape[0]
+    if isinstance(graph_source, EdgeStream):
+        es = graph_source
+        return (es.init_src, es.init_dst, es, es.total_nodes, es.total_edges)
+    src, dst = graph_source
+    src = np.asarray(src, np.int32)
+    dst = np.asarray(dst, np.int32)
+    nodes = 0
+    if src.size:
+        # raw edge lists carry no node-count bound: leave headroom for ids
+        # that later add_edges bring
+        nodes = int((int(max(src.max(), dst.max())) + 1) * 1.1) + 16
+    return src, dst, None, nodes, src.shape[0]
+
+
+def session(
+    graph_source: GraphSource,
+    algorithm: Union[StreamingAlgorithm, str] = "pagerank",
+    config: Optional[EngineConfig] = None,
+    *,
+    on_start: Optional[Callable] = None,
+    before_updates: Optional[Callable] = None,
+    on_query: Optional[Callable] = None,
+    on_query_result: Optional[Callable] = None,
+    on_stop: Optional[Callable] = None,
+    **overrides,
+) -> VeilGraphSession:
+    """Build and start a :class:`VeilGraphSession`.
+
+    ``algorithm`` is a registry name or an instance.  Keyword
+    ``overrides`` matching :class:`EngineConfig` fields (``device``, the
+    capacities, ``r``/``n``/``delta``, ...) override the auto-sized
+    config; the rest go to the algorithm factory.  ``device=None`` (the
+    default) runs on the card and raises when there is none.
+    """
+    init_src, init_dst, stream, node_hint, edge_hint = _resolve_source(
+        graph_source)
+    cfg_over = {k: v for k, v in overrides.items() if k in CONFIG_FIELDS}
+    algo_params = {k: v for k, v in overrides.items()
+                   if k not in CONFIG_FIELDS}
+    # beta/num_iters/tol configure the algorithm itself once one is named
+    legacy = [k for k in ("beta", "num_iters", "tol") if k in cfg_over]
+    if isinstance(algorithm, StreamingAlgorithm):
+        if legacy:
+            raise ValueError(
+                f"{sorted(legacy)} cannot be applied to an already-"
+                f"constructed algorithm — pass them to "
+                f"{type(algorithm).__name__}(...) instead")
+    elif legacy:
+        factory = algorithm_factory(algorithm)
+        rejected = [k for k in legacy if not factory_accepts(factory, k)]
+        if rejected:
+            raise ValueError(
+                f"algorithm {algorithm!r} does not accept {sorted(rejected)}")
+        for k in legacy:
+            algo_params[k] = cfg_over.pop(k)
+    algo = make_algorithm(algorithm, **algo_params)
+
+    if config is None:
+        node_cap = cfg_over.pop("node_capacity", max(node_hint, 2))
+        edge_cap = cfg_over.pop("edge_capacity", int(edge_hint * 1.15) + 1024)
+        config = EngineConfig(
+            node_capacity=node_cap,
+            edge_capacity=edge_cap,
+            hot_node_capacity=cfg_over.pop("hot_node_capacity", node_cap),
+            hot_edge_capacity=cfg_over.pop("hot_edge_capacity", edge_cap),
+            **cfg_over,
+        )
+    elif cfg_over:
+        raise ValueError(
+            f"pass either an explicit config or field overrides, not both: "
+            f"{sorted(cfg_over)}")
+
+    udfs = {k: v for k, v in (("on_start", on_start),
+                              ("before_updates", before_updates),
+                              ("on_query", on_query),
+                              ("on_query_result", on_query_result),
+                              ("on_stop", on_stop)) if v is not None}
+    engine = VeilGraphEngine(config, algo, **udfs)
+    engine.start(init_src, init_dst)
+    return VeilGraphSession(engine, stream)
+
+
+def serve_session(*args, **kwargs):
+    """Multi-tenant serving over one shared graph: not ported yet."""
+    raise NotImplementedError(
+        "serve_session (batched multi-query serving) is not ported to "
+        "PyTorch yet (ROADMAP queue 1 entry 12)")
+
+
+__all__ = [
+    "Action",
+    "QueryResult",
+    "VeilGraphSession",
+    "available_algorithms",
+    "serve_session",
+    "session",
+]

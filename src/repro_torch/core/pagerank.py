@@ -1,0 +1,317 @@
+"""PageRank power method, exact and summarized (PyTorch port of
+``repro.core.pagerank``, single-device part).
+
+Gelly-style normalization as in the paper (§2, §3.1): a vertex v sets
+``rank(v) = (1-β) + β·Σ incoming`` with each u emitting ``rank(u)/d_out(u)``.
+The summarized version runs the same update only for the hot set K, in a
+compacted id space, with the frozen big-vertex contribution ``b_in`` added
+each iteration and every cold rank carried over unchanged.
+
+Every iteration is one :func:`repro_torch.core.backend.push`.  The loops
+run on the host and read the step size back each iteration to keep the JAX
+package's trip count exactly (``num_iters`` steps unless the change reaches
+``tol``): one device-to-host sync per iteration.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core import backend as B
+from repro_torch.graph.graph import GraphState, inv_out_degree
+
+
+def _set_drop(dest: torch.Tensor, idx: torch.Tensor,
+              vals: torch.Tensor) -> torch.Tensor:
+    """A copy of ``dest`` with ``dest[idx] = vals``, where indices at or past
+    ``len(dest)`` (the out-of-range sentinels used here) write nothing."""
+    ext = torch.cat([dest, dest.new_zeros(1)])
+    ext[idx.long().clamp(max=dest.shape[0])] = vals
+    return ext[:-1]
+
+
+def _power_loop(step, r0: torch.Tensor, num_iters: int,
+                tol: float) -> Tuple[torch.Tensor, int]:
+    """Iterate ``r = step(r)`` while ``i < num_iters`` and the L1 change of
+    the last step exceeds ``tol``; returns ``(r, iterations)``."""
+    r, i, delta = r0, 0, float("inf")
+    while i < num_iters and delta > tol:
+        new_r = step(r)
+        delta = float((new_r - r).abs().sum())
+        r, i = new_r, i + 1
+    return r, i
+
+
+# --------------------------------------------------------------------------
+# Exact PageRank over the full graph
+# --------------------------------------------------------------------------
+
+
+def pagerank(
+    state: GraphState,
+    init_ranks: Optional[torch.Tensor] = None,
+    *,
+    beta: float = 0.85,
+    num_iters: int = 30,
+    tol: float = 0.0,
+    teleport_by_n: bool = False,
+    dangling: bool = False,
+    teleport_v: Optional[torch.Tensor] = None,
+    layout: Optional[B.EdgeLayout] = None,
+) -> Tuple[torch.Tensor, int]:
+    """Full power-method PageRank; returns ``(ranks f32[N_cap], iterations)``.
+
+    ``teleport_v`` replaces the uniform teleport with a personalization
+    vector.  ``layout`` is a cached forward ``inv_out`` layout; without one
+    the sweep builds it on entry.
+    """
+    B.require_layout(layout, weight="inv_out", reverse=False, who="pagerank")
+    active = state.node_active
+    n_active = state.num_active_nodes().to(torch.float32).clamp(min=1.0)
+    if teleport_v is not None:
+        teleport = (1.0 - beta) * teleport_v
+        r0 = torch.where(active, teleport_v, 0.0)
+    elif teleport_by_n:
+        teleport = (1.0 - beta) / n_active
+        r0 = torch.where(active, 1.0 / n_active, 0.0)
+    else:
+        teleport = 1.0 - beta
+        r0 = active.to(torch.float32)
+    if init_ranks is not None:
+        r0 = init_ranks
+    if layout is None:
+        layout = B.build_layout(state, weight="inv_out")
+    dangling_mask = active & (state.out_deg == 0)
+
+    def step(r):
+        incoming = B.push(r, layout)
+        if dangling:
+            incoming = incoming + torch.where(dangling_mask, r,
+                                              0.0).sum() / n_active
+        return torch.where(active, teleport + beta * incoming, 0.0)
+
+    return _power_loop(step, r0, num_iters, tol)
+
+
+# --------------------------------------------------------------------------
+# Summarized PageRank over the hot set (the paper's contribution)
+# --------------------------------------------------------------------------
+
+
+def compact_indices(mask: torch.Tensor, size: int, *,
+                    rows: int = 64) -> torch.Tensor:
+    """Indices of True entries of ``mask``, compacted into int32[size].
+
+    Positions follow the JAX package's column-major assignment exactly:
+    ``col_off[j] + (#True in column j above row i)`` over the
+    ``(rows, cols)`` reshape, with ``col_off`` an exclusive prefix sum of
+    the column totals taken through a second ``rows``-high level.  The
+    order is what makes ``hot_ids``, local ids and the E_K order match the
+    reference bitwise.  Unused slots hold ``len(mask)``; past ``size``
+    entries an arbitrary subset of exactly ``size`` survives.
+    """
+    e = mask.shape[0]
+    dev = mask.device
+
+    def col_prefix(m2):
+        """Per-element exclusive prefix count down its column, and the
+        column totals."""
+        inc = torch.cumsum(m2, dim=0, dtype=torch.int32)
+        return inc[-1], inc - m2
+
+    cols = max((e + rows - 1) // rows, 1)
+    e_pad = rows * cols
+    m = torch.nn.functional.pad(mask, (0, e_pad - e))
+    col_tot, pos_in_col = col_prefix(m.reshape(rows, cols).to(torch.int32))
+    cols2 = max((cols + rows - 1) // rows, 1)
+    ct2 = torch.nn.functional.pad(col_tot, (0, rows * cols2 - cols))
+    grp_tot, pos_in_grp = col_prefix(ct2.reshape(rows, cols2))
+    grp_off = torch.cumsum(grp_tot, 0, dtype=torch.int32) - grp_tot
+    col_off = (grp_off[None, :] + pos_in_grp).reshape(-1)[:cols]
+    pos = (col_off[None, :] + pos_in_col).reshape(-1)
+    tgt = torch.where(m & (pos < size), pos, size)
+    out = torch.full((size,), e, dtype=torch.int32, device=dev)
+    return _set_drop(out, tgt,
+                     torch.arange(e_pad, dtype=torch.int32, device=dev))
+
+
+@dataclasses.dataclass(frozen=True)
+class SummaryBuffers:
+    """Compacted summary graph G = (K ∪ {B}, E_K ∪ E_B) in fixed capacities.
+
+    ``hot_ids[i]`` is the global id of the i-th hot vertex (i < num_hot;
+    padding holds ``N_cap``).  ``ek_src``/``ek_dst`` are *local* endpoints
+    of the E_K edges sorted by local destination (invalid slots hold the
+    ``K_cap`` sentinel and sort last), ``ek_w`` their weights and
+    ``ek_row_offsets`` (int32[K_cap + 1]) the edge range per local
+    destination.  ``b_in[z]`` is the frozen big-vertex contribution.
+    ``overflow`` is True if |K| or |E_K| exceeded a capacity: the caller
+    must fall back to exact recomputation.  ``weight_mode``/``semiring``
+    record how ``ek_w``/``b_in`` were baked.
+    """
+
+    hot_ids: torch.Tensor         # int32[K_cap]
+    num_hot: torch.Tensor         # int32 0-d
+    ek_src: torch.Tensor          # int32[H_cap]
+    ek_dst: torch.Tensor          # int32[H_cap]
+    ek_w: torch.Tensor            # dtype[H_cap]
+    ek_row_offsets: torch.Tensor  # int32[K_cap + 1]
+    num_ek: torch.Tensor          # int32 0-d
+    b_in: torch.Tensor            # dtype[K_cap]
+    num_eb: torch.Tensor          # int32 0-d
+    overflow: torch.Tensor        # bool 0-d
+    weight_mode: str = "inv_out"
+    semiring: str = "plus_times"
+
+
+def build_summary(
+    state: GraphState,
+    ranks_prev: torch.Tensor,
+    hot_mask: torch.Tensor,
+    *,
+    hot_node_capacity: int,
+    hot_edge_capacity: int,
+    weight: str = "inv_out",
+    reverse: bool = False,
+    layout: Optional[B.EdgeLayout] = None,
+    semiring: str = "plus_times",
+    lengths: Optional[torch.Tensor] = None,
+) -> SummaryBuffers:
+    """Construct the big-vertex summary (§3.1) into bounded buffers.
+
+    ``weight``/``reverse``/``semiring`` as for
+    :func:`repro_torch.core.backend.build_layout`; ``layout`` is a cached
+    full-graph layout matching them, through which the frozen big-vertex
+    pass runs as one masked push (without one it is an unsorted
+    :func:`~repro_torch.core.backend.push_coo`).  ``ranks_prev`` is the
+    vector the frozen contribution is computed from.
+    """
+    if layout is not None and not isinstance(layout, B.EdgeLayout):
+        raise NotImplementedError(
+            "sharded summary construction is not ported yet (ROADMAP queue "
+            "1 entry 15)")
+    if weight == "length" and lengths is None and layout is None:
+        lengths = state.edge_len
+    s = B.validate_weight_spec(weight, reverse=reverse, semiring=semiring,
+                               lengths=lengths,
+                               edge_capacity=state.edge_capacity)
+    B.require_layout(layout, weight=weight, reverse=reverse,
+                     who="build_summary", semiring=s)
+    dev = state.device
+    n_cap, e_cap = state.node_capacity, state.edge_capacity
+    k_cap, h_cap = hot_node_capacity, hot_edge_capacity
+    mask = state.edge_mask()
+    inv_deg = inv_out_degree(state)
+    w_dtype = s.torch_dtype
+    s_zero = s.zero.item()
+    if weight == "length" and layout is not None and layout.order is not None:
+        # the layout's baked lengths, mapped back to slot order, so E_K
+        # cannot diverge from the b_in boundary pass
+        lengths = _set_drop(
+            torch.full((e_cap,), s_zero, dtype=w_dtype, device=dev),
+            layout.order, layout.weight)
+
+    e_src, e_dst = (state.dst, state.src) if reverse else (state.src, state.dst)
+    src_hot = hot_mask[e_src]
+    dst_hot = hot_mask[e_dst]
+    ek_mask = mask & src_hot & dst_hot
+    eb_mask = mask & ~src_hot & dst_hot
+    num_hot = hot_mask.sum(dtype=torch.int32)
+    num_ek = ek_mask.sum(dtype=torch.int32)
+    num_eb = eb_mask.sum(dtype=torch.int32)
+    overflow = (num_hot > k_cap) | (num_ek > h_cap)
+
+    # ---- hot-vertex relabelling: global id -> local id ------------------
+    # padding entries hold an out-of-range sentinel: gathers clamp it and
+    # are masked by local_valid; scatters drop it
+    hot_ids = compact_indices(hot_mask, k_cap)
+    local_valid = torch.arange(k_cap, dtype=torch.int32, device=dev) < num_hot
+    local_of = _set_drop(torch.zeros(n_cap, dtype=torch.int32, device=dev),
+                         hot_ids, torch.arange(k_cap, dtype=torch.int32,
+                                               device=dev))
+
+    # ---- frozen big-vertex contribution (once per query) -----------------
+    if layout is None:
+        if weight == "inv_out":
+            coo_w = inv_deg[e_src]
+        elif weight == "length":
+            coo_w = (torch.ones_like(e_src, dtype=w_dtype) if lengths is None
+                     else lengths.to(w_dtype))
+        else:  # "unit": the ⊗-identity, no combine needed
+            coo_w = None
+        b_in_global = B.push_coo(ranks_prev, e_src, e_dst, n_cap,
+                                 weight=coo_w, mask=eb_mask, semiring=s)
+    else:
+        eb_mask_s = ~hot_mask[layout.src] & hot_mask[
+            layout.dst.clamp(max=n_cap - 1)]
+        b_in_global = B.push(ranks_prev, layout, mask=eb_mask_s, semiring=s)
+    b_in = torch.where(local_valid,
+                       b_in_global[..., hot_ids.clamp(max=n_cap - 1)], s_zero)
+
+    # ---- compact E_K into the bounded buffer -----------------------------
+    ek_idx = compact_indices(ek_mask, h_cap)
+    ek_valid = (torch.arange(h_cap, dtype=torch.int32, device=dev)
+                < num_ek.clamp(max=h_cap))
+    ek_idx_c = ek_idx.clamp(max=e_cap - 1)
+    gsrc = e_src[ek_idx_c]
+    gdst = e_dst[ek_idx_c]
+    # val((u,v)) = 1/d_out(u) including edges that leave K (§3.1)
+    if weight == "inv_out":
+        ek_w = torch.where(ek_valid, inv_deg[gsrc], 0.0)
+    elif weight == "length":
+        per_edge = (torch.ones(h_cap, dtype=w_dtype, device=dev)
+                    if lengths is None else lengths.to(w_dtype)[ek_idx_c])
+        ek_w = torch.where(ek_valid, per_edge, s_zero)
+    else:
+        ek_w = torch.where(
+            ek_valid, torch.tensor(s.one.item(), dtype=w_dtype, device=dev),
+            torch.tensor(s_zero, dtype=w_dtype, device=dev))
+    ek_src = torch.where(ek_valid, local_of[gsrc], 0)
+    ek_dst = torch.where(ek_valid, local_of[gdst], 0)
+
+    # ---- destination-sort the compacted buffer ---------------------------
+    ek_key = torch.where(ek_valid, ek_dst, k_cap)
+    ek_dst_s, ek_order = torch.sort(ek_key, stable=True)
+    ek_row_offsets = torch.searchsorted(
+        ek_dst_s, torch.arange(k_cap + 1, dtype=torch.int32, device=dev),
+        side="left", out_int32=True)
+    return SummaryBuffers(
+        hot_ids=hot_ids, num_hot=num_hot, ek_src=ek_src[ek_order],
+        ek_dst=ek_dst_s, ek_w=ek_w[ek_order], ek_row_offsets=ek_row_offsets,
+        num_ek=num_ek, b_in=b_in, num_eb=num_eb, overflow=overflow,
+        weight_mode=weight, semiring=s.name)
+
+
+def summarized_pagerank(
+    summary: SummaryBuffers,
+    ranks_prev: torch.Tensor,
+    *,
+    beta: float = 0.85,
+    num_iters: int = 30,
+    tol: float = 0.0,
+    teleport_v: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, int]:
+    """Power iteration restricted to the summary graph (§3.1): for every
+    hot vertex z, ``rank(z) = (1-β)·t(z) + β·(Σ_{E_K} rank(u)·val(u,z) +
+    b_in(z))``; cold ranks carry over.  Returns the global rank vector (a
+    new tensor) and the iterations run."""
+    k_cap = summary.hot_ids.shape[0]
+    n = ranks_prev.shape[0]
+    local_valid = (torch.arange(k_cap, dtype=torch.int32,
+                                device=ranks_prev.device) < summary.num_hot)
+    hot_c = summary.hot_ids.clamp(max=n - 1)
+    r_local0 = torch.where(local_valid, ranks_prev[hot_c], 0.0)
+    t_local = (1.0 if teleport_v is None
+               else torch.where(local_valid, teleport_v[hot_c], 0.0))
+    layout = B.summary_layout(summary)
+
+    def step(r):
+        incoming = B.push(r, layout)
+        return torch.where(local_valid, (1.0 - beta) * t_local
+                           + beta * (incoming + summary.b_in), 0.0)
+
+    r_local, iters = _power_loop(step, r_local0, num_iters, tol)
+    return _set_drop(ranks_prev, summary.hot_ids, r_local), iters

@@ -42,3 +42,8 @@ jax.config.update("jax_numpy_dtype_promotion", "strict")
 def _clear_jax_caches_per_module():
     yield
     jax.clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (skips where there is none)")
