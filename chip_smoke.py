@@ -318,12 +318,19 @@ def main() -> int:
     from repro_torch.kernels.spmv import kernel as K
     from repro_torch.stream import StreamConfig, build_stream
 
+    if torch.cuda.device_count() != 1:
+        print("chip_smoke.py runs on exactly one CUDA device; "
+              f"{torch.cuda.device_count()} are visible (set "
+              "CUDA_VISIBLE_DEVICES)", file=sys.stderr)
+        return 2
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+    # every time below is taken on this card at this power limit
+    emit({"phase": "device", "nvidia_smi": smi})
     rng = np.random.default_rng(SEED)
 
     # ---- 1. build -----------------------------------------------------------
@@ -435,7 +442,6 @@ def main() -> int:
 
     # ---- 5. summary ---------------------------------------------------------
     main_check = checks[0]
-    print(smi, flush=True)
     emit({"kernels": [{
         "name": "spmv_push", "route": "cuda",
         "source": "src/repro_torch/kernels/spmv/csrc/spmv_push.cu",
@@ -448,7 +454,7 @@ def main() -> int:
         "bound_by": main_check["bound_by"],
         "library_ms": main_check["library_ms"]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                 "count": torch.cuda.device_count()}})
+                                 "count": 1}})
     return 0
 
 

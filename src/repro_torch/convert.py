@@ -3,7 +3,8 @@
 The JAX package's "weights" are its graph buffers, its edge layouts and its
 algorithm state.  Handed over as numpy arrays (``np.asarray`` of each JAX
 array), these functions rebuild the port's tensors byte for byte on
-``device``, so both packages can be fed exactly the same buffers.
+``device`` (the card unless another device is named), so both packages can
+be fed exactly the same buffers.
 """
 
 from __future__ import annotations
@@ -14,20 +15,22 @@ import numpy as np
 import torch
 
 from repro_torch.core.backend import EdgeLayout
+from repro_torch.device import resolve_device
 from repro_torch.graph.graph import GraphState
 
 _LAYOUT_ARRAYS = ("src", "dst", "weight", "valid", "row_offsets", "order",
                   "rank")
 
 
-def _tensor(a, device) -> torch.Tensor:
+def _tensor(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
 def graph_state_from_numpy(arrays: Mapping[str, np.ndarray],
-                           device="cpu") -> GraphState:
+                           device=None) -> GraphState:
     """A :class:`GraphState` from arrays keyed by ``GraphState._fields``
     (``edge_len`` may be absent or ``None``)."""
+    device = resolve_device(device)
     missing = [k for k in GraphState._fields
                if k != "edge_len" and k not in arrays]
     if missing:
@@ -38,16 +41,18 @@ def graph_state_from_numpy(arrays: Mapping[str, np.ndarray],
 
 
 def algo_state_from_numpy(arrays: Mapping[str, np.ndarray],
-                          device="cpu") -> dict:
+                          device=None) -> dict:
     """An algorithm state dict (e.g. ``{"ranks": ...}``) from arrays."""
+    device = resolve_device(device)
     return {k: _tensor(v, device) for k, v in arrays.items()}
 
 
-def edge_layout_from_numpy(arrays: Mapping[str, np.ndarray], device="cpu",
+def edge_layout_from_numpy(arrays: Mapping[str, np.ndarray], device=None,
                            **meta) -> EdgeLayout:
     """An :class:`EdgeLayout` from its array fields (``order``/``rank`` may
     be absent or ``None``); ``meta`` carries ``weight_mode``, ``reverse``,
     ``pad_chunk`` and ``semiring``."""
+    device = resolve_device(device)
     return EdgeLayout(**{
         k: None if arrays.get(k) is None else _tensor(arrays[k], device)
         for k in _LAYOUT_ARRAYS}, **meta)

@@ -44,19 +44,6 @@ CHUNK = 512
 WEIGHT_MODES = ("inv_out", "unit", "length")
 
 
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: the card unless the caller asks
-    for another device.  With no device given and no CUDA device present
-    this raises rather than quietly running on the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run the "
-                "port on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
-
-
 @dataclasses.dataclass(frozen=True)
 class EdgeLayout:
     """Receiver-sorted edge stream with baked per-edge weights.

@@ -27,6 +27,7 @@ from repro_torch.core.algorithm import (Action, AlgoState, PageRankAlgorithm,
                                         StreamingAlgorithm, make_algorithm,
                                         summaries_overflow)
 from repro_torch.core.hotset import select_hot_set
+from repro_torch.device import resolve_device
 from repro_torch.graph import graph as G
 
 
@@ -167,7 +168,7 @@ class VeilGraphEngine:
     ):
         _check_config(config)
         self.config = config
-        self.device = B.resolve_device(config.device)
+        self.device = resolve_device(config.device)
         if algorithm is None:
             algorithm = PageRankAlgorithm(
                 beta=config.beta, num_iters=config.num_iters, tol=config.tol)

@@ -27,6 +27,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 
 class GraphState(NamedTuple):
     """Padded COO graph: a NamedTuple of tensors on one device."""
@@ -75,8 +77,10 @@ class GraphState(NamedTuple):
 
 
 def empty(node_capacity: int, edge_capacity: int, *,
-          device="cpu") -> GraphState:
-    """An empty graph with the given capacities on ``device``."""
+          device=None) -> GraphState:
+    """An empty graph with the given capacities on ``device`` (the card
+    unless another device is named; see :func:`resolve_device`)."""
+    device = resolve_device(device)
     i32 = dict(dtype=torch.int32, device=device)
     return GraphState(
         src=torch.zeros(edge_capacity, **i32),
@@ -97,11 +101,13 @@ def from_edges(
     edge_capacity: int,
     weights: Optional[np.ndarray] = None,
     *,
-    device="cpu",
+    device=None,
 ) -> GraphState:
-    """Build a GraphState on ``device`` from host edge arrays (the initial
+    """Build a GraphState on ``device`` (the card unless another device is
+    named; see :func:`resolve_device`) from host edge arrays (the initial
     graph G).  ``weights`` optionally attaches a per-edge length column;
     slots without one hold 1.0."""
+    device = resolve_device(device)
     src = np.asarray(src, np.int32)
     dst = np.asarray(dst, np.int32)
     if src.shape != dst.shape or src.ndim != 1:

@@ -36,7 +36,8 @@ def _graphs(lengths=False):
     w = (np.random.default_rng(0).random(src.shape[0]).astype(np.float32)
          + 0.5) if lengths else None
     js = JG.from_edges(src, dst, n_cap, e_cap, weights=w)
-    ts = TG.from_edges(src, dst, n_cap, e_cap, weights=w)
+    ts = TG.from_edges(src, dst, n_cap, e_cap, weights=w,
+                       device="cpu")
     slots = np.arange(0, src.shape[0], 17, dtype=np.int32)
     js = JG.remove_edges_by_slot(js, jnp.asarray(slots))
     ts = TG.remove_edges_by_slot(ts, torch.from_numpy(slots))
@@ -190,7 +191,7 @@ def test_edge_layout_converter_round_trip():
     js, _ = _graphs()
     jl = JB.build_layout(js)
     tl = edge_layout_from_numpy(
-        _np_layout(jl), weight_mode=jl.weight_mode, reverse=jl.reverse,
+        _np_layout(jl), device="cpu", weight_mode=jl.weight_mode, reverse=jl.reverse,
         pad_chunk=jl.pad_chunk, semiring=jl.semiring)
     _assert_layouts_equal(jl, tl)
 

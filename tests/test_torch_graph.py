@@ -16,7 +16,9 @@ from repro.graph import graph as JG
 from repro.metrics import ranking as jranking
 from repro.metrics import rbo as jrbo
 from repro.stream import stream as jstream
-from repro_torch.convert import graph_state_from_numpy
+from repro_torch.convert import (algo_state_from_numpy,
+                                 edge_layout_from_numpy,
+                                 graph_state_from_numpy)
 from repro_torch.graph import generators as tgen
 from repro_torch.graph import graph as TG
 from repro_torch.metrics import ranking as tranking
@@ -55,7 +57,7 @@ def test_from_edges_matches_reference():
     for weights in (None, w):
         js = JG.from_edges(src, dst, 400, src.shape[0] + 100, weights=weights)
         ts = TG.from_edges(src, dst, 400, src.shape[0] + 100,
-                           weights=weights)
+                           weights=weights, device="cpu")
         _assert_states_equal(js, ts)
 
 
@@ -65,7 +67,7 @@ def test_add_remove_sequence_matches_reference():
     n_cap, e_cap = 400, src.shape[0] + 600
     init = src.shape[0] - 500
     js = JG.from_edges(src[:init], dst[:init], n_cap, e_cap)
-    ts = TG.from_edges(src[:init], dst[:init], n_cap, e_cap)
+    ts = TG.from_edges(src[:init], dst[:init], n_cap, e_cap, device="cpu")
     for lo in (init, init + 250):
         s, d = src[lo:lo + 250], dst[lo:lo + 250]
         js = JG.add_edges(js, jnp.asarray(s), jnp.asarray(d))
@@ -96,7 +98,8 @@ def test_weighted_chunks_match_reference():
     src, dst = _edges()
     n_cap, e_cap = 400, src.shape[0] + 200
     js = JG.from_edges(src[:-300], dst[:-300], n_cap, e_cap)
-    ts = TG.from_edges(src[:-300], dst[:-300], n_cap, e_cap)
+    ts = TG.from_edges(src[:-300], dst[:-300], n_cap, e_cap,
+                       device="cpu")
     lens = np.linspace(0.5, 2.0, 150).astype(np.float32)
     for lo, w in ((-300, lens), (-150, None)):
         s, d = src[lo:lo + 150 or None], dst[lo:lo + 150 or None]
@@ -115,7 +118,7 @@ def test_add_overrun_drops_edges_past_capacity():
     new_src = np.array([3, 4, 7, 8, 9], np.int32)
     new_dst = np.array([4, 5, 11, 12, 13], np.int32)
     js = JG.from_edges(src, dst, 16, 5)
-    ts = TG.from_edges(src, dst, 16, 5)
+    ts = TG.from_edges(src, dst, 16, 5, device="cpu")
     js = JG.add_edges(js, jnp.asarray(new_src), jnp.asarray(new_dst))
     ts = TG.add_edges(ts, torch.from_numpy(new_src), torch.from_numpy(new_dst))
     # the reference's last slot is written by both the kept edge and the
@@ -134,7 +137,7 @@ def test_find_edge_slots_first_live_slot_wins():
     src = np.array([0, 1, 0, 2, 0], np.int32)
     dst = np.array([1, 2, 1, 0, 1], np.int32)
     js = JG.from_edges(src, dst, 4, 8)
-    ts = TG.from_edges(src, dst, 4, 8)
+    ts = TG.from_edges(src, dst, 4, 8, device="cpu")
     js = JG.remove_edges_by_slot(js, jnp.asarray(np.array([0], np.int32)))
     ts = TG.remove_edges_by_slot(ts, torch.tensor([0], dtype=torch.int32))
     q_src = np.array([0, 2, 3, 1], np.int32)
@@ -143,7 +146,7 @@ def test_find_edge_slots_first_live_slot_wins():
     np.testing.assert_array_equal(JG.find_edge_slots(js, q_src, q_dst),
                                   t_slots)
     np.testing.assert_array_equal(t_slots, [2, 3, -1, 1])
-    empty = TG.empty(4, 8)
+    empty = TG.empty(4, 8, device="cpu")
     np.testing.assert_array_equal(TG.find_edge_slots(empty, q_src, q_dst),
                                   [-1, -1, -1, -1])
 
@@ -154,7 +157,7 @@ def test_absent_removal_leaves_slot_zero_removal_intact():
     # that no-op write (ROADMAP queue 3).  The port tombstones slot 0.
     src = np.array([0, 1, 2], np.int32)
     dst = np.array([1, 2, 0], np.int32)
-    ts = TG.from_edges(src, dst, 4, 4)
+    ts = TG.from_edges(src, dst, 4, 4, device="cpu")
     slots = TG.find_edge_slots(ts, np.array([0, 3], np.int32),
                                np.array([1, 3], np.int32))
     np.testing.assert_array_equal(slots, [0, -1])
@@ -207,6 +210,29 @@ def test_stream_and_metrics_copies_match_reference():
 def test_graph_state_converter_round_trip():
     src, dst = _edges()
     js = JG.from_edges(src, dst, 400, src.shape[0] + 10)
-    ts = graph_state_from_numpy(_np_state(js))
+    ts = graph_state_from_numpy(_np_state(js), device="cpu")
     _assert_states_equal(js, ts)
     assert ts.edge_len is None
+
+
+_ARRAYS = {"src": np.zeros(4, np.int32), "dst": np.zeros(4, np.int32),
+           "edge_alive": np.ones(4, bool), "num_edges": np.int32(0),
+           "out_deg": np.zeros(2, np.int32), "in_deg": np.zeros(2, np.int32),
+           "node_active": np.zeros(2, bool)}
+
+
+@pytest.mark.parametrize("build", [
+    lambda: TG.empty(4, 8),
+    lambda: TG.from_edges(np.array([0], np.int32), np.array([1], np.int32),
+                          4, 8),
+    lambda: graph_state_from_numpy(_ARRAYS),
+    lambda: algo_state_from_numpy({"ranks": np.zeros(2, np.float32)}),
+    lambda: edge_layout_from_numpy(
+        {"src": np.zeros(4, np.int32), "dst": np.zeros(4, np.int32),
+         "weight": np.zeros(4, np.float32), "valid": np.zeros(4, bool),
+         "row_offsets": np.zeros(3, np.int32)}),
+], ids=["empty", "from_edges", "graph_state", "algo_state", "edge_layout"])
+def test_constructors_without_a_device_need_a_gpu(monkeypatch, build):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build()

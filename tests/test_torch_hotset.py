@@ -54,7 +54,7 @@ def _exact_ranks(js):
 def _port_state(js):
     return graph_state_from_numpy(
         {k: None if v is None else np.asarray(v)
-         for k, v in js._asdict().items()})
+         for k, v in js._asdict().items()}, device="cpu")
 
 
 @pytest.mark.parametrize("kw", [

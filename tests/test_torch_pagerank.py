@@ -53,7 +53,7 @@ def _streamed(n=800, chunk=400, seed=11):
 def _port_state(js):
     return graph_state_from_numpy(
         {k: None if v is None else np.asarray(v)
-         for k, v in js._asdict().items()})
+         for k, v in js._asdict().items()}, device="cpu")
 
 
 @pytest.mark.parametrize("size,density,cap", [
@@ -164,6 +164,7 @@ def test_build_summary_other_weightings_match_reference(weight, semiring,
 
 
 def test_algo_state_converter():
-    st = algo_state_from_numpy({"ranks": np.arange(4, dtype=np.float32)})
+    st = algo_state_from_numpy({"ranks": np.arange(4, dtype=np.float32)},
+                               device="cpu")
     assert st["ranks"].dtype == torch.float32
     np.testing.assert_array_equal(st["ranks"].numpy(), [0, 1, 2, 3])

@@ -126,7 +126,8 @@ def test_push_on_the_gpu_runs_the_kernel_or_raises(cuda_device):
     before = spmv_push.launches
     out = B.push(values, B.build_layout(state))
     assert spmv_push.launches == before + 1
-    cpu = B.push(values.cpu(), B.build_layout(from_edges(src, dst, 50, 450)))
+    cpu = B.push(values.cpu(), B.build_layout(
+        from_edges(src, dst, 50, 450, device="cpu")))
     np.testing.assert_allclose(out.cpu().numpy(), cpu.numpy(), **TOL)
     with pytest.raises(NotImplementedError, match="queue 2 entry 2"):
         B.push(values, B.build_layout(state, weight="unit",
