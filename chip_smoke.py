@@ -3,15 +3,24 @@
 
     python3 chip_smoke.py
 
-Builds the SpMV kernel from ``src/repro_torch/kernels/spmv/csrc``, holds it
-against its plain version at the main path's shapes, drives the port's
-main path (``repro_torch.session`` over the ``synth-web-lg`` stream: the
-initial exact PageRank, 11 approximate queries and one exact one), checks
-that every push of that run went through the kernel, replays two queries on
-the CPU with the plain versions, and prints one JSON line per phase.  The
-last line is ``{"ok": true, "device": {...}}``; any failed check raises and
-the script exits non-zero.  It needs a CUDA device and the repository's
-``src/`` beside it, and imports nothing of JAX.
+Builds both kernels from ``src/repro_torch/kernels/spmv/csrc`` (the SpMV
+push and the min/max push, one ``nvcc`` each, started together) and holds
+each against its plain version at the shapes its path gives it.  Then it
+drives two paths through ``repro_torch.session`` over the ``synth-web-lg``
+stream:
+
+- PageRank: the initial exact query, 11 approximate queries and one exact
+  one, every push through ``spmv_push``; two queries are replayed on the
+  CPU with the plain versions;
+- traversal: SSSP, widest path and connected components, approximate and
+  exact queries, every push through ``spmv_reduce_push``; each session is
+  replayed on the CPU and must agree bitwise, and its exact answer must
+  equal an independent graph search.
+
+It prints one JSON line per phase.  The last line is ``{"ok": true,
+"device": {...}}``; any failed check raises and the script exits non-zero.
+It needs a CUDA device and the repository's ``src/`` beside it, and imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -27,10 +37,21 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 F32_FLOPS = 67e12           # H100 SXM f32 rate outside the tensor cores
+BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core rate
 SEED = 0
 QUERIES = 12                # 11 approximate + 1 exact (query id 11)
 TEACHER_FORCED = 2          # approximate queries with E_K edges replayed
 RBO_DEPTH = 4000            # the paper's depth above 200 edges per query
+# traversal sessions: four approximate queries, then an exact one; r = 0.05
+# so that one new edge puts a vertex of out-degree <= 19 into K_r (at the
+# default 0.2 most synth-web-lg hot sets are empty)
+TRAVERSAL = (("sssp", {"sources": (0,)}), ("widest-path", {"sources": (0,)}),
+             ("connected-components", {}))
+TRAVERSAL_QUERIES = 5
+TRAVERSAL_EXACT_EVERY = 4
+TRAVERSAL_R = 0.05
+SEMIRING_OF = {"sssp": "min_plus", "widest-path": "max_times",
+               "connected-components": "min_min"}
 
 
 def emit(obj) -> None:
@@ -108,6 +129,183 @@ def check_kernel(name, values, layout, mask=None) -> dict:
             "roofline_share": max(byte_ms, op_ms) / kernel_ms}
 
 
+def same_bits(a, b) -> bool:
+    """Equal bit for bit (and in dtype and shape)."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().view(torch.uint8),
+                            b.contiguous().view(torch.uint8)))
+
+
+def check_reduce_kernel(name, values, layout, mask=None) -> dict:
+    """Hold the min/max kernel bitwise against its plain version on the
+    card, then time kernel, plain version and a library segment reduce of
+    the precomputed contribution stream (the reduce alone) on the same
+    inputs."""
+    from repro_torch.core.semiring import resolve_semiring
+    from repro_torch.kernels.spmv.kernel import (reduce_identity,
+                                                 spmv_reduce_push,
+                                                 spmv_reduce_push_plain)
+
+    s = resolve_semiring(layout.semiring)
+    kw = dict(op=s.add, mul=s.mul)
+    src, w, ro = layout.src, layout.weight, layout.row_offsets
+    out = spmv_reduce_push(values, src, w, ro, mask, **kw)
+    torch.cuda.synchronize()
+    ref = spmv_reduce_push_plain(values, src, w, ro, mask, **kw)
+    ok = same_bits(out, ref)
+    differ = out != ref
+    err = float((out[differ].double() - ref[differ].double()).abs().max()) \
+        if bool(differ.any()) else 0.0
+    if not ok:
+        raise AssertionError(f"{name}: min/max kernel differs from its plain "
+                             f"version in {int(differ.sum())} rows (max abs "
+                             f"err {err})")
+    num_rows, n_src = ro.shape[0] - 1, values.shape[0]
+    lo, hi = int(ro[0]), int(ro[-1])
+    nnz = hi - lo
+    lens = (ro[1:] - ro[:-1]).long()
+    kernel_ms = cuda_ms(lambda: spmv_reduce_push(values, src, w, ro, mask,
+                                                 **kw))
+    plain_ms = cuda_ms(lambda: spmv_reduce_push_plain(values, src, w, ro,
+                                                      mask, **kw))
+    # library yardstick: torch.segment_reduce over the contribution stream
+    # computed beforehand, so it times the reduce only; never called by
+    # the port
+    ident = reduce_identity(values.dtype, s.add)
+    x, wt = values[src[lo:hi].long()], w[lo:hi]
+    contrib = (x + wt if s.mul == "plus" else x * wt if s.mul == "times"
+               else torch.minimum(x, wt))
+    if mask is not None:
+        contrib = torch.where(mask[lo:hi], contrib, ident)
+    library_ms, library_note = None, "segment_reduce of the precomputed " \
+        "contributions (reduce only)"
+    try:
+        seg = lambda: torch.segment_reduce(contrib, s.add, lengths=lens,
+                                           unsafe=True, initial=ident)
+        library_ok = same_bits(seg(), ref)
+        library_ms = cuda_ms(seg)
+    except RuntimeError as exc:  # segment_reduce takes no int32
+        library_ok, library_note = None, f"not timed: {exc}".splitlines()[0]
+    nbytes = nnz * (8 + (mask is not None)) + 4 * (num_rows + 1) \
+        + 4 * num_rows + 4 * n_src
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    # two operations per edge, over the f32 rate (the int32 rate is lower,
+    # but the bytes bound these shapes by three orders of magnitude)
+    op_ms = 2 * nnz / F32_FLOPS * 1e3
+    bound_ms = max(byte_ms, op_ms)
+    return {"phase": "reduce-kernel-check", "shape": name,
+            "semiring": s.name, "dtype": str(values.dtype).split(".")[-1],
+            "rows": num_rows, "n_src": n_src, "nnz": nnz,
+            "max_row": int(lens.max()) if num_rows else 0,
+            "masked": mask is not None, "bitwise": ok, "max_abs_err": err,
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library": library_note,
+            "library_bitwise": library_ok, "bytes": nbytes,
+            "bound_ms": bound_ms, "bound_us": bound_ms * 1e3,
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "roofline_share": bound_ms / kernel_ms}
+
+
+def reduce_checks(src, dst, nodes, dev, rng) -> list:
+    """The min/max kernel at the full synth-web-lg layouts of the traversal
+    path: min_plus and max_times length layouts, min_min unit layouts in
+    both directions, and one masked pass like the b_in pass."""
+    from repro_torch.core.backend import build_layout
+    from repro_torch.graph.graph import from_edges
+
+    state = from_edges(src, dst, nodes, src.shape[0], device=dev)
+    e = state.edge_capacity
+    rows = []
+    # (a) distances with ~10% unreached (+inf), lengths in [0.5, 1.5)
+    dist = torch.from_numpy(10 * rng.random(nodes).astype(np.float32))
+    dist[torch.from_numpy(rng.random(nodes) < 0.1)] = float("inf")
+    lengths = torch.from_numpy((0.5 + rng.random(e)).astype(np.float32))
+    lay = build_layout(state, weight="length", semiring="min_plus",
+                       lengths=lengths.to(dev))
+    dist = dist.to(dev)
+    rows.append(check_reduce_kernel("(a) synth-web-lg min_plus length",
+                                    dist, lay))
+    # (e) the b_in pass: edges from a cold source into a hot destination
+    hot = torch.from_numpy(rng.random(nodes) < 0.05).to(dev)
+    eb = ~hot[lay.src] & hot[lay.dst.clamp(max=nodes - 1)]
+    rows.append(check_reduce_kernel("(e) synth-web-lg min_plus, b_in mask",
+                                    dist, lay, eb))
+    del lay, eb
+    # (b) widths in [0, 1] with zeros and denormals, reliabilities in
+    # (0, 1]: products below the smallest normal stay denormal
+    width = rng.random(nodes).astype(np.float32)
+    pick = rng.random(nodes)
+    width[pick < 0.05] = 0.0
+    width[(pick >= 0.05) & (pick < 0.10)] = np.float32(3e-39)
+    width[(pick >= 0.10) & (pick < 0.15)] = np.float32(1.5e-38)
+    rel = (1.0 - rng.random(e)).astype(np.float32)
+    lay = build_layout(state, weight="length", semiring="max_times",
+                       lengths=torch.from_numpy(rel).to(dev))
+    width_t = torch.from_numpy(width).to(dev)
+    row = check_reduce_kernel("(b) synth-web-lg max_times length", width_t,
+                              lay)
+    out = check_denormals(width_t, lay)
+    row["denormal_rows"] = out
+    rows.append(row)
+    del lay
+    # (c, d) labels with ~10% unlabelled (INT32_MAX), unit min_min layouts
+    labels = rng.integers(0, nodes, nodes).astype(np.int32)
+    labels[rng.random(nodes) < 0.1] = np.iinfo(np.int32).max
+    labels_t = torch.from_numpy(labels).to(dev)
+    for tag, rev in (("(c) synth-web-lg min_min unit forward", False),
+                     ("(d) synth-web-lg min_min unit reverse", True)):
+        lay = build_layout(state, weight="unit", reverse=rev,
+                           semiring="min_min")
+        rows.append(check_reduce_kernel(tag, labels_t, lay))
+        del lay
+    return rows
+
+
+def check_denormals(width, layout) -> int:
+    """Rows of the max_times push whose result is denormal: they must
+    exist, or the check did not test that the build keeps them."""
+    from repro_torch.kernels.spmv.kernel import spmv_reduce_push
+
+    out = spmv_reduce_push(width, layout.src, layout.weight,
+                           layout.row_offsets, op="max", mul="times")
+    tiny = (out > 0) & (out < torch.finfo(torch.float32).tiny)
+    count = int(tiny.sum())
+    if count == 0:
+        raise AssertionError("no denormal row in the max_times check")
+    return count
+
+
+def pending_bounds(nnz: int = 3_900_008, rows: int = 300_000) -> list:
+    """Least device times of the TPU kernels still to port, worked out from
+    their shapes (each input read once, each output written once) at a
+    stated size: the batched pushes over synth-web-lg's full layout at the
+    serving engine's default 4 slots, and the attention kernels at
+    Qwen2-0.5B's widths (14 heads, 2 KV heads, head dim 64, bf16)."""
+    def bound(name, nbytes, ops, peak, shape):
+        byte_s, op_s = nbytes / HBM_BYTES_PER_S, ops / peak
+        return {"phase": "pending-kernel-bound", "kernel": name,
+                "shape": shape, "bytes": nbytes, "operations": ops,
+                "bound_us": max(byte_s, op_s) * 1e6,
+                "bound_by": "bytes" if byte_s >= op_s else "operations"}
+
+    b, h, kv, hd, s = 4, 14, 2, 64, 4096
+    stream = nnz * 8 + 4 * (rows + 1) + 2 * b * 4 * rows
+    out = [bound(k, stream, 2 * b * nnz, F32_FLOPS,
+                 f"synth-web-lg full layout, B={b}")
+           for k in ("spmv_push_batched", "spmv_reduce_push_batched")]
+    # causal prefill, batch 1: QK^T and PV, half the square
+    out.append(bound("flash_attention",
+                     2 * 2 * s * h * hd + 2 * 2 * s * kv * hd,
+                     2 * h * s * s * hd, BF16_FLOPS,
+                     f"Qwen2-0.5B causal prefill, B=1, S={s}"))
+    b = 8  # decode: one token per sequence against an S-slot cache
+    out.append(bound("decode_attention_kernel",
+                     2 * 2 * b * s * kv * hd + 2 * 2 * b * h * hd,
+                     4 * b * h * s * hd, BF16_FLOPS,
+                     f"Qwen2-0.5B decode, B={b}, cache S={s}"))
+    return out
+
+
 def exact_reference(state, beta: float = 0.85, iters: int = 30):
     """Plain f64 PageRank on the card, written apart from the port's sweep
     code (same Gelly normalization, 30 iterations)."""
@@ -140,7 +338,7 @@ def drive_main_path(stream, holder: dict):
     import repro_torch
     from repro_torch.core.algorithm import Action
     from repro_torch.core.policies import periodic_exact
-    from repro_torch.kernels.spmv.kernel import spmv_push
+    from repro_torch.kernels.spmv.kernel import spmv_push, spmv_reduce_push
     from repro_torch.metrics import rbo_from_scores
 
     policy = periodic_exact(QUERIES - 1)
@@ -155,7 +353,7 @@ def drive_main_path(stream, holder: dict):
         if action == Action.APPROXIMATE:
             holder["outputs"][qid] = (scores.clone(), st)
 
-    spmv_push.launches = 0
+    spmv_push.launches = spmv_reduce_push.launches = 0
     t0 = time.perf_counter()
     sess = repro_torch.session(stream, on_query=on_query,
                                on_query_result=on_query_result)
@@ -192,6 +390,8 @@ def drive_main_path(stream, holder: dict):
     wall = time.perf_counter() - t0
     if total != expected:
         raise AssertionError(f"{total} launches for {expected} pushes")
+    if spmv_reduce_push.launches:
+        raise AssertionError("the PageRank path launched the min/max kernel")
     return sess, rows, total, wall
 
 
@@ -306,6 +506,209 @@ def host_sync_cost(summary, ranks_prev) -> dict:
             "per_iteration_us": (with_s - without_s) / iters * 1e6}
 
 
+def traversal_snapshot(engine) -> dict:
+    """Copies of the inputs of the traversal query the engine is about to
+    serve."""
+    st = engine.state
+    return {"state": {k: None if v is None else v.clone()
+                      for k, v in st._asdict().items()},
+            "algo_state": {k: v.clone() for k, v in engine.algo_state.items()},
+            "deg_prev": engine.deg_prev.clone(),
+            "active_prev": engine.active_prev.clone()}
+
+
+def drive_traversal(stream, name: str, kw: dict, device, holder=None):
+    """One traversal session through the front door on ``device``, with
+    every kernel count set to 0 just before it.  Checks per query that the
+    pushes are what the sweeps need and, on the card, that each was one
+    ``spmv_reduce_push`` launch.  On the card each answer is also compared
+    with an independent search of the same graph, which an exact answer
+    must equal bitwise.  Returns (rows, host results, launches, pushes,
+    wall seconds, engine)."""
+    import repro_torch
+    from repro_torch.core import backend as B
+    from repro_torch.core.algorithm import Action
+    from repro_torch.core.policies import periodic_exact
+    from repro_torch.kernels.spmv.kernel import spmv_push, spmv_reduce_push
+
+    policy = periodic_exact(TRAVERSAL_EXACT_EVERY)
+    box = {}
+
+    def on_query(qid, view):
+        action = policy(qid, view)
+        if holder is not None and action == Action.APPROXIMATE:
+            holder[qid] = traversal_snapshot(box["engine"])
+        return action
+
+    # two pushes per iteration (and two b_in passes) for the two
+    # orientations of connected components
+    per_iter = 2 if name == "connected-components" else 1
+    on_card = torch.device(device).type == "cuda"
+    spmv_push.launches = spmv_reduce_push.launches = 0
+    B.reset_trace_counts()
+    t0 = time.perf_counter()
+    sess = repro_torch.session(stream, name, device=device, r=TRAVERSAL_R,
+                               on_query=on_query, **kw)
+    box["engine"] = sess.engine
+    init = sess.stats_log[0]
+    rows = [{"phase": "traversal", "algorithm": name, "device": str(device),
+             "query": -1, "action": init.action,
+             "iterations": init.iterations, "wall_ms": init.wall_time_s * 1e3,
+             "pushes": B.trace_count("push"),
+             "launches": spmv_reduce_push.launches}]
+    results = [sess.scores]
+    plays = sess.play()
+    for _ in range(TRAVERSAL_QUERIES):
+        l0, p0 = spmv_reduce_push.launches, B.trace_count("push")
+        res = next(plays)
+        st = res.stats
+        made = spmv_reduce_push.launches - l0
+        pushes = B.trace_count("push") - p0
+        want = per_iter * (st.iterations
+                           + (st.action == Action.APPROXIMATE.value))
+        if st.overflow_fallback:
+            raise AssertionError(f"{name}: the default capacities must not "
+                                 f"overflow")
+        if pushes != want or made != (pushes if on_card else 0):
+            raise AssertionError(f"{name} query {st.query_id}: {made} "
+                                 f"launches, {pushes} pushes, {want} wanted")
+        rows.append({"phase": "traversal", "algorithm": name,
+                     "device": str(device), "query": st.query_id,
+                     "action": st.action, "num_hot": st.num_hot,
+                     "num_ek": st.num_ek, "num_eb": st.num_eb,
+                     "iterations": st.iterations,
+                     "wall_ms": st.wall_time_s * 1e3, "pushes": pushes,
+                     "launches": made})
+        if on_card:
+            truth = independent_exact(name, sess.engine.state)
+            rows[-1]["share_equal_to_exact"] = float(
+                np.mean(res.scores == truth))
+            if st.action == Action.EXACT.value and not np.array_equal(
+                    res.scores.view(np.uint8), truth.view(np.uint8)):
+                raise AssertionError(f"{name} query {st.query_id}: the "
+                                     f"exact answer differs from an "
+                                     f"independent search")
+        results.append(res.scores)
+    wall = time.perf_counter() - t0
+    launches, pushes = spmv_reduce_push.launches, B.trace_count("push")
+    if spmv_push.launches:
+        raise AssertionError(f"{name}: {spmv_push.launches} SpMV launches "
+                             f"on the traversal path")
+    if launches != (pushes if on_card else 0):
+        raise AssertionError(f"{name}: {launches} launches for {pushes} "
+                             f"pushes")
+    if not any(r.get("num_ek", 0) > 0 and r["action"] == "compute-approximate"
+               for r in rows):
+        raise AssertionError(f"{name}: no approximate query had E_K edges")
+    if not any(r["action"] == "compute-exact" for r in rows[1:]):
+        raise AssertionError(f"{name}: the policy served no exact query")
+    return rows, results, launches, pushes, wall, sess.engine
+
+
+def independent_exact(name: str, state) -> np.ndarray:
+    """The exact answer of ``name`` on the live graph, by scipy's graph
+    searches (written apart from the port): hop distances from vertex 0,
+    reachability widths, or least ids of weak components."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components, dijkstra
+
+    live = state.edge_mask().cpu().numpy()
+    s = state.src.cpu().numpy()[live]
+    d = state.dst.cpu().numpy()[live]
+    n = state.node_capacity
+    active = state.node_active.cpu().numpy()
+    adj = csr_matrix((np.ones(s.shape[0]), (s, d)), shape=(n, n))
+    if name == "connected-components":
+        _, comp = connected_components(adj, directed=True, connection="weak")
+        least = np.full(comp.max() + 1, n, np.int64)
+        np.minimum.at(least, comp, np.arange(n))
+        return np.where(active, least[comp],
+                        np.iinfo(np.int32).max).astype(np.int32)
+    hops = dijkstra(adj, indices=0, unweighted=True).astype(np.float32)
+    if name == "sssp":
+        return hops
+    return np.isfinite(hops).astype(np.float32)  # unit lengths: width 1
+
+
+def traversal_ek_check(name, snap, engine, st, rng) -> dict:
+    """Teacher-force one approximate query's hot set and summary on the
+    card and hold the min/max kernel against its plain version at that E_K
+    layout."""
+    from repro_torch.core.backend import build_layout, summary_layout
+    from repro_torch.core.hotset import select_hot_set
+    from repro_torch.graph.graph import GraphState
+
+    cfg, algo = engine.config, engine.algorithm
+    dev = engine.device
+    state = GraphState(**snap["state"])
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    hot, _ = select_hot_set(
+        state, snap["deg_prev"], algo.selection_view(snap["algo_state"]),
+        f32(cfg.r), f32(cfg.delta), active_prev=snap["active_prev"],
+        n=cfg.n, delta_hop_cap=cfg.delta_hop_cap,
+        degree_mode=cfg.degree_mode, expand_both=cfg.expand_both,
+        normalize_scores=algo.normalize_selection_scores)
+    layouts = tuple(build_layout(state, weight=w, reverse=r, semiring=sr)
+                    for w, r, sr in algo.layout_specs)
+    summaries = algo.build_summaries(
+        snap["algo_state"], state, hot,
+        hot_node_capacity=cfg.hot_node_capacity,
+        hot_edge_capacity=cfg.hot_edge_capacity, layouts=layouts)
+    got = (int(summaries[0].num_hot), int(summaries[0].num_ek))
+    if got != (st["num_hot"], st["num_ek"]):
+        raise AssertionError(f"{name} query {st['query']}: teacher-forced "
+                             f"summary {got} differs from the session's")
+    ek = summary_layout(summaries[0], semiring=algo.semiring)
+    k_cap = summaries[0].hot_ids.shape[0]
+    dist = (10 * rng.random(k_cap)).astype(np.float32)
+    dist[rng.random(k_cap) < 0.1] = np.inf
+    return check_reduce_kernel(
+        f"E_K of {name} query {st['query']} ({got[0]} hot)",
+        torch.from_numpy(dist).to(dev), ek)
+
+
+def traversal_path(stream, dev, rng):
+    """Drive the three traversal sessions on the card, then replay each on
+    the CPU with the plain versions; returns (rows to print, E_K check,
+    kernel launches, pushes)."""
+    out, ek_check = [], None
+    launches = pushes = 0
+    keys = ("action", "num_hot", "num_ek", "num_eb", "iterations")
+    for name, kw in TRAVERSAL:
+        holder = {} if name == "sssp" else None
+        rows, card, made, pushed, wall, engine = drive_traversal(
+            stream, name, kw, dev, holder)
+        launches += made
+        pushes += pushed
+        out.extend(rows)
+        if holder is not None:
+            # the last approximate query with E_K edges: past the first
+            # one, whose hot set is most of the graph
+            last = [r for r in rows if r["action"] == "compute-approximate"
+                    and r["num_ek"] > 0][-1]
+            ek_check = traversal_ek_check(name, holder[last["query"]],
+                                          engine, last, rng)
+        del engine, holder
+        torch.cuda.empty_cache()
+        cpu_rows, cpu, _, _, cpu_wall, _ = drive_traversal(
+            stream, name, kw, "cpu")
+        for a, b, x, y in zip(rows, cpu_rows, card, cpu):
+            if any(a.get(k) != b.get(k) for k in keys):
+                raise AssertionError(f"{name} query {a['query']}: card "
+                                     f"{a} and CPU {b} differ")
+            if not np.array_equal(x.view(np.uint8), y.view(np.uint8)):
+                raise AssertionError(f"{name} query {a['query']}: results "
+                                     f"differ between card and CPU")
+        out.append({"phase": "traversal-total", "algorithm": name,
+                    "queries": TRAVERSAL_QUERIES, "wall_s": wall,
+                    "kernel_launches": made, "pushes": pushed,
+                    "spmv_push_launches": 0,
+                    "approximate_with_ek": sum(
+                        r.get("num_ek", 0) > 0 for r in rows),
+                    "cpu_replay_bitwise": True, "cpu_replay_s": cpu_wall})
+    return out, ek_check, launches, pushes
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -334,12 +737,15 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
 
     # ---- 1. build -----------------------------------------------------------
+    # one nvcc per source, started together
     t0 = time.perf_counter()
-    lib = K.build_library()
-    log = lib.with_suffix(".log").read_text().splitlines()
+    with ThreadPoolExecutor(2) as pool:
+        libs = list(pool.map(K.build_library, (K.SOURCE, K.REDUCE_SOURCE)))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": lib.name, "nvcc_flags": " ".join(K.NVCC_FLAGS),
-          "ptxas": [ln.strip() for ln in log if "ptxas" in ln]})
+          "nvcc_flags": " ".join(K.NVCC_FLAGS),
+          "libraries": [{"library": lib.name, "ptxas": [
+              ln.strip() for ln in lib.with_suffix(".log").read_text()
+              .splitlines() if "ptxas" in ln]} for lib in libs]})
 
     # ---- 2. kernel check at the full-graph shapes ---------------------------
     spec = DATASETS["synth-web-lg"]
@@ -367,6 +773,10 @@ def main() -> int:
     checks.append(check_kernel("eu-2005 size (gnm 862k/19.2M)", v_eu, eu))
     emit(checks[-1])
     del eu, v_eu, e_src, e_dst
+    reduce_rows = reduce_checks(src, dst, spec.nodes, dev, rng)
+    for row in reduce_rows:
+        emit(row)
+    torch.cuda.empty_cache()
 
     # ---- 3. main path ---------------------------------------------------------
     stream = build_stream(src, dst, StreamConfig(
@@ -439,9 +849,24 @@ def main() -> int:
                                    rtol=1e-5, atol=1e-5)
 
     emit(host_sync_cost(g_sum_first, holder["inputs"][chosen[0]]["ranks"]))
+    del sess, engine, holder, g_sum_first
+    torch.cuda.empty_cache()
 
-    # ---- 5. summary ---------------------------------------------------------
-    main_check = checks[0]
+    # ---- 5. traversal path: SSSP, widest path, connected components --------
+    rows, ek_check, reduce_launches, reduce_pushes = traversal_path(
+        stream, dev, rng)
+    for row in rows:
+        emit(row)
+    emit(ek_check)
+    reduce_rows.append(ek_check)
+    emit({"phase": "traversal-path-total", "kernel_launches": reduce_launches,
+          "pushes": reduce_pushes})
+
+    for row in pending_bounds():
+        emit(row)
+
+    # ---- 6. summary ---------------------------------------------------------
+    main_check, reduce_main = checks[0], reduce_rows[0]
     emit({"kernels": [{
         "name": "spmv_push", "route": "cuda",
         "source": "src/repro_torch/kernels/spmv/csrc/spmv_push.cu",
@@ -452,7 +877,17 @@ def main() -> int:
         "ms": main_check["kernel_ms"], "plain_ms": main_check["plain_ms"],
         "bound_ms": main_check["bound_ms"],
         "bound_by": main_check["bound_by"],
-        "library_ms": main_check["library_ms"]}]})
+        "library_ms": main_check["library_ms"]}, {
+        "name": "spmv_reduce_push", "route": "cuda",
+        "source": "src/repro_torch/kernels/spmv/csrc/spmv_reduce_push.cu",
+        "replaces": "src/repro/kernels/spmv/kernel.py:338",
+        "launches": reduce_launches,
+        "check": "pass (bitwise)",
+        "max_abs_err": max(c["max_abs_err"] for c in reduce_rows),
+        "ms": reduce_main["kernel_ms"], "plain_ms": reduce_main["plain_ms"],
+        "bound_ms": reduce_main["bound_ms"],
+        "bound_by": reduce_main["bound_by"],
+        "library_ms": reduce_main["library_ms"]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": 1}})
     return 0

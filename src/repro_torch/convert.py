@@ -15,11 +15,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.backend import EdgeLayout
+from repro_torch.core.pagerank import SummaryBuffers
 from repro_torch.device import resolve_device
 from repro_torch.graph.graph import GraphState
 
 _LAYOUT_ARRAYS = ("src", "dst", "weight", "valid", "row_offsets", "order",
                   "rank")
+_SUMMARY_ARRAYS = ("hot_ids", "num_hot", "ek_src", "ek_dst", "ek_w",
+                   "ek_row_offsets", "num_ek", "b_in", "num_eb", "overflow")
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -56,3 +59,18 @@ def edge_layout_from_numpy(arrays: Mapping[str, np.ndarray], device=None,
     return EdgeLayout(**{
         k: None if arrays.get(k) is None else _tensor(arrays[k], device)
         for k in _LAYOUT_ARRAYS}, **meta)
+
+
+def summary_buffers_from_numpy(arrays: Mapping[str, np.ndarray], device=None,
+                               *, weight_mode: str,
+                               semiring: str) -> SummaryBuffers:
+    """A flat :class:`SummaryBuffers` from its array fields (the counts and
+    ``overflow`` as 0-d arrays); ``weight_mode``/``semiring`` record how
+    ``ek_w`` and ``b_in`` were baked."""
+    device = resolve_device(device)
+    missing = [k for k in _SUMMARY_ARRAYS if k not in arrays]
+    if missing:
+        raise KeyError(f"summary arrays missing {missing}")
+    return SummaryBuffers(**{k: _tensor(arrays[k], device)
+                             for k in _SUMMARY_ARRAYS},
+                          weight_mode=weight_mode, semiring=semiring)

@@ -12,8 +12,9 @@ the action policy; everything rank-specific lives behind
     result_view(state)                       -> the query answer
     selection_view(state)                    -> f32 signal for the Δ bound
 
-Only PageRank, the paper's case study, is ported so far; the other
-registered names of the JAX package raise until their slice lands.
+PageRank (the paper's case study) and the traversal workloads (connected
+components, SSSP, widest path) are ported; the JAX package's other
+registered names (PPR, HITS, Katz) raise until their slice lands.
 """
 
 from __future__ import annotations
@@ -30,6 +31,15 @@ from repro_torch.core.pagerank import SummaryBuffers
 from repro_torch.core.pagerank import build_summary as _build_summary
 from repro_torch.core.pagerank import pagerank as _pagerank
 from repro_torch.core.pagerank import summarized_pagerank as _summarized_pagerank
+from repro_torch.core.traversal import LABEL_SENTINEL
+from repro_torch.core.traversal import connected_components as _cc
+from repro_torch.core.traversal import sssp as _sssp
+from repro_torch.core.traversal import \
+    summarized_connected_components as _summarized_cc
+from repro_torch.core.traversal import summarized_sssp as _summarized_sssp
+from repro_torch.core.traversal import \
+    summarized_widest_path as _summarized_widest_path
+from repro_torch.core.traversal import widest_path as _widest_path
 from repro_torch.graph.graph import GraphState
 
 #: Algorithm state is a flat dict of tensors.
@@ -175,16 +185,207 @@ class PageRankAlgorithm(StreamingAlgorithm):
 
 
 # ---------------------------------------------------------------------------
+# Traversal workloads: min/max semirings
+# ---------------------------------------------------------------------------
+
+
+def _finite_churn(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """f32 per-vertex change indicator robust to ±∞/sentinel state:
+    |new − old| where both are finite, 1.0 where exactly one is, 0 else."""
+    new_f = new.to(torch.float32)
+    old_f = old.to(torch.float32)
+    both = torch.isfinite(new_f) & torch.isfinite(old_f)
+    return torch.where(both, (new_f - old_f).abs(),
+                       (new_f != old_f).to(torch.float32))
+
+
+def _source_mask(sources: Tuple[int, ...], n_cap: int,
+                 device) -> torch.Tensor:
+    """bool[n_cap] with the source vertices set, checked on the host."""
+    if min(sources) < 0:
+        raise ValueError(f"source {min(sources)} is negative")
+    if max(sources) >= n_cap:
+        raise ValueError(f"source {max(sources)} >= node_capacity {n_cap}")
+    mask = torch.zeros(n_cap, dtype=torch.bool, device=device)
+    mask[torch.tensor(sources, dtype=torch.long, device=device)] = True
+    return mask
+
+
+@dataclass(frozen=True)
+class ConnectedComponentsAlgorithm(StreamingAlgorithm):
+    """Weakly connected components by min-label propagation over int32
+    labels (``min_min``, both edge orientations).
+
+    Every active vertex converges to the least id of its component;
+    inactive ones hold the int32-max sentinel.  :meth:`selection_view` is
+    the label churn of the last sweep, so the hot set grows around merged
+    regions.  EXACT actions recompute from scratch unless ``warm_start``.
+    """
+
+    num_iters: int = 30
+    warm_start: bool = False
+
+    name = "connected-components"
+    normalize_selection_scores = True
+    rank_descending = False  # smaller labels first (component min ids)
+    semiring = "min_min"
+    summary_weight = "unit"
+    state_dtypes = {"labels": "int32", "churn": "float32"}
+    layout_specs = (("unit", False, "min_min"), ("unit", True, "min_min"))
+
+    def init_state(self, graph: GraphState) -> AlgoState:
+        ids = torch.arange(graph.node_capacity, dtype=torch.int32,
+                           device=graph.device)
+        return {"labels": torch.where(graph.node_active, ids, LABEL_SENTINEL),
+                "churn": torch.zeros(graph.node_capacity,
+                                     dtype=torch.float32,
+                                     device=graph.device)}
+
+    def _with_churn(self, labels, state) -> AlgoState:
+        return {"labels": labels,
+                "churn": (labels != state["labels"]).to(torch.float32)}
+
+    def exact(self, state, graph, *, layouts=None):
+        labels, iters = _cc(
+            graph, state["labels"] if self.warm_start else None,
+            num_iters=self.num_iters,
+            fwd_layout=layouts[0] if layouts else None,
+            rev_layout=layouts[1] if layouts else None)
+        return self._with_churn(labels, state), iters
+
+    def build_summaries(self, state, graph, hot_mask, *, hot_node_capacity,
+                        hot_edge_capacity, layouts=None):
+        """A forward and a reverse unit ``min_min`` summary of one hot
+        mask, frozen from the labels."""
+        common = dict(hot_node_capacity=hot_node_capacity,
+                      hot_edge_capacity=hot_edge_capacity, weight="unit",
+                      semiring="min_min")
+        fwd = _build_summary(graph, state["labels"], hot_mask,
+                             layout=layouts[0] if layouts else None,
+                             **common)
+        rev = _build_summary(graph, state["labels"], hot_mask, reverse=True,
+                             layout=layouts[1] if layouts else None,
+                             **common)
+        return (fwd, rev)
+
+    def summarized(self, state, graph, summaries):
+        fwd, rev = summaries
+        labels, iters = _summarized_cc(fwd, rev, state["labels"],
+                                       num_iters=self.num_iters)
+        return self._with_churn(labels, state), iters
+
+    def result_view(self, state):
+        return state["labels"]
+
+    def selection_view(self, state):
+        return state["churn"]
+
+
+@dataclass(frozen=True)
+class _PathAlgorithm(StreamingAlgorithm):
+    """The body SSSP and widest path share: a relaxation from pinned
+    ``sources`` over a ``weight="length"`` layout, with state
+    ``{<value key>, "source", "delta"}``.  Lengths are unit unless edges
+    were streamed with a ``weights`` column.  :meth:`selection_view` is the
+    value change of the last sweep.  EXACT actions recompute from the
+    sources unless ``warm_start`` (exact for addition-only streams)."""
+
+    sources: Tuple[int, ...] = (0,)
+    num_iters: int = 30
+    warm_start: bool = False
+
+    normalize_selection_scores = True
+    summary_weight = "length"
+    # subclasses set (class attributes, not fields): the state key, the
+    # value of sources and of unreached vertices, and the two sweeps
+    value_key = ""
+    pinned = 0.0
+    unreached = 0.0
+    exact_sweep = None
+    summarized_sweep = None
+
+    def __post_init__(self):
+        if not self.sources:
+            raise ValueError(f"{self.name} needs >= 1 source vertex")
+
+    def init_state(self, graph: GraphState) -> AlgoState:
+        n, dev = graph.node_capacity, graph.device
+        source = _source_mask(self.sources, n, dev)
+        value = torch.full((n,), self.unreached, dtype=torch.float32,
+                           device=dev)
+        return {self.value_key: value.masked_fill(source, self.pinned),
+                "source": source,
+                "delta": torch.zeros(n, dtype=torch.float32, device=dev)}
+
+    def _after(self, value, state) -> AlgoState:
+        return {self.value_key: value, "source": state["source"],
+                "delta": _finite_churn(value, state[self.value_key])}
+
+    def exact(self, state, graph, *, layouts=None):
+        value, iters = self.exact_sweep(
+            graph, state["source"],
+            state[self.value_key] if self.warm_start else None,
+            num_iters=self.num_iters,
+            layout=layouts[0] if layouts else None)
+        return self._after(value, state), iters
+
+    # build_summaries: the inherited default, one forward summary frozen
+    # from result_view over summary_weight/semiring
+
+    def summarized(self, state, graph, summaries):
+        (summary,) = summaries
+        value, iters = self.summarized_sweep(
+            summary, state[self.value_key], state["source"],
+            num_iters=self.num_iters)
+        return self._after(value, state), iters
+
+    def result_view(self, state):
+        return state[self.value_key]
+
+    def selection_view(self, state):
+        return state["delta"]
+
+
+@dataclass(frozen=True)
+class SSSPAlgorithm(_PathAlgorithm):
+    """Streaming single-source shortest paths (Bellman-Ford on
+    ``min_plus``): sources hold distance 0, unreachable vertices +∞."""
+
+    name = "sssp"
+    rank_descending = False  # nearest vertices first
+    semiring = "min_plus"
+    state_dtypes = {"dist": "float32", "source": "bool", "delta": "float32"}
+    layout_specs = (("length", False, "min_plus"),)
+    value_key = "dist"
+    unreached = float("inf")
+    exact_sweep = staticmethod(_sssp)
+    summarized_sweep = staticmethod(_summarized_sssp)
+
+
+@dataclass(frozen=True)
+class WidestPathAlgorithm(_PathAlgorithm):
+    """Streaming widest (most-reliable) paths on ``max_times``: lengths
+    are non-negative reliabilities, sources hold width 1 and unreachable
+    vertices 0."""
+
+    name = "widest-path"
+    semiring = "max_times"
+    state_dtypes = {"width": "float32", "source": "bool", "delta": "float32"}
+    layout_specs = (("length", False, "max_times"),)
+    value_key = "width"
+    pinned = 1.0
+    exact_sweep = staticmethod(_widest_path)
+    summarized_sweep = staticmethod(_summarized_widest_path)
+
+
+# ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
 
 _REGISTRY: Dict[str, Callable[..., StreamingAlgorithm]] = {}
 _ALIASES: Dict[str, str] = {}
 #: names (and aliases) the JAX package registers whose port has not landed
-_NOT_PORTED = frozenset((
-    "personalized-pagerank", "ppr", "hits", "katz", "connected-components",
-    "cc", "wcc", "sssp", "shortest-paths", "widest-path",
-    "most-reliable-path"))
+_NOT_PORTED = frozenset(("personalized-pagerank", "ppr", "hits", "katz"))
 
 
 def register_algorithm(name: str, factory: Callable[..., StreamingAlgorithm],
@@ -237,3 +438,8 @@ def make_algorithm(spec, **params) -> StreamingAlgorithm:
 
 
 register_algorithm("pagerank", PageRankAlgorithm)
+register_algorithm("connected-components", ConnectedComponentsAlgorithm,
+                   aliases=("cc", "wcc"))
+register_algorithm("sssp", SSSPAlgorithm, aliases=("shortest-paths",))
+register_algorithm("widest-path", WidestPathAlgorithm,
+                   aliases=("most-reliable-path",))

@@ -1,8 +1,8 @@
 """One ``push`` primitive for every sweep (PyTorch port of
 ``repro.core.backend``, single-device part).
 
-Every propagation on the main path (the exact sweeps, ``build_summary``'s
-frozen big-vertex pass and each summarized iteration) is
+Every propagation (the exact sweeps, ``build_summary``'s frozen big-vertex
+pass and each summarized iteration) is
 
     out[v] = ⊕ over in-edges (u, v) of ( values[u] ⊗ weight(u, v) )
 
@@ -10,15 +10,20 @@ over an :class:`EdgeLayout`: the receiver-sorted edge stream with the
 per-edge weight baked in.  Sorting is the amortized cost: the engine builds
 a layout once per applied update batch and reuses it across queries.
 
-Dispatch is by the device of ``values``, not by a backend name:
+Dispatch is by the device of ``values``, not by a backend name.  ``[N]``
+values with weights stored in the semiring's dtype go to a hand-written
+kernel:
 
-- a CUDA tensor under ``plus_times`` launches the hand-written SpMV kernel
-  (:func:`repro_torch.kernels.spmv.kernel.spmv_push`); any other semiring,
-  or ``[B, N]`` values, raises ``NotImplementedError`` until its kernel is
-  ported;
-- a CPU tensor takes the plain version, for every semiring.
+- ``plus_times`` to the SpMV kernel
+  (:func:`repro_torch.kernels.spmv.kernel.spmv_push`);
+- ``min_plus``, ``max_times`` and ``min_min`` to the min/max kernel
+  (:func:`repro_torch.kernels.spmv.kernel.spmv_reduce_push`).
 
-The sharded layout and its collective push are not ported yet.
+A CUDA tensor launches the kernel and a CPU tensor takes its plain
+version.  ``[B, N]`` values and compressed weights take the plain segment
+reduce on the CPU and raise ``NotImplementedError`` on the card until their
+kernels are ported.  The sharded layout and its collective push are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -32,7 +37,8 @@ import torch
 from repro_torch.core.semiring import Semiring, resolve_semiring
 from repro_torch.graph.csr import gather_push, sort_by_dst
 from repro_torch.graph.graph import GraphState, inv_out_degree
-from repro_torch.kernels.spmv.kernel import spmv_push
+from repro_torch.kernels.spmv.kernel import (REDUCE_ENTRIES, spmv_push,
+                                             spmv_reduce_push)
 
 #: stream padding granularity, kept from the JAX package so layouts match
 #: it byte for byte (the CUDA kernel itself reads only each row's range)
@@ -277,8 +283,9 @@ def push(
     lives in the layout's node space (``[N]``, or ``[B, N]`` on the CPU);
     the result has ``layout.num_segments`` entries and receivers with no
     unmasked in-edge get the ⊕-identity.  ``mask`` filters edges in the
-    layout's sorted order.  On a CUDA tensor ``plus_times`` launches the
-    SpMV kernel; everything else there raises ``NotImplementedError``.
+    layout's sorted order.  ``[N]`` values launch the semiring's kernel on
+    a CUDA tensor (see the module docstring); what has no kernel yet raises
+    ``NotImplementedError`` there.
     """
     s = resolve_semiring(semiring)
     if not isinstance(layout, EdgeLayout):
@@ -293,22 +300,26 @@ def push(
             f"push expects values of shape [N] or [B, N]; got "
             f"{tuple(values.shape)}")
     record_trace("push")
-    # the SpMV kernel computes sum-of-products over f32 [N] values
     sum_of_products = (s.add, s.mul, s.dtype) == ("sum", "times", "float32")
-    on_kernel = (sum_of_products and values.dim() == 1
-                 and layout.weight.dtype == torch.float32)
-    if values.is_cuda and not on_kernel:
-        raise NotImplementedError(
-            f"push over semiring {s.name!r} on the GPU waits for the "
-            f"spmv_reduce_push kernel (ROADMAP queue 2 entry 2)"
-            if not sum_of_products else
-            "batched [B, N] push on the GPU waits for the spmv_push_batched "
-            "kernel (ROADMAP queue 2 entry 3)" if values.dim() == 2 else
-            "compressed edge weights on the GPU are not ported yet (ROADMAP "
-            "queue 1 entry 14)")
-    if on_kernel:
+    reduce_entry = (s.add, s.mul, s.torch_dtype) in REDUCE_ENTRIES
+    stored = layout.weight.dtype == s.torch_dtype
+    if values.dim() == 1 and stored and sum_of_products:
         return spmv_push(values, layout.src, layout.weight,
                          layout.row_offsets, mask)
+    if values.dim() == 1 and stored and reduce_entry:
+        return spmv_reduce_push(values, layout.src, layout.weight,
+                                layout.row_offsets, mask, op=s.add,
+                                mul=s.mul)
+    if values.is_cuda:
+        raise NotImplementedError(
+            ("batched [B, N] push on the GPU waits for the spmv_push_batched "
+             "kernel (ROADMAP queue 2 entry 3)" if sum_of_products else
+             "batched [B, N] push on the GPU waits for the "
+             "spmv_reduce_push_batched kernel (ROADMAP queue 2 entry 4)")
+            if values.dim() == 2 else
+            "compressed edge weights on the GPU are not ported yet (ROADMAP "
+            "queue 1 entry 14)" if not stored else
+            f"semiring {s.name!r} has no GPU kernel")
     return gather_push(layout, values, layout.num_segments,
                        weight=layout.weight, mask=mask, semiring=s)
 

@@ -1,5 +1,7 @@
-"""Hand-written Hopper kernels, one package per kernel: ``kernel.py`` holds
-the wrapper and its plain PyTorch version, ``csrc/`` the CUDA source.
+"""Hand-written Hopper kernels, one package per kernel family: ``kernel.py``
+holds the wrappers and their plain PyTorch versions, ``csrc/`` the CUDA
+sources.
 
-- spmv: the SpMV push (replaces the Pallas ``spmv_push``)
+- spmv: the SpMV push and the min/max push (replace the Pallas
+  ``spmv_push`` and ``spmv_reduce_push``)
 """

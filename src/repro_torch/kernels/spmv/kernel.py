@@ -1,18 +1,23 @@
-"""SpMV push: the hand-written Hopper kernel and its plain PyTorch version.
+"""SpMV pushes: the hand-written Hopper kernels and their plain PyTorch
+versions.
 
 :func:`spmv_push` computes, over a destination-sorted edge stream read as a
 CSR matrix (``row_offsets`` into ``src``/``w``),
 
     out[v] = Σ_{e ∈ [ro[v], ro[v+1])} keep(e) · values[src[e]] · w[e]
 
-with ``keep(e) = mask[e]`` when a mask is given.  It replaces the Pallas
-kernel ``repro/kernels/spmv/kernel.py::spmv_push``; the CUDA source
-(``csrc/spmv_push.cu``) says how and what bounds it.
+with ``keep(e) = mask[e]`` when a mask is given.  :func:`spmv_reduce_push`
+is its min/max sibling, ``out[v] = ⊕_e keep(e) ? values[src[e]] ⊗ w[e]``
+with ⊕ ∈ {min, max}, ⊗ ∈ {+, ×, min} and the ⊕-identity in rows with no
+kept edge.  They replace the Pallas kernels
+``repro/kernels/spmv/kernel.py::spmv_push`` and ``::spmv_reduce_push``;
+the CUDA sources (``csrc/spmv_push.cu``, ``csrc/spmv_reduce_push.cu``) say
+how and what bounds them.
 
-On a CUDA tensor the wrapper launches the kernel or raises; only a tensor
-that lies on the CPU takes :func:`spmv_push_plain`.  The kernel is compiled
-by ``nvcc`` for ``sm_90a`` at first use, into ``build/`` beside this file,
-keyed by a hash of the source and flags, and loaded with ``ctypes``.
+On a CUDA tensor a wrapper launches its kernel or raises; only a tensor
+that lies on the CPU takes the plain version.  Each source is compiled by
+``nvcc`` for ``sm_90a`` at first use, into ``build/`` beside this file,
+keyed by a hash of that source and the flags, and loaded with ``ctypes``.
 Nothing is compiled or loaded when this module is imported.
 """
 
@@ -29,10 +34,20 @@ from typing import Optional
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "spmv_push.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "spmv_push.cu"
+REDUCE_SOURCE = CSRC / "spmv_reduce_push.cu"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: (⊕, ⊗, dtype) -> the entry of ``csrc/spmv_reduce_push.cu`` computing it:
+#: one per min/max semiring the port registers
+REDUCE_ENTRIES = {
+    ("min", "plus", torch.float32): "spmv_reduce_push_min_plus_f32",
+    ("max", "times", torch.float32): "spmv_reduce_push_max_times_f32",
+    ("min", "min", torch.int32): "spmv_reduce_push_min_min_i32",
+}
 
 
 def _nvcc() -> str:
@@ -46,60 +61,90 @@ def _nvcc() -> str:
     return str(path)
 
 
-def build_library() -> Path:
-    """Compile ``csrc/spmv_push.cu`` into a shared library unless a build of
+def build_library(source: Path = SOURCE) -> Path:
+    """Compile one ``csrc/*.cu`` into a shared library unless a build of
     this exact source and flag set exists; returns its path.  The compiler's
     output (``-Xptxas -v``: registers, spills) is kept beside it as
     ``.log``."""
-    key = hashlib.sha256(SOURCE.read_bytes()
+    key = hashlib.sha256(source.read_bytes()
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libspmv_push_{key}.so"
+    lib = BUILD_DIR / f"lib{source.stem}_{key}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f"{lib.name}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
                           capture_output=True, text=True)
     if proc.returncode:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"nvcc failed on {source.name} with exit code "
+                           f"{proc.returncode}:\n{proc.stdout}{proc.stderr}")
     lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    """The library's entry point, built and loaded once per process."""
-    fn = ctypes.CDLL(str(build_library())).spmv_push_f32
+def _kernel_fn(source: Path, entry: str):
+    """One entry point of a source's library, built and loaded once per
+    process.  Every entry takes six device pointers (values, src, w,
+    row_offsets, mask or null, out), the row count and the stream."""
+    fn = getattr(ctypes.CDLL(str(build_library(source))), entry)
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(values, src, w, row_offsets, mask) -> None:
+def _launch(who: str, fn, values, src, w, row_offsets, mask,
+            out: torch.Tensor) -> None:
+    """Launch ``fn`` on the current stream of ``values``' device; raises on
+    a failed launch."""
+    with torch.cuda.device(values.device):
+        stream = torch.cuda.current_stream(values.device).cuda_stream
+        err = fn(values.data_ptr(), src.data_ptr(), w.data_ptr(),
+                 row_offsets.data_ptr(),
+                 None if mask is None else mask.data_ptr(),
+                 out.data_ptr(), out.shape[0], stream)
+    if err:
+        raise RuntimeError(f"{who}: kernel launch failed with CUDA error "
+                           f"{err}")
+
+
+def _check(who: str, values, src, w, row_offsets, mask, dtype) -> None:
+    """Device, dtype, shape and contiguity checks of a kernel's operands;
+    ``values`` and ``w`` must be ``dtype``."""
     dev = values.device
-    named = [("values", values, (torch.float32,)), ("src", src, (torch.int32,)),
-             ("w", w, (torch.float32,)),
+    named = [("values", values, (dtype,)), ("src", src, (torch.int32,)),
+             ("w", w, (dtype,)),
              ("row_offsets", row_offsets, (torch.int32,))]
     if mask is not None:
         named.append(("mask", mask, (torch.bool, torch.uint8)))
     for name, t, dtypes in named:
         if t.device != dev:
-            raise ValueError(f"spmv_push: {name} is on {t.device}, values on "
+            raise ValueError(f"{who}: {name} is on {t.device}, values on "
                              f"{dev}")
         if t.dtype not in dtypes:
-            raise ValueError(f"spmv_push: {name} must be {dtypes}; got "
+            raise ValueError(f"{who}: {name} must be {dtypes}; got "
                              f"{t.dtype}")
         if t.dim() != 1 or not t.is_contiguous():
-            raise ValueError(f"spmv_push: {name} must be 1-D and contiguous; "
+            raise ValueError(f"{who}: {name} must be 1-D and contiguous; "
                              f"got shape {tuple(t.shape)}")
     if w.shape != src.shape or (mask is not None and mask.shape != src.shape):
-        raise ValueError("spmv_push: w and mask must align with src")
+        raise ValueError(f"{who}: w and mask must align with src")
     if row_offsets.shape[0] < 1:
-        raise ValueError("spmv_push: row_offsets needs num_rows + 1 entries")
+        raise ValueError(f"{who}: row_offsets needs num_rows + 1 entries")
     if max(src.shape[0], values.shape[0], row_offsets.shape[0]) >= 2**31:
-        raise ValueError("spmv_push: sizes must fit in int32")
+        raise ValueError(f"{who}: sizes must fit in int32")
+
+
+def _rows(row_offsets: torch.Tensor):
+    """``(lo, hi, rows)``: the edge range the rows cover and each edge's
+    row, for the plain versions."""
+    num_rows = row_offsets.shape[0] - 1
+    lo, hi = int(row_offsets[0]), int(row_offsets[-1])
+    rows = torch.repeat_interleave(
+        torch.arange(num_rows, device=row_offsets.device),
+        (row_offsets[1:] - row_offsets[:-1]).long(), output_size=hi - lo)
+    return lo, hi, rows
 
 
 def spmv_push(values: torch.Tensor, src: torch.Tensor, w: torch.Tensor,
@@ -116,21 +161,13 @@ def spmv_push(values: torch.Tensor, src: torch.Tensor, w: torch.Tensor,
         return spmv_push_plain(values, src, w, row_offsets, mask)
     if values.device.type != "cuda":
         raise ValueError(f"spmv_push: unsupported device {values.device}")
-    _check(values, src, w, row_offsets, mask)
-    num_rows = row_offsets.shape[0] - 1
-    out = torch.empty(num_rows, dtype=torch.float32, device=values.device)
-    if num_rows == 0:
+    _check("spmv_push", values, src, w, row_offsets, mask, torch.float32)
+    out = torch.empty(row_offsets.shape[0] - 1, dtype=torch.float32,
+                      device=values.device)
+    if out.shape[0] == 0:
         return out
-    fn = _kernel_fn()
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream(values.device).cuda_stream
-        err = fn(values.data_ptr(), src.data_ptr(), w.data_ptr(),
-                 row_offsets.data_ptr(),
-                 None if mask is None else mask.data_ptr(),
-                 out.data_ptr(), num_rows, stream)
-    if err:
-        raise RuntimeError(f"spmv_push: kernel launch failed with CUDA "
-                           f"error {err}")
+    _launch("spmv_push", _kernel_fn(SOURCE, "spmv_push_f32"), values, src, w,
+            row_offsets, mask, out)
     spmv_push.launches += 1
     return out
 
@@ -148,13 +185,88 @@ def spmv_push_plain(values: torch.Tensor, src: torch.Tensor, w: torch.Tensor,
     repeats the JAX package's sequential segment sum; ``torch.float64``
     makes it the oracle the kernel is held against (a sequential f32 sum
     over a 240k-edge hub row drifts ~1e-4 relative from it)."""
-    num_rows = row_offsets.shape[0] - 1
-    lo, hi = int(row_offsets[0]), int(row_offsets[-1])
-    rows = torch.repeat_interleave(
-        torch.arange(num_rows, device=values.device),
-        (row_offsets[1:] - row_offsets[:-1]).long(), output_size=hi - lo)
+    lo, hi, rows = _rows(row_offsets)
     contrib = values.to(dtype)[src[lo:hi].long()] * w[lo:hi].to(dtype)
     if mask is not None:
         contrib = torch.where(mask[lo:hi].bool(), contrib, 0.0)
-    out = torch.zeros(num_rows, dtype=dtype, device=values.device)
+    out = torch.zeros(row_offsets.shape[0] - 1, dtype=dtype,
+                      device=values.device)
     return out.index_add_(0, rows, contrib)
+
+
+def reduce_identity(dtype: torch.dtype, op: str):
+    """⊕'s identity for ``op`` ∈ {min, max}: what an empty row gets (+∞/−∞,
+    or the integer extrema), as XLA's ``segment_min``/``segment_max``."""
+    if op not in ("min", "max"):
+        raise ValueError(f"op must be 'min' or 'max', got {op!r}")
+    if dtype.is_floating_point:
+        return float("inf") if op == "min" else float("-inf")
+    info = torch.iinfo(dtype)
+    return info.max if op == "min" else info.min
+
+
+def spmv_reduce_push(values: torch.Tensor, src: torch.Tensor,
+                     w: torch.Tensor, row_offsets: torch.Tensor,
+                     mask: Optional[torch.Tensor] = None, *, op: str,
+                     mul: str) -> torch.Tensor:
+    """``out[v] = op over each row's (kept) edges of values[src] ⊗ w``.
+
+    ``op`` ∈ {min, max}, ``mul`` ∈ {plus, times, min}; ``values`` and ``w``
+    share one dtype, and (op, mul, dtype) must be a semiring with a kernel
+    entry (:data:`REDUCE_ENTRIES`: min/plus and max/times over f32,
+    min/min over i32).  Rows with no kept edge get
+    :func:`reduce_identity`.  Other operands as :func:`spmv_push`.  CUDA
+    tensors launch the kernel on the current stream (counted in
+    ``spmv_reduce_push.launches``); CPU tensors take
+    :func:`spmv_reduce_push_plain`.
+    """
+    if values.device.type == "cpu":
+        return spmv_reduce_push_plain(values, src, w, row_offsets, mask,
+                                      op=op, mul=mul)
+    if values.device.type != "cuda":
+        raise ValueError(f"spmv_reduce_push: unsupported device "
+                         f"{values.device}")
+    entry = REDUCE_ENTRIES.get((op, mul, values.dtype))
+    if entry is None:
+        raise ValueError(f"spmv_reduce_push: no kernel for (op={op!r}, "
+                         f"mul={mul!r}, {values.dtype}); it has "
+                         f"{sorted(REDUCE_ENTRIES.values())}")
+    _check("spmv_reduce_push", values, src, w, row_offsets, mask,
+           values.dtype)
+    out = torch.empty(row_offsets.shape[0] - 1, dtype=values.dtype,
+                      device=values.device)
+    if out.shape[0] == 0:
+        return out
+    _launch("spmv_reduce_push", _kernel_fn(REDUCE_SOURCE, entry), values,
+            src, w, row_offsets, mask, out)
+    spmv_reduce_push.launches += 1
+    return out
+
+
+#: kernel launches since the last reset (a plain integer)
+spmv_reduce_push.launches = 0
+
+
+def spmv_reduce_push_plain(values: torch.Tensor, src: torch.Tensor,
+                           w: torch.Tensor, row_offsets: torch.Tensor,
+                           mask: Optional[torch.Tensor] = None, *, op: str,
+                           mul: str) -> torch.Tensor:
+    """The plain PyTorch version of :func:`spmv_reduce_push`: the
+    ``scatter_reduce`` segment reduce of ``values[src] ⊗ w`` over each
+    row's edge range, with masked edges at the identity.  Min and max give
+    the same answer in any order, and NaN propagates."""
+    ident = reduce_identity(values.dtype, op)
+    if mul not in ("plus", "times", "min"):
+        raise ValueError(f"mul must be 'plus', 'times' or 'min', got "
+                         f"{mul!r}")
+    lo, hi, rows = _rows(row_offsets)
+    x, wt = values[src[lo:hi].long()], w[lo:hi]
+    contrib = (x + wt if mul == "plus" else x * wt if mul == "times"
+               else torch.minimum(x, wt))
+    if mask is not None:
+        contrib = torch.where(mask[lo:hi].bool(), contrib, ident)
+    out = torch.full((row_offsets.shape[0] - 1,), ident, dtype=values.dtype,
+                     device=values.device)
+    return out.scatter_reduce_(0, rows, contrib,
+                               reduce="amin" if op == "min" else "amax",
+                               include_self=True)

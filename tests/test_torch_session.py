@@ -152,12 +152,30 @@ def test_unported_knobs_raise(knob, value):
 
 
 @pytest.mark.parametrize("name", ["personalized-pagerank", "ppr", "hits",
-                                  "katz", "connected-components", "sssp",
-                                  "widest-path"])
+                                  "katz"])
 def test_unported_algorithms_raise(name):
     src, dst = barabasi_albert_edges(100, 2, 0, 0.3)
     with pytest.raises(NotImplementedError, match="entry 10"):
         repro_torch.session((src, dst), name, device="cpu")
+
+
+@pytest.mark.parametrize("name,canonical", [
+    ("connected-components", "connected-components"),
+    ("cc", "connected-components"), ("wcc", "connected-components"),
+    ("sssp", "sssp"), ("shortest-paths", "sssp"),
+    ("widest-path", "widest-path"), ("most-reliable-path", "widest-path"),
+])
+def test_traversal_algorithms_and_aliases_resolve(name, canonical):
+    src, dst = barabasi_albert_edges(100, 2, 0, 0.3)
+    s = repro_torch.session((src, dst), name, device="cpu")
+    assert s.algorithm.name == canonical
+    assert canonical in repro_torch.available_algorithms()
+    if canonical != "connected-components":
+        for bad, match in (((10**6,), "node_capacity"), ((-1,), "negative"),
+                           ((), "source")):
+            with pytest.raises(ValueError, match=match):
+                repro_torch.session((src, dst), name, device="cpu",
+                                    sources=bad)
 
 
 def test_backend_names_and_serving_raise():

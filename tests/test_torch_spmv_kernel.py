@@ -129,9 +129,22 @@ def test_push_on_the_gpu_runs_the_kernel_or_raises(cuda_device):
     cpu = B.push(values.cpu(), B.build_layout(
         from_edges(src, dst, 50, 450, device="cpu")))
     np.testing.assert_allclose(out.cpu().numpy(), cpu.numpy(), **TOL)
-    with pytest.raises(NotImplementedError, match="queue 2 entry 2"):
-        B.push(values, B.build_layout(state, weight="unit",
-                                      semiring="max_times"),
-               semiring="max_times")
+    # a min/max semiring launches the min/max kernel, not the SpMV one
+    from repro_torch.kernels.spmv.kernel import spmv_reduce_push
+    before, reduce_before = spmv_push.launches, spmv_reduce_push.launches
+    widths = B.push(values, B.build_layout(state, weight="unit",
+                                           semiring="max_times"),
+                    semiring="max_times")
+    assert (spmv_push.launches, spmv_reduce_push.launches) == (
+        before, reduce_before + 1)
+    assert torch.equal(widths.cpu(), B.push(values.cpu(), B.build_layout(
+        from_edges(src, dst, 50, 450, device="cpu"), weight="unit",
+        semiring="max_times"), semiring="max_times"))
     with pytest.raises(NotImplementedError, match="queue 2 entry 3"):
         B.push(values[None].expand(2, -1), B.build_layout(state))
+    with pytest.raises(NotImplementedError, match="queue 2 entry 4"):
+        B.push(values[None].expand(2, -1).contiguous(),
+               B.build_layout(state, weight="unit", semiring="max_times"),
+               semiring="max_times")
+    with pytest.raises(NotImplementedError, match="queue 1 entry 14"):
+        B.push(values, B.build_layout(state, weight_dtype="bfloat16"))
