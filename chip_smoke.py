@@ -3,24 +3,34 @@
 
     python3 chip_smoke.py
 
-Builds both kernels from ``src/repro_torch/kernels/spmv/csrc`` (the SpMV
-push and the min/max push, one ``nvcc`` each, started together) and holds
-each against its plain version at the shapes its path gives it.  Then it
-drives two paths through ``repro_torch.session`` over the ``synth-web-lg``
-stream:
+Builds both kernel sources from ``src/repro_torch/kernels/spmv/csrc`` (the
+SpMV push and the min/max push, each in a single and a batched form; one
+``nvcc`` per source, started together) and holds every kernel against its
+plain version at the shapes its path gives it, each batched row also
+bitwise against the single kernel.  Then it drives three paths over the
+``synth-web-lg`` stream:
 
-- PageRank: the initial exact query, 11 approximate queries and one exact
-  one, every push through ``spmv_push``; two queries are replayed on the
-  CPU with the plain versions;
-- traversal: SSSP, widest path and connected components, approximate and
-  exact queries, every push through ``spmv_reduce_push``; each session is
-  replayed on the CPU and must agree bitwise, and its exact answer must
-  equal an independent graph search.
+- PageRank through ``repro_torch.session``: the initial exact query, 11
+  approximate queries and one exact one, every push through ``spmv_push``;
+  two queries are replayed on the CPU with the plain versions;
+- traversal through ``repro_torch.session``: SSSP, widest path and
+  connected components, approximate and exact queries, every push through
+  ``spmv_reduce_push``; each session is replayed on the CPU and must agree
+  bitwise, and its exact answer must equal an independent graph search;
+- serving through ``repro_torch.serve_session`` at ``slots=4``: 10
+  personalized-PageRank seeds, 4 SSSP and 2 widest-path sources and one
+  query each of connected components, Katz and HITS, with stream chunks
+  applied between waves; every push of a wave is one launch of
+  ``spmv_push_batched`` or ``spmv_reduce_push_batched``.  The run is
+  replayed on the CPU (bitwise for the min/max lanes, whose answers also
+  equal scipy's searches), and every ticket of the PPR, Katz and HITS
+  lanes is held against an f64 replay of its wave, from a bank rebuilt
+  from the wave's tickets alone.
 
-It prints one JSON line per phase.  The last line is ``{"ok": true,
-"device": {...}}``; any failed check raises and the script exits non-zero.
-It needs a CUDA device and the repository's ``src/`` beside it, and imports
-nothing of JAX.
+It prints one JSON line per phase.  The line before the last lists the
+kernels; the last is ``{"ok": true, "device": {...}}``.  Any failed check
+raises and the script exits non-zero.  It needs a CUDA device and the
+repository's ``src/`` beside it, and imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -52,6 +62,11 @@ TRAVERSAL_EXACT_EVERY = 4
 TRAVERSAL_R = 0.05
 SEMIRING_OF = {"sssp": "min_plus", "widest-path": "max_times",
                "connected-components": "min_min"}
+BATCH = 4                   # the serving engine's default slots
+# serving: how many requests of each seeded workload, and the tolerance of
+# the PPR / Katz / HITS rows against an f64 replay of their sweep
+SERVE_PPR, SERVE_SSSP, SERVE_WIDEST = 10, 4, 2
+SERVE_RTOL, SERVE_ATOL = 1e-4, 1e-9
 
 
 def emit(obj) -> None:
@@ -126,14 +141,37 @@ def check_kernel(name, values, layout, mask=None) -> dict:
             "library_ms": library_ms, "bytes": nbytes,
             "bound_ms": max(byte_ms, op_ms), "bound_us": max(byte_ms, op_ms) * 1e3,
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
-            "roofline_share": max(byte_ms, op_ms) / kernel_ms}
+            "roofline_share": max(byte_ms, op_ms) / kernel_ms,
+            **mask_facts(ro, mask)}
 
 
 def same_bits(a, b) -> bool:
     """Equal bit for bit (and in dtype and shape)."""
     return (a.dtype == b.dtype and a.shape == b.shape
-            and torch.equal(a.contiguous().view(torch.uint8),
-                            b.contiguous().view(torch.uint8)))
+            and torch.equal(a.reshape(-1).view(torch.uint8),
+                            b.reshape(-1).view(torch.uint8)))
+
+
+def b_in_mask(hot, layout):
+    """The mask of the ``b_in`` pass over ``layout``, as ``build_summary``
+    makes it: the edges from a cold source into a hot destination."""
+    return ~hot[layout.src] & hot[layout.dst.clamp(max=hot.shape[0] - 1)]
+
+
+def mask_facts(ro, mask) -> dict:
+    """What a mask leaves of a push: the kept edges, and the kept edges of
+    the longest row (the hub row, whose one warp sets most of a push's
+    time); nothing for an unmasked push."""
+    if mask is None:
+        return {}
+    cum = torch.zeros(mask.shape[0] + 1, dtype=torch.int64,
+                      device=mask.device)
+    cum[1:] = torch.cumsum(mask.long(), 0)
+    kept = cum[ro[1:].long()] - cum[ro[:-1].long()]
+    lens = ro[1:] - ro[:-1]
+    hub = int(torch.argmax(lens))
+    return {"kept_edges": int(kept.sum()), "hub_row_edges": int(lens[hub]),
+            "hub_row_kept_edges": int(kept[hub])}
 
 
 def check_reduce_kernel(name, values, layout, mask=None) -> dict:
@@ -203,13 +241,15 @@ def check_reduce_kernel(name, values, layout, mask=None) -> dict:
             "library_bitwise": library_ok, "bytes": nbytes,
             "bound_ms": bound_ms, "bound_us": bound_ms * 1e3,
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
-            "roofline_share": bound_ms / kernel_ms}
+            "roofline_share": bound_ms / kernel_ms,
+            **mask_facts(ro, mask)}
 
 
-def reduce_checks(src, dst, nodes, dev, rng) -> list:
+def reduce_checks(src, dst, nodes, dev, rng, hot) -> list:
     """The min/max kernel at the full synth-web-lg layouts of the traversal
     path: min_plus and max_times length layouts, min_min unit layouts in
-    both directions, and one masked pass like the b_in pass."""
+    both directions, and one masked pass like the b_in pass of the hot set
+    ``hot``."""
     from repro_torch.core.backend import build_layout
     from repro_torch.graph.graph import from_edges
 
@@ -226,11 +266,9 @@ def reduce_checks(src, dst, nodes, dev, rng) -> list:
     rows.append(check_reduce_kernel("(a) synth-web-lg min_plus length",
                                     dist, lay))
     # (e) the b_in pass: edges from a cold source into a hot destination
-    hot = torch.from_numpy(rng.random(nodes) < 0.05).to(dev)
-    eb = ~hot[lay.src] & hot[lay.dst.clamp(max=nodes - 1)]
     rows.append(check_reduce_kernel("(e) synth-web-lg min_plus, b_in mask",
-                                    dist, lay, eb))
-    del lay, eb
+                                    dist, lay, b_in_mask(hot, lay)))
+    del lay
     # (b) widths in [0, 1] with zeros and denormals, reliabilities in
     # (0, 1]: products below the smallest normal stay denormal
     width = rng.random(nodes).astype(np.float32)
@@ -275,11 +313,216 @@ def check_denormals(width, layout) -> int:
     return count
 
 
-def pending_bounds(nnz: int = 3_900_008, rows: int = 300_000) -> list:
+def stream_bound(nnz, rows, n_src, batch, masked):
+    """(bytes, byte ms, operation ms) of one push: the stream (src, w and
+    the mask) and row offsets read once, each value row read once, each
+    output row written once; two operations per edge and batch row."""
+    nbytes = nnz * (8 + masked) + 4 * (rows + 1) + batch * 4 * (rows + n_src)
+    return (nbytes, nbytes / HBM_BYTES_PER_S * 1e3,
+            2 * batch * nnz / F32_FLOPS * 1e3)
+
+
+def host_us(fn, reps: int = 50) -> float:
+    """Host time to enqueue one launch (checks, ctypes call), no sync."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def rows_match_single(out, single, values) -> None:
+    """Each row of a batched launch, bit for bit, is the single kernel on
+    that row."""
+    for b in range(values.shape[0]):
+        if not same_bits(out[b], single(values[b])):
+            raise AssertionError(f"batched row {b} differs from the single "
+                                 f"kernel on that row")
+
+
+def check_batched_kernel(name, values, layout, mask=None) -> dict:
+    """``spmv_push_batched`` on ``values`` [B, N]: against the plain
+    version in f64 (the tolerance of ``check_kernel``), each row bitwise
+    against ``spmv_push``; then kernel, plain and cuSPARSE SpMM times."""
+    from repro_torch.kernels.spmv.kernel import (spmv_push, spmv_push_batched,
+                                                 spmv_push_batched_plain)
+
+    src, w, ro = layout.src, layout.weight, layout.row_offsets
+    run = lambda: spmv_push_batched(values, src, w, ro, mask)
+    out = run()
+    torch.cuda.synchronize()
+    ref = spmv_push_batched_plain(values, src, w, ro, mask,
+                                  dtype=torch.float64)
+    scale = spmv_push_batched_plain(values.abs(), src, w.abs(), ro, mask,
+                                    dtype=torch.float64)
+    err = (out.double() - ref).abs()
+    if not bool((err <= 1e-5 * scale).all()):
+        raise AssertionError(f"{name}: batched kernel disagrees with the f64 "
+                             f"plain version (max abs err {float(err.max())})")
+    rows_match_single(out, lambda v: spmv_push(v, src, w, ro, mask), values)
+    batch, n_src = values.shape
+    num_rows = ro.shape[0] - 1
+    lo, hi = int(ro[0]), int(ro[-1])
+    lens = (ro[1:] - ro[:-1]).long()
+    kernel_ms = cuda_ms(run)
+    launch_us = host_us(run)
+    plain_ms = cuda_ms(lambda: spmv_push_batched_plain(values, src, w, ro,
+                                                       mask))
+    # library yardstick: cuSPARSE SpMM through torch, CSR @ values^T; timed
+    # here only, never called by the port
+    wl = w[lo:hi] if mask is None else torch.where(mask[lo:hi], w[lo:hi], 0.0)
+    csr = torch.sparse_csr_tensor((ro - lo).contiguous(),
+                                  src[lo:hi].contiguous(), wl.contiguous(),
+                                  size=(num_rows, n_src))
+    vt = values.t().contiguous()
+    library_ms = cuda_ms(lambda: torch.sparse.mm(csr, vt))
+    lib_err = float((torch.sparse.mm(csr, vt).t().double() - ref).abs().max())
+    nbytes, byte_ms, op_ms = stream_bound(hi - lo, num_rows, n_src, batch,
+                                          mask is not None)
+    bound_ms = max(byte_ms, op_ms)
+    return {"phase": "batched-kernel-check", "kernel": "spmv_push_batched",
+            "shape": name, "batch": batch, "rows": num_rows, "n_src": n_src,
+            "nnz": hi - lo, "max_row": int(lens.max()) if num_rows else 0,
+            "masked": mask is not None, "host_us_per_launch": launch_us,
+            "max_abs_err": float(err.max()), "within_tol": True,
+            "rows_bitwise_vs_single": True,
+            "library": "torch.sparse.mm (cuSPARSE SpMM)",
+            "library_max_abs_err": lib_err, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bytes": nbytes,
+            "bound_ms": bound_ms, "bound_us": bound_ms * 1e3,
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "roofline_share": bound_ms / kernel_ms,
+            **mask_facts(ro, mask)}
+
+
+def check_batched_reduce_kernel(name, values, layout, mask=None) -> dict:
+    """``spmv_reduce_push_batched`` on ``values`` [B, N]: bitwise against
+    the plain version and, row by row, against ``spmv_reduce_push``; then
+    kernel, plain and ``segment_reduce`` times (f32 only: it takes no
+    int32)."""
+    from repro_torch.core.semiring import resolve_semiring
+    from repro_torch.kernels.spmv.kernel import (
+        reduce_identity, spmv_reduce_push, spmv_reduce_push_batched,
+        spmv_reduce_push_batched_plain)
+
+    s = resolve_semiring(layout.semiring)
+    kw = dict(op=s.add, mul=s.mul)
+    src, w, ro = layout.src, layout.weight, layout.row_offsets
+    run = lambda: spmv_reduce_push_batched(values, src, w, ro, mask, **kw)
+    out = run()
+    torch.cuda.synchronize()
+    ref = spmv_reduce_push_batched_plain(values, src, w, ro, mask, **kw)
+    if not same_bits(out, ref):
+        raise AssertionError(f"{name}: batched min/max kernel differs from "
+                             f"its plain version in "
+                             f"{int((out != ref).sum())} entries")
+    rows_match_single(
+        out, lambda v: spmv_reduce_push(v, src, w, ro, mask, **kw), values)
+    batch, n_src = values.shape
+    num_rows = ro.shape[0] - 1
+    lo, hi = int(ro[0]), int(ro[-1])
+    lens = (ro[1:] - ro[:-1]).long()
+    kernel_ms = cuda_ms(run)
+    launch_us = host_us(run)
+    plain_ms = cuda_ms(lambda: spmv_reduce_push_batched_plain(
+        values, src, w, ro, mask, **kw))
+    library_ms = None
+    if values.dtype == torch.float32:
+        # library yardstick: segment_reduce along the last axis of the
+        # [B, E] contributions computed beforehand (the reduce only)
+        ident = reduce_identity(values.dtype, s.add)
+        x, wt = values[:, src[lo:hi].long()], w[lo:hi]
+        contrib = x + wt if s.mul == "plus" else x * wt
+        if mask is not None:
+            contrib = torch.where(mask[lo:hi], contrib, ident)
+        lengths = lens.expand(batch, -1).contiguous()
+        seg = lambda: torch.segment_reduce(contrib, s.add, lengths=lengths,
+                                           axis=1, unsafe=True, initial=ident)
+        if not same_bits(seg(), ref):
+            raise AssertionError(f"{name}: segment_reduce yardstick differs")
+        library_ms = cuda_ms(seg)
+        del contrib, x
+    nbytes, byte_ms, op_ms = stream_bound(hi - lo, num_rows, n_src, batch,
+                                          mask is not None)
+    bound_ms = max(byte_ms, op_ms)
+    return {"phase": "batched-kernel-check",
+            "kernel": "spmv_reduce_push_batched", "shape": name,
+            "semiring": s.name, "dtype": str(values.dtype).split(".")[-1],
+            "batch": batch, "rows": num_rows, "n_src": n_src, "nnz": hi - lo,
+            "max_row": int(lens.max()) if num_rows else 0,
+            "masked": mask is not None, "host_us_per_launch": launch_us,
+            "bitwise": True, "max_abs_err": 0.0,
+            "rows_bitwise_vs_single": True,
+            "library": ("segment_reduce of the precomputed [B, E] "
+                        "contributions (reduce only)" if library_ms else
+                        "none for int32"),
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bytes": nbytes, "bound_ms": bound_ms,
+            "bound_us": bound_ms * 1e3,
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "roofline_share": bound_ms / kernel_ms,
+            **mask_facts(ro, mask)}
+
+
+def batched_checks(src, dst, nodes, dev, rng, hot) -> list:
+    """Both batched kernels at synth-web-lg's full layouts, B = 4: the sum
+    over the ``inv_out`` layout, unmasked and with the ``b_in`` mask of the
+    hot set ``hot`` (the single checks' draw); min/max over the
+    ``min_plus`` length layout (unmasked and with that mask),
+    ``max_times``, and ``min_min`` in both directions."""
+    from repro_torch.core.backend import build_layout
+    from repro_torch.graph.graph import from_edges
+
+    state = from_edges(src, dst, nodes, src.shape[0], device=dev)
+    e = state.edge_capacity
+    rows = []
+    lay = build_layout(state)
+    vals = torch.from_numpy(rng.random((BATCH, nodes)).astype(
+        np.float32)).to(dev)
+    rows.append(check_batched_kernel("synth-web-lg inv_out layout", vals,
+                                     lay))
+    rows.append(check_batched_kernel("synth-web-lg inv_out layout, b_in mask",
+                                     vals, lay, b_in_mask(hot, lay)))
+    del lay
+    dist = torch.from_numpy(10 * rng.random((BATCH, nodes)).astype(
+        np.float32))
+    dist[torch.from_numpy(rng.random((BATCH, nodes)) < 0.1)] = float("inf")
+    dist = dist.to(dev)
+    lengths = torch.from_numpy((0.5 + rng.random(e)).astype(np.float32))
+    lay = build_layout(state, weight="length", semiring="min_plus",
+                       lengths=lengths.to(dev))
+    rows.append(check_batched_reduce_kernel(
+        "(a) synth-web-lg min_plus length", dist, lay))
+    rows.append(check_batched_reduce_kernel(
+        "(e) synth-web-lg min_plus, b_in mask", dist, lay,
+        b_in_mask(hot, lay)))
+    del lay
+    width = rng.random((BATCH, nodes)).astype(np.float32)
+    width[rng.random((BATCH, nodes)) < 0.05] = 0.0
+    rel = (1.0 - rng.random(e)).astype(np.float32)
+    lay = build_layout(state, weight="length", semiring="max_times",
+                       lengths=torch.from_numpy(rel).to(dev))
+    rows.append(check_batched_reduce_kernel(
+        "(b) synth-web-lg max_times length", torch.from_numpy(width).to(dev),
+        lay))
+    del lay
+    labels = rng.integers(0, nodes, (BATCH, nodes)).astype(np.int32)
+    labels[rng.random((BATCH, nodes)) < 0.1] = np.iinfo(np.int32).max
+    labels_t = torch.from_numpy(labels).to(dev)
+    for tag, rev in (("(c) synth-web-lg min_min unit forward", False),
+                     ("(d) synth-web-lg min_min unit reverse", True)):
+        lay = build_layout(state, weight="unit", reverse=rev,
+                           semiring="min_min")
+        rows.append(check_batched_reduce_kernel(tag, labels_t, lay))
+        del lay
+    return rows
+
+
+def pending_bounds() -> list:
     """Least device times of the TPU kernels still to port, worked out from
-    their shapes (each input read once, each output written once) at a
-    stated size: the batched pushes over synth-web-lg's full layout at the
-    serving engine's default 4 slots, and the attention kernels at
+    their shapes (each input read once, each output written once) at
     Qwen2-0.5B's widths (14 heads, 2 KV heads, head dim 64, bf16)."""
     def bound(name, nbytes, ops, peak, shape):
         byte_s, op_s = nbytes / HBM_BYTES_PER_S, ops / peak
@@ -288,16 +531,12 @@ def pending_bounds(nnz: int = 3_900_008, rows: int = 300_000) -> list:
                 "bound_us": max(byte_s, op_s) * 1e6,
                 "bound_by": "bytes" if byte_s >= op_s else "operations"}
 
-    b, h, kv, hd, s = 4, 14, 2, 64, 4096
-    stream = nnz * 8 + 4 * (rows + 1) + 2 * b * 4 * rows
-    out = [bound(k, stream, 2 * b * nnz, F32_FLOPS,
-                 f"synth-web-lg full layout, B={b}")
-           for k in ("spmv_push_batched", "spmv_reduce_push_batched")]
+    h, kv, hd, s = 14, 2, 64, 4096
     # causal prefill, batch 1: QK^T and PV, half the square
-    out.append(bound("flash_attention",
-                     2 * 2 * s * h * hd + 2 * 2 * s * kv * hd,
-                     2 * h * s * s * hd, BF16_FLOPS,
-                     f"Qwen2-0.5B causal prefill, B=1, S={s}"))
+    out = [bound("flash_attention",
+                 2 * 2 * s * h * hd + 2 * 2 * s * kv * hd,
+                 2 * h * s * s * hd, BF16_FLOPS,
+                 f"Qwen2-0.5B causal prefill, B=1, S={s}")]
     b = 8  # decode: one token per sequence against an S-slot cache
     out.append(bound("decode_attention_kernel",
                      2 * 2 * b * s * kv * hd + 2 * 2 * b * h * hd,
@@ -605,9 +844,9 @@ def drive_traversal(stream, name: str, kw: dict, device, holder=None):
     return rows, results, launches, pushes, wall, sess.engine
 
 
-def independent_exact(name: str, state) -> np.ndarray:
+def independent_exact(name: str, state, source: int = 0) -> np.ndarray:
     """The exact answer of ``name`` on the live graph, by scipy's graph
-    searches (written apart from the port): hop distances from vertex 0,
+    searches (written apart from the port): hop distances from ``source``,
     reachability widths, or least ids of weak components."""
     from scipy.sparse import csr_matrix
     from scipy.sparse.csgraph import connected_components, dijkstra
@@ -624,7 +863,8 @@ def independent_exact(name: str, state) -> np.ndarray:
         np.minimum.at(least, comp, np.arange(n))
         return np.where(active, least[comp],
                         np.iinfo(np.int32).max).astype(np.int32)
-    hops = dijkstra(adj, indices=0, unweighted=True).astype(np.float32)
+    hops = dijkstra(adj, indices=source,
+                    unweighted=True).astype(np.float32)
     if name == "sssp":
         return hops
     return np.isfinite(hops).astype(np.float32)  # unit lengths: width 1
@@ -709,6 +949,427 @@ def traversal_path(stream, dev, rng):
     return out, ek_check, launches, pushes
 
 
+KERNEL_NAMES = ("spmv_push", "spmv_reduce_push", "spmv_push_batched",
+                "spmv_reduce_push_batched")
+
+
+def launch_counts() -> dict:
+    from repro_torch.kernels.spmv import kernel as K
+
+    return {k: getattr(K, k).launches for k in KERNEL_NAMES}
+
+
+def reset_launch_counts() -> None:
+    from repro_torch.kernels.spmv import kernel as K
+
+    for k in KERNEL_NAMES:
+        getattr(K, k).launches = 0
+
+
+def serving_plan(src, dst, nodes, rng) -> list:
+    """The requests of the serving run as (algorithm, params): seeds and
+    sources drawn from the vertices with out-edges, and Katz at
+    α = 1 / (2·√(max in-degree · max out-degree)), below 1/σ_max(A)."""
+    out_deg = np.bincount(src, minlength=nodes)
+    in_deg = np.bincount(dst, minlength=nodes)
+    alpha = 1.0 / (2.0 * np.sqrt(float(in_deg.max()) * float(out_deg.max())))
+    pick = rng.choice(np.flatnonzero(out_deg > 0),
+                      SERVE_PPR + SERVE_SSSP + SERVE_WIDEST, replace=False)
+    plan = [("personalized-pagerank", {"seeds": (int(v),)})
+            for v in pick[:SERVE_PPR]]
+    plan += [("sssp", {"sources": (int(v),)})
+             for v in pick[SERVE_PPR:SERVE_PPR + SERVE_SSSP]]
+    plan += [("widest-path", {"sources": (int(v),)})
+             for v in pick[SERVE_PPR + SERVE_SSSP:]]
+    plan += [("connected-components", {}), ("katz", {"alpha": alpha}),
+             ("hits", {})]
+    return plan
+
+
+def capture_waves(store: dict):
+    """Wrap the serving engine's batched step so that every wave of the
+    PPR, Katz and HITS lanes, and the first wave of the others, keeps
+    copies of its inputs and outputs in ``store[lane]`` (a list in wave
+    order, for the replays); returns the function that undoes it."""
+    from repro_torch.serve import graph as SG
+
+    real = SG.fused_query_step_batched
+
+    def wrapper(state, bank, deg_prev, active_prev, r, delta, row_mask,
+                cold_rows=None, **kw):
+        name = kw["algo"].name
+        if name in SEMIRING_OF and name in store:
+            return real(state, bank, deg_prev, active_prev, r, delta,
+                        row_mask, cold_rows, **kw)
+        keep = {"state": {k: None if v is None else v.clone()
+                          for k, v in state._asdict().items()},
+                "bank": {k: v.clone() for k, v in bank.items()},
+                "deg_prev": deg_prev.clone(),
+                "active_prev": active_prev.clone(), "r": r.clone(),
+                "delta": delta.clone(), "row_mask": row_mask.clone(),
+                "cold_rows": cold_rows.clone(), "kw": kw}
+        new_bank, stats, row_delta = real(state, bank, deg_prev, active_prev,
+                                          r, delta, row_mask, cold_rows, **kw)
+        keep["out"] = {k: v.clone() for k, v in new_bank.items()}
+        keep["iterations"] = stats.iterations
+        store.setdefault(name, []).append(keep)
+        return new_bank, stats, row_delta
+
+    SG.fused_query_step_batched = wrapper
+    return lambda: setattr(SG, "fused_query_step_batched", real)
+
+
+def drive_serving(stream, plan, device, capture=None):
+    """The serving path through ``repro_torch.serve_session`` on
+    ``device``, with every kernel count set to 0 just before it: one stream
+    chunk buffered before each wave.  Checks per wave that every batched
+    push was one batched launch and that no single kernel ran outside an
+    exact fallback, and on the card that each finished SSSP, widest-path
+    and CC answer equals scipy's search of that wave's graph.  Returns
+    (rows, tickets, server, launch counts, wall seconds, and for each lane
+    the tickets each of its waves finished)."""
+    import repro_torch
+    from repro_torch.core import backend as B
+
+    on_card = torch.device(device).type == "cuda"
+    undo = capture_waves(capture) if capture is not None else None
+    reset_launch_counts()
+    B.reset_trace_counts()
+    t0 = time.perf_counter()
+    srv = repro_torch.serve_session(stream, slots=BATCH, device=device)
+    tickets = [srv.submit(name, **kw) for name, kw in plan]
+    chunks = iter(stream)
+    rows, finished = [], {}
+    try:
+        while srv.pending:
+            s, d = next(chunks)
+            srv.add_edges(s, d)
+            c0, p0, b0 = (launch_counts(), B.trace_count("push"),
+                          B.trace_count("push[batched]"))
+            logged, done = len(srv.wave_log), [t.done for t in tickets]
+            t = time.perf_counter()
+            srv.step()
+            wall_ms = (time.perf_counter() - t) * 1e3
+            c1 = launch_counts()
+            made = {k: c1[k] - c0[k] for k in KERNEL_NAMES}
+            batched = B.trace_count("push[batched]") - b0
+            single = B.trace_count("push") - p0 - batched
+            lanes = srv.wave_log[logged:]
+            fallback = any(w.overflow_fallback for w in lanes)
+            got_b = made["spmv_push_batched"] + made["spmv_reduce_push_batched"]
+            got_s = made["spmv_push"] + made["spmv_reduce_push"]
+            if on_card and got_b != batched:
+                raise AssertionError(f"wave {len(rows)}: {got_b} batched "
+                                     f"launches for {batched} batched pushes")
+            if on_card and got_s != single or (single and not fallback):
+                raise AssertionError(f"wave {len(rows)}: {got_s} single "
+                                     f"launches, {single} single pushes, "
+                                     f"fallback {fallback}")
+            if not on_card and (got_b or got_s):
+                raise AssertionError("the CPU run launched a kernel")
+            row = {"phase": "serving-wave", "device": str(device),
+                   "wave": len(rows), "wall_ms": wall_ms,
+                   "batched_pushes": batched, "launches": made,
+                   "lanes": [{"lane": w.algorithm, "occupied": w.occupied,
+                              "cold": w.cold, "num_hot": w.num_hot,
+                              "num_ek": w.num_ek, "num_eb": w.num_eb,
+                              "iterations": w.iterations,
+                              "overflow_fallback": w.overflow_fallback}
+                             for w in lanes]}
+            newly = [tk for tk, was in zip(tickets, done)
+                     if tk.done and not was]
+            for w in lanes:
+                finished.setdefault(w.algorithm, []).append(
+                    [tk for tk in newly if tk.algorithm == w.algorithm])
+            if on_card:
+                row["finished_equal_to_search"] = check_served_answers(
+                    srv.engine.state, newly)
+            rows.append(row)
+    finally:
+        if undo is not None:
+            undo()
+    wall = time.perf_counter() - t0
+    if not all(t.done for t in tickets):
+        raise AssertionError("a ticket did not complete")
+    return rows, tickets, srv, launch_counts(), wall, finished
+
+
+def check_served_answers(state, finished) -> int:
+    """Each finished SSSP, widest-path and CC ticket whose sweep converged
+    must equal scipy's search of the graph it was served on, bit for bit;
+    returns how many were checked."""
+    checked = 0
+    for t in finished:
+        if t.algorithm not in SEMIRING_OF:
+            continue
+        if not t.converged:
+            raise AssertionError(f"ticket {t.ticket_id} ({t.algorithm}) did "
+                                 f"not converge in its wave")
+        source = t.params.get("sources", (0,))[0]
+        truth = independent_exact(t.algorithm, state, source)
+        if not np.array_equal(t.result.view(np.uint8), truth.view(np.uint8)):
+            raise AssertionError(f"ticket {t.ticket_id} ({t.algorithm}): the "
+                                 f"served answer differs from scipy's search")
+        checked += 1
+    return checked
+
+
+def ticket_bank(cap, tickets) -> dict:
+    """The bank of one served wave rebuilt on the CPU from its tickets
+    alone, one row per ticket from a fresh instance of its request (every
+    ticket is seated fresh, ``max_waves=1``): independent of the engine's
+    slot refill, row mask and harvest."""
+    from repro_torch.core.algorithm import make_algorithm
+    from repro_torch.graph.graph import GraphState
+
+    state = GraphState(**{k: None if v is None else v.cpu()
+                          for k, v in cap["state"].items()})
+    rows = []
+    for t in tickets:
+        if t.max_waves != 1 or t.waves_run != 1:
+            raise AssertionError(f"ticket {t.ticket_id} ran {t.waves_run} "
+                                 f"of {t.max_waves} waves, not one fresh one")
+        rows.append(make_algorithm(t.algorithm, **t.params).init_state(state))
+    return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+
+def wave_structure(cap, device, bank=None):
+    """Teacher-force one captured wave on ``device`` up to its summaries:
+    (hot mask, summaries, bank, state, row mask).  ``bank`` (the rows of
+    the wave's live queries only, every one cold) replaces the captured
+    bank and row mask."""
+    from repro_torch.core import backend as B
+    from repro_torch.core.fused import _cold_coverage
+    from repro_torch.core.hotset import select_hot_set
+    from repro_torch.graph.graph import GraphState
+
+    kw = cap["kw"]
+    algo = kw["algo"]
+    to = lambda x: x.to(device)
+    state = GraphState(**{k: None if v is None else to(v)
+                          for k, v in cap["state"].items()})
+    if bank is None:
+        bank = {k: to(v) for k, v in cap["bank"].items()}
+        row_mask = to(cap["row_mask"])
+        cold = to(cap["cold_rows"]) & row_mask
+    else:
+        bank = {k: to(v) for k, v in bank.items()}
+        row_mask = torch.ones(next(iter(bank.values())).shape[0],
+                              dtype=torch.bool, device=device)
+        cold = row_mask
+    hot, _ = select_hot_set(
+        state, to(cap["deg_prev"]), algo.batched_selection_scores(
+            bank, row_mask), to(cap["r"]), to(cap["delta"]),
+        active_prev=to(cap["active_prev"]), n=kw["n"],
+        delta_hop_cap=kw["delta_hop_cap"], degree_mode=kw["degree_mode"],
+        expand_both=kw["expand_both"],
+        normalize_scores=algo.normalize_selection_scores)
+    extra = _cold_coverage(state, algo, bank, cold)
+    if extra is not None:
+        hot = hot | extra
+    layouts = tuple(B.build_layout(state, weight=w, reverse=r, semiring=s)
+                    for w, r, s in map(B.normalize_layout_spec,
+                                       algo.layout_specs))
+    summaries = algo.build_summaries(
+        bank, state, hot, hot_node_capacity=kw["hot_node_capacity"],
+        hot_edge_capacity=kw["hot_edge_capacity"], layouts=layouts)
+    return hot, summaries, bank, state, row_mask
+
+
+def f64_wave(cap, hot, bank, state, row_mask):
+    """One wave's summaries and sweep recomputed in f64 on the CPU over the
+    given hot mask, bank and graph: the bank's f32 leaves widened, every
+    push the plain batched version in f64, at most the card's iteration
+    count.  Returns (the f64 result view, its iterations)."""
+    import dataclasses
+
+    from repro_torch.core import backend as B
+    from repro_torch.kernels.spmv.kernel import spmv_push_batched_plain
+
+    kw = cap["kw"]
+    algo = dataclasses.replace(kw["algo"], num_iters=cap["iterations"])
+    bank = {k: v.double() if v.dtype == torch.float32 else v
+            for k, v in bank.items()}
+    real = B.spmv_push_batched
+    B.spmv_push_batched = lambda v, s, w, ro, m=None: spmv_push_batched_plain(
+        v, s, w, ro, m, dtype=torch.float64)
+    try:
+        layouts = tuple(B.build_layout(state, weight=w, reverse=r, semiring=s)
+                        for w, r, s in map(B.normalize_layout_spec,
+                                           algo.layout_specs))
+        summaries = algo.build_summaries(
+            bank, state, hot, hot_node_capacity=kw["hot_node_capacity"],
+            hot_edge_capacity=kw["hot_edge_capacity"], layouts=layouts)
+        out, iters, _ = algo.summarized_batched(bank, state, summaries,
+                                                row_mask=row_mask)
+    finally:
+        B.spmv_push_batched = real
+    # fewer iterations only where the f64 sweep reached an exact fixed
+    # point (a zero step at tol = 0), which more steps would not move
+    return algo.result_view(out), iters
+
+
+def replay_waves(captured: dict, wave_log, finished: dict, dev) -> tuple:
+    """For each captured wave: its hot mask and summary structure
+    teacher-forced on the card from the served bank, and on the CPU from a
+    bank rebuilt from the wave's tickets alone (bitwise equal, and equal to
+    the served wave's counts); for the sum lanes, every served ticket
+    against an f64 replay of its wave's sweep from that rebuilt bank.
+    Returns (rows, and for the first PPR and SSSP waves the card's
+    summary, hot mask and graph)."""
+    rows, kept = [], {}
+    for name, caps in captured.items():
+        served_waves = [w for w in wave_log if w.algorithm == name]
+        for k, cap in enumerate(caps):
+            served, tickets = served_waves[k], finished[name][k]
+            if len(tickets) != served.occupied:
+                raise AssertionError(f"{name} wave {k}: {len(tickets)} "
+                                     f"tickets finished, {served.occupied} "
+                                     f"slots were live")
+            g_hot, g_sums, _, g_state, _ = wave_structure(cap, dev)
+            bank = ticket_bank(cap, tickets)
+            c_hot, c_sums, bank, state, live = wave_structure(
+                cap, torch.device("cpu"), bank)
+            if not torch.equal(g_hot.cpu(), c_hot):
+                raise AssertionError(f"{name} wave {k}: card and CPU hot "
+                                     f"masks differ")
+            for g, c in zip(g_sums, c_sums):
+                for f in ("hot_ids", "num_hot", "ek_src", "ek_dst", "ek_w",
+                          "ek_row_offsets", "num_ek", "num_eb", "overflow"):
+                    if not same_bits(getattr(g, f).cpu(), getattr(c, f)):
+                        raise AssertionError(f"{name} wave {k}: summary {f} "
+                                             f"differs between card and CPU")
+            got = (int(g_sums[0].num_hot), int(g_sums[0].num_ek))
+            if got != (served.num_hot, served.num_ek):
+                raise AssertionError(f"{name} wave {k}: teacher-forced "
+                                     f"summary {got}, served "
+                                     f"{served.num_hot, served.num_ek}")
+            row = {"phase": "serving-replay", "lane": name, "lane_wave": k,
+                   "wave": served.wave,
+                   "tickets": [t.ticket_id for t in tickets],
+                   "num_hot": got[0], "num_ek": got[1],
+                   "hot_mask_bitwise": True,
+                   "summary_structure_bitwise": True}
+            if k == 0 and name in ("personalized-pagerank", "sssp"):
+                kept[name] = (g_sums[0], g_hot, g_state)
+            if name not in SEMIRING_OF:
+                card = torch.from_numpy(np.stack([t.result for t in tickets])
+                                        ).double()
+                ref, iters = f64_wave(cap, c_hot, bank, state, live)
+                row["iterations"] = cap["iterations"]
+                row["f64_iterations"] = iters
+                row["tickets_vs_f64_max_rel"] = max_rel(card, ref)
+                row["tolerance"] = {"rtol": SERVE_RTOL, "atol": SERVE_ATOL}
+                torch.testing.assert_close(card, ref, rtol=SERVE_RTOL,
+                                           atol=SERVE_ATOL)
+            rows.append(row)
+    return rows, kept
+
+
+def serving_path(stream, src, dst, nodes, dev, rng):
+    """Serve the plan on the card (counts set to 0 just before, read just
+    after), then on the CPU, and replay its waves (see
+    :func:`replay_waves`); then the kernels at the E_K layouts and in the
+    b_in passes of the first PPR and SSSP waves.  Returns (rows to print,
+    kernel checks, the card's launch counts)."""
+    from repro_torch.core import backend as B
+    from repro_torch.core.backend import summary_layout
+
+    plan = serving_plan(src, dst, nodes, rng)
+    captured = {}
+    rows, tickets, srv, counts, wall, finished = drive_serving(
+        stream, plan, dev, captured)
+    for k in ("spmv_push_batched", "spmv_reduce_push_batched"):
+        if not counts[k]:
+            raise AssertionError(f"the serving run never launched {k}")
+    st = srv.stats
+    out = rows + [{"phase": "serving-stats", "device": str(dev),
+                   "queries": len(tickets), "waves": st.waves,
+                   "wall_s": wall, "queries_per_s": st.queries_per_s,
+                   "p50_wave_latency_s": st.p50_wave_latency_s,
+                   "p95_wave_latency_s": st.p95_wave_latency_s,
+                   "mean_occupancy": st.mean_occupancy,
+                   "overflow_fallbacks": st.overflow_fallbacks,
+                   "launches": counts}]
+    replays, kept = replay_waves(captured, srv.wave_log, finished, dev)
+    out += replays
+    wave_log = [(w.algorithm, w.num_hot, w.num_ek, w.num_eb, w.occupied)
+                for w in srv.wave_log]
+    card = [(t.algorithm, t.waves_run, t.converged, t.exact_fallback,
+             t.result) for t in tickets]
+    specs = {name: caps[0]["kw"]["algo"].layout_specs
+             for name, caps in captured.items()}
+    del srv, captured
+    torch.cuda.empty_cache()
+    # the same run on the CPU: the same waves, and bitwise the same
+    # answers for the min/max lanes
+    cpu_rows, cpu_tickets, cpu_srv, _, cpu_wall, _ = drive_serving(
+        stream, plan, "cpu")
+    cpu_log = [(w.algorithm, w.num_hot, w.num_ek, w.num_eb, w.occupied)
+               for w in cpu_srv.wave_log]
+    if cpu_log != wave_log:
+        raise AssertionError("card and CPU serving waves differ")
+    # a sum lane "converges" in its wave only if its last f32 step is
+    # exactly zero, which depends on the summation order: compared for the
+    # min/max lanes only, reported for the others
+    sum_rel, converged = 0.0, {"card": [], "cpu": []}
+    for (name, waves, conv, fb, res), t in zip(card, cpu_tickets):
+        if (waves, fb) != (t.waves_run, t.exact_fallback):
+            raise AssertionError(f"ticket {t.ticket_id}: card and CPU "
+                                 f"tickets differ")
+        if name in SEMIRING_OF:
+            if conv != t.converged or not np.array_equal(
+                    res.view(np.uint8), t.result.view(np.uint8)):
+                raise AssertionError(f"ticket {t.ticket_id} ({name}): card "
+                                     f"and CPU answers differ")
+        else:
+            converged["card"].append(conv)
+            converged["cpu"].append(t.converged)
+            sum_rel = max(sum_rel, max_rel(torch.from_numpy(res),
+                                           torch.from_numpy(t.result)))
+    out.append({"phase": "serving-cpu-replay", "waves": len(cpu_rows),
+                "wall_s": cpu_wall, "wave_structure_equal": True,
+                "min_max_answers_bitwise": True,
+                "sum_answers_card_vs_cpu_max_rel": sum_rel,
+                "sum_tickets_converged": converged})
+    # the batched kernels at the E_K layouts of two served waves, and the
+    # single and batched kernels, on the same inputs, in the b_in pass of
+    # those waves (their own hot sets' masks over the full layouts)
+    checks = []
+    for name, semiring in (("personalized-pagerank", "plus_times"),
+                           ("sssp", "min_plus")):
+        summary, hot, state = kept[name]
+        ek = summary_layout(summary, semiring=semiring)
+        w, rev, sr = B.normalize_layout_spec(specs[name][0])
+        full = B.build_layout(state, weight=w, reverse=rev, semiring=sr)
+        eb = b_in_mask(hot, full)
+        tag = f"the first {name} wave ({int(summary.num_hot)} hot)"
+        if semiring == "plus_times":
+            v = torch.from_numpy(rng.random((BATCH, ek.row_offsets.shape[0]
+                                             - 1)).astype(np.float32)).to(dev)
+            checks.append(check_batched_kernel(f"E_K of {tag}", v, ek))
+            v = torch.from_numpy(rng.random((BATCH, state.node_capacity))
+                                 .astype(np.float32)).to(dev)
+            checks.append(check_kernel(f"b_in pass of {tag}", v[0], full, eb))
+            checks.append(check_batched_kernel(f"b_in pass of {tag}", v, full,
+                                               eb))
+        else:
+            d = 10 * rng.random((BATCH, ek.row_offsets.shape[0] - 1))
+            d[rng.random(d.shape) < 0.1] = np.inf
+            checks.append(check_batched_reduce_kernel(
+                f"E_K of {tag}", torch.from_numpy(d.astype(np.float32))
+                .to(dev), ek))
+            d = 10 * rng.random((BATCH, state.node_capacity))
+            d[rng.random(d.shape) < 0.1] = np.inf
+            d = torch.from_numpy(d.astype(np.float32)).to(dev)
+            checks.append(check_reduce_kernel(f"b_in pass of {tag}", d[0],
+                                              full, eb))
+            checks.append(check_batched_reduce_kernel(f"b_in pass of {tag}",
+                                                      d, full, eb))
+        del full, eb
+    return out, checks, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -758,11 +1419,13 @@ def main() -> int:
     full = build_layout(from_edges(src, dst, spec.nodes, src.shape[0],
                                    device=dev))
     v = torch.from_numpy(rng.random(spec.nodes).astype(np.float32)).to(dev)
+    # one 5% hot draw gives the b_in mask of every masked check below,
+    # single and batched, so that they push the same edges
+    hot = torch.from_numpy(rng.random(spec.nodes) < 0.05).to(dev)
     checks.append(check_kernel("synth-web-lg inv_out layout", v, full))
-    eb_mask = torch.from_numpy(rng.random(full.src.shape[0]) < 0.1).to(dev)
     checks.append(check_kernel("synth-web-lg inv_out layout, b_in mask", v,
-                               full, eb_mask))
-    del full, eb_mask
+                               full, b_in_mask(hot, full)))
+    del full
     for row in checks:
         emit(row)
     n_eu, m_eu = 862_000, 19_200_000
@@ -773,8 +1436,12 @@ def main() -> int:
     checks.append(check_kernel("eu-2005 size (gnm 862k/19.2M)", v_eu, eu))
     emit(checks[-1])
     del eu, v_eu, e_src, e_dst
-    reduce_rows = reduce_checks(src, dst, spec.nodes, dev, rng)
+    reduce_rows = reduce_checks(src, dst, spec.nodes, dev, rng, hot)
     for row in reduce_rows:
+        emit(row)
+    torch.cuda.empty_cache()
+    batched_rows = batched_checks(src, dst, spec.nodes, dev, rng, hot)
+    for row in batched_rows:
         emit(row)
     torch.cuda.empty_cache()
 
@@ -861,12 +1528,28 @@ def main() -> int:
     reduce_rows.append(ek_check)
     emit({"phase": "traversal-path-total", "kernel_launches": reduce_launches,
           "pushes": reduce_pushes})
+    torch.cuda.empty_cache()
+
+    # ---- 6. serving path: serve_session, slot-batched waves ---------------
+    rows, serve_checks, serve_counts = serving_path(stream, src, dst,
+                                                    spec.nodes, dev, rng)
+    for row in rows + serve_checks:
+        emit(row)
+        if row["phase"] == "kernel-check":
+            checks.append(row)
+        elif row["phase"] == "reduce-kernel-check":
+            reduce_rows.append(row)
+        elif row["phase"] == "batched-kernel-check":
+            batched_rows.append(row)
 
     for row in pending_bounds():
         emit(row)
 
-    # ---- 6. summary ---------------------------------------------------------
+    # ---- 7. summary ---------------------------------------------------------
     main_check, reduce_main = checks[0], reduce_rows[0]
+    sums = [r for r in batched_rows if r["kernel"] == "spmv_push_batched"]
+    mins = [r for r in batched_rows
+            if r["kernel"] == "spmv_reduce_push_batched"]
     emit({"kernels": [{
         "name": "spmv_push", "route": "cuda",
         "source": "src/repro_torch/kernels/spmv/csrc/spmv_push.cu",
@@ -887,7 +1570,25 @@ def main() -> int:
         "ms": reduce_main["kernel_ms"], "plain_ms": reduce_main["plain_ms"],
         "bound_ms": reduce_main["bound_ms"],
         "bound_by": reduce_main["bound_by"],
-        "library_ms": reduce_main["library_ms"]}]})
+        "library_ms": reduce_main["library_ms"]}, {
+        "name": "spmv_push_batched", "route": "cuda",
+        "source": "src/repro_torch/kernels/spmv/csrc/spmv_push.cu",
+        "replaces": "src/repro/kernels/spmv/kernel.py:458",
+        "launches": serve_counts["spmv_push_batched"],
+        "check": "pass (each row bitwise vs spmv_push)",
+        "max_abs_err": max(c["max_abs_err"] for c in sums),
+        "ms": sums[0]["kernel_ms"], "plain_ms": sums[0]["plain_ms"],
+        "bound_ms": sums[0]["bound_ms"], "bound_by": sums[0]["bound_by"],
+        "library_ms": sums[0]["library_ms"]}, {
+        "name": "spmv_reduce_push_batched", "route": "cuda",
+        "source": "src/repro_torch/kernels/spmv/csrc/spmv_reduce_push.cu",
+        "replaces": "src/repro/kernels/spmv/kernel.py:517",
+        "launches": serve_counts["spmv_reduce_push_batched"],
+        "check": "pass (bitwise, each row vs spmv_reduce_push)",
+        "max_abs_err": max(c["max_abs_err"] for c in mins),
+        "ms": mins[0]["kernel_ms"], "plain_ms": mins[0]["plain_ms"],
+        "bound_ms": mins[0]["bound_ms"], "bound_by": mins[0]["bound_by"],
+        "library_ms": mins[0]["library_ms"]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": 1}})
     return 0

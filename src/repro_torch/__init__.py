@@ -1,10 +1,12 @@
 """VeilGraph on PyTorch and CUDA: the port of the JAX package ``repro``.
 
-The session front door lives in :mod:`repro_torch.api`.  Entry points run
-on the CUDA device unless the caller passes ``device=``; the hand-written
-kernels behind every push (the SpMV push for PageRank, the min/max push for
-the traversal workloads) are built from ``kernels/spmv/csrc`` at first
-use.
+The front doors live in :mod:`repro_torch.api`: ``session`` for one
+streaming query workload, ``serve_session`` for slot-batched serving of
+many.  Entry points run on the CUDA device unless the caller passes
+``device=``; the hand-written kernels behind every push (the SpMV push for
+the sum algorithms, the min/max push for the traversal workloads, and the
+batched form of each for serving waves) are built from
+``kernels/spmv/csrc`` at first use.
 """
 
 from repro_torch.api import (Action, QueryResult, VeilGraphSession,

@@ -12,9 +12,10 @@ One call builds a started engine on the card:
 ``graph_source`` may be a ``(src, dst)`` edge-array pair, a named synthetic
 dataset (``repro_torch.graph.generators.DATASETS``) or an
 :class:`~repro_torch.stream.EdgeStream` (then ``s.play()`` replays its
-chunks, one query per chunk).  The session runs on the CUDA device unless
-``device=`` names another one; with no device given and no GPU present it
-raises.  Capacities are sized from the source when no
+chunks, one query per chunk).  :func:`serve_session` wraps a session for
+slot-batched serving of many concurrent queries.  Both run on the CUDA
+device unless ``device=`` names another one; with no device given and no
+GPU present they raise.  Capacities are sized from the source when no
 :class:`EngineConfig` is given, with hot buffers at full capacity so a
 fresh session never falls back to exact.
 """
@@ -248,11 +249,38 @@ def session(
     return VeilGraphSession(engine, stream)
 
 
-def serve_session(*args, **kwargs):
-    """Multi-tenant serving over one shared graph: not ported yet."""
-    raise NotImplementedError(
-        "serve_session (batched multi-query serving) is not ported to "
-        "PyTorch yet (ROADMAP queue 1 entry 12)")
+def serve_session(
+    graph_source: GraphSource,
+    config: Optional[EngineConfig] = None,
+    *,
+    slots: int = 4,
+    algorithm: Union[StreamingAlgorithm, str] = "pagerank",
+    **overrides,
+):
+    """Build a started session and wrap it for multi-tenant serving: one
+    shared graph and engine behind a
+    :class:`~repro_torch.serve.graph.GraphServingEngine` with ``slots``
+    batch slots per algorithm lane::
+
+        srv = repro_torch.serve_session((src, dst), slots=4)
+        t1 = srv.submit("personalized-pagerank", seeds=(3,))
+        t2 = srv.submit("sssp", sources=(17,))
+        srv.run()
+        t1.result, srv.stats.queries_per_s
+
+    ``algorithm``/``config``/``overrides`` configure the engine as in
+    :func:`session` (``device``, capacities, hot-set knobs); ``algorithm``
+    only sets the workload of the initial exact compute, since each served
+    query carries its own.  ``device=None`` runs on the card and raises
+    when there is none.  The session stays reachable at ``.session`` and
+    is closed by the serving engine's ``with``-exit.
+    """
+    from repro_torch.serve.graph import GraphServingEngine
+
+    base = session(graph_source, algorithm, config, **overrides)
+    srv = GraphServingEngine(base.engine, slots=slots)
+    srv.session = base
+    return srv
 
 
 __all__ = [

@@ -1,9 +1,9 @@
 """Carry the JAX package's state into the port.
 
 The JAX package's "weights" are its graph buffers, its edge layouts and its
-algorithm state.  Handed over as numpy arrays (``np.asarray`` of each JAX
-array), these functions rebuild the port's tensors byte for byte on
-``device`` (the card unless another device is named), so both packages can
+algorithm state (a serving lane's slot bank too).  Handed over as numpy
+arrays (``np.asarray`` of each JAX array), these functions rebuild the
+port's tensors byte for byte on ``device`` (the card unless another device is named), so both packages can
 be fed exactly the same buffers.
 """
 
@@ -45,7 +45,8 @@ def graph_state_from_numpy(arrays: Mapping[str, np.ndarray],
 
 def algo_state_from_numpy(arrays: Mapping[str, np.ndarray],
                           device=None) -> dict:
-    """An algorithm state dict (e.g. ``{"ranks": ...}``) from arrays."""
+    """An algorithm state dict (e.g. ``{"ranks": ...}``, or a serving slot
+    bank with ``[B, ...]`` leaves) from arrays."""
     device = resolve_device(device)
     return {k: _tensor(v, device) for k, v in arrays.items()}
 
@@ -66,7 +67,8 @@ def summary_buffers_from_numpy(arrays: Mapping[str, np.ndarray], device=None,
                                semiring: str) -> SummaryBuffers:
     """A flat :class:`SummaryBuffers` from its array fields (the counts and
     ``overflow`` as 0-d arrays); ``weight_mode``/``semiring`` record how
-    ``ek_w`` and ``b_in`` were baked."""
+    ``ek_w`` and ``b_in`` were baked.  ``b_in`` is ``[K_cap]``, or the
+    per-query ``[B, K_cap]`` of a summary built from a slot bank."""
     device = resolve_device(device)
     missing = [k for k in _SUMMARY_ARRAYS if k not in arrays]
     if missing:

@@ -9,12 +9,17 @@ the action policy; everything rank-specific lives behind
     exact(state, graph)                      -> (state', iterations)
     build_summaries(state, graph, hot, caps) -> (SummaryBuffers, ...)
     summarized(state, graph, summaries)      -> (state', iterations)
+    summarized_batched(bank, graph, summaries, row_mask)
+                                             -> (bank', iterations, row_delta)
     result_view(state)                       -> the query answer
     selection_view(state)                    -> f32 signal for the Δ bound
 
-PageRank (the paper's case study) and the traversal workloads (connected
-components, SSSP, widest path) are ported; the JAX package's other
-registered names (PPR, HITS, Katz) raise until their slice lands.
+All seven algorithms of the JAX package's registry are ported: PageRank
+(the paper's case study), personalized PageRank, HITS, Katz, connected
+components, SSSP and widest path.  ``summarized_batched`` is the serving
+engine's sweep over a bank of B queries (``[B, ...]`` state leaves).  The
+drift residual of the quality controller is not ported yet (ROADMAP queue
+1 entry 11).
 """
 
 from __future__ import annotations
@@ -23,22 +28,38 @@ import abc
 import enum
 import inspect
 from dataclasses import dataclass
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core.hits import hits as _hits
+from repro_torch.core.hits import summarized_hits as _summarized_hits
+from repro_torch.core.hits import \
+    summarized_hits_batched as _summarized_hits_batched
+from repro_torch.core.katz import katz as _katz
+from repro_torch.core.katz import summarized_katz as _summarized_katz
+from repro_torch.core.katz import \
+    summarized_katz_batched as _summarized_katz_batched
 from repro_torch.core.pagerank import SummaryBuffers
 from repro_torch.core.pagerank import build_summary as _build_summary
 from repro_torch.core.pagerank import pagerank as _pagerank
 from repro_torch.core.pagerank import summarized_pagerank as _summarized_pagerank
+from repro_torch.core.pagerank import \
+    summarized_pagerank_batched as _summarized_pagerank_batched
 from repro_torch.core.traversal import LABEL_SENTINEL
 from repro_torch.core.traversal import connected_components as _cc
 from repro_torch.core.traversal import sssp as _sssp
 from repro_torch.core.traversal import \
     summarized_connected_components as _summarized_cc
+from repro_torch.core.traversal import \
+    summarized_connected_components_batched as _summarized_cc_batched
 from repro_torch.core.traversal import summarized_sssp as _summarized_sssp
 from repro_torch.core.traversal import \
+    summarized_sssp_batched as _summarized_sssp_batched
+from repro_torch.core.traversal import \
     summarized_widest_path as _summarized_widest_path
+from repro_torch.core.traversal import \
+    summarized_widest_path_batched as _summarized_widest_path_batched
 from repro_torch.core.traversal import widest_path as _widest_path
 from repro_torch.graph.graph import GraphState
 
@@ -77,6 +98,10 @@ class StreamingAlgorithm(abc.ABC):
     #: declared per-key dtypes of the :meth:`init_state` dict, checked once
     #: by the engine.
     state_dtypes: Dict[str, str] = {}
+    #: constructor knobs whose whole effect is :meth:`init_state` (seed and
+    #: source sets): the serving engine batches requests that differ only
+    #: in these into one lane, whose bank rows carry them.
+    per_query_params: Tuple[str, ...] = ()
     #: full-graph edge layouts the sweeps consume, as (weight, reverse,
     #: semiring) triples; the engine caches one layout per entry.
     layout_specs: Tuple[Tuple, ...] = (("inv_out", False, "plus_times"),)
@@ -119,6 +144,77 @@ class StreamingAlgorithm(abc.ABC):
                    summaries: Tuple[SummaryBuffers, ...]
                    ) -> Tuple[AlgoState, int]:
         """Approximate update restricted to the hot set (§3.1)."""
+
+    def summarized_batched(
+        self,
+        batch_state: AlgoState,
+        graph: GraphState,
+        summaries: Tuple[SummaryBuffers, ...],
+        *,
+        row_mask: Optional[torch.Tensor] = None,
+    ) -> Tuple[AlgoState, int, torch.Tensor]:
+        """The summarized sweep of B concurrent queries (serving).
+
+        ``batch_state`` is the :meth:`init_state` dict with a leading batch
+        axis on every leaf (see :meth:`validate_batch_state`); the
+        summaries share one E_K structure, with ``b_in`` ``[K_cap]`` or
+        per query ``[B, K_cap]``.  ``row_mask`` (bool[B], True = live)
+        freezes converged or vacant slots: their rows carry over and
+        report zero delta.  Returns ``(batch_state', iterations, row_delta
+        f32[B])``, ``row_delta`` being each row's convergence signal of the
+        last iteration (L1 change for the ranking family, changed entries
+        for the min/max relaxations).  Every shipped algorithm implements
+        it; the serving engine refuses one that does not.
+        """
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement summarized_batched; "
+            "multi-tenant serving needs the batched [B, N] sweep")
+
+    def validate_batch_state(self, batch_state: AlgoState,
+                             batch: int) -> None:
+        """Check a serving slot bank against :attr:`state_dtypes`: every
+        declared key present, in its dtype, with a leading axis of exactly
+        ``batch`` rows.  An empty declaration checks nothing."""
+        if not self.state_dtypes:
+            return
+        missing = sorted(set(self.state_dtypes) - set(batch_state))
+        if missing:
+            raise ValueError(f"{self.name}: batch state is missing declared "
+                             f"keys {missing}")
+        for key, want in self.state_dtypes.items():
+            t = batch_state[key]
+            if t.dtype != getattr(torch, want):
+                raise ValueError(f"{self.name}: batch state[{key!r}] has "
+                                 f"dtype {t.dtype}, declared {want}")
+            if t.dim() < 2 or t.shape[0] != batch:
+                raise ValueError(
+                    f"{self.name}: batch state[{key!r}] must have a leading "
+                    f"batch axis of {batch} rows; got shape "
+                    f"{tuple(t.shape)}")
+
+    def batched_cold_seeds(
+            self, batch_state: AlgoState) -> Optional[torch.Tensor]:
+        """bool[B, N] seed masks for the cold-start coverage of freshly
+        seated slots, or None.  Algorithms whose answer is non-trivial only
+        where a per-query seed reaches (PPR's teleport support, the path
+        sources) return them, and the batched step covers their forward
+        reachability; None (global algorithms) covers every active
+        vertex."""
+        return None
+
+    def batched_selection_scores(
+            self, batch_state: AlgoState,
+            row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """f32[N] hot-set signal of a ``[B, ...]`` bank: the element-wise
+        maximum of the live rows' :meth:`selection_view`, so a vertex
+        volatile for any live query is hot for the wave; all zero when no
+        row is live.  ``selection_view`` must take ``[B, ...]`` leaves, as
+        every shipped one does."""
+        scores = self.selection_view(batch_state).to(torch.float32)
+        if row_mask is not None:
+            scores = torch.where(row_mask[:, None], scores, float("-inf"))
+        agg = scores.max(dim=0).values
+        return torch.where(torch.isfinite(agg), agg, 0.0)
 
     @abc.abstractmethod
     def result_view(self, state: AlgoState) -> torch.Tensor:
@@ -180,8 +276,209 @@ class PageRankAlgorithm(StreamingAlgorithm):
             num_iters=self.num_iters, tol=self.tol)
         return {"ranks": ranks}, iters
 
+    def summarized_batched(self, batch_state, graph, summaries, *,
+                           row_mask=None):
+        (summary,) = summaries
+        ranks, iters, row_delta = _summarized_pagerank_batched(
+            summary, batch_state["ranks"], beta=self.beta,
+            num_iters=self.num_iters, tol=self.tol, row_mask=row_mask)
+        return {"ranks": ranks}, iters, row_delta
+
     def result_view(self, state):
         return state["ranks"]
+
+
+@dataclass(frozen=True)
+class PersonalizedPageRankAlgorithm(StreamingAlgorithm):
+    """PageRank with the teleport mass on a seed set: ``seeds`` is a tuple
+    of vertex ids and the teleport vector, uniform over them, lives in the
+    state (it is data, not a knob), so one serving lane holds B seed sets.
+    ``warm_start=False`` keeps the protocol's cold exact recompute."""
+
+    seeds: Tuple[int, ...] = (0,)
+    beta: float = 0.85
+    num_iters: int = 30
+    tol: float = 0.0
+    warm_start: bool = False
+
+    name = "personalized-pagerank"
+    normalize_selection_scores = True
+    state_dtypes = {"ranks": "float32", "teleport": "float32"}
+    per_query_params = ("seeds",)
+
+    def __post_init__(self):
+        if not self.seeds:
+            raise ValueError("personalized-pagerank needs >= 1 seed vertex")
+
+    def init_state(self, graph: GraphState) -> AlgoState:
+        n = graph.node_capacity
+        if min(self.seeds) < 0:
+            raise ValueError(f"seed {min(self.seeds)} is negative")
+        if max(self.seeds) >= n:
+            raise ValueError(f"seed {max(self.seeds)} >= node_capacity {n}")
+        seeds = torch.tensor(self.seeds, dtype=torch.long,
+                             device=graph.device)
+        t = torch.zeros(n, dtype=torch.float32, device=graph.device)
+        t.index_add_(0, seeds, torch.full(seeds.shape, 1.0 / len(self.seeds),
+                                          device=graph.device))
+        return {"ranks": t, "teleport": t.clone()}
+
+    def exact(self, state, graph, *, layouts=None):
+        ranks, iters = _pagerank(
+            graph, state["ranks"] if self.warm_start else None,
+            beta=self.beta, num_iters=self.num_iters, tol=self.tol,
+            teleport_v=state["teleport"],
+            layout=layouts[0] if layouts else None)
+        return {"ranks": ranks, "teleport": state["teleport"]}, iters
+
+    def summarized(self, state, graph, summaries):
+        (summary,) = summaries
+        ranks, iters = _summarized_pagerank(
+            summary, state["ranks"], beta=self.beta,
+            num_iters=self.num_iters, tol=self.tol,
+            teleport_v=state["teleport"])
+        return {"ranks": ranks, "teleport": state["teleport"]}, iters
+
+    def summarized_batched(self, batch_state, graph, summaries, *,
+                           row_mask=None):
+        (summary,) = summaries
+        ranks, iters, row_delta = _summarized_pagerank_batched(
+            summary, batch_state["ranks"], beta=self.beta,
+            num_iters=self.num_iters, tol=self.tol,
+            teleport_v=batch_state["teleport"], row_mask=row_mask)
+        return ({"ranks": ranks, "teleport": batch_state["teleport"]}, iters,
+                row_delta)
+
+    def batched_cold_seeds(self, batch_state):
+        # ranks are nonzero only where the teleport support reaches
+        return batch_state["teleport"] > 0.0
+
+    def result_view(self, state):
+        return state["ranks"]
+
+
+@dataclass(frozen=True)
+class HITSAlgorithm(StreamingAlgorithm):
+    """Kleinberg's HITS with L1 normalization each half-iteration.  The
+    state holds both vectors and the tracked σ (f32[2], one per
+    direction); :meth:`result_view` is the authorities (``rank_by="hub"``
+    for the hubs).  The summarized sweep freezes the cold contributions in
+    both directions, so it needs a forward and a reverse summary.  EXACT
+    actions warm-start: HITS converges from any positive start."""
+
+    num_iters: int = 30
+    tol: float = 0.0
+    rank_by: str = "auth"
+
+    name = "hits"
+    normalize_selection_scores = True
+    summary_weight = "unit"
+    state_dtypes = {"auth": "float32", "hub": "float32", "sigma": "float32"}
+    layout_specs = (("unit", False, "plus_times"),
+                    ("unit", True, "plus_times"))
+
+    def __post_init__(self):
+        if self.rank_by not in ("auth", "hub"):
+            raise ValueError(
+                f"rank_by must be 'auth' or 'hub', got {self.rank_by!r}")
+
+    def init_state(self, graph: GraphState) -> AlgoState:
+        n = graph.num_active_nodes().to(torch.float32).clamp(min=1.0)
+        uniform = torch.where(graph.node_active, 1.0 / n, 0.0)
+        return {"auth": uniform, "hub": uniform.clone(),
+                "sigma": torch.ones(2, dtype=torch.float32,
+                                    device=graph.device)}
+
+    def exact(self, state, graph, *, layouts=None):
+        auth, hub, iters, sigma = _hits(
+            graph, state["auth"], state["hub"], num_iters=self.num_iters,
+            tol=self.tol, fwd_layout=layouts[0] if layouts else None,
+            rev_layout=layouts[1] if layouts else None)
+        return {"auth": auth, "hub": hub, "sigma": sigma}, iters
+
+    def build_summaries(self, state, graph, hot_mask, *, hot_node_capacity,
+                        hot_edge_capacity, layouts=None):
+        """A forward unit summary frozen from the hubs and a reverse one
+        frozen from the authorities, over one hot mask."""
+        common = dict(hot_node_capacity=hot_node_capacity,
+                      hot_edge_capacity=hot_edge_capacity, weight="unit")
+        fwd = _build_summary(graph, state["hub"], hot_mask,
+                             layout=layouts[0] if layouts else None, **common)
+        rev = _build_summary(graph, state["auth"], hot_mask, reverse=True,
+                             layout=layouts[1] if layouts else None, **common)
+        return (fwd, rev)
+
+    def summarized(self, state, graph, summaries):
+        fwd, rev = summaries
+        auth, hub, iters, sigma = _summarized_hits(
+            fwd, rev, state["auth"], state["hub"], state["sigma"],
+            num_iters=self.num_iters, tol=self.tol)
+        return {"auth": auth, "hub": hub, "sigma": sigma}, iters
+
+    def summarized_batched(self, batch_state, graph, summaries, *,
+                           row_mask=None):
+        fwd, rev = summaries
+        auth, hub, iters, row_delta, sigma = _summarized_hits_batched(
+            fwd, rev, batch_state["auth"], batch_state["hub"],
+            batch_state["sigma"], num_iters=self.num_iters, tol=self.tol,
+            row_mask=row_mask)
+        return {"auth": auth, "hub": hub, "sigma": sigma}, iters, row_delta
+
+    def result_view(self, state):
+        return state["auth"] if self.rank_by == "auth" else state["hub"]
+
+
+@dataclass(frozen=True)
+class KatzAlgorithm(StreamingAlgorithm):
+    """Katz centrality ``c = Σ_k α^k (Aᵀ)^k β·1``.  The sweep contracts
+    only while ``α < 1/σ_max(A)``: keep ``alpha`` small on hub-heavy
+    graphs.  EXACT actions warm-start by default (same fixed point, fewer
+    iterations)."""
+
+    alpha: float = 0.05
+    beta: float = 1.0
+    num_iters: int = 30
+    tol: float = 0.0
+    warm_start: bool = True
+
+    name = "katz"
+    normalize_selection_scores = True
+    summary_weight = "unit"
+    state_dtypes = {"katz": "float32"}
+    layout_specs = (("unit", False, "plus_times"),)
+
+    def __post_init__(self):
+        if not 0.0 < self.alpha < 1.0:
+            raise ValueError(f"alpha must be in (0, 1), got {self.alpha}")
+
+    def init_state(self, graph: GraphState) -> AlgoState:
+        return {"katz": torch.where(graph.node_active, self.beta, 0.0).to(
+            torch.float32)}
+
+    def exact(self, state, graph, *, layouts=None):
+        c, iters = _katz(
+            graph, state["katz"] if self.warm_start else None,
+            alpha=self.alpha, beta=self.beta, num_iters=self.num_iters,
+            tol=self.tol, layout=layouts[0] if layouts else None)
+        return {"katz": c}, iters
+
+    def summarized(self, state, graph, summaries):
+        (summary,) = summaries
+        c, iters = _summarized_katz(
+            summary, state["katz"], alpha=self.alpha, beta=self.beta,
+            num_iters=self.num_iters, tol=self.tol)
+        return {"katz": c}, iters
+
+    def summarized_batched(self, batch_state, graph, summaries, *,
+                           row_mask=None):
+        (summary,) = summaries
+        c, iters, row_delta = _summarized_katz_batched(
+            summary, batch_state["katz"], alpha=self.alpha, beta=self.beta,
+            num_iters=self.num_iters, tol=self.tol, row_mask=row_mask)
+        return {"katz": c}, iters, row_delta
+
+    def result_view(self, state):
+        return state["katz"]
 
 
 # ---------------------------------------------------------------------------
@@ -274,6 +571,15 @@ class ConnectedComponentsAlgorithm(StreamingAlgorithm):
                                        num_iters=self.num_iters)
         return self._with_churn(labels, state), iters
 
+    def summarized_batched(self, batch_state, graph, summaries, *,
+                           row_mask=None):
+        fwd, rev = summaries
+        labels, iters, changed = _summarized_cc_batched(
+            fwd, rev, batch_state["labels"], num_iters=self.num_iters,
+            row_mask=row_mask)
+        return (self._with_churn(labels, batch_state), iters,
+                changed.to(torch.float32))
+
     def result_view(self, state):
         return state["labels"]
 
@@ -298,11 +604,13 @@ class _PathAlgorithm(StreamingAlgorithm):
     summary_weight = "length"
     # subclasses set (class attributes, not fields): the state key, the
     # value of sources and of unreached vertices, and the two sweeps
+    per_query_params = ("sources",)
     value_key = ""
     pinned = 0.0
     unreached = 0.0
     exact_sweep = None
     summarized_sweep = None
+    summarized_batched_sweep = None
 
     def __post_init__(self):
         if not self.sources:
@@ -339,6 +647,20 @@ class _PathAlgorithm(StreamingAlgorithm):
             num_iters=self.num_iters)
         return self._after(value, state), iters
 
+    def summarized_batched(self, batch_state, graph, summaries, *,
+                           row_mask=None):
+        # one lane serves B source sets: the pinned masks ride in the bank
+        (summary,) = summaries
+        value, iters, changed = self.summarized_batched_sweep(
+            summary, batch_state[self.value_key], batch_state["source"],
+            num_iters=self.num_iters, row_mask=row_mask)
+        return (self._after(value, batch_state), iters,
+                changed.to(torch.float32))
+
+    def batched_cold_seeds(self, batch_state):
+        # the answer is non-trivial only where the sources reach
+        return batch_state["source"]
+
     def result_view(self, state):
         return state[self.value_key]
 
@@ -360,6 +682,7 @@ class SSSPAlgorithm(_PathAlgorithm):
     unreached = float("inf")
     exact_sweep = staticmethod(_sssp)
     summarized_sweep = staticmethod(_summarized_sssp)
+    summarized_batched_sweep = staticmethod(_summarized_sssp_batched)
 
 
 @dataclass(frozen=True)
@@ -376,6 +699,7 @@ class WidestPathAlgorithm(_PathAlgorithm):
     pinned = 1.0
     exact_sweep = staticmethod(_widest_path)
     summarized_sweep = staticmethod(_summarized_widest_path)
+    summarized_batched_sweep = staticmethod(_summarized_widest_path_batched)
 
 
 # ---------------------------------------------------------------------------
@@ -384,8 +708,6 @@ class WidestPathAlgorithm(_PathAlgorithm):
 
 _REGISTRY: Dict[str, Callable[..., StreamingAlgorithm]] = {}
 _ALIASES: Dict[str, str] = {}
-#: names (and aliases) the JAX package registers whose port has not landed
-_NOT_PORTED = frozenset(("personalized-pagerank", "ppr", "hits", "katz"))
 
 
 def register_algorithm(name: str, factory: Callable[..., StreamingAlgorithm],
@@ -403,15 +725,11 @@ def available_algorithms() -> Tuple[str, ...]:
 
 def algorithm_factory(name: str) -> Callable[..., StreamingAlgorithm]:
     """The registered factory for a name or alias, without instantiating."""
-    key = _ALIASES.get(name, name)
-    if key in _REGISTRY:
-        return _REGISTRY[key]
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"algorithm {name!r} is not yet ported to PyTorch (ROADMAP "
-            f"queue 1 entry 10)")
-    raise KeyError(f"unknown algorithm {name!r}; registered: "
-                   f"{', '.join(available_algorithms())}")
+    try:
+        return _REGISTRY[_ALIASES.get(name, name)]
+    except KeyError:
+        raise KeyError(f"unknown algorithm {name!r}; registered: "
+                       f"{', '.join(available_algorithms())}") from None
 
 
 def factory_accepts(factory: Callable, knob: str) -> bool:
@@ -438,6 +756,10 @@ def make_algorithm(spec, **params) -> StreamingAlgorithm:
 
 
 register_algorithm("pagerank", PageRankAlgorithm)
+register_algorithm("personalized-pagerank", PersonalizedPageRankAlgorithm,
+                   aliases=("ppr",))
+register_algorithm("hits", HITSAlgorithm)
+register_algorithm("katz", KatzAlgorithm)
 register_algorithm("connected-components", ConnectedComponentsAlgorithm,
                    aliases=("cc", "wcc"))
 register_algorithm("sssp", SSSPAlgorithm, aliases=("shortest-paths",))

@@ -10,20 +10,22 @@ over an :class:`EdgeLayout`: the receiver-sorted edge stream with the
 per-edge weight baked in.  Sorting is the amortized cost: the engine builds
 a layout once per applied update batch and reuses it across queries.
 
-Dispatch is by the device of ``values``, not by a backend name.  ``[N]``
-values with weights stored in the semiring's dtype go to a hand-written
-kernel:
+Dispatch is by the device of ``values``, not by a backend name.  Values
+with weights stored in the semiring's dtype go to a hand-written kernel,
+``[N]`` values to the single form and ``[B, N]`` values (B queries through
+one layout, the serving engine's waves) to the batched form:
 
 - ``plus_times`` to the SpMV kernel
-  (:func:`repro_torch.kernels.spmv.kernel.spmv_push`);
+  (:func:`repro_torch.kernels.spmv.kernel.spmv_push`,
+  :func:`~repro_torch.kernels.spmv.kernel.spmv_push_batched`);
 - ``min_plus``, ``max_times`` and ``min_min`` to the min/max kernel
-  (:func:`repro_torch.kernels.spmv.kernel.spmv_reduce_push`).
+  (:func:`repro_torch.kernels.spmv.kernel.spmv_reduce_push`,
+  :func:`~repro_torch.kernels.spmv.kernel.spmv_reduce_push_batched`).
 
 A CUDA tensor launches the kernel and a CPU tensor takes its plain
-version.  ``[B, N]`` values and compressed weights take the plain segment
-reduce on the CPU and raise ``NotImplementedError`` on the card until their
-kernels are ported.  The sharded layout and its collective push are not
-ported yet.
+version.  Compressed weights take the plain segment reduce on the CPU and
+raise ``NotImplementedError`` on the card until their kernels are ported.
+The sharded layout and its collective push are not ported yet.
 """
 
 from __future__ import annotations
@@ -38,7 +40,9 @@ from repro_torch.core.semiring import Semiring, resolve_semiring
 from repro_torch.graph.csr import gather_push, sort_by_dst
 from repro_torch.graph.graph import GraphState, inv_out_degree
 from repro_torch.kernels.spmv.kernel import (REDUCE_ENTRIES, spmv_push,
-                                             spmv_reduce_push)
+                                             spmv_push_batched,
+                                             spmv_reduce_push,
+                                             spmv_reduce_push_batched)
 
 #: stream padding granularity, kept from the JAX package so layouts match
 #: it byte for byte (the CUDA kernel itself reads only each row's range)
@@ -280,11 +284,13 @@ def push(
     """``out[v] = ⊕_{(u,v)} values[u] ⊗ layout.weight[(u,v)]``.
 
     ``semiring`` must match the one the layout was built for.  ``values``
-    lives in the layout's node space (``[N]``, or ``[B, N]`` on the CPU);
-    the result has ``layout.num_segments`` entries and receivers with no
-    unmasked in-edge get the ⊕-identity.  ``mask`` filters edges in the
-    layout's sorted order.  ``[N]`` values launch the semiring's kernel on
-    a CUDA tensor (see the module docstring); what has no kernel yet raises
+    lives in the layout's node space: ``[N]``, or ``[B, N]`` for B queries
+    through the one layout (row-major and contiguous on the card); the
+    result has ``layout.num_segments`` entries per row and receivers with
+    no unmasked in-edge get the ⊕-identity.  ``mask`` filters edges in the
+    layout's sorted order and is shared by the rows.  A CUDA tensor
+    launches the semiring's kernel, single or batched (see the module
+    docstring), one launch per call; what has no kernel yet raises
     ``NotImplementedError`` there.
     """
     s = resolve_semiring(semiring)
@@ -299,24 +305,22 @@ def push(
         raise ValueError(
             f"push expects values of shape [N] or [B, N]; got "
             f"{tuple(values.shape)}")
+    batched = values.dim() == 2
     record_trace("push")
+    if batched:
+        record_trace("push[batched]")
     sum_of_products = (s.add, s.mul, s.dtype) == ("sum", "times", "float32")
     reduce_entry = (s.add, s.mul, s.torch_dtype) in REDUCE_ENTRIES
     stored = layout.weight.dtype == s.torch_dtype
-    if values.dim() == 1 and stored and sum_of_products:
-        return spmv_push(values, layout.src, layout.weight,
-                         layout.row_offsets, mask)
-    if values.dim() == 1 and stored and reduce_entry:
-        return spmv_reduce_push(values, layout.src, layout.weight,
-                                layout.row_offsets, mask, op=s.add,
-                                mul=s.mul)
+    if stored and sum_of_products:
+        fn = spmv_push_batched if batched else spmv_push
+        return fn(values, layout.src, layout.weight, layout.row_offsets, mask)
+    if stored and reduce_entry:
+        fn = spmv_reduce_push_batched if batched else spmv_reduce_push
+        return fn(values, layout.src, layout.weight, layout.row_offsets,
+                  mask, op=s.add, mul=s.mul)
     if values.is_cuda:
         raise NotImplementedError(
-            ("batched [B, N] push on the GPU waits for the spmv_push_batched "
-             "kernel (ROADMAP queue 2 entry 3)" if sum_of_products else
-             "batched [B, N] push on the GPU waits for the "
-             "spmv_reduce_push_batched kernel (ROADMAP queue 2 entry 4)")
-            if values.dim() == 2 else
             "compressed edge weights on the GPU are not ported yet (ROADMAP "
             "queue 1 entry 14)" if not stored else
             f"semiring {s.name!r} has no GPU kernel")

@@ -314,11 +314,19 @@ class VeilGraphEngine:
         once per applied update batch."""
         if self._edge_layouts is None:
             self._edge_layouts = tuple(
-                B.build_layout(self.state, weight=w, reverse=rev, semiring=s)
-                for w, rev, s in map(B.normalize_layout_spec,
-                                     self.algorithm.layout_specs))
+                self._build_spec_layout(self.state, spec)
+                for spec in map(B.normalize_layout_spec,
+                                self.algorithm.layout_specs))
             self.layout_builds += 1
         return self._edge_layouts
+
+    def _build_spec_layout(self, state: G.GraphState,
+                           spec: Tuple) -> B.EdgeLayout:
+        """The sorted layout of one normalized ``(weight, reverse,
+        semiring)`` spec over ``state``: the one layout constructor of the
+        engine's cache and of the serving engine's spec-keyed cache."""
+        w, rev, s = spec
+        return B.build_layout(state, weight=w, reverse=rev, semiring=s)
 
     def _synchronize(self) -> None:
         if self.device.type == "cuda":

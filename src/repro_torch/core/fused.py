@@ -5,8 +5,10 @@ of ``repro.core.fused``).
 
 The overflow fallback (|K| or |E_K| over capacity → exact recompute) stays
 a flag in the stats: the summarized result is computed unconditionally and
-the caller discards it when ``used_fallback`` is set.  The drift estimator
-and the mesh path are not ported yet.
+the caller discards it when ``used_fallback`` is set.
+:func:`fused_query_step_batched` is the serving engine's wave: B queries of
+one algorithm over one shared hot set and summary.  The drift estimator and
+the mesh path are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core.algorithm import PageRankAlgorithm, summaries_overflow
-from repro_torch.core.hotset import select_hot_set
+from repro_torch.core.hotset import _frontier_sweep, select_hot_set
 from repro_torch.graph.graph import GraphState
 
 
@@ -34,6 +36,25 @@ class QueryStepStats(NamedTuple):
     used_fallback: torch.Tensor  # bool
 
 
+def _refuse_drift(with_drift: bool) -> None:
+    if with_drift:
+        raise NotImplementedError(
+            "the drift estimator is not ported yet (ROADMAP queue 1 "
+            "entry 11)")
+
+
+def _wave_stats(hstats, summaries, iters, num_hot=None) -> QueryStepStats:
+    num_eb = summaries[0].num_eb
+    for s in summaries[1:]:
+        num_eb = num_eb + s.num_eb
+    return QueryStepStats(
+        num_hot=hstats.num_hot if num_hot is None else num_hot,
+        num_kr=hstats.num_kr, num_kn=hstats.num_kn,
+        num_kdelta=hstats.num_kdelta, num_ek=summaries[0].num_ek,
+        num_eb=num_eb, iterations=iters,
+        used_fallback=summaries_overflow(summaries))
+
+
 def fused_query_step(
     state: GraphState,
     algo_state,
@@ -41,7 +62,6 @@ def fused_query_step(
     active_prev: torch.Tensor,
     r: torch.Tensor,
     delta: torch.Tensor,
-    probe_ids: Optional[torch.Tensor] = None,
     *,
     algo,
     hot_node_capacity: int,
@@ -59,10 +79,7 @@ def fused_query_step(
     Returns ``(new_algo_state, QueryStepStats)``; the caller discards the
     new state and recomputes exactly when ``used_fallback`` is set.
     """
-    if with_drift:
-        raise NotImplementedError(
-            "the drift estimator is not ported yet (ROADMAP queue 1 "
-            "entry 11)")
+    _refuse_drift(with_drift)
     hot, hstats = select_hot_set(
         state, deg_prev, algo.selection_view(algo_state), r, delta,
         active_prev=active_prev, n=n, delta_hop_cap=delta_hop_cap,
@@ -72,14 +89,96 @@ def fused_query_step(
         algo_state, state, hot, hot_node_capacity=hot_node_capacity,
         hot_edge_capacity=hot_edge_capacity, layouts=layouts)
     new_state, iters = algo.summarized(algo_state, state, summaries)
-    num_eb = summaries[0].num_eb
-    for s in summaries[1:]:
-        num_eb = num_eb + s.num_eb
-    return new_state, QueryStepStats(
-        num_hot=hstats.num_hot, num_kr=hstats.num_kr, num_kn=hstats.num_kn,
-        num_kdelta=hstats.num_kdelta, num_ek=summaries[0].num_ek,
-        num_eb=num_eb, iterations=iters,
-        used_fallback=summaries_overflow(summaries))
+    return new_state, _wave_stats(hstats, summaries, iters)
+
+
+def _cold_coverage(state: GraphState, algo, batch_state,
+                   live_cold: torch.Tensor) -> Optional[torch.Tensor]:
+    """The vertices a wave with cold rows must cover besides its hot set,
+    or None when no live row is cold (one device read).  Algorithms with
+    per-query seeds cover the forward reachability of the live cold rows'
+    seed union, grown one frontier sweep at a time until a sweep adds
+    nothing (one device read per sweep); the others cover every active
+    vertex."""
+    if not bool(live_cold.any()):
+        return None
+    seeds = algo.batched_cold_seeds(batch_state)
+    if seeds is None:
+        return state.node_active
+    mark = (seeds & live_cold[:, None]).any(dim=0) & state.node_active
+    while True:
+        nxt = _frontier_sweep(state, mark, both=False)
+        if not bool((nxt != mark).any()):
+            return mark
+        mark = nxt
+
+
+def fused_query_step_batched(
+    state: GraphState,
+    batch_state,
+    deg_prev: torch.Tensor,
+    active_prev: torch.Tensor,
+    r: torch.Tensor,
+    delta: torch.Tensor,
+    row_mask: torch.Tensor,
+    cold_rows: Optional[torch.Tensor] = None,
+    *,
+    algo,
+    hot_node_capacity: int,
+    hot_edge_capacity: int,
+    n: int = 1,
+    delta_hop_cap: int = 4,
+    degree_mode: str = "out",
+    expand_both: bool = False,
+    layouts=None,
+    with_drift: bool = False,
+):
+    """One summarized wave for B concurrent queries of one algorithm.
+
+    ``batch_state`` holds every slot's state with a leading batch axis
+    (``[B, ...]`` leaves).  The wave shares one hot set, one summary
+    structure and one edge layout across the B queries: selection reads
+    ``algo.batched_selection_scores`` (the element-wise maximum over the
+    live rows), the summaries carry a per-query ``b_in [B, K_cap]`` (one
+    batched push), and ``algo.summarized_batched`` runs the restricted
+    sweep as batched pushes with ``row_mask`` (bool[B], True = live)
+    freezing finished or vacant slots.
+
+    ``cold_rows`` (bool[B]) marks freshly seated slots that have not
+    converged once.  They have no churn history, so the wave also covers
+    the forward reachability of their seeds
+    (``algo.batched_cold_seeds``: PPR's teleport support, the path
+    sources), which is closed under out-edges and so gives the answer full
+    coverage would; algorithms without seeds cover every active vertex.  A
+    wave with no live cold row runs no reachability sweep.
+
+    Returns ``(new_batch_state, QueryStepStats, row_delta f32[B])``: the
+    stats describe the shared wave and ``row_delta`` is each slot's
+    convergence signal.  As in :func:`fused_query_step`, the caller
+    discards the new state and recomputes each live row exactly when
+    ``used_fallback`` is set.
+    """
+    _refuse_drift(with_drift)
+    scores = algo.batched_selection_scores(batch_state, row_mask)
+    hot, hstats = select_hot_set(
+        state, deg_prev, scores, r, delta, active_prev=active_prev, n=n,
+        delta_hop_cap=delta_hop_cap, degree_mode=degree_mode,
+        expand_both=expand_both,
+        normalize_scores=algo.normalize_selection_scores)
+    num_hot = None
+    if cold_rows is not None:
+        extra = _cold_coverage(state, algo, batch_state,
+                               cold_rows & row_mask)
+        if extra is not None:
+            hot = hot | extra
+        num_hot = hot.sum(dtype=torch.int32)
+    summaries = algo.build_summaries(
+        batch_state, state, hot, hot_node_capacity=hot_node_capacity,
+        hot_edge_capacity=hot_edge_capacity, layouts=layouts)
+    new_state, iters, row_delta = algo.summarized_batched(
+        batch_state, state, summaries, row_mask=row_mask)
+    return new_state, _wave_stats(hstats, summaries, iters, num_hot), \
+        row_delta
 
 
 def approximate_query_step(

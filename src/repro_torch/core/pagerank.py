@@ -10,7 +10,9 @@ each iteration and every cold rank carried over unchanged.
 Every iteration is one :func:`repro_torch.core.backend.push`.  The loops
 run on the host and read the step size back each iteration to keep the JAX
 package's trip count exactly (``num_iters`` steps unless the change reaches
-``tol``): one device-to-host sync per iteration.
+``tol``): one device-to-host sync per iteration.  The batched sweep
+(:func:`summarized_pagerank_batched`) runs B queries of the serving engine
+over one shared summary, one batched push per iteration.
 """
 
 from __future__ import annotations
@@ -26,11 +28,13 @@ from repro_torch.graph.graph import GraphState, inv_out_degree
 
 def _set_drop(dest: torch.Tensor, idx: torch.Tensor,
               vals: torch.Tensor) -> torch.Tensor:
-    """A copy of ``dest`` with ``dest[idx] = vals``, where indices at or past
-    ``len(dest)`` (the out-of-range sentinels used here) write nothing."""
-    ext = torch.cat([dest, dest.new_zeros(1)])
-    ext[idx.long().clamp(max=dest.shape[0])] = vals
-    return ext[:-1]
+    """A copy of ``dest`` with ``dest[..., idx] = vals`` along the last axis
+    (``[N]`` or ``[B, N]`` with ``vals`` ``[B, K]``), where indices at or
+    past ``N`` (the out-of-range sentinels used here) write nothing."""
+    n = dest.shape[-1]
+    ext = torch.cat([dest, dest.new_zeros(dest.shape[:-1] + (1,))], dim=-1)
+    ext[..., idx.long().clamp(max=n)] = vals
+    return ext[..., :n].contiguous()
 
 
 def _power_loop(step, r0: torch.Tensor, num_iters: int,
@@ -43,6 +47,32 @@ def _power_loop(step, r0: torch.Tensor, num_iters: int,
         delta = float((new_r - r).abs().sum())
         r, i = new_r, i + 1
     return r, i
+
+
+def _power_loop_batched(step, r0: torch.Tensor, num_iters: int, tol: float,
+                        keep: torch.Tensor):
+    """:func:`_power_loop` over ``[B, K]`` rows: rows where ``keep``
+    (bool[B, 1]) is False carry their state and report zero change; the
+    loop runs while any row's L1 change exceeds ``tol``.  Returns ``(r,
+    iterations, row_delta f32[B])``."""
+    r, i = r0, 0
+    delta = torch.full((r0.shape[0],), float("inf"), device=r0.device)
+    worst = float("inf")
+    while i < num_iters and worst > tol:
+        new_r = torch.where(keep, step(r), r)
+        delta = (new_r - r).abs().sum(dim=1)
+        worst = float(delta.max())
+        r, i = new_r, i + 1
+    return r, i, delta
+
+
+def _keep(row_mask: Optional[torch.Tensor], batch: int,
+          device) -> torch.Tensor:
+    """bool[B, 1]: the live rows of a batched sweep (all when
+    ``row_mask`` is None)."""
+    if row_mask is None:
+        return torch.ones((batch, 1), dtype=torch.bool, device=device)
+    return row_mask.reshape(batch, 1)
 
 
 # --------------------------------------------------------------------------
@@ -315,3 +345,45 @@ def summarized_pagerank(
 
     r_local, iters = _power_loop(step, r_local0, num_iters, tol)
     return _set_drop(ranks_prev, summary.hot_ids, r_local), iters
+
+
+def summarized_pagerank_batched(
+    summary: SummaryBuffers,
+    ranks_prev: torch.Tensor,
+    *,
+    beta: float = 0.85,
+    num_iters: int = 30,
+    tol: float = 0.0,
+    teleport_v: Optional[torch.Tensor] = None,
+    row_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, int, torch.Tensor]:
+    """Batched :func:`summarized_pagerank`: B queries over one shared
+    summary.  ``ranks_prev``/``teleport_v`` are ``[B, N]`` (per-slot
+    personalization vectors) and ``summary.b_in`` is ``[K_cap]`` or the
+    per-query ``[B, K_cap]`` a batched :func:`build_summary` gives.  Each
+    iteration is one batched push over the E_K layout.  ``row_mask``
+    (bool[B]) freezes finished or vacant serving slots: their rows carry
+    over unchanged and report zero delta.  Returns ``(ranks [B, N],
+    iterations, row_delta f32[B])``, ``row_delta`` being each row's last
+    L1 step."""
+    batch, n = ranks_prev.shape
+    k_cap = summary.hot_ids.shape[0]
+    dev = ranks_prev.device
+    local_valid = torch.arange(k_cap, dtype=torch.int32,
+                               device=dev) < summary.num_hot
+    hot_c = summary.hot_ids.clamp(max=n - 1)
+    r_local0 = torch.where(local_valid, ranks_prev[:, hot_c], 0.0)
+    t_local = (1.0 if teleport_v is None
+               else torch.where(local_valid, teleport_v[:, hot_c], 0.0))
+    keep = _keep(row_mask, batch, dev)
+    layout = B.summary_layout(summary)
+
+    def step(r):
+        incoming = B.push(r, layout)
+        return torch.where(local_valid, (1.0 - beta) * t_local
+                           + beta * (incoming + summary.b_in), 0.0)
+
+    r_local, iters, delta = _power_loop_batched(step, r_local0, num_iters,
+                                                tol, keep)
+    ranks = _set_drop(ranks_prev, summary.hot_ids, r_local)
+    return torch.where(keep, ranks, ranks_prev), iters, delta

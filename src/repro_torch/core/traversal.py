@@ -20,8 +20,10 @@ back once per iteration, so its trip count is the JAX package's exactly.
 The summarized versions relax only the hot set K against E_K and the
 frozen cold boundary ``b_in``; cold values carry over.  Min and max give
 the same answer in any order, so every result here is bitwise equal to the
-reference's on the same inputs.  The ``*_batched`` sweeps belong to
-batched serving and are not ported yet.
+reference's on the same inputs.  The ``*_batched`` sweeps run B queries
+of the serving engine over one shared summary, one batched push per
+relaxation (two for connected components), each row bitwise equal to its
+single-query sweep.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import backend as B
-from repro_torch.core.pagerank import SummaryBuffers, _set_drop
+from repro_torch.core.pagerank import SummaryBuffers, _keep, _set_drop
 from repro_torch.graph.graph import GraphState
 
 #: int32 "+∞": the label of never-seen vertices and empty reduces
@@ -51,6 +53,34 @@ def _fixed_point(step, x0: torch.Tensor,
         changed = int((new_x != x).sum())
         x, i = new_x, i + 1
     return x, i
+
+
+def _fixed_point_batched(step, x0: torch.Tensor, num_iters: int,
+                         row_mask: Optional[torch.Tensor]):
+    """Batched :func:`_fixed_point` over ``[B, K]`` rows: rows masked out
+    by ``row_mask`` (bool[B], None = all live) carry their state unchanged
+    and report zero change.  Iterates until no row changes (the rows
+    converge unevenly; the per-row change counts are the serving engine's
+    convergence signal).  Returns ``(x, iterations, changed_rows
+    i32[B])``."""
+    keep = _keep(row_mask, x0.shape[0], x0.device)
+    x, i, go = x0, 0, True
+    changed = torch.ones(x0.shape[0], dtype=torch.int32, device=x0.device)
+    while i < num_iters and go:
+        new_x = torch.where(keep, step(x), x)
+        changed = (new_x != x).sum(dim=1, dtype=torch.int32)
+        go = bool(changed.max() > 0)
+        x, i = new_x, i + 1
+    return x, i, changed
+
+
+def _scatter_rows(prev: torch.Tensor, hot_ids: torch.Tensor,
+                  local: torch.Tensor, row_mask: Optional[torch.Tensor]):
+    """The hot rows written back into ``prev`` [B, N], masked rows kept."""
+    out = _set_drop(prev, hot_ids, local)
+    if row_mask is None:
+        return out
+    return torch.where(row_mask[:, None], out, prev)
 
 
 def _hot_view(summary: SummaryBuffers, n: int):
@@ -127,6 +157,37 @@ def summarized_sssp(
     return _set_drop(dist_prev, summary.hot_ids, d_loc), i
 
 
+def summarized_sssp_batched(
+    summary: SummaryBuffers,
+    dist_prev: torch.Tensor,
+    source_mask: torch.Tensor,
+    *,
+    num_iters: int = 30,
+    row_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, int, torch.Tensor]:
+    """Batched :func:`summarized_sssp`: ``dist_prev``/``source_mask`` are
+    ``[B, N]`` (one source set per slot) over one shared summary whose
+    ``b_in`` is ``[K_cap]`` or ``[B, K_cap]``.  Each relaxation is one
+    batched ``min_plus`` push.  ``row_mask`` (bool[B]) freezes finished or
+    vacant slots.  Returns ``(dist [B, N], iterations, changed_rows
+    i32[B])``."""
+    local_valid, hot_c = _hot_view(summary, dist_prev.shape[1])
+    src_local = local_valid & source_mask[:, hot_c]
+    d0 = torch.where(local_valid, dist_prev[:, hot_c], _INF)
+    d0 = torch.where(src_local, 0.0, d0)
+    layout = B.summary_layout(summary, semiring="min_plus")
+
+    def relax(d):
+        relaxed = torch.minimum(d, torch.minimum(
+            B.push(d, layout, semiring="min_plus"), summary.b_in))
+        return torch.where(local_valid, torch.where(src_local, 0.0, relaxed),
+                           _INF)
+
+    d_loc, i, changed = _fixed_point_batched(relax, d0, num_iters, row_mask)
+    return (_scatter_rows(dist_prev, summary.hot_ids, d_loc, row_mask), i,
+            changed)
+
+
 # --------------------------------------------------------------------------
 # Widest path: max-reliability relaxation on max_times
 # --------------------------------------------------------------------------
@@ -188,6 +249,35 @@ def summarized_widest_path(
 
     w_loc, i = _fixed_point(relax, w0, num_iters)
     return _set_drop(width_prev, summary.hot_ids, w_loc), i
+
+
+def summarized_widest_path_batched(
+    summary: SummaryBuffers,
+    width_prev: torch.Tensor,
+    source_mask: torch.Tensor,
+    *,
+    num_iters: int = 30,
+    row_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, int, torch.Tensor]:
+    """Batched :func:`summarized_widest_path`: ``[B, N]`` widths and source
+    masks over one shared summary, one batched ``max_times`` push per
+    relaxation.  ``row_mask`` (bool[B]) freezes finished or vacant slots.
+    Returns ``(width [B, N], iterations, changed_rows i32[B])``."""
+    local_valid, hot_c = _hot_view(summary, width_prev.shape[1])
+    src_local = local_valid & source_mask[:, hot_c]
+    w0 = torch.where(local_valid, width_prev[:, hot_c], 0.0)
+    w0 = torch.where(src_local, 1.0, w0)
+    layout = B.summary_layout(summary, semiring="max_times")
+
+    def relax(w):
+        relaxed = torch.maximum(w, torch.maximum(
+            B.push(w, layout, semiring="max_times"), summary.b_in))
+        return torch.where(local_valid, torch.where(src_local, 1.0, relaxed),
+                           0.0)
+
+    w_loc, i, changed = _fixed_point_batched(relax, w0, num_iters, row_mask)
+    return (_scatter_rows(width_prev, summary.hot_ids, w_loc, row_mask), i,
+            changed)
 
 
 # --------------------------------------------------------------------------
@@ -268,3 +358,37 @@ def summarized_connected_components(
 
     l_loc, i = _fixed_point(relax, l0, num_iters)
     return _set_drop(labels_prev, fwd.hot_ids, l_loc), i
+
+
+def summarized_connected_components_batched(
+    fwd: SummaryBuffers,
+    rev: SummaryBuffers,
+    labels_prev: torch.Tensor,
+    *,
+    num_iters: int = 30,
+    row_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, int, torch.Tensor]:
+    """Batched :func:`summarized_connected_components` over ``[B, N]``
+    labels sharing one forward/reverse summary pair, two batched
+    ``min_min`` pushes per relaxation.  ``row_mask`` (bool[B]) freezes
+    finished or vacant slots.  Returns ``(labels [B, N], iterations,
+    changed_rows i32[B])``."""
+    local_valid, hot_c = _hot_view(fwd, labels_prev.shape[1])
+    l0 = torch.where(
+        local_valid,
+        torch.minimum(labels_prev.to(torch.int32)[:, hot_c], fwd.hot_ids),
+        LABEL_SENTINEL)
+    boundary = torch.minimum(fwd.b_in, rev.b_in)
+    fwd_layout = B.summary_layout(fwd, semiring="min_min")
+    rev_layout = B.summary_layout(rev, semiring="min_min")
+
+    def relax(lab):
+        incoming = torch.minimum(
+            B.push(lab, fwd_layout, semiring="min_min"),
+            B.push(lab, rev_layout, semiring="min_min"))
+        relaxed = torch.minimum(lab, torch.minimum(incoming, boundary))
+        return torch.where(local_valid, relaxed, LABEL_SENTINEL)
+
+    l_loc, i, changed = _fixed_point_batched(relax, l0, num_iters, row_mask)
+    return (_scatter_rows(labels_prev, fwd.hot_ids, l_loc, row_mask), i,
+            changed)

@@ -9,10 +9,14 @@ CSR matrix (``row_offsets`` into ``src``/``w``),
 with ``keep(e) = mask[e]`` when a mask is given.  :func:`spmv_reduce_push`
 is its min/max sibling, ``out[v] = ⊕_e keep(e) ? values[src[e]] ⊗ w[e]``
 with ⊕ ∈ {min, max}, ⊗ ∈ {+, ×, min} and the ⊕-identity in rows with no
-kept edge.  They replace the Pallas kernels
-``repro/kernels/spmv/kernel.py::spmv_push`` and ``::spmv_reduce_push``;
-the CUDA sources (``csrc/spmv_push.cu``, ``csrc/spmv_reduce_push.cu``) say
-how and what bounds them.
+kept edge.  :func:`spmv_push_batched` and :func:`spmv_reduce_push_batched`
+push a ``[B, N_src]`` matrix of B value rows through the one shared stream
+in one launch, each output row bitwise equal to the single push of its
+value row.  They replace the Pallas kernels
+``repro/kernels/spmv/kernel.py::spmv_push``, ``::spmv_reduce_push``,
+``::spmv_push_batched`` and ``::spmv_reduce_push_batched``; the CUDA
+sources (``csrc/spmv_push.cu``, ``csrc/spmv_reduce_push.cu``) say how and
+what bounds them.
 
 On a CUDA tensor a wrapper launches its kernel or raises; only a tensor
 that lies on the CPU takes the plain version.  Each source is compiled by
@@ -41,13 +45,16 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-#: (⊕, ⊗, dtype) -> the entry of ``csrc/spmv_reduce_push.cu`` computing it:
-#: one per min/max semiring the port registers
+#: (⊕, ⊗, dtype) -> the name of the entry of ``csrc/spmv_reduce_push.cu``
+#: computing it (``spmv_reduce_push_batched_<name>``): one per min/max
+#: semiring the port registers
 REDUCE_ENTRIES = {
-    ("min", "plus", torch.float32): "spmv_reduce_push_min_plus_f32",
-    ("max", "times", torch.float32): "spmv_reduce_push_max_times_f32",
-    ("min", "min", torch.int32): "spmv_reduce_push_min_min_i32",
+    ("min", "plus", torch.float32): "min_plus_f32",
+    ("max", "times", torch.float32): "max_times_f32",
+    ("min", "min", torch.int32): "min_min_i32",
 }
+#: the kernels' limit on batch rows
+MAX_BATCH = 65535
 
 
 def _nvcc() -> str:
@@ -87,34 +94,33 @@ def build_library(source: Path = SOURCE) -> Path:
 def _kernel_fn(source: Path, entry: str):
     """One entry point of a source's library, built and loaded once per
     process.  Every entry takes six device pointers (values, src, w,
-    row_offsets, mask or null, out), the row count and the stream."""
+    row_offsets, mask or null, out), the row count, the batch, the values'
+    row stride (int64) and the stream."""
     fn = getattr(ctypes.CDLL(str(build_library(source))), entry)
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 6
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(who: str, fn, values, src, w, row_offsets, mask,
-            out: torch.Tensor) -> None:
-    """Launch ``fn`` on the current stream of ``values``' device; raises on
-    a failed launch."""
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream(values.device).cuda_stream
-        err = fn(values.data_ptr(), src.data_ptr(), w.data_ptr(),
-                 row_offsets.data_ptr(),
-                 None if mask is None else mask.data_ptr(),
-                 out.data_ptr(), out.shape[0], stream)
-    if err:
-        raise RuntimeError(f"{who}: kernel launch failed with CUDA error "
-                           f"{err}")
+def _as_rows(who: str, values: torch.Tensor, batched: bool) -> torch.Tensor:
+    """``values`` as ``[B, N_src]`` rows: a batched push takes them so, a
+    single push takes one vector and launches it as the batch of one."""
+    if values.dim() != (2 if batched else 1):
+        raise ValueError(f"{who}: values must be "
+                         f"{'[B, N_src]' if batched else '1-D'}; got shape "
+                         f"{tuple(values.shape)}")
+    return values if batched else values[None]
 
 
-def _check(who: str, values, src, w, row_offsets, mask, dtype) -> None:
+def _check(who: str, rows, src, w, row_offsets, mask, dtype) -> None:
     """Device, dtype, shape and contiguity checks of a kernel's operands;
-    ``values`` and ``w`` must be ``dtype``."""
-    dev = values.device
-    named = [("values", values, (dtype,)), ("src", src, (torch.int32,)),
-             ("w", w, (dtype,)),
+    ``rows`` (``[B, N_src]``) and ``w`` must be ``dtype``.  A
+    non-contiguous bank (transposed or sliced) is refused, not copied: the
+    caller makes it contiguous once."""
+    dev = rows.device
+    named = [("src", src, (torch.int32,)), ("w", w, (dtype,)),
              ("row_offsets", row_offsets, (torch.int32,))]
     if mask is not None:
         named.append(("mask", mask, (torch.bool, torch.uint8)))
@@ -128,12 +134,45 @@ def _check(who: str, values, src, w, row_offsets, mask, dtype) -> None:
         if t.dim() != 1 or not t.is_contiguous():
             raise ValueError(f"{who}: {name} must be 1-D and contiguous; "
                              f"got shape {tuple(t.shape)}")
+    if rows.dtype != dtype:
+        raise ValueError(f"{who}: values must be {dtype}; got {rows.dtype}")
+    if not rows.is_contiguous():
+        raise ValueError(f"{who}: values must be contiguous; got shape "
+                         f"{tuple(rows.shape)}, strides {rows.stride()}")
+    if not 1 <= rows.shape[0] <= MAX_BATCH:
+        raise ValueError(f"{who}: the batch must hold 1 to {MAX_BATCH} rows; "
+                         f"got {rows.shape[0]}")
     if w.shape != src.shape or (mask is not None and mask.shape != src.shape):
         raise ValueError(f"{who}: w and mask must align with src")
     if row_offsets.shape[0] < 1:
         raise ValueError(f"{who}: row_offsets needs num_rows + 1 entries")
-    if max(src.shape[0], values.shape[0], row_offsets.shape[0]) >= 2**31:
+    if max(src.shape[0], rows.shape[1], row_offsets.shape[0]) >= 2**31:
         raise ValueError(f"{who}: sizes must fit in int32")
+
+
+def _kernel_push(who: str, source: Path, entry: str, rows, src, w,
+                 row_offsets, mask) -> torch.Tensor:
+    """Launch ``entry`` over ``rows`` ``[B, N_src]`` on the current stream
+    of their device; returns ``[B, N]`` and raises on a failed launch."""
+    if rows.device.type != "cuda":
+        raise ValueError(f"{who}: unsupported device {rows.device}")
+    _check(who, rows, src, w, row_offsets, mask, rows.dtype)
+    out = torch.empty((rows.shape[0], row_offsets.shape[0] - 1),
+                      dtype=rows.dtype, device=rows.device)
+    if out.numel() == 0:
+        return out
+    fn = _kernel_fn(source, entry)
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream(rows.device).cuda_stream
+        err = fn(rows.data_ptr(), src.data_ptr(), w.data_ptr(),
+                 row_offsets.data_ptr(),
+                 None if mask is None else mask.data_ptr(),
+                 out.data_ptr(), out.shape[1], rows.shape[0], rows.shape[1],
+                 stream)
+    if err:
+        raise RuntimeError(f"{who}: kernel launch failed with CUDA error "
+                           f"{err}")
+    return out
 
 
 def _rows(row_offsets: torch.Tensor):
@@ -147,6 +186,20 @@ def _rows(row_offsets: torch.Tensor):
     return lo, hi, rows
 
 
+def _sum_push(who: str, batched: bool, values, src, w, row_offsets, mask):
+    """The SpMV push of one value vector or of ``[B, N_src]`` value rows:
+    the kernel for CUDA tensors, the plain version for CPU ones."""
+    rows = _as_rows(who, values, batched)
+    if values.device.type == "cpu":
+        return spmv_push_plain(values, src, w, row_offsets, mask)
+    if values.dtype != torch.float32:
+        raise ValueError(f"{who}: values must be {torch.float32}; got "
+                         f"{values.dtype}")
+    out = _kernel_push(who, SOURCE, "spmv_push_batched_f32", rows, src, w,
+                       row_offsets, mask)
+    return out if batched else out[0]
+
+
 def spmv_push(values: torch.Tensor, src: torch.Tensor, w: torch.Tensor,
               row_offsets: torch.Tensor,
               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -157,18 +210,9 @@ def spmv_push(values: torch.Tensor, src: torch.Tensor, w: torch.Tensor,
     u8[E].  CUDA tensors launch the kernel on the current stream (counted in
     ``spmv_push.launches``); CPU tensors take :func:`spmv_push_plain`.
     """
-    if values.device.type == "cpu":
-        return spmv_push_plain(values, src, w, row_offsets, mask)
-    if values.device.type != "cuda":
-        raise ValueError(f"spmv_push: unsupported device {values.device}")
-    _check("spmv_push", values, src, w, row_offsets, mask, torch.float32)
-    out = torch.empty(row_offsets.shape[0] - 1, dtype=torch.float32,
-                      device=values.device)
-    if out.shape[0] == 0:
-        return out
-    _launch("spmv_push", _kernel_fn(SOURCE, "spmv_push_f32"), values, src, w,
-            row_offsets, mask, out)
-    spmv_push.launches += 1
+    out = _sum_push("spmv_push", False, values, src, w, row_offsets, mask)
+    if values.is_cuda and out.numel():
+        spmv_push.launches += 1
     return out
 
 
@@ -176,22 +220,48 @@ def spmv_push(values: torch.Tensor, src: torch.Tensor, w: torch.Tensor,
 spmv_push.launches = 0
 
 
+def spmv_push_batched(values: torch.Tensor, src: torch.Tensor,
+                      w: torch.Tensor, row_offsets: torch.Tensor,
+                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """f32[B, N]: :func:`spmv_push` of each row of ``values`` f32[B, N_src]
+    (row-major and contiguous) through the one stream, in one launch; the
+    mask is per edge, shared by the rows.  Each output row is bitwise equal
+    to :func:`spmv_push` of its value row.  CUDA tensors launch the kernel
+    on the current stream (counted in ``spmv_push_batched.launches``); CPU
+    tensors take :func:`spmv_push_batched_plain`."""
+    out = _sum_push("spmv_push_batched", True, values, src, w, row_offsets,
+                    mask)
+    if values.is_cuda and out.numel():
+        spmv_push_batched.launches += 1
+    return out
+
+
+#: kernel launches since the last reset (a plain integer)
+spmv_push_batched.launches = 0
+
+
 def spmv_push_plain(values: torch.Tensor, src: torch.Tensor, w: torch.Tensor,
                     row_offsets: torch.Tensor,
                     mask: Optional[torch.Tensor] = None, *,
                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """The plain PyTorch version of :func:`spmv_push`: an ``index_add_``
-    over ``values[src]·w`` in edge order, computed in ``dtype``.  In f32 it
-    repeats the JAX package's sequential segment sum; ``torch.float64``
-    makes it the oracle the kernel is held against (a sequential f32 sum
-    over a 240k-edge hub row drifts ~1e-4 relative from it)."""
+    """The plain PyTorch version of :func:`spmv_push` (and, for ``[B,
+    N_src]`` values, of :func:`spmv_push_batched`): an ``index_add_`` along
+    the last axis over ``values[..., src]·w`` in edge order, computed in
+    ``dtype``.  In f32 it repeats the JAX package's sequential segment sum;
+    ``torch.float64`` makes it the oracle the kernel is held against (a
+    sequential f32 sum over a 240k-edge hub row drifts ~1e-4 relative from
+    it)."""
     lo, hi, rows = _rows(row_offsets)
-    contrib = values.to(dtype)[src[lo:hi].long()] * w[lo:hi].to(dtype)
+    contrib = values.to(dtype)[..., src[lo:hi].long()] * w[lo:hi].to(dtype)
     if mask is not None:
         contrib = torch.where(mask[lo:hi].bool(), contrib, 0.0)
-    out = torch.zeros(row_offsets.shape[0] - 1, dtype=dtype,
-                      device=values.device)
-    return out.index_add_(0, rows, contrib)
+    out = torch.zeros(values.shape[:-1] + (row_offsets.shape[0] - 1,),
+                      dtype=dtype, device=values.device)
+    return out.index_add_(-1, rows, contrib)
+
+
+#: the plain version of :func:`spmv_push_batched`
+spmv_push_batched_plain = spmv_push_plain
 
 
 def reduce_identity(dtype: torch.dtype, op: str):
@@ -203,6 +273,24 @@ def reduce_identity(dtype: torch.dtype, op: str):
         return float("inf") if op == "min" else float("-inf")
     info = torch.iinfo(dtype)
     return info.max if op == "min" else info.min
+
+
+def _reduce_push(who: str, batched: bool, values, src, w, row_offsets, mask,
+                 op: str, mul: str):
+    """The min/max push of one value vector or of ``[B, N_src]`` value rows:
+    the kernel for CUDA tensors, the plain version for CPU ones."""
+    rows = _as_rows(who, values, batched)
+    if values.device.type == "cpu":
+        return spmv_reduce_push_plain(values, src, w, row_offsets, mask,
+                                      op=op, mul=mul)
+    name = REDUCE_ENTRIES.get((op, mul, values.dtype))
+    if name is None:
+        raise ValueError(f"{who}: no kernel for (op={op!r}, mul={mul!r}, "
+                         f"{values.dtype}); it has "
+                         f"{sorted(REDUCE_ENTRIES.values())}")
+    out = _kernel_push(who, REDUCE_SOURCE, f"spmv_reduce_push_batched_{name}",
+                       rows, src, w, row_offsets, mask)
+    return out if batched else out[0]
 
 
 def spmv_reduce_push(values: torch.Tensor, src: torch.Tensor,
@@ -220,26 +308,10 @@ def spmv_reduce_push(values: torch.Tensor, src: torch.Tensor,
     ``spmv_reduce_push.launches``); CPU tensors take
     :func:`spmv_reduce_push_plain`.
     """
-    if values.device.type == "cpu":
-        return spmv_reduce_push_plain(values, src, w, row_offsets, mask,
-                                      op=op, mul=mul)
-    if values.device.type != "cuda":
-        raise ValueError(f"spmv_reduce_push: unsupported device "
-                         f"{values.device}")
-    entry = REDUCE_ENTRIES.get((op, mul, values.dtype))
-    if entry is None:
-        raise ValueError(f"spmv_reduce_push: no kernel for (op={op!r}, "
-                         f"mul={mul!r}, {values.dtype}); it has "
-                         f"{sorted(REDUCE_ENTRIES.values())}")
-    _check("spmv_reduce_push", values, src, w, row_offsets, mask,
-           values.dtype)
-    out = torch.empty(row_offsets.shape[0] - 1, dtype=values.dtype,
-                      device=values.device)
-    if out.shape[0] == 0:
-        return out
-    _launch("spmv_reduce_push", _kernel_fn(REDUCE_SOURCE, entry), values,
-            src, w, row_offsets, mask, out)
-    spmv_reduce_push.launches += 1
+    out = _reduce_push("spmv_reduce_push", False, values, src, w,
+                       row_offsets, mask, op, mul)
+    if values.is_cuda and out.numel():
+        spmv_reduce_push.launches += 1
     return out
 
 
@@ -247,26 +319,54 @@ def spmv_reduce_push(values: torch.Tensor, src: torch.Tensor,
 spmv_reduce_push.launches = 0
 
 
+def spmv_reduce_push_batched(values: torch.Tensor, src: torch.Tensor,
+                             w: torch.Tensor, row_offsets: torch.Tensor,
+                             mask: Optional[torch.Tensor] = None, *, op: str,
+                             mul: str) -> torch.Tensor:
+    """``[B, N]``: :func:`spmv_reduce_push` of each row of ``values``
+    ``[B, N_src]`` (row-major and contiguous) through the one stream, in one
+    launch; the mask is per edge, shared by the rows.  Each output row is
+    bitwise equal to :func:`spmv_reduce_push` of its value row.  CUDA
+    tensors launch the kernel on the current stream (counted in
+    ``spmv_reduce_push_batched.launches``); CPU tensors take
+    :func:`spmv_reduce_push_batched_plain`."""
+    out = _reduce_push("spmv_reduce_push_batched", True, values, src, w,
+                       row_offsets, mask, op, mul)
+    if values.is_cuda and out.numel():
+        spmv_reduce_push_batched.launches += 1
+    return out
+
+
+#: kernel launches since the last reset (a plain integer)
+spmv_reduce_push_batched.launches = 0
+
+
 def spmv_reduce_push_plain(values: torch.Tensor, src: torch.Tensor,
                            w: torch.Tensor, row_offsets: torch.Tensor,
                            mask: Optional[torch.Tensor] = None, *, op: str,
                            mul: str) -> torch.Tensor:
-    """The plain PyTorch version of :func:`spmv_reduce_push`: the
-    ``scatter_reduce`` segment reduce of ``values[src] ⊗ w`` over each
-    row's edge range, with masked edges at the identity.  Min and max give
-    the same answer in any order, and NaN propagates."""
+    """The plain PyTorch version of :func:`spmv_reduce_push` (and, for
+    ``[B, N_src]`` values, of :func:`spmv_reduce_push_batched`): the
+    ``scatter_reduce`` segment reduce along the last axis of ``values[...,
+    src] ⊗ w`` over each row's edge range, with masked edges at the
+    identity.  Min and max give the same answer in any order, and NaN
+    propagates."""
     ident = reduce_identity(values.dtype, op)
     if mul not in ("plus", "times", "min"):
         raise ValueError(f"mul must be 'plus', 'times' or 'min', got "
                          f"{mul!r}")
     lo, hi, rows = _rows(row_offsets)
-    x, wt = values[src[lo:hi].long()], w[lo:hi]
+    x, wt = values[..., src[lo:hi].long()], w[lo:hi]
     contrib = (x + wt if mul == "plus" else x * wt if mul == "times"
                else torch.minimum(x, wt))
     if mask is not None:
         contrib = torch.where(mask[lo:hi].bool(), contrib, ident)
-    out = torch.full((row_offsets.shape[0] - 1,), ident, dtype=values.dtype,
-                     device=values.device)
-    return out.scatter_reduce_(0, rows, contrib,
+    out = torch.full(values.shape[:-1] + (row_offsets.shape[0] - 1,), ident,
+                     dtype=values.dtype, device=values.device)
+    return out.scatter_reduce_(-1, rows.expand(contrib.shape), contrib,
                                reduce="amin" if op == "min" else "amax",
                                include_self=True)
+
+
+#: the plain version of :func:`spmv_reduce_push_batched`
+spmv_reduce_push_batched_plain = spmv_reduce_push_plain

@@ -128,7 +128,8 @@ def test_import_pulls_in_neither_jax_nor_the_reference():
         import repro_torch
         assert callable(repro_torch.session)
         import repro_torch.core.engine, repro_torch.convert
-        import repro_torch.kernels.spmv.kernel
+        import repro_torch.kernels.spmv.kernel, repro_torch.serve.graph
+        import repro_torch.core.hits, repro_torch.core.katz
         bad = sorted(m for m in sys.modules
                      if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))
         assert not bad, bad
@@ -154,9 +155,16 @@ def test_unported_knobs_raise(knob, value):
 @pytest.mark.parametrize("name", ["personalized-pagerank", "ppr", "hits",
                                   "katz"])
 def test_unported_algorithms_raise(name):
+    # every registered algorithm is ported; what these still lack is the
+    # closed quality loop (their drift residual), which raises by entry
     src, dst = barabasi_albert_edges(100, 2, 0, 0.3)
-    with pytest.raises(NotImplementedError, match="entry 10"):
-        repro_torch.session((src, dst), name, device="cpu")
+    s = repro_torch.session((src, dst), name, device="cpu")
+    assert s.algorithm.name == {"ppr": "personalized-pagerank"}.get(name,
+                                                                    name)
+    assert s.algorithm.name in repro_torch.available_algorithms()
+    with pytest.raises(NotImplementedError, match="entry 11"):
+        repro_torch.session((src, dst), name, device="cpu",
+                            quality_target=0.9)
 
 
 @pytest.mark.parametrize("name,canonical", [
@@ -183,8 +191,15 @@ def test_backend_names_and_serving_raise():
     for name in ("pallas", "segment_sum"):
         with pytest.raises(ValueError, match="device"):
             repro_torch.session((src, dst), device="cpu", backend=name)
-    with pytest.raises(NotImplementedError, match="entry 12"):
-        repro_torch.serve_session((src, dst), device="cpu")
+    # serving runs; its later-slice knobs raise naming their entries
+    with repro_torch.serve_session((src, dst), device="cpu") as srv:
+        assert srv.slots == 4 and srv.pending == 0
+    for knob, value, entry in (("async_rebuild", True, "entry 13"),
+                               ("quality_target", 0.9, "entry 11"),
+                               ("num_shards", 2, "entry 15")):
+        with pytest.raises(NotImplementedError, match=entry):
+            repro_torch.serve_session((src, dst), device="cpu",
+                                      **{knob: value})
     with pytest.raises(KeyError):
         repro_torch.session((src, dst), "no-such-algorithm", device="cpu")
 

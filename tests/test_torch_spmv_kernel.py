@@ -140,11 +140,24 @@ def test_push_on_the_gpu_runs_the_kernel_or_raises(cuda_device):
     assert torch.equal(widths.cpu(), B.push(values.cpu(), B.build_layout(
         from_edges(src, dst, 50, 450, device="cpu"), weight="unit",
         semiring="max_times"), semiring="max_times"))
-    with pytest.raises(NotImplementedError, match="queue 2 entry 3"):
+    # a [B, N] push is one launch of the batched kernel of its semiring,
+    # and a bank that is not contiguous is refused, not copied
+    from repro_torch.kernels.spmv.kernel import (spmv_push_batched,
+                                                 spmv_reduce_push_batched)
+    bank = torch.stack([values, values * 0.5])
+    counts = lambda: (spmv_push.launches, spmv_reduce_push.launches,
+                      spmv_push_batched.launches,
+                      spmv_reduce_push_batched.launches)
+    before = counts()
+    sums = B.push(bank, B.build_layout(state))
+    widths = B.push(bank, B.build_layout(state, weight="unit",
+                                         semiring="max_times"),
+                    semiring="max_times")
+    assert counts() == (before[0], before[1], before[2] + 1, before[3] + 1)
+    np.testing.assert_allclose(sums[0].cpu().numpy(), out.cpu().numpy(),
+                               **TOL)
+    assert sums.shape == widths.shape == (2, 50)
+    with pytest.raises(ValueError, match="contiguous"):
         B.push(values[None].expand(2, -1), B.build_layout(state))
-    with pytest.raises(NotImplementedError, match="queue 2 entry 4"):
-        B.push(values[None].expand(2, -1).contiguous(),
-               B.build_layout(state, weight="unit", semiring="max_times"),
-               semiring="max_times")
     with pytest.raises(NotImplementedError, match="queue 1 entry 14"):
         B.push(values, B.build_layout(state, weight_dtype="bfloat16"))
