@@ -3,12 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds both kernel sources from ``src/repro_torch/kernels/spmv/csrc`` (the
-SpMV push and the min/max push, each in a single and a batched form; one
-``nvcc`` per source, started together) and holds every kernel against its
-plain version at the shapes its path gives it, each batched row also
-bitwise against the single kernel.  Then it drives three paths over the
-``synth-web-lg`` stream:
+Builds the four kernel sources (``src/repro_torch/kernels/*/csrc``: the
+SpMV push and the min/max push, each in a single and a batched form, the
+flash attention forward and decode attention; one ``nvcc`` per source,
+started together) and holds every kernel against its plain version at the
+shapes its path gives it, each batched row also bitwise against the single
+kernel.  Then it drives three paths over the ``synth-web-lg`` stream:
 
 - PageRank through ``repro_torch.session``: the initial exact query, 11
   approximate queries and one exact one, every push through ``spmv_push``;
@@ -27,6 +27,19 @@ bitwise against the single kernel.  Then it drives three paths over the
   lanes is held against an f64 replay of its wave, from a bank rebuilt
   from the wave's tickets alone.
 
+and one LM path:
+
+- the two attention kernels against their plain versions at Qwen2-0.5B's
+  widths (f32 against f64, bf16 against f64), timed in bf16 beside the
+  plain version and ``scaled_dot_product_attention``;
+- LM serving through ``repro_torch.serve.ServingEngine`` on Qwen2-0.5B at
+  full width (24 layers, seeded weights, greedy): 16 requests of 2048
+  prompt tokens and 64 new tokens on 8 slots, every attention call one
+  launch of ``flash_attention`` (prefill) or ``decode_attention`` (decode
+  step) and no plain call; wave 0 is replayed on the card through the
+  plain attention versions on the served tokens, and every step's logits
+  must agree.
+
 It prints one JSON line per phase.  The line before the last lists the
 kernels; the last is ``{"ok": true, "device": {...}}``.  Any failed check
 raises and the script exits non-zero.  It needs a CUDA device and the
@@ -35,6 +48,7 @@ repository's ``src/`` beside it, and imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -520,29 +534,42 @@ def batched_checks(src, dst, nodes, dev, rng, hot) -> list:
     return rows
 
 
-def pending_bounds() -> list:
-    """Least device times of the TPU kernels still to port, worked out from
-    their shapes (each input read once, each output written once) at
-    Qwen2-0.5B's widths (14 heads, 2 KV heads, head dim 64, bf16)."""
-    def bound(name, nbytes, ops, peak, shape):
-        byte_s, op_s = nbytes / HBM_BYTES_PER_S, ops / peak
-        return {"phase": "pending-kernel-bound", "kernel": name,
-                "shape": shape, "bytes": nbytes, "operations": ops,
-                "bound_us": max(byte_s, op_s) * 1e6,
-                "bound_by": "bytes" if byte_s >= op_s else "operations"}
+def attention_bound(*, b, sq, skv, h, kv, hd, vd, pairs, elt=2) -> dict:
+    """The least device time of one attention call: its bytes (q, the K/V
+    slots it needs, the output, each once, ``elt`` bytes an element) over
+    HBM's rate, or its operations (2 (hd + vd) per allowed (query, key)
+    pair and head) over the bf16 tensor-core peak, whichever is longer."""
+    nbytes = elt * (b * sq * h * (hd + vd) + b * skv * kv * (hd + vd))
+    ops = 2 * (hd + vd) * h * b * pairs
+    byte_s, op_s = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS
+    return {"bytes": nbytes, "operations": ops,
+            "bound_ms": max(byte_s, op_s) * 1e3,
+            "bound_us": max(byte_s, op_s) * 1e6,
+            "bound_by": "bytes" if byte_s >= op_s else "operations"}
 
+
+def allowed_pairs(sq, skv, causal, window) -> int:
+    """(query, key) pairs the masks allow: row i sees keys [lo, hi)."""
+    i = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(skv, i + 1) if causal else np.full(sq, skv)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def attention_bounds() -> list:
+    """The attention kernels' least device times at Qwen2-0.5B's widths (14
+    heads, 2 KV heads, head dim 64, bf16): causal prefill B = 1, S = 4096,
+    and decode B = 8 against a full cache of 4096 slots."""
     h, kv, hd, s = 14, 2, 64, 4096
-    # causal prefill, batch 1: QK^T and PV, half the square
-    out = [bound("flash_attention",
-                 2 * 2 * s * h * hd + 2 * 2 * s * kv * hd,
-                 2 * h * s * s * hd, BF16_FLOPS,
-                 f"Qwen2-0.5B causal prefill, B=1, S={s}")]
-    b = 8  # decode: one token per sequence against an S-slot cache
-    out.append(bound("decode_attention_kernel",
-                     2 * 2 * b * s * kv * hd + 2 * 2 * b * h * hd,
-                     4 * b * h * s * hd, BF16_FLOPS,
-                     f"Qwen2-0.5B decode, B={b}, cache S={s}"))
-    return out
+    return [
+        {"phase": "attention-kernel-bound", "kernel": "flash_attention",
+         "shape": f"Qwen2-0.5B causal prefill, B=1, S={s}",
+         **attention_bound(b=1, sq=s, skv=s, h=h, kv=kv, hd=hd, vd=hd,
+                           pairs=allowed_pairs(s, s, True, None))},
+        {"phase": "attention-kernel-bound", "kernel": "decode_attention",
+         "shape": f"Qwen2-0.5B decode, B=8, cache S={s}",
+         **attention_bound(b=8, sq=1, skv=s, h=h, kv=kv, hd=hd, vd=hd,
+                           pairs=s)}]
 
 
 def exact_reference(state, beta: float = 0.85, iters: int = 30):
@@ -949,21 +976,29 @@ def traversal_path(stream, dev, rng):
     return out, ek_check, launches, pushes
 
 
-KERNEL_NAMES = ("spmv_push", "spmv_reduce_push", "spmv_push_batched",
-                "spmv_reduce_push_batched")
+#: every kernel wrapper of the port -> the kernel family that holds it
+KERNELS = {"spmv_push": "spmv", "spmv_reduce_push": "spmv",
+           "spmv_push_batched": "spmv", "spmv_reduce_push_batched": "spmv",
+           "flash_attention": "flash_attention",
+           "decode_attention": "decode_attention"}
+KERNEL_NAMES = tuple(KERNELS)
+
+
+def wrapper(name: str):
+    """The wrapper function of a kernel (its ``.launches`` is the count)."""
+    import importlib
+
+    return getattr(importlib.import_module(
+        f"repro_torch.kernels.{KERNELS[name]}.kernel"), name)
 
 
 def launch_counts() -> dict:
-    from repro_torch.kernels.spmv import kernel as K
-
-    return {k: getattr(K, k).launches for k in KERNEL_NAMES}
+    return {k: wrapper(k).launches for k in KERNEL_NAMES}
 
 
 def reset_launch_counts() -> None:
-    from repro_torch.kernels.spmv import kernel as K
-
     for k in KERNEL_NAMES:
-        getattr(K, k).launches = 0
+        wrapper(k).launches = 0
 
 
 def serving_plan(src, dst, nodes, rng) -> list:
@@ -1370,6 +1405,400 @@ def serving_path(stream, src, dst, nodes, dev, rng):
     return out, checks, counts
 
 
+# ---- the LM serving path (Qwen2-0.5B) -----------------------------------
+LM_ARCH = "qwen2_0_5b"
+LM_SLOTS, LM_REQUESTS, LM_PROMPT, LM_NEW, LM_MAX_LEN = 8, 16, 2048, 64, 4096
+# served logits against a replay through the plain attention versions:
+# max |diff| <= LM_LOGIT_TOL * max(max |logit|, 1), the bf16 tolerance of
+# tests/test_arch_smoke.py
+LM_LOGIT_TOL = 0.05
+# the attention checks: (tag, kind, shape); flash (B, S, H, KV, hd, vd,
+# causal, window), decode (B, S, H, KV, hd, vd, cache_len)
+ATTN_F32_TOL = 1e-5         # kernel in f32 vs the f64 plain version
+# kernel in bf16 vs the f64 plain version on the same bf16 inputs: both
+# widen the inputs exactly, so the only bf16 error is the output's
+# round-to-nearest, at most 2^-8 = 3.9e-3 of its value, over the f32 sums'
+# error (at most 1.2e-6 in the f32 rows): |err| <= ATOL + RTOL |ref|
+ATTN_BF16_RTOL, ATTN_BF16_ATOL = 5e-3, 1e-5
+ATTENTION_CHECKS = (
+    ("Qwen2-0.5B causal prefill, B=1, S=4096", "flash",
+     (1, 4096, 14, 2, 64, 64, True, None)),
+    ("served prefill, B=8, S=2048", "flash",
+     (8, 2048, 14, 2, 64, 64, True, None)),
+    ("window 512, B=2, S=4096", "flash",
+     (2, 4096, 14, 2, 64, 64, True, 512)),
+    ("S=3001 (not a tile multiple), B=1", "flash",
+     (1, 3001, 14, 2, 64, 64, True, None)),
+    ("Qwen2-0.5B decode, B=8, S=4096, cache_len=4096", "decode",
+     (8, 4096, 14, 2, 64, 64, 4096)),
+    ("Qwen2-0.5B decode, B=8, S=4096, cache_len=2100", "decode",
+     (8, 4096, 14, 2, 64, 64, 2100)),
+)
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Mean device time of ``fn()`` over ``reps`` calls captured in one
+    CUDA graph and replayed: the calls' host cost (argument checks, the
+    launches themselves) is left out, which sets the time of a kernel that
+    runs for tens of microseconds."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+def max_excess(out, ref, atol, rtol=None) -> tuple:
+    """(max |out - ref|, max of |out - ref| / (atol + rtol |ref|)): the
+    check passes where the second is at most 1; rtol defaults to atol."""
+    rtol = atol if rtol is None else rtol
+    err = (out.double() - ref.double()).abs()
+    share = err / (atol + rtol * ref.double().abs())
+    return float(err.max()), float(share.max())
+
+
+def attention_case(kind, shape, dev) -> tuple:
+    """(dims, run, plain, pairs, bound, library) of one attention check:
+    the q, k, v shapes, the kernel call and its plain version as the model
+    path makes them (``plain(q, k, v, dtype)``), the allowed (query, key)
+    pairs, the bound, and ``library(q, k, v) -> (call, to_bshd)`` for
+    ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention, decode_attention_plain)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention, flash_attention_plain)
+
+    b, s, h, kv, hd, vd = shape[:6]
+    if kind == "flash":
+        causal, window = shape[6:]
+        dims = ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, vd))
+        # the plain version's tiles are the model config's
+        tiles = dict(causal=causal, window=window, q_block=512,
+                     kv_block=1024)
+        run = lambda q, k, v: flash_attention(q, k, v, causal=causal,
+                                              window=window)
+        plain = lambda q, k, v, dtype=None: flash_attention_plain(
+            q, k, v, dtype=dtype, **tiles)
+        pairs = allowed_pairs(s, s, causal, window)
+        bound = attention_bound(b=b, sq=s, skv=s, h=h, kv=kv, hd=hd, vd=vd,
+                                pairs=pairs)
+        mask = None
+        if window is not None:
+            i = torch.arange(s, device=dev)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
+                                                 - window)
+
+        def library(q, k, v):
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            return (lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True)), lambda o: o.transpose(1, 2)
+    else:
+        clen = shape[6]
+        n = min(clen, s)
+        dims = ((b, 1, h, hd), (b, s, kv, hd), (b, s, kv, vd))
+        length = torch.tensor(clen, dtype=torch.int32, device=dev)
+        run = lambda q, k, v: decode_attention(q, k, v, length)
+        plain = lambda q, k, v, dtype=None: decode_attention_plain(
+            q, k, v, length, dtype=dtype)
+        pairs = n
+        bound = attention_bound(b=b, sq=1, skv=n, h=h, kv=kv, hd=hd, vd=vd,
+                                pairs=pairs)
+
+        def library(q, k, v):
+            qt = q.transpose(1, 2).contiguous()
+            kt, vt = (t.transpose(1, 2).contiguous()[:, :, :n]
+                      for t in (k, v))
+            return (lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, enable_gqa=True)), lambda o: o.transpose(1, 2)
+    return dims, run, plain, pairs, bound, library
+
+
+def check_attention_kernel(tag, kind, shape, rng, dev) -> dict:
+    """Hold one attention kernel against its plain version on the card: in
+    f32 against the plain version in f32 and in f64, and in bf16 (the
+    served dtype) against f64; then time kernel, plain version and
+    ``scaled_dot_product_attention`` in bf16 on the same inputs, each from
+    a replayed CUDA graph (:func:`graph_ms`)."""
+    dims, run, plain, pairs, bound, library = attention_case(kind, shape,
+                                                             dev)
+    q, k, v = (torch.from_numpy(rng.standard_normal(d).astype(np.float32))
+               .to(dev) for d in dims)
+    out = run(q, k, v)
+    torch.cuda.synchronize()
+    ref64 = plain(q, k, v, torch.float64)
+    err_f64, share32 = max_excess(out, ref64, ATTN_F32_TOL)
+    err_plain = float((out - plain(q, k, v)).abs().max())
+    del ref64
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    out = run(q, k, v)
+    ref64 = plain(q, k, v, torch.float64)
+    err_bf16, share16 = max_excess(out, ref64, ATTN_BF16_ATOL,
+                                   ATTN_BF16_RTOL)
+    if share32 > 1 or share16 > 1 or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{kind} attention, {tag}: kernel disagrees with "
+                             f"its f64 plain version (f32 max abs err "
+                             f"{err_f64}, bf16 {err_bf16})")
+    lib_fn, lib_out = library(q, k, v)
+    lib_err = float((lib_out(lib_fn()).double() - ref64).abs().max())
+    del ref64, out
+    eager_ms = cuda_ms(lambda: run(q, k, v))
+    kernel_ms = graph_ms(lambda: run(q, k, v))
+    plain_ms = graph_ms(lambda: plain(q, k, v))
+    library_ms = graph_ms(lib_fn)
+    return {"phase": "attention-kernel-check", "kernel": (
+                "flash_attention" if kind == "flash" else "decode_attention"),
+            "shape": tag, "dims": list(shape), "pairs": pairs,
+            "f32_max_abs_err_vs_f64": err_f64,
+            "f32_max_abs_err_vs_plain_f32": err_plain,
+            "bf16_max_abs_err_vs_f64": err_bf16,
+            "share_of_limit": {"f32": share32, "bf16": share16},
+            "tolerance": {
+                "f32": {"atol": ATTN_F32_TOL, "rtol": ATTN_F32_TOL},
+                "bf16": {"atol": ATTN_BF16_ATOL, "rtol": ATTN_BF16_RTOL}},
+            "library": "scaled_dot_product_attention(enable_gqa=True)",
+            "library_bf16_max_abs_err_vs_f64": lib_err,
+            "kernel_ms": kernel_ms, "kernel_eager_ms": eager_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "timing": "device time of 20 calls replayed from one CUDA graph; "
+                      "kernel_eager_ms: 20 eager calls back to back, their "
+                      "host cost included",
+            **bound,
+            "roofline_share": bound["bound_ms"] / kernel_ms}
+
+
+@contextlib.contextmanager
+def counting_plain_attention(calls: list):
+    """Count every call of the attention plain versions, wherever the
+    model or a wrapper reaches them, while the block runs."""
+    from repro_torch.kernels.decode_attention import kernel as DA
+    from repro_torch.kernels.flash_attention import kernel as FA
+
+    def counted(fn):
+        def call(*args, **kwargs):
+            calls.append(fn.__name__)
+            return fn(*args, **kwargs)
+        return call
+
+    saved = [(FA, "flash_attention_plain", FA.flash_attention_plain),
+             (DA, "decode_attention_plain", DA.decode_attention_plain)]
+    for mod, n, fn in saved:
+        setattr(mod, n, counted(fn))
+    try:
+        yield
+    finally:
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
+
+
+@contextlib.contextmanager
+def plain_attention_layers():
+    """Within this block the model's attention calls run the kernels' plain
+    versions, on any device: the replay the served logits are held
+    against."""
+    from repro_torch.kernels.decode_attention.kernel import (
+        decode_attention_plain)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_plain)
+    from repro_torch.models import layers as L
+
+    saved = L.flash_attention, L.decode_attention_kernel
+    L.flash_attention = flash_attention_plain
+    L.decode_attention_kernel = decode_attention_plain
+    try:
+        yield
+    finally:
+        L.flash_attention, L.decode_attention_kernel = saved
+
+
+def lm_serve_path(dev, rng) -> tuple:
+    """Serve LM_REQUESTS random prompts on Qwen2-0.5B at full width (seeded
+    weights, greedy) through ``repro_torch.serve.ServingEngine``, every
+    attention call a kernel launch (counts set to 0 just before, read just
+    after).  Returns (row, engine, prompts, counts); the engine keeps wave
+    0's logits and tokens for the replay."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import init_params, param_count_actual
+    from repro_torch.serve.engine import Request, ServingEngine
+
+    class RecordingEngine(ServingEngine):
+        """Keeps wave 0's (logits, token) at every selection."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.wave, self.record = -1, []
+
+        def _run_wave(self, wave, stats):
+            self.wave += 1
+            super()._run_wave(wave, stats)
+
+        def _select(self, logits):
+            cur = super()._select(logits)
+            if self.wave == 0:
+                self.record.append((logits.clone(), cur.clone()))
+            return cur
+
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    engine = RecordingEngine(cfg, params, batch_slots=LM_SLOTS,
+                             max_len=LM_MAX_LEN, device=dev)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t0
+    prompts = rng.integers(0, cfg.vocab_size, (LM_REQUESTS, LM_PROMPT),
+                           dtype=np.int32)
+    reqs = [Request(prompt=prompts[i], max_new_tokens=LM_NEW, id=i)
+            for i in range(LM_REQUESTS)]
+    torch.cuda.reset_peak_memory_stats()
+    plain_calls = []
+    with counting_plain_attention(plain_calls):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = engine.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    if plain_calls:
+        raise AssertionError(f"LM serving called a plain version: "
+                             f"{sorted(set(plain_calls))}")
+    waves = -(-LM_REQUESTS // LM_SLOTS)
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want.update(flash_attention=cfg.num_layers * waves,
+                decode_attention=cfg.num_layers * stats.steps)
+    if counts != want:
+        raise AssertionError(f"LM serving launched {counts}, expected {want} "
+                             f"(one flash launch per layer and prefill, one "
+                             f"decode launch per layer and step)")
+    for r in reqs:
+        if len(r.output) != LM_NEW or not all(
+                0 <= t < cfg.vocab_size for t in r.output):
+            raise AssertionError(f"request {r.id}: output {r.output[:8]}...")
+    # one decode step of the served shape alone (cache_len ≈ wave 0's
+    # midpoint): eager, and its device time from a replayed CUDA graph;
+    # their ratio is the device's busy share of a step's model call
+    from repro_torch.models.transformer import init_cache, lm_decode_step
+    cache = init_cache(cfg, LM_SLOTS, LM_MAX_LEN, device=dev)
+    token = torch.zeros((LM_SLOTS, 1), dtype=torch.int32, device=dev)
+    pos = torch.tensor(LM_PROMPT + LM_NEW // 2, dtype=torch.int32, device=dev)
+    step = lambda: lm_decode_step(engine.params, cfg, cache, token, pos)
+    step_eager_ms = cuda_ms(step, reps=10)
+    step_device_ms = graph_ms(step, reps=10)
+    del cache
+    row = {"phase": "lm-serve", "model": cfg.name,
+           "params": param_count_actual(cfg), "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "heads": cfg.num_heads,
+           "kv_heads": cfg.num_kv_heads, "vocab": cfg.vocab_size,
+           "activation_dtype": cfg.activation_dtype, "requests": LM_REQUESTS,
+           "slots": LM_SLOTS, "prompt_len": LM_PROMPT, "new_tokens": LM_NEW,
+           "max_len": LM_MAX_LEN, "waves": waves, "setup_s": setup_s,
+           "wall_s": wall, "prefill_s": stats.prefill_s,
+           "decode_s": stats.decode_s, "steps": stats.steps,
+           "tokens_out": stats.tokens_out,
+           "tokens_per_s": stats.tokens_per_s,
+           "ms_per_decode_step": stats.decode_s / stats.steps * 1e3,
+           "prefill_ms_per_wave": stats.prefill_s / waves * 1e3,
+           "decode_step_eager_ms": step_eager_ms,
+           "decode_step_device_ms": step_device_ms,
+           "decode_step_device_busy_share": step_device_ms / step_eager_ms,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": counts, "plain_attention_calls": len(plain_calls)}
+    return row, engine, prompts, counts
+
+
+def lm_teacher_forced(engine, prompts, dev) -> dict:
+    """Replay wave 0 on the card through the plain attention versions: the
+    prefill, then every decode step fed the kernel path's token.  Each
+    step's logits must agree with the served ones within LM_LOGIT_TOL; the
+    free-running greedy agreement of the plain path (its own tokens) is
+    reported, not asserted."""
+    from repro_torch.models.transformer import lm_decode_step, lm_prefill
+
+    cfg, rec = engine.cfg, engine.record
+    before = launch_counts()
+    errs, scales, forced_agree, free_agree = [], [], 0, []
+    t0 = time.perf_counter()
+
+    def compare(logits, step):
+        ref = rec[step][0]
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"replay step {step}: logits not finite")
+        errs.append(float((logits.float() - ref.float()).abs().max()))
+        scales.append(float(ref.float().abs().max()))
+        return int((logits.argmax(-1).int() == rec[step][1]).sum())
+
+    with plain_attention_layers():
+        toks = torch.from_numpy(prompts[:LM_SLOTS]).to(dev)
+        logits, cache = lm_prefill(engine.params, cfg, toks,
+                                   cache_len=engine.max_len)
+        last = logits[:, -1].clone()
+        del logits
+        free_cache = {"kv": {k: t.clone() for k, t in cache["kv"].items()}}
+        forced_agree += compare(last, 0)
+        for step in range(1, len(rec)):
+            pos = torch.tensor(LM_PROMPT + step - 1, dtype=torch.int32,
+                               device=dev)
+            lg, cache = lm_decode_step(engine.params, cfg, cache,
+                                       rec[step - 1][1][:, None], pos)
+            forced_agree += compare(lg[:, -1], step)
+        del cache
+        cur = last.argmax(-1).int()
+        free_agree.append(cur == rec[0][1])
+        for step in range(1, len(rec)):
+            pos = torch.tensor(LM_PROMPT + step - 1, dtype=torch.int32,
+                               device=dev)
+            lg, free_cache = lm_decode_step(engine.params, cfg, free_cache,
+                                            cur[:, None], pos)
+            cur = lg[:, -1].argmax(-1).int()
+            free_agree.append(cur == rec[step][1])
+    torch.cuda.synchronize()
+    if launch_counts() != before:
+        raise AssertionError("the plain replay launched a kernel")
+    limits = [LM_LOGIT_TOL * max(sc, 1.0) for sc in scales]
+    worst = max(range(len(errs)), key=lambda i: errs[i] / limits[i])
+    same = torch.stack(free_agree).cpu()          # (steps, B)
+    first_diff = [int(same[:, i].logical_not().nonzero()[0])
+                  if not bool(same[:, i].all()) else None
+                  for i in range(same.shape[1])]
+    row = {"phase": "lm-teacher-forced", "wave": 0, "steps": len(rec),
+           "wall_s": time.perf_counter() - t0,
+           "prefill_last_max_abs_diff": errs[0],
+           "prefill_last_max_abs_logit": scales[0],
+           "decode_max_abs_diff": max(errs[1:]),
+           "decode_max_abs_logit": max(scales[1:]),
+           "worst_step": worst, "worst_step_share_of_limit":
+               errs[worst] / limits[worst],
+           "limit": f"{LM_LOGIT_TOL} * max(max|logit|, 1)",
+           "teacher_forced_argmax_agreement": forced_agree / (
+               len(rec) * LM_SLOTS),
+           "free_running_token_agreement": float(same.float().mean()),
+           "free_running_first_divergence": first_diff}
+    if any(e > lim for e, lim in zip(errs, limits)):
+        raise AssertionError(f"served logits disagree with the plain replay: "
+                             f"{row}")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -1379,6 +1808,9 @@ def main() -> int:
     from repro_torch.core.backend import build_layout, summary_layout
     from repro_torch.graph.generators import DATASETS, generate, gnm_edges
     from repro_torch.graph.graph import from_edges
+    from repro_torch.kernels.build import NVCC_FLAGS, build_library
+    from repro_torch.kernels.decode_attention import kernel as DA
+    from repro_torch.kernels.flash_attention import kernel as FA
     from repro_torch.kernels.spmv import kernel as K
     from repro_torch.stream import StreamConfig, build_stream
 
@@ -1388,7 +1820,6 @@ def main() -> int:
               "CUDA_VISIBLE_DEVICES)", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1400,10 +1831,11 @@ def main() -> int:
     # ---- 1. build -----------------------------------------------------------
     # one nvcc per source, started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(K.build_library, (K.SOURCE, K.REDUCE_SOURCE)))
+    sources = (K.SOURCE, K.REDUCE_SOURCE, FA.SOURCE, DA.SOURCE)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs = list(pool.map(build_library, sources))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_flags": " ".join(K.NVCC_FLAGS),
+          "nvcc_flags": " ".join(NVCC_FLAGS),
           "libraries": [{"library": lib.name, "ptxas": [
               ln.strip() for ln in lib.with_suffix(".log").read_text()
               .splitlines() if "ptxas" in ln]} for lib in libs]})
@@ -1542,10 +1974,33 @@ def main() -> int:
         elif row["phase"] == "batched-kernel-check":
             batched_rows.append(row)
 
-    for row in pending_bounds():
+    for row in attention_bounds():
         emit(row)
+    del stream, src, dst
+    torch.cuda.empty_cache()
 
-    # ---- 7. summary ---------------------------------------------------------
+    # ---- 7. attention kernels at the LM serving path's shapes --------------
+    # f32 products in full precision, as the reference
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    attn_rows = []
+    for tag, family, shape in ATTENTION_CHECKS:
+        attn_rows.append(check_attention_kernel(tag, family, shape, rng, dev))
+        emit(attn_rows[-1])
+    flash_main, decode_main = attn_rows[0], attn_rows[4]
+
+    # ---- 8. LM serving: Qwen2-0.5B at full width ---------------------------
+    t0 = time.perf_counter()
+    lm_row, engine, prompts, lm_counts = lm_serve_path(dev, rng)
+    emit(lm_row)
+
+    # ---- 9. wave 0 replayed through the plain attention versions -----------
+    emit(lm_teacher_forced(engine, prompts, dev))
+    emit({"phase": "lm-path-total", "wall_s": time.perf_counter() - t0})
+    del engine
+    torch.cuda.empty_cache()
+
+    # ---- 10. summary --------------------------------------------------------
     main_check, reduce_main = checks[0], reduce_rows[0]
     sums = [r for r in batched_rows if r["kernel"] == "spmv_push_batched"]
     mins = [r for r in batched_rows
@@ -1588,9 +2043,24 @@ def main() -> int:
         "max_abs_err": max(c["max_abs_err"] for c in mins),
         "ms": mins[0]["kernel_ms"], "plain_ms": mins[0]["plain_ms"],
         "bound_ms": mins[0]["bound_ms"], "bound_by": mins[0]["bound_by"],
-        "library_ms": mins[0]["library_ms"]}]})
-    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                 "count": 1}})
+        "library_ms": mins[0]["library_ms"]}, *[{
+        "name": row["kernel"], "route": "cuda", "source": source,
+        "replaces": replaces, "launches": lm_counts[row["kernel"]],
+        "check": "pass (f32 and bf16 vs the f64 plain version)",
+        "max_abs_err": max(r["f32_max_abs_err_vs_f64"] for r in attn_rows
+                           if r["kernel"] == row["kernel"]),
+        "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"]} for row, source, replaces in (
+            (flash_main, "src/repro_torch/kernels/flash_attention/csrc/"
+             "flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:85"),
+            (decode_main, "src/repro_torch/kernels/decode_attention/csrc/"
+             "decode_attention.cu",
+             "src/repro/kernels/decode_attention/kernel.py:68"))]]})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
     return 0
 
 

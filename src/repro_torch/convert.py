@@ -1,10 +1,11 @@
 """Carry the JAX package's state into the port.
 
 The JAX package's "weights" are its graph buffers, its edge layouts and its
-algorithm state (a serving lane's slot bank too).  Handed over as numpy
-arrays (``np.asarray`` of each JAX array), these functions rebuild the
-port's tensors byte for byte on ``device`` (the card unless another device is named), so both packages can
-be fed exactly the same buffers.
+algorithm state (a serving lane's slot bank too), and an LM's parameter
+tree.  Handed over as numpy arrays (``np.asarray`` of each JAX array), these
+functions rebuild the port's tensors byte for byte on ``device`` (the card
+unless another device is named), so both packages can be fed exactly the
+same buffers.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from repro_torch.core.backend import EdgeLayout
 from repro_torch.core.pagerank import SummaryBuffers
 from repro_torch.device import resolve_device
 from repro_torch.graph.graph import GraphState
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import param_shapes
 
 _LAYOUT_ARRAYS = ("src", "dst", "weight", "valid", "row_offsets", "order",
                   "rank")
@@ -76,3 +79,31 @@ def summary_buffers_from_numpy(arrays: Mapping[str, np.ndarray], device=None,
     return SummaryBuffers(**{k: _tensor(arrays[k], device)
                              for k in _SUMMARY_ARRAYS},
                           weight_mode=weight_mode, semiring=semiring)
+
+
+def lm_params_from_numpy(tree: Mapping, cfg: ModelConfig,
+                         device=None) -> dict:
+    """The port's LM parameter tree from the JAX ``init_params`` tree as
+    numpy (``np.asarray`` of each leaf): the same nested keys, stacked
+    ``[L, ...]`` leaves, shapes and dtypes, checked against
+    ``params.build_defs(cfg)``."""
+    device = resolve_device(device)
+
+    def rebuild(arrays, want, path):
+        if set(arrays) != set(want):
+            raise KeyError(f"LM params at {path or 'the root'}: keys "
+                           f"{sorted(arrays)}, expected {sorted(want)}")
+        out = {}
+        for k, spec in want.items():
+            if isinstance(spec, dict):
+                out[k] = rebuild(arrays[k], spec, f"{path}/{k}")
+                continue
+            t = _tensor(arrays[k], device)
+            if tuple(t.shape) != spec[0] or t.dtype != spec[1]:
+                raise ValueError(f"LM params at {path}/{k}: "
+                                 f"{t.dtype}{tuple(t.shape)}, expected "
+                                 f"{spec[1]}{spec[0]}")
+            out[k] = t
+        return out
+
+    return rebuild(tree, param_shapes(cfg), "")

@@ -1,0 +1,85 @@
+// Helpers shared by the attention kernels (flash_attention/csrc and
+// decode_attention/csrc): 16-byte loads widened to f32, the cast back with
+// round-to-nearest-even, warp reductions, and the reference's finite mask
+// value.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace attn {
+
+// Masked scores take this finite value, as in the reference
+// (repro/models/layers.py and both Pallas kernels): a row that has seen
+// no valid key yet adds exp(0) per masked slot, and the first valid key
+// washes that out through exp(-1e30 - m) = 0.  -inf would make such rows
+// NaN instead.
+constexpr float kNegInf = -1e30f;
+
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<float> {
+  static constexpr int kPerVec = 4;  // elements per 16-byte load
+  __device__ __forceinline__ static void load(const float* p, float* out) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    out[0] = x.x;
+    out[1] = x.y;
+    out[2] = x.z;
+    out[3] = x.w;
+  }
+  __device__ __forceinline__ static float widen(float x) { return x; }
+  __device__ __forceinline__ static float narrow(float x) { return x; }
+};
+
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr int kPerVec = 8;
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
+                                              float* out) {
+    const uint4 x = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  }
+  __device__ __forceinline__ static float widen(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+  }
+  __device__ __forceinline__ static __nv_bfloat16 narrow(float x) {
+    return __float2bfloat16_rn(x);
+  }
+};
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// The reference's finish: acc / max(l, 1e-30) where some key was seen,
+// else 0 (an IEEE division, as XLA's)
+__device__ __forceinline__ float finish(float acc, float l) {
+  return l > 0.0f ? acc / fmaxf(l, 1e-30f) : 0.0f;
+}
+
+}  // namespace attn
+
+// Every (head dim, value head dim) pair the kernels are built for
+#define ATTN_FOR_EACH_DIMS(X) \
+  X(16, 16) X(16, 32) X(16, 64) X(16, 128) \
+  X(32, 16) X(32, 32) X(32, 64) X(32, 128) \
+  X(64, 16) X(64, 32) X(64, 64) X(64, 128) \
+  X(128, 16) X(128, 32) X(128, 64) X(128, 128)

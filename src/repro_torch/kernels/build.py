@@ -1,0 +1,79 @@
+"""How every hand-written kernel of the port is built and loaded.
+
+Each ``csrc/*.cu`` of a kernel family is compiled by ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface, at first use,
+into ``build/`` beside the family's ``kernel.py`` (the parent of its
+``csrc/``).  A build is keyed by a hash of its source, the local headers it
+includes (``#include "..."``) and the flags, so an edited source builds
+anew and an unchanged one is loaded as it is.  The
+compiler's output (``-Xptxas -v``: registers, shared memory, spills) is
+kept beside the library as ``.log``.  Libraries are loaded with ``ctypes``;
+nothing here runs when a module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found (looked on PATH and under "
+                           "$CUDA_HOME, default /usr/local/cuda)")
+    return str(path)
+
+
+def _key_bytes(source: Path) -> bytes:
+    """The source's bytes followed by those of each local header it
+    includes, in the order of the includes."""
+    text = source.read_bytes()
+    headers = re.findall(rb'^\s*#include\s+"([^"]+)"', text, re.MULTILINE)
+    return text + b"".join((source.parent / h.decode()).read_bytes()
+                           for h in headers)
+
+
+def build_library(source: Path) -> Path:
+    """Compile one ``csrc/*.cu`` into a shared library unless a build of
+    this exact source, its headers and the flag set exists; returns its
+    path."""
+    key = hashlib.sha256(_key_bytes(source)
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out_dir = source.resolve().parent.parent / "build"  # <family>/build
+    lib = out_dir / f"lib{source.stem}_{key}.so"
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{lib.name}.{os.getpid()}.tmp"
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on {source.name} with exit code "
+                           f"{proc.returncode}:\n{proc.stdout}{proc.stderr}")
+    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_entry(source: Path, entry: str, argtypes: tuple):
+    """One ``extern "C"`` entry of a source's library, built and loaded once
+    per process; it returns a CUDA error code (``int``, 0 on success)."""
+    fn = getattr(ctypes.CDLL(str(build_library(source))), entry)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn

@@ -19,31 +19,24 @@ sources (``csrc/spmv_push.cu``, ``csrc/spmv_reduce_push.cu``) say how and
 what bounds them.
 
 On a CUDA tensor a wrapper launches its kernel or raises; only a tensor
-that lies on the CPU takes the plain version.  Each source is compiled by
-``nvcc`` for ``sm_90a`` at first use, into ``build/`` beside this file,
-keyed by a hash of that source and the flags, and loaded with ``ctypes``.
-Nothing is compiled or loaded when this module is imported.
+that lies on the CPU takes the plain version.  Each source is built at
+first use by :mod:`repro_torch.kernels.build`, into ``build/`` beside this
+file; nothing is compiled or loaded when this module is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Optional
 
 import torch
 
+from repro_torch.kernels.build import load_entry
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "spmv_push.cu"
 REDUCE_SOURCE = CSRC / "spmv_reduce_push.cu"
-BUILD_DIR = Path(__file__).resolve().parent / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: (⊕, ⊗, dtype) -> the name of the entry of ``csrc/spmv_reduce_push.cu``
 #: computing it (``spmv_reduce_push_batched_<name>``): one per min/max
@@ -57,51 +50,11 @@ REDUCE_ENTRIES = {
 MAX_BATCH = 65535
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    path = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if not path.exists():
-        raise RuntimeError("nvcc not found (looked on PATH and under "
-                           "$CUDA_HOME, default /usr/local/cuda)")
-    return str(path)
-
-
-def build_library(source: Path = SOURCE) -> Path:
-    """Compile one ``csrc/*.cu`` into a shared library unless a build of
-    this exact source and flag set exists; returns its path.  The compiler's
-    output (``-Xptxas -v``: registers, spills) is kept beside it as
-    ``.log``."""
-    key = hashlib.sha256(source.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"lib{source.stem}_{key}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{lib.name}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed on {source.name} with exit code "
-                           f"{proc.returncode}:\n{proc.stdout}{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _kernel_fn(source: Path, entry: str):
-    """One entry point of a source's library, built and loaded once per
-    process.  Every entry takes six device pointers (values, src, w,
-    row_offsets, mask or null, out), the row count, the batch, the values'
-    row stride (int64) and the stream."""
-    fn = getattr(ctypes.CDLL(str(build_library(source))), entry)
-    fn.argtypes = ([ctypes.c_void_p] * 6
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_int64,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+#: every entry takes six device pointers (values, src, w, row_offsets, mask
+#: or null, out), the row count, the batch, the values' row stride (int64)
+#: and the stream
+_ARGTYPES = ((ctypes.c_void_p,) * 6
+             + (ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p))
 
 
 def _as_rows(who: str, values: torch.Tensor, batched: bool) -> torch.Tensor:
@@ -161,7 +114,7 @@ def _kernel_push(who: str, source: Path, entry: str, rows, src, w,
                       dtype=rows.dtype, device=rows.device)
     if out.numel() == 0:
         return out
-    fn = _kernel_fn(source, entry)
+    fn = load_entry(source, entry, _ARGTYPES)
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream(rows.device).cuda_stream
         err = fn(rows.data_ptr(), src.data_ptr(), w.data_ptr(),

@@ -1,0 +1,150 @@
+"""Layer primitives: norms, RoPE, MLPs and the two attention calls.
+
+The port of ``repro.models.layers``, with the reference's rounding order:
+norms normalise in f32 and cast back before the scale, RoPE rotates in f32,
+each weight is cast to the activation dtype at its use (a no-op once the
+weights are held in that dtype, see ``params.cast_params``).
+
+Every attention call of the model goes through one of two hand-written
+CUDA kernels on the card: :func:`blocked_attention` (prefill and
+full-sequence) launches ``kernels/flash_attention``, :func:`decode_attention`
+(one token against a cache) launches ``kernels/decode_attention``.  On CPU
+tensors both take the kernels' plain versions.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.decode_attention.kernel import (
+    decode_attention as decode_attention_kernel)
+from repro_torch.kernels.flash_attention.kernel import flash_attention
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps)).to(dt) * scale.to(dt)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return y.to(dt) * scale.to(dt) + bias.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int,
+                 theta: float = 10_000.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions int[...]; cos/sin of shape positions.shape + (hd/2,), f32."""
+    half = head_dim // 2
+    exponent = torch.arange(half, dtype=torch.float32,
+                            device=positions.device) / half
+    # a Python base keeps theta off the host-to-device path (and out of a
+    # captured CUDA graph's way); theta^x is still computed in f32
+    freqs = 1.0 / torch.pow(float(theta), exponent)
+    angles = positions.float()[..., None] * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x: (..., S, H, hd); cos/sin: (..., S, hd/2) broadcast over heads;
+    rotates in the cos/sin dtype (f32)."""
+    half = x.shape[-1] // 2
+    x1 = x[..., :half].to(cos.dtype)
+    x2 = x[..., half:].to(cos.dtype)
+    c = cos[..., None, :]
+    s = sin[..., None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s],
+                     dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+def blocked_attention(
+    q: torch.Tensor,                 # (B, Sq, H, hd)
+    k: torch.Tensor,                 # (B, Skv, KV, hd)
+    v: torch.Tensor,                 # (B, Skv, KV, vd)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+    kv_offset: int = 0,
+    kv_valid_len: Optional[torch.Tensor] = None,
+    q_block: int = 512,
+    kv_block: int = 1024,
+    softmax_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Exact attention with GQA, causal and window masks; returns (B, Sq, H,
+    vd) in q's dtype with f32 accumulation.  The static-offset path only
+    (every model call): on the card it is one launch of the flash kernel;
+    ``q_block``/``kv_block`` tile its plain version.  Dynamic offsets or a
+    valid length raise."""
+    if not (isinstance(q_offset, int) and q_offset == 0
+            and isinstance(kv_offset, int) and kv_offset == 0
+            and kv_valid_len is None):
+        raise NotImplementedError(
+            "blocked_attention: only static zero offsets are ported (the "
+            "model path); dynamic offsets and kv_valid_len are not")
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=causal, window=window, scale=softmax_scale,
+                           q_block=q_block, kv_block=kv_block)
+
+
+def decode_attention(
+    q: torch.Tensor,                 # (B, 1, H, hd), the new token
+    k_cache: torch.Tensor,           # (B, S_cache, KV, hd)
+    v_cache: torch.Tensor,
+    *,
+    cache_len,                       # int32 scalar tensor or int: valid slots
+) -> torch.Tensor:
+    """One-token attention over a (possibly ring-buffered) KV cache: slots
+    at or past ``min(cache_len, S)`` are masked; a ring cache is
+    window-sized, so every filled slot is attendable.  As the reference,
+    q is scaled by ``hd^-0.5`` in its own dtype before it is widened (the
+    kernel does that as it loads q); on the card this is one launch of the
+    decode kernel."""
+    return decode_attention_kernel(q.contiguous(), k_cache, v_cache,
+                                   cache_len)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    g = x @ w_gate.to(x.dtype)
+    u = x @ w_up.to(x.dtype)
+    return (F.silu(g) * u) @ w_down.to(x.dtype)
+
+
+def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor,
+             w_down: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu's default is the tanh approximation
+    h = F.gelu(x @ w_up.to(x.dtype), approximate="tanh")
+    return h @ w_down.to(x.dtype)
+
+
+def mlp_apply_dense(p, x: torch.Tensor, gated: bool) -> torch.Tensor:
+    if gated:
+        return swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+    return gelu_mlp(x, p["w_up"], p["w_down"])

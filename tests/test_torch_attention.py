@@ -1,0 +1,196 @@
+"""The port's attention functions against the JAX package's, on the CPU.
+
+The same numpy inputs (made from a seed) go through
+- the Pallas kernels in interpret mode (``repro.kernels.flash_attention``,
+  ``repro.kernels.decode_attention``) and the model's jnp attention
+  (``repro.models.layers.blocked_attention`` / ``decode_attention``), and
+- the port's wrappers (``repro_torch.kernels.*.kernel``), which on CPU
+  tensors run the kernels' plain versions, and the port's model layers.
+
+The sweep is ``tests/test_kernels.py``'s.  Tolerances are that file's: f32
+rtol = atol = 1e-5 (the tiles' sums are taken in another order), bf16
+2e-2 (one bf16 rounding of outputs of order 1).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.decode_attention.kernel import decode_attention_kernel
+from repro.kernels.flash_attention.kernel import flash_attention as jflash
+from repro.models import layers as JL
+from repro_torch.kernels.decode_attention.kernel import (
+    decode_attention, decode_attention_plain, split_plan)
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention, flash_attention_plain)
+from repro_torch.models import layers as TL
+
+F32_TOL = dict(rtol=1e-5, atol=1e-5)
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+
+FLASH_SWEEP = [
+    # B, S, H, KV, hd, vd, causal, window, dtype
+    (2, 256, 8, 2, 64, 64, True, None, "float32"),
+    (1, 192, 4, 4, 32, 32, True, 64, "float32"),     # MHA + window
+    (2, 128, 6, 2, 32, 16, False, None, "bfloat16"),  # vd != hd
+    (1, 128, 16, 1, 64, 64, True, None, "bfloat16"),  # MQA, G = 16
+    (3, 64, 4, 2, 128, 128, True, None, "float32"),   # 128-dim heads
+    (2, 100, 14, 2, 64, 64, True, 24, "float32"),     # Qwen2, window, pad
+]
+
+
+def _normal(rng, shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _pair(x: np.ndarray, dtype: str):
+    """The same values as a JAX and a torch array (bf16: both round the
+    f32 values to nearest even)."""
+    return (jnp.asarray(x, dtype=getattr(jnp, dtype)),
+            torch.from_numpy(x).to(getattr(torch, dtype)))
+
+
+def _np(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(a, np.float32)
+
+
+def _tol(dtype):
+    return BF16_TOL if dtype == "bfloat16" else F32_TOL
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,vd,causal,window,dtype", FLASH_SWEEP)
+def test_flash_attention_matches_pallas_and_model_path(b, s, h, kv, hd, vd,
+                                                       causal, window, dtype):
+    rng = np.random.default_rng(s * 31 + h)
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _pair(_normal(rng, shape), dtype)
+        for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, vd)))
+    pallas = jflash(jq, jk, jv, causal=causal, window=window, q_block=64,
+                    kv_block=64, interpret=True)
+    model = JL.blocked_attention(jq, jk, jv, causal=causal, window=window,
+                                 q_block=64, kv_block=64)
+    out = flash_attention(tq, tk, tv, causal=causal, window=window,
+                          q_block=64, kv_block=64)
+    layer = TL.blocked_attention(tq, tk, tv, causal=causal, window=window,
+                                 q_block=64, kv_block=64)
+    assert out.dtype == tq.dtype and out.shape == (b, s, h, vd)
+    np.testing.assert_allclose(_np(out), _np(pallas), **_tol(dtype))
+    np.testing.assert_allclose(_np(out), _np(model), **_tol(dtype))
+    assert torch.equal(layer, out)
+    # the kernel's tiles are its own: the plain version's tiling must not
+    # change the answer beyond rounding
+    other = flash_attention_plain(tq, tk, tv, causal=causal, window=window,
+                                  q_block=32, kv_block=128)
+    np.testing.assert_allclose(_np(other), _np(out), **_tol(dtype))
+
+
+def test_flash_attention_exact_softmax_oracle():
+    """Against an unblocked full softmax in f64."""
+    b, s, h, kv, hd = 1, 96, 4, 2, 32
+    rng = np.random.default_rng(3)
+    q, k, v = (_normal(rng, (b, s, n, hd)) for n in (h, kv, kv))
+    g = h // kv
+    qg = q.reshape(b, s, kv, g, hd).astype(np.float64)
+    scores = np.einsum("bqkgd,bckd->bkgqc", qg, k) * hd ** -0.5
+    scores = np.where(np.tril(np.ones((s, s), bool)), scores, -1e30)
+    p = np.exp(scores - scores.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    ref = np.einsum("bkgqc,bckd->bqkgd", p, v).reshape(b, s, h, hd)
+    out = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                          q_block=32, kv_block=32)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=2e-5, atol=2e-5)
+    out64 = flash_attention_plain(*(torch.from_numpy(a) for a in (q, k, v)),
+                                  q_block=32, kv_block=32,
+                                  dtype=torch.float64)
+    assert out64.dtype == torch.float64
+    np.testing.assert_allclose(out64.numpy(), ref, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("b,s,h,kv,hd,clen,dtype", [
+    (2, 256, 8, 2, 64, 200, "float32"),
+    (1, 512, 16, 1, 64, 512, "bfloat16"),   # MQA, full cache
+    (4, 128, 4, 4, 32, 77, "float32"),      # partial cache
+    (8, 160, 14, 2, 64, 130, "bfloat16"),   # Qwen2 group, partial cache
+    (2, 64, 4, 2, 16, 1000, "float32"),     # cache_len past S: clamped
+])
+def test_decode_attention_matches_pallas_and_model_path(b, s, h, kv, hd, clen,
+                                                        dtype):
+    rng = np.random.default_rng(7 + s)
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _pair(_normal(rng, shape), dtype)
+        for shape in ((b, 1, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+    pallas = decode_attention_kernel(jq, jk, jv, jnp.int32(clen),
+                                     interpret=True)
+    model = JL.decode_attention(jq, jk, jv, cache_len=jnp.int32(clen))
+    tlen = torch.tensor(clen, dtype=torch.int32)
+    out = decode_attention(tq, tk, tv, tlen)
+    layer = TL.decode_attention(tq, tk, tv, cache_len=tlen)
+    assert out.dtype == tq.dtype and out.shape == (b, 1, h, hd)
+    # the port scales q in its own dtype, as layers.decode_attention; the
+    # Pallas kernel widens it first (one bf16 rounding of scale * q apart)
+    np.testing.assert_allclose(_np(out), _np(pallas), **_tol(dtype))
+    np.testing.assert_allclose(_np(layer), _np(model), **_tol(dtype))
+    assert torch.equal(layer, out)
+    assert torch.equal(decode_attention(tq, tk, tv, clen), out)
+
+
+def test_decode_attention_ignores_slots_past_cache_len():
+    b, s, h, kv, hd = 1, 128, 4, 2, 32
+    rng = np.random.default_rng(9)
+    q, kc, vc = (torch.from_numpy(_normal(rng, shape))
+                 for shape in ((b, 1, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+    out1 = decode_attention(q, kc, vc, 50)
+    kc2, vc2 = kc.clone(), vc.clone()
+    kc2[:, 50:] = 99.0
+    vc2[:, 50:] = -99.0
+    out2 = decode_attention(q, kc2, vc2, 50)
+    assert torch.equal(out1, out2)
+    # and equal to attention over the first 50 slots alone
+    out3 = decode_attention(q, kc[:, :50].contiguous(),
+                            vc[:, :50].contiguous(), 50)
+    np.testing.assert_allclose(out1.numpy(), out3.numpy(), **F32_TOL)
+
+
+def test_plain_decode_is_the_flash_plain_on_the_last_row():
+    """One query at position n-1 over n keys, causally, is decode over a
+    cache of n slots: the two plain versions agree."""
+    b, n, h, kv, hd = 2, 70, 6, 2, 32
+    rng = np.random.default_rng(11)
+    k = torch.from_numpy(_normal(rng, (b, n, kv, hd)))
+    v = torch.from_numpy(_normal(rng, (b, n, kv, hd)))
+    q = torch.from_numpy(_normal(rng, (b, n, h, hd)))
+    full = flash_attention_plain(q, k, v, causal=True, q_block=16,
+                                 kv_block=32)
+    last = decode_attention_plain(q[:, -1:].contiguous(), k, v, n)
+    np.testing.assert_allclose(last.numpy(), full[:, -1:].numpy(), **F32_TOL)
+
+
+def test_shape_and_option_checks():
+    q = torch.zeros(1, 8, 4, 16)
+    k = torch.zeros(1, 8, 3, 16)
+    with pytest.raises(ValueError, match="groups"):
+        flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="window"):
+        flash_attention(q, q, q, window=0)
+    with pytest.raises(ValueError, match=r"\(B, 1, H, hd\)"):
+        decode_attention(q, q, q, 4)
+    with pytest.raises(NotImplementedError, match="static"):
+        TL.blocked_attention(q, q, q, q_offset=3)
+    with pytest.raises(ValueError, match="device"):
+        flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+
+
+@pytest.mark.parametrize("b,h,kv,s,want", [
+    (8, 14, 2, 4096, (128, 32)),   # Qwen2 decode: 512 blocks on 132 SMs
+    (1, 14, 2, 4096, (128, 32)),
+    (64, 14, 2, 4096, (896, 5)),
+    (8, 16, 1, 100, (128, 1)),
+])
+def test_decode_split_plan(b, h, kv, s, want):
+    split_len, splits = split_plan(b, h, kv, s, 132)
+    assert (split_len, splits) == want
+    assert split_len % 128 == 0 and (splits - 1) * split_len < s <= \
+        splits * split_len

@@ -1,0 +1,235 @@
+"""The attention kernels against their plain versions.
+
+The plain versions' semantics are pinned on the CPU against a per-row
+numpy softmax in f64; each CUDA kernel is held against its plain version
+in f64 on the card.  Tolerances: f32 outputs rtol = atol = 1e-5 (sums of
+up to 4096 f32 terms in another order); bf16 outputs against f64 rtol 5e-3
+(the output's one round-to-nearest, at most 2^-8 = 3.9e-3 of its value)
+and atol 1e-5 (the f32 sums), and two bf16 results against each other
+rtol 1e-2 (one bf16 step, 2^-7, apart at most).  This file
+imports neither JAX nor the JAX package, so the card's tests run where JAX
+is not installed:
+
+    python -m pytest --noconftest -q tests/test_torch_attention_kernel.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.decode_attention.kernel import (
+    decode_attention, decode_attention_plain)
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention, flash_attention_plain)
+
+F32_TOL = dict(rtol=1e-5, atol=1e-5)
+BF16_TOL = dict(rtol=5e-3, atol=1e-5)
+BF16_PAIR_TOL = dict(rtol=1e-2, atol=1e-5)
+
+FLASH_SHAPES = {
+    # B, Sq, H, KV, hd, vd, causal, window
+    "gqa": (2, 256, 8, 2, 64, 64, True, None),
+    "mha-window": (1, 192, 4, 4, 32, 32, True, 64),
+    "vd-ne-hd": (2, 128, 6, 2, 32, 16, False, None),
+    "mqa": (1, 128, 16, 1, 64, 64, True, None),
+    "hd128": (3, 64, 4, 2, 128, 128, True, None),
+    "hd16": (2, 40, 4, 2, 16, 16, True, None),
+    "qwen2-padded": (2, 1000, 14, 2, 64, 64, True, None),
+    "qwen2-window": (1, 777, 14, 2, 64, 64, True, 100),
+    "window-not-causal": (1, 300, 6, 3, 32, 64, False, 50),
+}
+
+DECODE_SHAPES = {
+    # B, S, H, KV, hd, vd, cache_len
+    "qwen2-partial": (8, 1000, 14, 2, 64, 64, 613),
+    "qwen2-full": (4, 1024, 14, 2, 64, 64, 1024),
+    "mqa": (1, 512, 16, 1, 64, 64, 512),
+    "mha-short": (4, 128, 4, 4, 32, 32, 77),
+    "vd-ne-hd": (2, 300, 8, 2, 128, 16, 299),
+    "one-slot": (3, 256, 6, 2, 16, 32, 1),
+    "past-s": (2, 200, 6, 2, 32, 32, 5000),
+}
+
+
+def _inputs(shape, seed, *, decode=False):
+    rng = np.random.default_rng(seed)
+    if decode:
+        b, s, h, kv, hd, vd, _ = shape
+        dims = ((b, 1, h, hd), (b, s, kv, hd), (b, s, kv, vd))
+    else:
+        b, s, h, kv, hd, vd = shape[:6]
+        dims = ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, vd))
+    return [torch.from_numpy(rng.standard_normal(d).astype(np.float32))
+            for d in dims]
+
+
+def _softmax_rows(q, k, v, allowed, scale):
+    """out[b, i, h] in f64 from a per-row softmax over the allowed keys
+    (``allowed(i)`` -> a boolean row over the keys)."""
+    q, k, v = (np.asarray(t, np.float64) for t in (q, k, v))
+    b, sq, h, _ = q.shape
+    g = h // k.shape[2]
+    out = np.zeros((b, sq, h, v.shape[-1]))
+    for i in range(sq):
+        ok = allowed(i)
+        for hh in range(h):
+            s = (k[:, :, hh // g] @ q[:, i, hh][..., None])[..., 0] * scale
+            s = np.where(ok[None], s, -np.inf)
+            p = np.exp(s - s.max(axis=1, keepdims=True))
+            p /= p.sum(axis=1, keepdims=True)
+            out[:, i, hh] = np.einsum("bs,bsd->bd", p, v[:, :, hh // g])
+    return out
+
+
+@pytest.mark.parametrize("name", ["gqa", "mha-window", "vd-ne-hd",
+                                  "window-not-causal"])
+def test_flash_plain_version_matches_a_row_softmax(name):
+    b, s, h, kv, hd, vd, causal, window = FLASH_SHAPES[name]
+    q, k, v = _inputs(FLASH_SHAPES[name], 1)
+    keys = np.arange(s)
+
+    def allowed(i):
+        ok = np.ones(s, bool)
+        if causal:
+            ok &= keys <= i
+        if window is not None:
+            ok &= keys > i - window
+        return ok
+
+    want = _softmax_rows(q, k, v, allowed, hd ** -0.5)
+    got64 = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                  q_block=64, kv_block=96,
+                                  dtype=torch.float64)
+    np.testing.assert_allclose(got64.numpy(), want, rtol=1e-10, atol=1e-10)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["qwen2-partial", "vd-ne-hd", "past-s",
+                                  "mha-short"])
+def test_decode_plain_version_matches_a_row_softmax(name, dtype):
+    """q is scaled in its own dtype and then widened, the model's order,
+    so the f64 reference rounds ``scale * q`` to q's dtype too (at hd 128
+    and 32 the scale is no power of two and the rounding matters in
+    bf16)."""
+    b, s, h, kv, hd, vd, clen = DECODE_SHAPES[name]
+    dt = getattr(torch, dtype)
+    q, k, v = (t.to(dt)
+               for t in _inputs(DECODE_SHAPES[name], 2, decode=True))
+    ok = np.arange(s) < min(clen, s)
+    want = _softmax_rows((q * hd ** -0.5).double(), k.double(), v.double(),
+                         lambda i: ok, 1.0)
+    got64 = decode_attention_plain(q, k, v, clen, dtype=torch.float64)
+    np.testing.assert_allclose(got64.numpy(), want, rtol=1e-10, atol=1e-10)
+    got = decode_attention(q, k, v, torch.tensor(clen, dtype=torch.int32))
+    assert got.dtype == dt
+    np.testing.assert_allclose(got.double().numpy(), want,
+                               **(BF16_TOL if dtype == "bfloat16"
+                                  else F32_TOL))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the attention kernels have no CPU "
+                    "mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(FLASH_SHAPES))
+def test_flash_kernel_matches_plain_version(cuda_device, name, dtype):
+    b, s, h, kv, hd, vd, causal, window = FLASH_SHAPES[name]
+    dt = getattr(torch, dtype)
+    q, k, v = (t.to(cuda_device, dt) for t in _inputs(FLASH_SHAPES[name], 3))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.dtype == dt and out.shape == (b, s, h, vd)
+    ref = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                dtype=torch.float64)
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    np.testing.assert_allclose(out.double().cpu().numpy(),
+                               ref.cpu().numpy(), **tol)
+    # no atomics: a second launch gives the same bits
+    assert torch.equal(out, flash_attention(q, k, v, causal=causal,
+                                            window=window))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(DECODE_SHAPES))
+def test_decode_kernel_matches_plain_version(cuda_device, name, dtype):
+    b, s, h, kv, hd, vd, clen = DECODE_SHAPES[name]
+    dt = getattr(torch, dtype)
+    q, k, v = (t.to(cuda_device, dt)
+               for t in _inputs(DECODE_SHAPES[name], 4, decode=True))
+    n = torch.tensor(clen, dtype=torch.int32, device=cuda_device)
+    before = decode_attention.launches
+    out = decode_attention(q, k, v, n)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    assert out.dtype == dt and out.shape == (b, 1, h, vd)
+    ref = decode_attention_plain(q, k, v, n, dtype=torch.float64)
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    np.testing.assert_allclose(out.double().cpu().numpy(),
+                               ref.cpu().numpy(), **tol)
+    assert torch.equal(out, decode_attention(q, k, v, n))
+    # slots past cache_len do not matter
+    if clen < s:
+        k2, v2 = k.clone(), v.clone()
+        k2[:, clen:] = 99.0
+        v2[:, clen:] = -99.0
+        assert torch.equal(out, decode_attention(q, k2, v2, n))
+
+
+@pytest.mark.gpu
+def test_kernel_wrappers_reject_what_they_cannot_take(cuda_device):
+    q, k, v = (t.to(cuda_device) for t in _inputs(FLASH_SHAPES["gqa"], 5))
+    bad = [
+        (q.double(), k.double(), v.double()),       # f64
+        (q, k.to(torch.bfloat16), v),                # mixed dtypes
+        (q, k.cpu(), v),                             # mixed devices
+        (q[:, ::2], k[:, ::2], v[:, ::2]),            # not contiguous
+        (q[..., :48].contiguous(), k[..., :48].contiguous(), v),  # hd 48
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            flash_attention(*args)
+    qd, kc, vc = (t.to(cuda_device)
+                  for t in _inputs(DECODE_SHAPES["mqa"], 6, decode=True))
+    with pytest.raises(ValueError, match="cache_len"):
+        decode_attention(qd, kc, vc, torch.tensor(3, device=cuda_device))
+    with pytest.raises(ValueError, match="cache_len"):
+        decode_attention(qd, kc, vc, torch.tensor(3, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        decode_attention(qd, kc[:, ::2], vc[:, ::2], 3)
+
+
+@pytest.mark.gpu
+def test_model_layers_launch_the_kernels(cuda_device, monkeypatch):
+    from repro_torch.models import layers as L
+
+    q, k, v = (t.to(cuda_device, torch.bfloat16)
+               for t in _inputs(FLASH_SHAPES["qwen2-window"], 7))
+    f0, d0 = flash_attention.launches, decode_attention.launches
+    out = L.blocked_attention(q, k, v)
+    last = L.decode_attention(q[:, -1:].contiguous(), k, v,
+                              cache_len=torch.tensor(
+                                  k.shape[1], dtype=torch.int32,
+                                  device=cuda_device))
+    assert (flash_attention.launches, decode_attention.launches) == (
+        f0 + 1, d0 + 1)
+    monkeypatch.setattr(L, "flash_attention", flash_attention_plain)
+    plain = L.blocked_attention(q, k, v)
+    monkeypatch.undo()
+    assert flash_attention.launches == f0 + 1
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               plain.float().cpu().numpy(), **BF16_PAIR_TOL)
+    np.testing.assert_allclose(last.float().cpu().numpy(),
+                               out[:, -1:].float().cpu().numpy(),
+                               **BF16_PAIR_TOL)
