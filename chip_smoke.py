@@ -8,7 +8,9 @@ SpMV push and the min/max push, each in a single and a batched form, the
 flash attention forward and decode attention; one ``nvcc`` per source,
 started together) and holds every kernel against its plain version at the
 shapes its path gives it, each batched row also bitwise against the single
-kernel.  Then it drives three paths over the ``synth-web-lg`` stream:
+kernel and each SpMV push against a second launch of itself (the shapes
+include every edge of the stream in one row).  Then it drives three paths
+over the ``synth-web-lg`` stream:
 
 - PageRank through ``repro_torch.session``: the initial exact query, 11
   approximate queries and one exact one, every push through ``spmv_push``;
@@ -55,6 +57,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -118,12 +121,18 @@ def check_kernel(name, values, layout, mask=None) -> dict:
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with the f64 plain "
                              f"version (max abs err {float(err.max())})")
+    # no float atomics: a second launch gives the same bits
+    if not same_bits(out, spmv_push(values, src, w, ro, mask)):
+        raise AssertionError(f"{name}: two launches of the kernel differ")
     num_rows, n_src = ro.shape[0] - 1, values.shape[0]
     lo, hi = int(ro[0]), int(ro[-1])
     nnz = hi - lo
     lens = (ro[1:] - ro[:-1]).long()
     hubs = lens > 1024  # rows that keep one warp busy for 32+ trips
     kernel_ms = cuda_ms(lambda: spmv_push(values, src, w, ro, mask))
+    # the same launches replayed from a CUDA graph: the device's time alone,
+    # which kernel_ms hides where the host's enqueue is slower
+    device_ms = graph_ms(lambda: spmv_push(values, src, w, ro, mask))
     # host time to enqueue one launch (checks, ctypes call), no sync
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -133,12 +142,19 @@ def check_kernel(name, values, layout, mask=None) -> dict:
     torch.cuda.synchronize()
     plain_ms = cuda_ms(lambda: spmv_push_plain(values, src, w, ro, mask))
     # library yardstick: cuSPARSE SpMV through torch on a CSR tensor of the
-    # same (masked) matrix; timed here only, never called by the port
-    wl = w[lo:hi] if mask is None else torch.where(mask[lo:hi], w[lo:hi], 0.0)
-    csr = torch.sparse_csr_tensor((ro - lo).contiguous(), src[lo:hi].contiguous(),
-                                  wl.contiguous(), size=(num_rows, n_src))
-    library_ms = cuda_ms(lambda: torch.mv(csr, values))
-    lib_err = float((torch.mv(csr, values).double() - ref).abs().max())
+    # same (masked) matrix; timed here only, never called by the port.
+    # cuSPARSE refuses more entries than rows x columns (repeated sources
+    # in a row), so such a matrix has none
+    library_ms = library_device_ms = lib_err = None
+    if nnz <= num_rows * n_src:
+        wl = (w[lo:hi] if mask is None
+              else torch.where(mask[lo:hi], w[lo:hi], 0.0))
+        csr = torch.sparse_csr_tensor(
+            (ro - lo).contiguous(), src[lo:hi].contiguous(), wl.contiguous(),
+            size=(num_rows, n_src))
+        library_ms = cuda_ms(lambda: torch.mv(csr, values))
+        library_device_ms = graph_ms(lambda: torch.mv(csr, values))
+        lib_err = float((torch.mv(csr, values).double() - ref).abs().max())
     nbytes = nnz * (8 + (mask is not None)) + 4 * (num_rows + 1) \
         + 4 * num_rows + 4 * n_src
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -150,9 +166,15 @@ def check_kernel(name, values, layout, mask=None) -> dict:
             "edges_in_rows_over_1024": int(lens[hubs].sum()),
             "masked": mask is not None, "host_us_per_launch": host_us,
             "max_abs_err": float(err.max()), "within_tol": ok,
+            "run_to_run_bitwise": True,
             "library_max_abs_err": lib_err,
             "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bytes": nbytes,
+            "library_ms": library_ms, "kernel_device_ms": device_ms,
+            "library_device_ms": library_device_ms,
+            "timing": "kernel_ms, plain_ms, library_ms: 20 eager calls "
+                      "back to back, their host cost included; *_device_ms: "
+                      "20 calls replayed from one CUDA graph",
+            "bytes": nbytes,
             "bound_ms": max(byte_ms, op_ms), "bound_us": max(byte_ms, op_ms) * 1e3,
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
             "roofline_share": max(byte_ms, op_ms) / kernel_ms,
@@ -381,6 +403,7 @@ def check_batched_kernel(name, values, layout, mask=None) -> dict:
     lo, hi = int(ro[0]), int(ro[-1])
     lens = (ro[1:] - ro[:-1]).long()
     kernel_ms = cuda_ms(run)
+    device_ms = graph_ms(run)
     launch_us = host_us(run)
     plain_ms = cuda_ms(lambda: spmv_push_batched_plain(values, src, w, ro,
                                                        mask))
@@ -404,6 +427,7 @@ def check_batched_kernel(name, values, layout, mask=None) -> dict:
             "rows_bitwise_vs_single": True,
             "library": "torch.sparse.mm (cuSPARSE SpMM)",
             "library_max_abs_err": lib_err, "kernel_ms": kernel_ms,
+            "kernel_device_ms": device_ms,
             "plain_ms": plain_ms, "library_ms": library_ms, "bytes": nbytes,
             "bound_ms": bound_ms, "bound_us": bound_ms * 1e3,
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
@@ -1838,7 +1862,7 @@ def main() -> int:
           "nvcc_flags": " ".join(NVCC_FLAGS),
           "libraries": [{"library": lib.name, "ptxas": [
               ln.strip() for ln in lib.with_suffix(".log").read_text()
-              .splitlines() if "ptxas" in ln]} for lib in libs]})
+              .splitlines() if "ptxas" in ln or "spill" in ln]} for lib in libs]})
 
     # ---- 2. kernel check at the full-graph shapes ---------------------------
     spec = DATASETS["synth-web-lg"]
@@ -1857,6 +1881,13 @@ def main() -> int:
     checks.append(check_kernel("synth-web-lg inv_out layout", v, full))
     checks.append(check_kernel("synth-web-lg inv_out layout, b_in mask", v,
                                full, b_in_mask(hot, full)))
+    # every edge of the stream in one row: the hub case at its extreme
+    one_row = torch.tensor([0, int(full.row_offsets[-1])], dtype=torch.int32,
+                           device=dev)
+    checks.append(check_kernel(
+        "synth-web-lg edges in one row", v,
+        SimpleNamespace(src=full.src, weight=full.weight,
+                        row_offsets=one_row)))
     del full
     for row in checks:
         emit(row)

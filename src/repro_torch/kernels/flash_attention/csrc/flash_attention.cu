@@ -17,23 +17,15 @@
 //
 // Bound: operations.  A causal prefill does 2 (hd + vd) flops per allowed
 // (query, key) pair and head (Qwen2-0.5B, S = 4096: 30 GFLOP for 29 MB),
-// far above the card's flop/byte ratio.  This first kernel computes on the
-// CUDA cores in f32, as the reference does (it widens q, k, v to f32
-// before both products), so it is held against the f32 peak in practice;
-// tensor-core tiles (mma.sync / wgmma with TMA) are later work.
+// far above the card's flop/byte ratio.
 //
-// Design, simple and right first:
-// - A block serves one (batch, KV head) and 64 consecutive query rows of
-//   the flattened (position, group head) space, so the G query heads of a
-//   group share each K/V tile, staged once in shared memory (that one
-//   K/V read per group is the point of GQA).  Any G works: a block's rows
+// Two kernels, one per dtype, sharing the layout and the arithmetic:
+// - Both take one (batch, KV head) and a run of consecutive query rows of
+//   the flattened (position, group head) space per block (64 rows in f32;
+//   128 in bf16 at hd, vd <= 64, else 64), so the G query heads of a group
+//   share each K/V tile, staged once in shared memory (that one K/V read
+//   per group is the point of GQA).  Any G works: a block's rows
 //   may span several positions or part of one position's group.
-// - 8 warps of 8 rows each.  A kv tile holds 32 keys, one per lane: each
-//   lane computes its key's score for the warp's 8 rows (K transposed in
-//   shared memory, padded against bank conflicts; q rows broadcast), the
-//   warp reduces max and sum with shuffles, writes the 8 x 32
-//   probabilities to shared memory, and each lane accumulates its own
-//   value columns (vd / 32 of them).
 // - Online softmax exactly as the reference orders it: m_new = max(m,
 //   max s), p = exp(s - m_new), corr = exp(m - m_new), l = l corr + sum p,
 //   acc = acc corr + p v; out = l > 0 ? acc / max(l, 1e-30) : 0.  Masked
@@ -43,7 +35,39 @@
 //   as it was: a masked tile after a valid key changes nothing, and the
 //   exp(0) terms a masked tile adds before the first valid key are washed
 //   out by exp(-1e30 - m) = 0.
-// - Templated on the dtype and on hd, vd in {16, 32, 64, 128}.
+// - Templated on hd, vd in {16, 32, 64, 128}.
+//
+// bf16 (the served dtype): FlashAttention-2 on the tensor cores,
+// mma.sync.m16n8k16 bf16 -> f32.  4 warps, each of two 16-row MMA tiles at
+// hd, vd <= 64 (one above, where two would spill), which share every K and
+// V fragment the warp loads; each warp keeps its Q fragments (ldmatrix) and
+// the S and O accumulators in registers.  K/V tiles of 64 keys are
+// double-buffered in shared memory with cp.async (rows padded by 16 bytes,
+// so ldmatrix is free of bank conflicts); V is read through ldmatrix.trans.
+// - S = q . k from the raw bf16 inputs: the products are exact in the f32
+//   accumulator; `scale` is then applied to the f32 score (for hd = 64,
+//   0.125 is a power of two, so this equals the reference's (q scale) . k).
+// - The online softmax runs on the S fragment, with quad shuffles for the
+//   row max and sum; exp is ex2.approx with a denormal result flushed to
+//   0.  Only the tiles on the causal diagonal, a window's edge or past Skv
+//   are masked element by element.
+// - Where P is rounded: P enters P.V as two bf16 terms, p_hi = bf16(p) and
+//   p_lo = bf16(p - p_hi), two MMAs against the same V fragment, so P
+//   keeps about 16 bits (relative error <= 2^-17).  One bf16 rounding of P
+//   (2^-9) puts an absolute error of about 1e-3 of the output's scale on
+//   every element, which fails the bf16 check (1e-5 + 5e-3 |ref| against
+//   f64) on outputs near 0; l sums the f32 p.
+// - Blocks walk the query tiles longest first (causal rows are unequal).
+//
+// f32: on the CUDA cores in f32, as the reference computes (it widens q,
+// k, v to f32 before both products), held to 1e-5 against f64, which TF32
+// or bf16 tensor cores cannot meet.  8 warps of 8 rows; a kv tile holds 32
+// keys, one per lane: each lane computes its key's score for the warp's 8
+// rows (K transposed in shared memory, padded against bank conflicts; q
+// rows, widened and scaled, broadcast), the warp reduces max and sum with
+// shuffles, writes the 8 x 32 probabilities to shared memory, and each lane
+// accumulates its own value columns (vd / 32 of them).  Nothing on the
+// serving path runs it.
 
 #include "../../attention_common.cuh"
 
@@ -51,6 +75,9 @@ namespace {
 
 using attn::Elem;
 using attn::kNegInf;
+
+// ---- f32: CUDA cores ------------------------------------------------------
+namespace simt {
 
 constexpr int kWarps = 8;
 constexpr int kRowsPerWarp = 8;
@@ -64,13 +91,14 @@ constexpr size_t smem_bytes() {
          (kRows * HD + HD * kKStride + kKeys * VD + kRows * kKeys);
 }
 
-template <typename T, int HD, int VD>
+template <int HD, int VD>
 __global__ void __launch_bounds__(kWarps * 32)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int sq,
-                 int skv, int num_heads, int num_kv, int groups, int causal,
-                 int window, float scale) {
-  constexpr int kVec = Elem<T>::kPerVec;
+flash_fwd_f32_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     int sq, int skv, int num_heads, int num_kv, int groups,
+                     int causal, int window, float scale) {
+  constexpr int kVec = Elem<float>::kPerVec;
   constexpr int kCols = (VD + 31) / 32;  // value columns per lane
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // [kRows][HD], scaled
@@ -99,7 +127,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (f < rows_total) {
       const int64_t pos = f / groups;
       const int64_t h = static_cast<int64_t>(kvh) * groups + f % groups;
-      Elem<T>::load(q + ((b * sq + pos) * num_heads + h) * HD + d, buf);
+      Elem<float>::load(q + ((b * sq + pos) * num_heads + h) * HD + d, buf);
     } else {
 #pragma unroll
       for (int e = 0; e < kVec; ++e) buf[e] = 0.0f;
@@ -134,7 +162,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int d = (i % (HD / kVec)) * kVec;
       float buf[kVec];
       if (t0 + j < skv) {
-        Elem<T>::load(k + ((b * skv + t0 + j) * num_kv + kvh) * HD + d, buf);
+        Elem<float>::load(k + ((b * skv + t0 + j) * num_kv + kvh) * HD + d, buf);
       } else {
 #pragma unroll
         for (int e = 0; e < kVec; ++e) buf[e] = 0.0f;
@@ -147,7 +175,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int d = (i % (VD / kVec)) * kVec;
       float buf[kVec];
       if (t0 + j < skv) {
-        Elem<T>::load(v + ((b * skv + t0 + j) * num_kv + kvh) * VD + d, buf);
+        Elem<float>::load(v + ((b * skv + t0 + j) * num_kv + kvh) * VD + d, buf);
       } else {
 #pragma unroll
         for (int e = 0; e < kVec; ++e) buf[e] = 0.0f;
@@ -229,21 +257,376 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (f >= rows_total) continue;
     const int64_t pos = f / groups;
     const int64_t h = static_cast<int64_t>(kvh) * groups + f % groups;
-    T* dst = out + ((b * sq + pos) * num_heads + h) * VD;
+    float* dst = out + ((b * sq + pos) * num_heads + h) * VD;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int d = lane + 32 * c;
-      if (d < VD) dst[d] = Elem<T>::narrow(attn::finish(acc[i][c], l[i]));
+      if (d < VD) dst[d] = Elem<float>::narrow(attn::finish(acc[i][c], l[i]));
     }
   }
 }
 
-template <typename T, int HD, int VD>
-int launch(const void* q, const void* k, const void* v, void* out, int batch,
-           int sq, int skv, int num_heads, int num_kv, int causal, int window,
-           float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD, VD>();
-  auto kernel = flash_fwd_kernel<T, HD, VD>;
+}  // namespace simt
+
+// ---- bf16: tensor cores ---------------------------------------------------
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWarps = 4;
+constexpr int kKeys = 64;  // keys per kv tile
+constexpr int kPad = 8;    // bf16 padding per shared-memory row
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 16-row MMA tiles per warp: two where the accumulators fit in registers
+// (hd, vd <= 64: 254 registers, no spill), so each K/V fragment a warp
+// loads feeds two MMAs; one above
+template <int HD, int VD>
+__host__ __device__ constexpr int m_tiles() {
+  return HD <= 64 && VD <= 64 ? 2 : 1;
+}
+
+template <int HD, int VD>
+__host__ __device__ constexpr int rows_per_block() {
+  return 16 * m_tiles<HD, VD>() * kWarps;
+}
+
+template <int HD, int VD>
+constexpr size_t smem_bytes() {
+  return sizeof(bf16) *
+         (rows_per_block<HD, VD>() * (HD + kPad) + 2 * kKeys * (HD + kPad) +
+          2 * kKeys * (VD + kPad));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled where !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d += a b: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col), d 16 x 8 f32
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (x, y) as two bf16 pairs: hi = bf16(x, y), lo = bf16((x, y) - hi)
+__device__ __forceinline__ void split(float x, float y, uint32_t& hi,
+                                      uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// 2^x, a result below the smallest normal flushed to 0 (a p or corr that
+// small adds nothing an f32 sum of at least one term 1 keeps)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// whether the query at position `pos` may attend to `key`
+__device__ __forceinline__ bool allowed(int key, int pos, int skv, int causal,
+                                        int window) {
+  return key < skv && (!causal || key <= pos) &&
+         (window <= 0 || pos - key < window);
+}
+
+// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 g + t holds rows g
+// and g + 8 of A and of the accumulators, columns 2 t and 2 t + 1 of each
+// 8-wide accumulator tile.  Each warp owns m_tiles() such 16-row tiles,
+// which share every K and V fragment it loads.
+template <int HD, int VD>
+__global__ void __launch_bounds__(kWarps * 32)
+flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ out,
+                      int batch, int sq, int skv, int num_heads, int num_kv,
+                      int groups, int q_tiles, int causal, int window,
+                      float scale) {
+  constexpr int QS = HD + kPad;  // shared-memory row strides (elements)
+  constexpr int VS = VD + kPad;
+  constexpr int M = m_tiles<HD, VD>();
+  constexpr int kRows = rows_per_block<HD, VD>();
+  extern __shared__ float4 smem4[];
+  bf16* qs = reinterpret_cast<bf16*>(smem4);  // [kRows][QS]
+  bf16* ks = qs + kRows * QS;                 // [2][kKeys][QS]
+  bf16* vs = ks + 2 * kKeys * QS;             // [2][kKeys][VS]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  // (batch, KV head) varies fastest, the query tiles run from the last
+  // (longest under a causal mask) to the first
+  const int pairs = batch * num_kv;
+  const int kvh = blockIdx.x % pairs % num_kv;
+  const int64_t b = blockIdx.x % pairs / num_kv;
+  const int64_t qt = q_tiles - 1 - static_cast<int64_t>(blockIdx.x) / pairs;
+  const int64_t rows_total = static_cast<int64_t>(sq) * groups;
+  const int64_t f0 = qt * kRows;
+  const int64_t f_end = f0 + kRows < rows_total ? f0 + kRows : rows_total;
+  const int pos_lo = static_cast<int>(f0 / groups);
+  const int pos_hi = static_cast<int>((f_end - 1) / groups);
+
+  // the block's query rows, as they are (bf16)
+  for (int i = tid; i < kRows * (HD / 8); i += kWarps * 32) {
+    const int r = i / (HD / 8);
+    const int c = (i % (HD / 8)) * 8;
+    const int64_t f = f0 + r < rows_total ? f0 + r : 0;
+    const int64_t pos = f / groups;
+    const int64_t h = static_cast<int64_t>(kvh) * groups + f % groups;
+    cp_async16(qs + r * QS + c, q + ((b * sq + pos) * num_heads + h) * HD + c,
+               f0 + r < rows_total);
+  }
+  auto load_kv = [&](int t0, int buf) {
+    bf16* kd = ks + buf * kKeys * QS;
+    bf16* vd = vs + buf * kKeys * VS;
+    for (int i = tid; i < kKeys * (HD / 8); i += kWarps * 32) {
+      const int j = i / (HD / 8);
+      const int c = (i % (HD / 8)) * 8;
+      const int64_t key = t0 + j < skv ? t0 + j : 0;
+      cp_async16(kd + j * QS + c, k + ((b * skv + key) * num_kv + kvh) * HD + c,
+                 t0 + j < skv);
+    }
+    for (int i = tid; i < kKeys * (VD / 8); i += kWarps * 32) {
+      const int j = i / (VD / 8);
+      const int c = (i % (VD / 8)) * 8;
+      const int64_t key = t0 + j < skv ? t0 + j : 0;
+      cp_async16(vd + j * VS + c, v + ((b * skv + key) * num_kv + kvh) * VD + c,
+                 t0 + j < skv);
+    }
+  };
+
+  // the kv tiles some row of the block may attend to
+  const int kv_end = causal ? min(skv, pos_hi + 1) : skv;
+  const int kv_first = window > 0 ? max(0, pos_lo - window + 1) : 0;
+  const int t_begin = kv_first / kKeys * kKeys;
+  const int n_tiles =
+      kv_end > t_begin ? (kv_end - t_begin + kKeys - 1) / kKeys : 0;
+  if (n_tiles > 0) load_kv(t_begin, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // per 16-row tile mi: rows (warp M + mi) 16 + g (r = 0) and + 8 (r = 1)
+  uint32_t qf[M][HD / 16][4];
+  int row_pos[M][2];
+  float o[M][VD / 8][4];
+  float m[M][2], l[M][2];
+#pragma unroll
+  for (int mi = 0; mi < M; ++mi) {
+    const int row0 = (warp * M + mi) * 16;
+#pragma unroll
+    for (int kc = 0; kc < HD / 16; ++kc) {
+      ldmatrix_x4(qf[mi][kc], qs + (row0 + (lane & 15)) * QS + kc * 16 +
+                                  (lane >> 4) * 8);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int64_t f = f0 + row0 + g + 8 * r;
+      row_pos[mi][r] = static_cast<int>(
+          (f < rows_total ? f : rows_total - 1) / groups);
+      m[mi][r] = kNegInf;
+      l[mi][r] = 0.0f;
+    }
+#pragma unroll
+    for (int n = 0; n < VD / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mi][n][e] = 0.0f;
+    }
+  }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int t0 = t_begin + it * kKeys;
+    const int buf = it & 1;
+    if (it + 1 < n_tiles) load_kv(t0 + kKeys, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's group has landed
+    __syncthreads();
+    const bf16* kt = ks + buf * kKeys * QS;
+    const bf16* vt = vs + buf * kKeys * VS;
+
+    // S = q k^T over the tile's 64 keys: 8 accumulator tiles of 8 keys
+    float s[M][kKeys / 8][4];
+#pragma unroll
+    for (int mi = 0; mi < M; ++mi) {
+#pragma unroll
+      for (int n = 0; n < kKeys / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mi][n][e] = 0.0f;
+      }
+    }
+#pragma unroll
+    for (int kc = 0; kc < HD / 16; ++kc) {
+#pragma unroll
+      for (int n2 = 0; n2 < kKeys / 16; ++n2) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, kt + (n2 * 16 + (lane & 7) + ((lane >> 4) << 3)) * QS +
+                            kc * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+        for (int mi = 0; mi < M; ++mi) {
+          mma(s[mi][2 * n2], qf[mi][kc], kb[0], kb[1]);
+          mma(s[mi][2 * n2 + 1], qf[mi][kc], kb[2], kb[3]);
+        }
+      }
+    }
+
+    // scale, then mask where some (row, key) pair of the tile is masked
+    const bool edge = t0 + kKeys > skv || (causal && t0 + kKeys - 1 > pos_lo) ||
+                      (window > 0 && t0 <= pos_hi - window);
+#pragma unroll
+    for (int mi = 0; mi < M; ++mi) {
+#pragma unroll
+      for (int n = 0; n < kKeys / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[mi][n][e] *= scale;
+          if (edge && !allowed(t0 + n * 8 + 2 * t + (e & 1),
+                               row_pos[mi][e >> 1], skv, causal, window)) {
+            s[mi][n][e] = kNegInf;
+          }
+        }
+      }
+    }
+
+    // online softmax, rows g (e = 0, 1) and g + 8 (e = 2, 3)
+#pragma unroll
+    for (int mi = 0; mi < M; ++mi) {
+      float mx[2] = {m[mi][0], m[mi][1]};
+#pragma unroll
+      for (int n = 0; n < kKeys / 8; ++n) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[mi][n][0], s[mi][n][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[mi][n][2], s[mi][n][3]));
+      }
+      float corr[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        corr[r] = exp2_ftz((m[mi][r] - mx[r]) * kLog2e);
+        m[mi][r] = mx[r];
+      }
+#pragma unroll
+      for (int n = 0; n < kKeys / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[mi][n][e] = exp2_ftz((s[mi][n][e] - mx[e >> 1]) * kLog2e);
+          sum[e >> 1] += s[mi][n][e];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+        l[mi][r] = l[mi][r] * corr[r] + sum[r];
+      }
+#pragma unroll
+      for (int n = 0; n < VD / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[mi][n][e] *= corr[e >> 1];
+      }
+    }
+
+    // O += P V, 16 keys at a time; P (the S fragment, as A) in two bf16
+    // terms against each V fragment
+#pragma unroll
+    for (int kc = 0; kc < kKeys / 16; ++kc) {
+      uint32_t ph[M][4], pl[M][4];
+#pragma unroll
+      for (int mi = 0; mi < M; ++mi) {
+        const float(&s0)[4] = s[mi][2 * kc];
+        const float(&s1)[4] = s[mi][2 * kc + 1];
+        split(s0[0], s0[1], ph[mi][0], pl[mi][0]);
+        split(s0[2], s0[3], ph[mi][1], pl[mi][1]);
+        split(s1[0], s1[1], ph[mi][2], pl[mi][2]);
+        split(s1[2], s1[3], ph[mi][3], pl[mi][3]);
+      }
+#pragma unroll
+      for (int n2 = 0; n2 < VD / 16; ++n2) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, vt + (kc * 16 + (lane & 7) +
+                                    ((lane >> 3) & 1) * 8) * VS +
+                                  n2 * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int mi = 0; mi < M; ++mi) {
+          mma(o[mi][2 * n2], ph[mi], vb[0], vb[1]);
+          mma(o[mi][2 * n2], pl[mi], vb[0], vb[1]);
+          mma(o[mi][2 * n2 + 1], ph[mi], vb[2], vb[3]);
+          mma(o[mi][2 * n2 + 1], pl[mi], vb[2], vb[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer
+  }
+
+#pragma unroll
+  for (int mi = 0; mi < M; ++mi) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int64_t f = f0 + (warp * M + mi) * 16 + g + 8 * r;
+      if (f >= rows_total) continue;
+      const int64_t pos = f / groups;
+      const int64_t h = static_cast<int64_t>(kvh) * groups + f % groups;
+      bf16* dst = out + ((b * sq + pos) * num_heads + h) * VD + 2 * t;
+#pragma unroll
+      for (int n = 0; n < VD / 8; ++n) {
+        __nv_bfloat162 pair;
+        pair.x = Elem<bf16>::narrow(attn::finish(o[mi][n][2 * r], l[mi][r]));
+        pair.y =
+            Elem<bf16>::narrow(attn::finish(o[mi][n][2 * r + 1], l[mi][r]));
+        *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) = pair;
+      }
+    }
+  }
+}
+
+}  // namespace tc
+
+template <int HD, int VD>
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               int batch, int sq, int skv, int num_heads, int num_kv,
+               int causal, int window, float scale, cudaStream_t stream) {
+  constexpr size_t smem = simt::smem_bytes<HD, VD>();
+  auto kernel = simt::flash_fwd_f32_kernel<HD, VD>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -252,44 +635,66 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
   }
   const int groups = num_heads / num_kv;
   const int64_t rows = static_cast<int64_t>(sq) * groups;
-  const dim3 grid(static_cast<unsigned>((rows + kRows - 1) / kRows), num_kv,
-                  batch);
-  kernel<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), sq, skv, num_heads,
-      num_kv, groups, causal, window, scale);
+  const dim3 grid(static_cast<unsigned>((rows + simt::kRows - 1) /
+                                        simt::kRows),
+                  num_kv, batch);
+  kernel<<<grid, simt::kWarps * 32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), sq, skv,
+      num_heads, num_kv, groups, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out,
-             int batch, int sq, int skv, int num_heads, int num_kv, int hd,
-             int vd, int causal, int window, float scale,
-             cudaStream_t stream) {
-#define ATTN_CASE(H, V)                                                   \
-  if (hd == H && vd == V)                                                 \
-    return launch<T, H, V>(q, k, v, out, batch, sq, skv, num_heads, num_kv, \
-                           causal, window, scale, stream);
-  ATTN_FOR_EACH_DIMS(ATTN_CASE)
-#undef ATTN_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
+template <int HD, int VD>
+int launch_bf16(const void* q, const void* k, const void* v, void* out,
+                int batch, int sq, int skv, int num_heads, int num_kv,
+                int causal, int window, float scale, cudaStream_t stream) {
+  constexpr size_t smem = tc::smem_bytes<HD, VD>();
+  auto kernel = tc::flash_fwd_bf16_kernel<HD, VD>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int groups = num_heads / num_kv;
+  const int64_t rows = static_cast<int64_t>(sq) * groups;
+  constexpr int kRows = tc::rows_per_block<HD, VD>();
+  const int64_t q_tiles = (rows + kRows - 1) / kRows;
+  const int64_t blocks = q_tiles * num_kv * batch;
+  if (blocks >= (int64_t{1} << 31)) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  kernel<<<static_cast<unsigned>(blocks), tc::kWarps * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      batch, sq, skv, num_heads, num_kv, groups, static_cast<int>(q_tiles),
+      causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 f32, 1 bf16.  window <= 0: no window.  Returns the CUDA error of
-// the launch (0 on success); the wrapper has checked every shape.
+// dtype: 0 f32 (CUDA cores), 1 bf16 (tensor cores).  window <= 0: no
+// window.  Returns the CUDA error of the launch (0 on success); the wrapper
+// has checked every shape.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, int batch,
                                    int sq, int skv, int num_heads, int num_kv,
                                    int hd, int vd, int causal, int window,
                                    float scale, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float>(q, k, v, out, batch, sq, skv, num_heads, num_kv,
-                           hd, vd, causal, window, scale, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, out, batch, sq, skv, num_heads,
-                                   num_kv, hd, vd, causal, window, scale, s);
+#define ATTN_CASE(H, V)                                                     \
+  if (hd == H && vd == V) {                                                 \
+    if (dtype == 0)                                                         \
+      return launch_f32<H, V>(q, k, v, out, batch, sq, skv, num_heads,      \
+                              num_kv, causal, window, scale, s);            \
+    if (dtype == 1)                                                         \
+      return launch_bf16<H, V>(q, k, v, out, batch, sq, skv, num_heads,     \
+                               num_kv, causal, window, scale, s);           \
+  }
+  ATTN_FOR_EACH_DIMS(ATTN_CASE)
+#undef ATTN_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

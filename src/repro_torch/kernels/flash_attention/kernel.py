@@ -5,8 +5,12 @@ PyTorch version.
 hd)`` over k ``(B, Skv, KV, hd)`` and v ``(B, Skv, KV, vd)`` with GQA (the
 ``G = H / KV`` query heads of a group share one KV head), causal and
 sliding-window masks from the positions (``j <= i``; ``j > i - window``),
-the scale ``hd^-0.5`` applied to q in f32, and f32 accumulation; the output
-``(B, Sq, H, vd)`` is in q's dtype.  It replaces the Pallas kernel
+the scale (``hd^-0.5`` by default) and f32 accumulation; the output ``(B,
+Sq, H, vd)`` is in q's dtype.  The plain version and the f32 kernel (CUDA
+cores) scale q widened to f32 before ``q·k``, as the reference; the bf16
+kernel (tensor cores) takes ``q·k`` of the raw bf16 inputs, exact in f32,
+and scales that score, and its P enters ``P·V`` as two bf16 terms (about
+16 bits kept).  It replaces the Pallas kernel
 ``repro/kernels/flash_attention/kernel.py::flash_attention``, and on the
 model path the jnp scan that stands in for it
 (``repro/models/layers.py::blocked_attention`` at static offsets).  The

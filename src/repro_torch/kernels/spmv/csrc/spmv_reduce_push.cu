@@ -29,15 +29,15 @@
 // operations per edge and batch row, far below the card's operation/byte
 // ratio.
 //
-// Design, as spmv_push.cu: one warp per (destination row, batch row) with a
-// grid-stride loop over rows, block x serving batch row x % B so a hub
-// row's B warps start together, and a software-pipelined edge loop.  The
+// Design: one warp per (destination row, batch row) with a grid-stride
+// loop over rows, block x serving batch row x % B so a hub row's B warps
+// start together, and a software-pipelined edge loop.  The
 // lanes reduce in registers, then across the warp (shuffles for f32,
 // __reduce_min/max_sync for i32).  There are no atomics, so every run gives
 // the same bits, and a single-vector push is the B = 1 launch of the same
-// entry, so each batch row is bitwise equal to it.  A
-// hub row stays on a single warp: splitting hub rows is later work, for both
-// kernels.
+// entry, so each batch row is bitwise equal to it.  A hub row stays on a
+// single warp: splitting hub rows, as spmv_push.cu's merge path does for
+// the sum, is later work.
 //
 // Bitwise rules, held against the plain PyTorch version (scatter_reduce):
 // - f32 min/max propagate NaN, as scatter_reduce "amin"/"amax" and XLA do

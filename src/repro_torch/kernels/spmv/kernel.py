@@ -16,7 +16,12 @@ value row.  They replace the Pallas kernels
 ``repro/kernels/spmv/kernel.py::spmv_push``, ``::spmv_reduce_push``,
 ``::spmv_push_batched`` and ``::spmv_reduce_push_batched``; the CUDA
 sources (``csrc/spmv_push.cu``, ``csrc/spmv_reduce_push.cu``) say how and
-what bounds them.
+what bounds them.  The sum push is a merge-path SpMV: every block takes an
+equal share of the rows and edges, whatever the row lengths, and a second
+pass, launched by the same call, adds the partial sums of the rows that
+cross a block's end (their scratch is allocated here).  The min/max push
+reduces one row per warp.  Neither uses float atomics: every launch on the
+same inputs gives the same bits.
 
 On a CUDA tensor a wrapper launches its kernel or raises; only a tensor
 that lies on the CPU takes the plain version.  Each source is built at
@@ -27,6 +32,7 @@ file; nothing is compiled or loaded when this module is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 from typing import Optional
 
@@ -50,29 +56,45 @@ REDUCE_ENTRIES = {
 MAX_BATCH = 65535
 
 
-#: every entry takes six device pointers (values, src, w, row_offsets, mask
-#: or null, out), the row count, the batch, the values' row stride (int64)
-#: and the stream
+#: every min/max entry takes six device pointers (values, src, w,
+#: row_offsets, mask or null, out), the row count, the batch, the values'
+#: row stride (int64) and the stream
 _ARGTYPES = ((ctypes.c_void_p,) * 6
              + (ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p))
+#: the sum entry takes the same six pointers and its carries' scratch, the
+#: scratch's block count (int64), the row count, the edge count (int64),
+#: the batch, the values' row stride (int64) and the stream
+_SUM_ARGTYPES = ((ctypes.c_void_p,) * 7
+                 + (ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+                    ctypes.c_int, ctypes.c_int64, ctypes.c_void_p))
+SUM_ENTRY = "spmv_push_batched_f32"
 
 
-def _as_rows(who: str, values: torch.Tensor, batched: bool) -> torch.Tensor:
-    """``values`` as ``[B, N_src]`` rows: a batched push takes them so, a
-    single push takes one vector and launches it as the batch of one."""
+@functools.lru_cache(maxsize=None)
+def merge_tile() -> int:
+    """The merge items (row ends and edges) one block of the sum kernel
+    takes, as its source defines it; read once per process."""
+    return load_entry(SOURCE, "spmv_push_tile", ())()
+
+
+def _check_rank(who: str, values: torch.Tensor, batched: bool) -> None:
+    """A batched push takes ``[B, N_src]`` value rows, a single push one
+    vector (launched as the batch of one)."""
     if values.dim() != (2 if batched else 1):
         raise ValueError(f"{who}: values must be "
                          f"{'[B, N_src]' if batched else '1-D'}; got shape "
                          f"{tuple(values.shape)}")
-    return values if batched else values[None]
 
 
 def _check(who: str, rows, src, w, row_offsets, mask, dtype) -> None:
-    """Device, dtype, shape and contiguity checks of a kernel's operands;
-    ``rows`` (``[B, N_src]``) and ``w`` must be ``dtype``.  A
-    non-contiguous bank (transposed or sliced) is refused, not copied: the
-    caller makes it contiguous once."""
+    """Device (CUDA), dtype, shape and contiguity checks of a kernel's
+    operands, raising on the first that fails; ``rows`` (a vector, or
+    ``[B, N_src]``) and ``w`` must be ``dtype``.  A non-contiguous bank
+    (transposed or sliced) is refused, not copied: the caller makes it
+    contiguous once."""
     dev = rows.device
+    if dev.type != "cuda":
+        raise ValueError(f"{who}: unsupported device {dev}")
     named = [("src", src, (torch.int32,)), ("w", w, (dtype,)),
              ("row_offsets", row_offsets, (torch.int32,))]
     if mask is not None:
@@ -92,40 +114,40 @@ def _check(who: str, rows, src, w, row_offsets, mask, dtype) -> None:
     if not rows.is_contiguous():
         raise ValueError(f"{who}: values must be contiguous; got shape "
                          f"{tuple(rows.shape)}, strides {rows.stride()}")
-    if not 1 <= rows.shape[0] <= MAX_BATCH:
+    batch = rows.shape[0] if rows.dim() == 2 else 1
+    if not 1 <= batch <= MAX_BATCH:
         raise ValueError(f"{who}: the batch must hold 1 to {MAX_BATCH} rows; "
-                         f"got {rows.shape[0]}")
+                         f"got {batch}")
     if w.shape != src.shape or (mask is not None and mask.shape != src.shape):
         raise ValueError(f"{who}: w and mask must align with src")
     if row_offsets.shape[0] < 1:
         raise ValueError(f"{who}: row_offsets needs num_rows + 1 entries")
-    if max(src.shape[0], rows.shape[1], row_offsets.shape[0]) >= 2**31:
+    if max(src.shape[0], rows.shape[-1], row_offsets.shape[0]) >= 2**31:
         raise ValueError(f"{who}: sizes must fit in int32")
 
 
-def _kernel_push(who: str, source: Path, entry: str, rows, src, w,
-                 row_offsets, mask) -> torch.Tensor:
-    """Launch ``entry`` over ``rows`` ``[B, N_src]`` on the current stream
-    of their device; returns ``[B, N]`` and raises on a failed launch."""
-    if rows.device.type != "cuda":
-        raise ValueError(f"{who}: unsupported device {rows.device}")
-    _check(who, rows, src, w, row_offsets, mask, rows.dtype)
-    out = torch.empty((rows.shape[0], row_offsets.shape[0] - 1),
-                      dtype=rows.dtype, device=rows.device)
-    if out.numel() == 0:
-        return out
-    fn = load_entry(source, entry, _ARGTYPES)
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
-        err = fn(rows.data_ptr(), src.data_ptr(), w.data_ptr(),
-                 row_offsets.data_ptr(),
-                 None if mask is None else mask.data_ptr(),
-                 out.data_ptr(), out.shape[1], rows.shape[0], rows.shape[1],
-                 stream)
+def _current_stream(dev: torch.device) -> int:
+    """The raw pointer of ``dev``'s current stream.  It is what the public
+    ``torch.cuda.current_stream(dev).cuda_stream`` gives, read without
+    building a ``Stream`` object, which costs several µs of a push's
+    host time."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+def _launch(who: str, dev: torch.device, fn, *args) -> None:
+    """Call the ``extern "C"`` entry ``fn`` with ``args`` and the current
+    stream of ``dev``; raises on a failed launch."""
+    with torch.cuda.device(dev.index):
+        err = fn(*args, _current_stream(dev))
     if err:
         raise RuntimeError(f"{who}: kernel launch failed with CUDA error "
                            f"{err}")
-    return out
+
+
+def _batch_shape(values: torch.Tensor):
+    """``(batch, n_src)`` of one value vector (the batch of one) or of
+    ``[B, N_src]`` rows."""
+    return tuple(values.shape) if values.dim() == 2 else (1, values.shape[0])
 
 
 def _rows(row_offsets: torch.Tensor):
@@ -142,15 +164,31 @@ def _rows(row_offsets: torch.Tensor):
 def _sum_push(who: str, batched: bool, values, src, w, row_offsets, mask):
     """The SpMV push of one value vector or of ``[B, N_src]`` value rows:
     the kernel for CUDA tensors, the plain version for CPU ones."""
-    rows = _as_rows(who, values, batched)
+    _check_rank(who, values, batched)
     if values.device.type == "cpu":
         return spmv_push_plain(values, src, w, row_offsets, mask)
     if values.dtype != torch.float32:
         raise ValueError(f"{who}: values must be {torch.float32}; got "
                          f"{values.dtype}")
-    out = _kernel_push(who, SOURCE, "spmv_push_batched_f32", rows, src, w,
-                       row_offsets, mask)
-    return out if batched else out[0]
+    dev = values.device
+    _check(who, values, src, w, row_offsets, mask, values.dtype)
+    batch, n_src = _batch_shape(values)
+    num_rows, num_edges = row_offsets.shape[0] - 1, src.shape[0]
+    if num_rows + num_edges >= 2**31:
+        raise ValueError(f"{who}: rows plus edges must fit in int32")
+    out = torch.empty(values.shape[:-1] + (num_rows,), dtype=values.dtype,
+                      device=dev)
+    if num_rows == 0:
+        return out
+    # the carries: a row id per block, then a value per block and batch row
+    blocks = -(-(num_rows + num_edges) // merge_tile())
+    scratch = torch.empty((batch + 1) * blocks, dtype=torch.int32, device=dev)
+    _launch(who, dev, load_entry(SOURCE, SUM_ENTRY, _SUM_ARGTYPES),
+            values.data_ptr(), src.data_ptr(), w.data_ptr(),
+            row_offsets.data_ptr(), None if mask is None else mask.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), blocks, num_rows, num_edges,
+            batch, n_src)
+    return out
 
 
 def spmv_push(values: torch.Tensor, src: torch.Tensor, w: torch.Tensor,
@@ -232,7 +270,7 @@ def _reduce_push(who: str, batched: bool, values, src, w, row_offsets, mask,
                  op: str, mul: str):
     """The min/max push of one value vector or of ``[B, N_src]`` value rows:
     the kernel for CUDA tensors, the plain version for CPU ones."""
-    rows = _as_rows(who, values, batched)
+    _check_rank(who, values, batched)
     if values.device.type == "cpu":
         return spmv_reduce_push_plain(values, src, w, row_offsets, mask,
                                       op=op, mul=mul)
@@ -241,9 +279,21 @@ def _reduce_push(who: str, batched: bool, values, src, w, row_offsets, mask,
         raise ValueError(f"{who}: no kernel for (op={op!r}, mul={mul!r}, "
                          f"{values.dtype}); it has "
                          f"{sorted(REDUCE_ENTRIES.values())}")
-    out = _kernel_push(who, REDUCE_SOURCE, f"spmv_reduce_push_batched_{name}",
-                       rows, src, w, row_offsets, mask)
-    return out if batched else out[0]
+    dev = values.device
+    _check(who, values, src, w, row_offsets, mask, values.dtype)
+    batch, n_src = _batch_shape(values)
+    num_rows = row_offsets.shape[0] - 1
+    out = torch.empty(values.shape[:-1] + (num_rows,), dtype=values.dtype,
+                      device=dev)
+    if num_rows == 0:
+        return out
+    _launch(who, dev, load_entry(REDUCE_SOURCE,
+                                 f"spmv_reduce_push_batched_{name}",
+                                 _ARGTYPES),
+            values.data_ptr(), src.data_ptr(), w.data_ptr(),
+            row_offsets.data_ptr(), None if mask is None else mask.data_ptr(),
+            out.data_ptr(), num_rows, batch, n_src)
+    return out
 
 
 def spmv_reduce_push(values: torch.Tensor, src: torch.Tensor,

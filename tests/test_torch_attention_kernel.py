@@ -2,7 +2,9 @@
 
 The plain versions' semantics are pinned on the CPU against a per-row
 numpy softmax in f64; each CUDA kernel is held against its plain version
-in f64 on the card.  Tolerances: f32 outputs rtol = atol = 1e-5 (sums of
+in f64 on the card (the flash kernel's f32 entry computes on the CUDA
+cores, its bf16 entry on the tensor cores, with P in two bf16 terms).
+Tolerances: f32 outputs rtol = atol = 1e-5 (sums of
 up to 4096 f32 terms in another order); bf16 outputs against f64 rtol 5e-3
 (the output's one round-to-nearest, at most 2^-8 = 3.9e-3 of its value)
 and atol 1e-5 (the f32 sums), and two bf16 results against each other
@@ -20,7 +22,7 @@ import torch
 from repro_torch.kernels.decode_attention.kernel import (
     decode_attention, decode_attention_plain)
 from repro_torch.kernels.flash_attention.kernel import (
-    flash_attention, flash_attention_plain)
+    HEAD_DIMS, flash_attention, flash_attention_plain)
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=5e-3, atol=1e-5)
@@ -37,6 +39,20 @@ FLASH_SHAPES = {
     "qwen2-padded": (2, 1000, 14, 2, 64, 64, True, None),
     "qwen2-window": (1, 777, 14, 2, 64, 64, True, 100),
     "window-not-causal": (1, 300, 6, 3, 32, 64, False, 50),
+}
+
+#: cases of the bf16 (tensor-core) flash kernel: B, Sq, H, KV, hd, vd,
+#: causal, window, scale (None: hd^-0.5)
+FLASH_BF16_CASES = {
+    **{f"hd{hd}-vd{vd}": (1, 130, 4, 2, hd, vd, True, None, None)
+       for hd in HEAD_DIMS for vd in HEAD_DIMS},
+    "g1": (2, 257, 4, 4, 64, 64, True, None, None),
+    "g7": (1, 300, 14, 2, 64, 64, True, None, None),
+    "g16": (1, 200, 16, 1, 64, 64, True, None, None),
+    "not-causal": (2, 333, 14, 2, 64, 64, False, None, None),
+    "window-512": (1, 1500, 14, 2, 64, 64, True, 512, None),
+    "sq-3001": (1, 3001, 14, 2, 64, 64, True, None, None),
+    "scale-0.3": (1, 300, 14, 2, 64, 64, True, None, 0.3),
 }
 
 DECODE_SHAPES = {
@@ -158,6 +174,24 @@ def test_flash_kernel_matches_plain_version(cuda_device, name, dtype):
     # no atomics: a second launch gives the same bits
     assert torch.equal(out, flash_attention(q, k, v, causal=causal,
                                             window=window))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(FLASH_BF16_CASES))
+def test_flash_bf16_kernel_meets_the_smoke_limit(cuda_device, name):
+    """The tensor-core kernel in bf16 against the f64 plain version on the
+    same bf16 inputs, at ``chip_smoke.py``'s limit (BF16_TOL): every head
+    dim pair, G of 1, 7 and 16, causal, not causal and a window of 512, a
+    length that is no multiple of the tiles, and a scale of its own."""
+    b, s, h, kv, hd, vd, causal, window, scale = FLASH_BF16_CASES[name]
+    q, k, v = (t.to(cuda_device, torch.bfloat16)
+               for t in _inputs((b, s, h, kv, hd, vd), 9))
+    out = flash_attention(q, k, v, causal=causal, window=window, scale=scale)
+    ref = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                scale=scale, dtype=torch.float64)
+    assert out.dtype == torch.bfloat16 and out.shape == (b, s, h, vd)
+    np.testing.assert_allclose(out.double().cpu().numpy(),
+                               ref.cpu().numpy(), **BF16_TOL)
 
 
 @pytest.mark.gpu

@@ -181,6 +181,35 @@ def test_kernel_matches_plain_and_single_kernel(cuda_device, semiring,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("batch", [1, 3, 4])
+def test_sum_rows_on_a_hub_layout_are_the_single_push(cuda_device, batch,
+                                                      masked):
+    """On a layout whose hub row spans many of the merge path's blocks,
+    each row of a batched sum is the single push of its value row, bit for
+    bit, whatever B is (the partition depends on the row offsets only)."""
+    rng = np.random.default_rng(8)
+    counts = np.concatenate([rng.integers(0, 40, 3000), [300_000],
+                             np.zeros(500, np.int64),
+                             rng.integers(0, 40, 3000)])
+    ro = (3 + np.concatenate([[0], np.cumsum(counts)])).astype(np.int32)
+    e, n_src = int(ro[-1]) + 5, 4000
+    host = [rng.random((batch, n_src)).astype(np.float32),
+            rng.integers(0, n_src, e).astype(np.int32),
+            rng.random(e).astype(np.float32), ro, rng.random(e) < 0.5]
+    values, src, w, ro, mask = [torch.from_numpy(a).to(cuda_device)
+                                for a in host]
+    mask = mask if masked else None
+    out = spmv_push_batched(values, src, w, ro, mask)
+    ref = spmv_push_batched_plain(values, src, w, ro, mask,
+                                  dtype=torch.float64)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **TOL)
+    for b in range(batch):
+        _same_bits(out[b].cpu().numpy(),
+                   spmv_push(values[b], src, w, ro, mask).cpu().numpy())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("semiring", SEMIRINGS, ids=_ids)
 def test_kernel_wrapper_rejects_what_it_cannot_take(cuda_device, semiring):
     values, src, w, ro, mask = [t.to(cuda_device)

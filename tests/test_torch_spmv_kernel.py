@@ -94,6 +94,65 @@ def test_kernel_matches_plain_version(cuda_device, name, masked):
     assert torch.equal(out, spmv_push(values, src, w, ro, mask))
 
 
+def _merge_cases(tile):
+    """Layouts that stress the sum kernel's merge-path partition, whose
+    blocks take ``tile`` merge items (row ends and edges) each: name ->
+    (n_src, per-row edge counts, ``_csr`` keywords, the hub row whose every
+    edge a masked run masks, or None)."""
+    rng = np.random.default_rng(5)
+    short = lambda n: rng.integers(0, 30, n)
+    empty = lambda n: np.zeros(n, np.int64)
+    return {
+        "one-row-holds-all": (1000, np.array([1 << 20]), {}, None),
+        "hub-between-empty-runs": (
+            5000, np.concatenate([empty(3000), [200_000], empty(3000)]), {},
+            None),
+        "offset-range": (
+            2000, np.concatenate([short(4000), [50_000], short(4000)]),
+            dict(lead=5003, tail=7001), None),
+        "tile-multiples": (
+            2000, np.array([0, 1, tile - 1] + [k * tile + dk
+                                              for k in (1, 2, 3)
+                                              for dk in (-1, 0, 1)]), {},
+            None),
+        "hub-fully-masked": (
+            2000, np.concatenate([short(1000), [100_000], short(1000)]), {},
+            1000),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["one-row-holds-all",
+                                  "hub-between-empty-runs", "offset-range",
+                                  "tile-multiples", "hub-fully-masked"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_kernel_on_merge_path_edge_cases(cuda_device, name, masked):
+    """Hub rows spread over many blocks, empty rows, a sub-range of the
+    edges, rows that end on and beside block boundaries: every row within
+    TOL of the f64 plain version, empty and fully masked rows exactly 0,
+    and a second launch bit for bit the first."""
+    from repro_torch.kernels.spmv.kernel import merge_tile
+
+    n_src, counts, kw, hub = _merge_cases(merge_tile())[name]
+    host = _csr(len(counts), n_src, counts, 6, **kw)
+    values, src, w, ro, mask = [t.to(cuda_device) for t in host]
+    if not masked:
+        mask = None
+    elif hub is not None:
+        mask[ro[hub]:ro[hub + 1]] = False
+    before = spmv_push.launches
+    out = spmv_push(values, src, w, ro, mask)
+    torch.cuda.synchronize()
+    assert spmv_push.launches == before + 1
+    ref = spmv_push_plain(values, src, w, ro, mask, dtype=torch.float64)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **TOL)
+    assert bool((out[torch.from_numpy(counts == 0).to(cuda_device)]
+                 == 0).all())
+    if masked and hub is not None:
+        assert float(out[hub]) == 0.0
+    assert torch.equal(out, spmv_push(values, src, w, ro, mask))
+
+
 @pytest.mark.gpu
 def test_kernel_wrapper_rejects_what_it_cannot_take(cuda_device):
     values, src, w, ro, mask = [t.to(cuda_device)

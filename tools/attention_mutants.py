@@ -36,7 +36,8 @@ EARLIER_LIMIT = 2e-2
 FLASH = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 DECODE = "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu"
 COMMON = "src/repro_torch/kernels/attention_common.cuh"
-#: name -> (file, text, its replacement); ``sizeof(T) == 2`` is bf16 only
+#: name -> (file, text, its replacement); ``sizeof(T) == 2`` is bf16 only,
+#: and so is all of the flash kernel's tensor-core path
 MUTANTS = {
     "none": None,
     "bf16-output-rounds-toward-zero": (
@@ -46,8 +47,12 @@ MUTANTS = {
         DECODE, "const int n = max(0, min(__ldg(cache_len), s));",
         "const int n = max(0, min(__ldg(cache_len) + (sizeof(T) == 2), s));"),
     "flash-bf16-window-one-key-wider": (
-        FLASH, "(window <= 0 || key > pos - window)",
-        "(window <= 0 || key > pos - window - (sizeof(T) == 2))"),
+        FLASH, "(window <= 0 || pos - key < window)",
+        "(window <= 0 || pos - key <= window)"),
+    # P enters P.V rounded once to bf16 (its low term is 0)
+    "flash-bf16-p-rounded-once": (
+        FLASH, "__floats2bfloat162_rn(x - hf.x, y - hf.y)",
+        "__floats2bfloat162_rn(0.0f, 0.0f)"),
 }
 
 CHECK = r"""
