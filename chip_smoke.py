@@ -8,9 +8,11 @@ SpMV push and the min/max push, each in a single and a batched form, the
 flash attention forward and decode attention; one ``nvcc`` per source,
 started together) and holds every kernel against its plain version at the
 shapes its path gives it, each batched row also bitwise against the single
-kernel and each SpMV push against a second launch of itself (the shapes
-include every edge of the stream in one row).  Then it drives three paths
-over the ``synth-web-lg`` stream:
+kernel and each push against a second launch of itself (the shapes
+include every edge of the stream in one row).  Every entry that no shipped
+semiring launches (nine min/max semirings, the sum with ⊗ = + and min) is
+checked once, as a registered semiring, at a small synth-web-lg layout.
+Then it drives three paths over the ``synth-web-lg`` stream:
 
 - PageRank through ``repro_torch.session``: the initial exact query, 11
   approximate queries and one exact one, every push through ``spmv_push``;
@@ -80,6 +82,7 @@ TRAVERSAL_R = 0.05
 SEMIRING_OF = {"sssp": "min_plus", "widest-path": "max_times",
                "connected-components": "min_min"}
 BATCH = 4                   # the serving engine's default slots
+ENTRY_EDGES = 400_000       # the small layout of the kernel entry checks
 # serving: how many requests of each seeded workload, and the tolerance of
 # the PPR / Katz / HITS rows against an f64 replay of their sweep
 SERVE_PPR, SERVE_SSSP, SERVE_WIDEST = 10, 4, 2
@@ -105,16 +108,22 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def check_kernel(name, values, layout, mask=None) -> dict:
-    """Run the kernel once against the plain version in f64 on the card,
-    then time kernel, plain version and a library SpMV on the same inputs."""
-    from repro_torch.kernels.spmv.kernel import spmv_push, spmv_push_plain
+def check_kernel(name, values, layout, mask=None, mul="times") -> dict:
+    """Run the kernel (the sum of ``values[src] ⊗ w``, ⊗ = ``mul``) once
+    against the plain version in f64 on the card, then time kernel, plain
+    version and, for ⊗ = ×, a library SpMV on the same inputs.  The
+    tolerance scales with the sum of |values| ⊗ |w|, which bounds the sum's
+    terms for the non-negative values and weights used here."""
+    from repro_torch.kernels.spmv.kernel import (SUM_ENTRIES, spmv_push,
+                                                 spmv_push_plain)
 
     src, w, ro = layout.src, layout.weight, layout.row_offsets
-    out = spmv_push(values, src, w, ro, mask)
+    run = lambda: spmv_push(values, src, w, ro, mask, mul=mul)
+    out = run()
     torch.cuda.synchronize()
-    ref = spmv_push_plain(values, src, w, ro, mask, dtype=torch.float64)
-    scale = spmv_push_plain(values.abs(), src, w.abs(), ro, mask,
+    ref = spmv_push_plain(values, src, w, ro, mask, mul=mul,
+                          dtype=torch.float64)
+    scale = spmv_push_plain(values.abs(), src, w.abs(), ro, mask, mul=mul,
                             dtype=torch.float64)
     err = (out.double() - ref).abs()
     ok = bool((err <= 1e-5 * scale).all())
@@ -122,31 +131,26 @@ def check_kernel(name, values, layout, mask=None) -> dict:
         raise AssertionError(f"{name}: kernel disagrees with the f64 plain "
                              f"version (max abs err {float(err.max())})")
     # no float atomics: a second launch gives the same bits
-    if not same_bits(out, spmv_push(values, src, w, ro, mask)):
+    if not same_bits(out, run()):
         raise AssertionError(f"{name}: two launches of the kernel differ")
     num_rows, n_src = ro.shape[0] - 1, values.shape[0]
     lo, hi = int(ro[0]), int(ro[-1])
     nnz = hi - lo
     lens = (ro[1:] - ro[:-1]).long()
     hubs = lens > 1024  # rows that keep one warp busy for 32+ trips
-    kernel_ms = cuda_ms(lambda: spmv_push(values, src, w, ro, mask))
+    kernel_ms = cuda_ms(run)
     # the same launches replayed from a CUDA graph: the device's time alone,
     # which kernel_ms hides where the host's enqueue is slower
-    device_ms = graph_ms(lambda: spmv_push(values, src, w, ro, mask))
-    # host time to enqueue one launch (checks, ctypes call), no sync
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(50):
-        spmv_push(values, src, w, ro, mask)
-    host_us = (time.perf_counter() - t) / 50 * 1e6
-    torch.cuda.synchronize()
-    plain_ms = cuda_ms(lambda: spmv_push_plain(values, src, w, ro, mask))
+    device_ms = graph_ms(run)
+    launch_us = host_us(run)
+    plain_ms = cuda_ms(lambda: spmv_push_plain(values, src, w, ro, mask,
+                                               mul=mul))
     # library yardstick: cuSPARSE SpMV through torch on a CSR tensor of the
     # same (masked) matrix; timed here only, never called by the port.
     # cuSPARSE refuses more entries than rows x columns (repeated sources
     # in a row), so such a matrix has none
     library_ms = library_device_ms = lib_err = None
-    if nnz <= num_rows * n_src:
+    if mul == "times" and nnz <= num_rows * n_src:
         wl = (w[lo:hi] if mask is None
               else torch.where(mask[lo:hi], w[lo:hi], 0.0))
         csr = torch.sparse_csr_tensor(
@@ -159,12 +163,13 @@ def check_kernel(name, values, layout, mask=None) -> dict:
         + 4 * num_rows + 4 * n_src
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     op_ms = 2 * nnz / F32_FLOPS * 1e3
-    return {"phase": "kernel-check", "shape": name, "rows": num_rows,
+    return {"phase": "kernel-check", "shape": name, "mul": mul,
+            "entry": SUM_ENTRIES[mul], "rows": num_rows,
             "n_src": n_src, "nnz": nnz,
             "max_row": int(lens.max()) if num_rows else 0,
             "rows_over_1024": int(hubs.sum()),
             "edges_in_rows_over_1024": int(lens[hubs].sum()),
-            "masked": mask is not None, "host_us_per_launch": host_us,
+            "masked": mask is not None, "host_us_per_launch": launch_us,
             "max_abs_err": float(err.max()), "within_tol": ok,
             "run_to_run_bitwise": True,
             "library_max_abs_err": lib_err,
@@ -216,7 +221,8 @@ def check_reduce_kernel(name, values, layout, mask=None) -> dict:
     the precomputed contribution stream (the reduce alone) on the same
     inputs."""
     from repro_torch.core.semiring import resolve_semiring
-    from repro_torch.kernels.spmv.kernel import (reduce_identity,
+    from repro_torch.kernels.spmv.kernel import (REDUCE_ENTRIES,
+                                                 reduce_identity,
                                                  spmv_reduce_push,
                                                  spmv_reduce_push_plain)
 
@@ -234,12 +240,17 @@ def check_reduce_kernel(name, values, layout, mask=None) -> dict:
         raise AssertionError(f"{name}: min/max kernel differs from its plain "
                              f"version in {int(differ.sum())} rows (max abs "
                              f"err {err})")
+    run = lambda: spmv_reduce_push(values, src, w, ro, mask, **kw)
+    # no atomics and a fixed fold order: a second launch gives the same bits
+    if not same_bits(out, run()):
+        raise AssertionError(f"{name}: two launches of the kernel differ")
     num_rows, n_src = ro.shape[0] - 1, values.shape[0]
     lo, hi = int(ro[0]), int(ro[-1])
     nnz = hi - lo
     lens = (ro[1:] - ro[:-1]).long()
-    kernel_ms = cuda_ms(lambda: spmv_reduce_push(values, src, w, ro, mask,
-                                                 **kw))
+    kernel_ms = cuda_ms(run)
+    device_ms = graph_ms(run)
+    launch_us = host_us(run)
     plain_ms = cuda_ms(lambda: spmv_reduce_push_plain(values, src, w, ro,
                                                       mask, **kw))
     # library yardstick: torch.segment_reduce over the contribution stream
@@ -268,12 +279,20 @@ def check_reduce_kernel(name, values, layout, mask=None) -> dict:
     op_ms = 2 * nnz / F32_FLOPS * 1e3
     bound_ms = max(byte_ms, op_ms)
     return {"phase": "reduce-kernel-check", "shape": name,
-            "semiring": s.name, "dtype": str(values.dtype).split(".")[-1],
+            "semiring": s.name, "entry": "spmv_reduce_push_batched_"
+            + REDUCE_ENTRIES[(s.add, s.mul, values.dtype)],
+            "dtype": str(values.dtype).split(".")[-1],
             "rows": num_rows, "n_src": n_src, "nnz": nnz,
             "max_row": int(lens.max()) if num_rows else 0,
             "masked": mask is not None, "bitwise": ok, "max_abs_err": err,
-            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "run_to_run_bitwise": True, "host_us_per_launch": launch_us,
+            "kernel_ms": kernel_ms, "kernel_device_ms": device_ms,
+            "plain_ms": plain_ms,
             "library_ms": library_ms, "library": library_note,
+            "timing": "kernel_ms, plain_ms, library_ms: 20 eager calls "
+                      "back to back, their host cost included; "
+                      "kernel_device_ms: 20 calls replayed from one CUDA "
+                      "graph",
             "library_bitwise": library_ok, "bytes": nbytes,
             "bound_ms": bound_ms, "bound_us": bound_ms * 1e3,
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
@@ -304,6 +323,10 @@ def reduce_checks(src, dst, nodes, dev, rng, hot) -> list:
     # (e) the b_in pass: edges from a cold source into a hot destination
     rows.append(check_reduce_kernel("(e) synth-web-lg min_plus, b_in mask",
                                     dist, lay, b_in_mask(hot, lay)))
+    # (f) every edge of the stream in one row: the hub case at its extreme
+    rows.append(check_reduce_kernel(
+        "(f) synth-web-lg min_plus, edges in one row", dist,
+        one_row_layout(lay)))
     del lay
     # (b) widths in [0, 1] with zeros and denormals, reliabilities in
     # (0, 1]: products below the smallest normal stay denormal
@@ -333,6 +356,60 @@ def reduce_checks(src, dst, nodes, dev, rng, hot) -> list:
         rows.append(check_reduce_kernel(tag, labels_t, lay))
         del lay
     return rows
+
+
+def one_row_layout(layout):
+    """``layout``'s stream as one row: every edge into one destination."""
+    one_row = torch.tensor([0, int(layout.row_offsets[-1])],
+                           dtype=torch.int32, device=layout.src.device)
+    return SimpleNamespace(src=layout.src, weight=layout.weight,
+                           row_offsets=one_row, semiring=layout.semiring)
+
+
+def entry_checks(src, dst, nodes, dev, rng) -> tuple:
+    """One check of each kernel entry that no shipped semiring uses, at a
+    small synth-web-lg layout (its first ENTRY_EDGES edges over all its
+    vertices): the nine other min/max (⊕, ⊗, dtype) bitwise, and the sum
+    with ⊗ = + and min at the f64 tolerance.  Each runs as a semiring a
+    user registers.  Returns (min/max rows, sum rows)."""
+    from repro_torch.core.backend import build_layout
+    from repro_torch.core.semiring import Semiring, register_semiring
+    from repro_torch.graph.graph import from_edges
+    from repro_torch.kernels.spmv.kernel import REDUCE_ENTRIES
+
+    e = ENTRY_EDGES
+    state = from_edges(src[:e], dst[:e], nodes, e, device=dev)
+    shipped = {("min", "plus", torch.float32),
+               ("max", "times", torch.float32), ("min", "min", torch.int32)}
+    tag = f"small synth-web-lg ({e} edges)"
+    reduce_rows, sum_rows = [], []
+    for (op, mul, dtype), entry in sorted(REDUCE_ENTRIES.items(),
+                                          key=lambda kv: kv[1]):
+        if (op, mul, dtype) in shipped:
+            continue
+        name = f"smoke_{entry}"
+        register_semiring(Semiring(name, op, mul, str(dtype).split(".")[-1]))
+        if dtype == torch.int32:  # sums and products past int32 wrap
+            values = rng.integers(-2**31, 2**31 - 1, nodes).astype(np.int32)
+            lengths = rng.integers(-2**31, 2**31 - 1, e).astype(np.int32)
+        else:
+            values = (10 * rng.random(nodes)).astype(np.float32)
+            values[rng.random(nodes) < 0.1] = np.inf
+            lengths = (0.5 + rng.random(e)).astype(np.float32)
+        lay = build_layout(state, weight="length", semiring=name,
+                           lengths=torch.from_numpy(lengths).to(dev))
+        reduce_rows.append(check_reduce_kernel(
+            f"{tag} {entry}", torch.from_numpy(values).to(dev), lay))
+    values = torch.from_numpy(rng.random(nodes).astype(np.float32)).to(dev)
+    lengths = torch.from_numpy((0.5 + rng.random(e)).astype(np.float32))
+    for mul in ("plus", "min"):
+        name = f"smoke_sum_{mul}_f32"
+        register_semiring(Semiring(name, "sum", mul, "float32"))
+        lay = build_layout(state, weight="length", semiring=name,
+                           lengths=lengths.to(dev))
+        sum_rows.append(check_kernel(f"{tag} sum_{mul}", values, lay,
+                                     mul=mul))
+    return reduce_rows, sum_rows
 
 
 def check_denormals(width, layout) -> int:
@@ -458,11 +535,15 @@ def check_batched_reduce_kernel(name, values, layout, mask=None) -> dict:
                              f"{int((out != ref).sum())} entries")
     rows_match_single(
         out, lambda v: spmv_reduce_push(v, src, w, ro, mask, **kw), values)
+    if not same_bits(out, run()):
+        raise AssertionError(f"{name}: two launches of the batched kernel "
+                             f"differ")
     batch, n_src = values.shape
     num_rows = ro.shape[0] - 1
     lo, hi = int(ro[0]), int(ro[-1])
     lens = (ro[1:] - ro[:-1]).long()
     kernel_ms = cuda_ms(run)
+    device_ms = graph_ms(run)
     launch_us = host_us(run)
     plain_ms = cuda_ms(lambda: spmv_reduce_push_batched_plain(
         values, src, w, ro, mask, **kw))
@@ -472,7 +553,8 @@ def check_batched_reduce_kernel(name, values, layout, mask=None) -> dict:
         # [B, E] contributions computed beforehand (the reduce only)
         ident = reduce_identity(values.dtype, s.add)
         x, wt = values[:, src[lo:hi].long()], w[lo:hi]
-        contrib = x + wt if s.mul == "plus" else x * wt
+        contrib = (x + wt if s.mul == "plus" else x * wt if s.mul == "times"
+                   else torch.minimum(x, wt))
         if mask is not None:
             contrib = torch.where(mask[lo:hi], contrib, ident)
         lengths = lens.expand(batch, -1).contiguous()
@@ -492,11 +574,12 @@ def check_batched_reduce_kernel(name, values, layout, mask=None) -> dict:
             "max_row": int(lens.max()) if num_rows else 0,
             "masked": mask is not None, "host_us_per_launch": launch_us,
             "bitwise": True, "max_abs_err": 0.0,
-            "rows_bitwise_vs_single": True,
+            "rows_bitwise_vs_single": True, "run_to_run_bitwise": True,
             "library": ("segment_reduce of the precomputed [B, E] "
                         "contributions (reduce only)" if library_ms else
                         "none for int32"),
-            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "kernel_ms": kernel_ms, "kernel_device_ms": device_ms,
+            "plain_ms": plain_ms,
             "library_ms": library_ms, "bytes": nbytes, "bound_ms": bound_ms,
             "bound_us": bound_ms * 1e3,
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
@@ -536,6 +619,9 @@ def batched_checks(src, dst, nodes, dev, rng, hot) -> list:
     rows.append(check_batched_reduce_kernel(
         "(e) synth-web-lg min_plus, b_in mask", dist, lay,
         b_in_mask(hot, lay)))
+    rows.append(check_batched_reduce_kernel(
+        "(f) synth-web-lg min_plus, edges in one row", dist,
+        one_row_layout(lay)))
     del lay
     width = rng.random((BATCH, nodes)).astype(np.float32)
     width[rng.random((BATCH, nodes)) < 0.05] = 0.0
@@ -1250,8 +1336,8 @@ def f64_wave(cap, hot, bank, state, row_mask):
     bank = {k: v.double() if v.dtype == torch.float32 else v
             for k, v in bank.items()}
     real = B.spmv_push_batched
-    B.spmv_push_batched = lambda v, s, w, ro, m=None: spmv_push_batched_plain(
-        v, s, w, ro, m, dtype=torch.float64)
+    B.spmv_push_batched = lambda v, s, w, ro, m=None, mul="times": \
+        spmv_push_batched_plain(v, s, w, ro, m, mul=mul, dtype=torch.float64)
     try:
         layouts = tuple(B.build_layout(state, weight=w, reverse=r, semiring=s)
                         for w, r, s in map(B.normalize_layout_spec,
@@ -1444,6 +1530,9 @@ ATTN_F32_TOL = 1e-5         # kernel in f32 vs the f64 plain version
 # round-to-nearest, at most 2^-8 = 3.9e-3 of its value, over the f32 sums'
 # error (at most 1.2e-6 in the f32 rows): |err| <= ATOL + RTOL |ref|
 ATTN_BF16_RTOL, ATTN_BF16_ATOL = 5e-3, 1e-5
+# decode's cold timing rotates through this many copies of its inputs:
+# 6 x 16.8 MB at the Qwen2 shape, past the H100's 50 MB L2
+COLD_COPIES = 6
 ATTENTION_CHECKS = (
     ("Qwen2-0.5B causal prefill, B=1, S=4096", "flash",
      (1, 4096, 14, 2, 64, 64, True, None)),
@@ -1457,6 +1546,8 @@ ATTENTION_CHECKS = (
      (8, 4096, 14, 2, 64, 64, 4096)),
     ("Qwen2-0.5B decode, B=8, S=4096, cache_len=2100", "decode",
      (8, 4096, 14, 2, 64, 64, 2100)),
+    ("Qwen2-0.5B decode, B=8, S=4096, cache_len=128", "decode",
+     (8, 4096, 14, 2, 64, 64, 128)),
 )
 
 
@@ -1486,6 +1577,49 @@ def graph_ms(fn, reps: int = 20) -> float:
     del graph
     torch.cuda.empty_cache()
     return ms
+
+
+def graph_ms_rotating(fns, reps: int = 20) -> float:
+    """:func:`graph_ms` of calls that rotate through ``fns``, each on its
+    own inputs: with more bytes in all than L2 holds, no call finds its
+    inputs there from the call before, as in a model step that streams
+    every layer's weights and cache between two calls of one layer."""
+    count = iter(range(1 << 30))
+    return graph_ms(lambda: fns[next(count) % len(fns)](), reps)
+
+
+def graph_kernel_nodes(fn):
+    """Kernel nodes in a CUDA graph of one ``fn()`` call: the launches the
+    call makes, read from the captured graph through ``libcuda``
+    (``cuGraphGetNodes``, ``cuGraphNodeGetType``).  Raises where this
+    PyTorch keeps no graph to read (no ``keep_graph``): the count is a
+    check, and an unread one would pass."""
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError as exc:
+        raise RuntimeError("cannot count a call's kernel nodes: this "
+                           "PyTorch's CUDAGraph has no keep_graph") from exc
+    with torch.cuda.graph(graph):
+        fn()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(raw, None, ctypes.byref(count)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    if cuda.cuGraphGetNodes(raw, nodes, ctypes.byref(count)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    kind, kernels = ctypes.c_int(), 0
+    for node in nodes:
+        if cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    del graph
+    return kernels
 
 
 def max_excess(out, ref, atol, rtol=None) -> tuple:
@@ -1586,8 +1720,23 @@ def check_attention_kernel(tag, kind, shape, rng, dev) -> dict:
     del ref64, out
     eager_ms = cuda_ms(lambda: run(q, k, v))
     kernel_ms = graph_ms(lambda: run(q, k, v))
+    # every call is one launch: one kernel node in a captured graph
+    nodes = graph_kernel_nodes(lambda: run(q, k, v))
+    if nodes != 1:
+        raise AssertionError(f"{kind} attention, {tag}: one call captured "
+                             f"{nodes} kernel nodes")
     plain_ms = graph_ms(lambda: plain(q, k, v))
     library_ms = graph_ms(lib_fn)
+    kernel_cold_ms = library_cold_ms = None
+    if kind == "decode":
+        # as a decode step calls it: each layer's cache is cold in L2
+        copies = [tuple(t.clone() for t in (q, k, v))
+                  for _ in range(COLD_COPIES)]
+        kernel_cold_ms = graph_ms_rotating(
+            [lambda c=c: run(*c) for c in copies])
+        library_cold_ms = graph_ms_rotating(
+            [library(*c)[0] for c in copies])
+        del copies
     return {"phase": "attention-kernel-check", "kernel": (
                 "flash_attention" if kind == "flash" else "decode_attention"),
             "shape": tag, "dims": list(shape), "pairs": pairs,
@@ -1601,10 +1750,16 @@ def check_attention_kernel(tag, kind, shape, rng, dev) -> dict:
             "library": "scaled_dot_product_attention(enable_gqa=True)",
             "library_bf16_max_abs_err_vs_f64": lib_err,
             "kernel_ms": kernel_ms, "kernel_eager_ms": eager_ms,
+            "kernel_cold_ms": kernel_cold_ms,
+            "library_cold_ms": library_cold_ms,
+            "kernel_nodes_per_call": nodes,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "timing": "device time of 20 calls replayed from one CUDA graph; "
-                      "kernel_eager_ms: 20 eager calls back to back, their "
-                      "host cost included",
+            "timing": "device time of 20 calls replayed from one CUDA graph "
+                      "(inputs warm in L2); kernel_eager_ms: 20 eager calls "
+                      "back to back, their host cost included; *_cold_ms "
+                      "(decode): the graph's calls rotate through "
+                      f"{COLD_COPIES} copies of the inputs, more bytes than "
+                      "L2 holds, so each call reads its cache from HBM",
             **bound,
             "roofline_share": bound["bound_ms"] / kernel_ms}
 
@@ -1882,12 +2037,8 @@ def main() -> int:
     checks.append(check_kernel("synth-web-lg inv_out layout, b_in mask", v,
                                full, b_in_mask(hot, full)))
     # every edge of the stream in one row: the hub case at its extreme
-    one_row = torch.tensor([0, int(full.row_offsets[-1])], dtype=torch.int32,
-                           device=dev)
-    checks.append(check_kernel(
-        "synth-web-lg edges in one row", v,
-        SimpleNamespace(src=full.src, weight=full.weight,
-                        row_offsets=one_row)))
+    checks.append(check_kernel("synth-web-lg edges in one row", v,
+                               one_row_layout(full)))
     del full
     for row in checks:
         emit(row)
@@ -1901,6 +2052,12 @@ def main() -> int:
     del eu, v_eu, e_src, e_dst
     reduce_rows = reduce_checks(src, dst, spec.nodes, dev, rng, hot)
     for row in reduce_rows:
+        emit(row)
+    torch.cuda.empty_cache()
+    # the entries no shipped semiring uses, as registered semirings
+    entry_reduce_rows, entry_sum_rows = entry_checks(src, dst, spec.nodes,
+                                                     dev, rng)
+    for row in entry_reduce_rows + entry_sum_rows:
         emit(row)
     torch.cuda.empty_cache()
     batched_rows = batched_checks(src, dst, spec.nodes, dev, rng, hot)
@@ -2033,6 +2190,21 @@ def main() -> int:
 
     # ---- 10. summary --------------------------------------------------------
     main_check, reduce_main = checks[0], reduce_rows[0]
+
+    def entries(rows):
+        """Each entry's checks: the worst error and the slowest device time
+        over its shapes."""
+        out = {}
+        for r in rows:
+            e = out.setdefault(r["entry"], {"entry": r["entry"], "checks": 0,
+                                            "max_abs_err": 0.0,
+                                            "kernel_device_ms": 0.0})
+            e["checks"] += 1
+            e["max_abs_err"] = max(e["max_abs_err"], r["max_abs_err"])
+            e["kernel_device_ms"] = max(e["kernel_device_ms"],
+                                        r["kernel_device_ms"])
+        return sorted(out.values(), key=lambda e: e["entry"])
+
     sums = [r for r in batched_rows if r["kernel"] == "spmv_push_batched"]
     mins = [r for r in batched_rows
             if r["kernel"] == "spmv_reduce_push_batched"]
@@ -2046,17 +2218,20 @@ def main() -> int:
         "ms": main_check["kernel_ms"], "plain_ms": main_check["plain_ms"],
         "bound_ms": main_check["bound_ms"],
         "bound_by": main_check["bound_by"],
-        "library_ms": main_check["library_ms"]}, {
+        "library_ms": main_check["library_ms"],
+        "entries": entries(checks + entry_sum_rows)}, {
         "name": "spmv_reduce_push", "route": "cuda",
         "source": "src/repro_torch/kernels/spmv/csrc/spmv_reduce_push.cu",
         "replaces": "src/repro/kernels/spmv/kernel.py:338",
         "launches": reduce_launches,
         "check": "pass (bitwise)",
-        "max_abs_err": max(c["max_abs_err"] for c in reduce_rows),
+        "max_abs_err": max(c["max_abs_err"]
+                           for c in reduce_rows + entry_reduce_rows),
         "ms": reduce_main["kernel_ms"], "plain_ms": reduce_main["plain_ms"],
         "bound_ms": reduce_main["bound_ms"],
         "bound_by": reduce_main["bound_by"],
-        "library_ms": reduce_main["library_ms"]}, {
+        "library_ms": reduce_main["library_ms"],
+        "entries": entries(reduce_rows + entry_reduce_rows)}, {
         "name": "spmv_push_batched", "route": "cuda",
         "source": "src/repro_torch/kernels/spmv/csrc/spmv_push.cu",
         "replaces": "src/repro/kernels/spmv/kernel.py:458",

@@ -216,14 +216,71 @@ class StreamingAlgorithm(abc.ABC):
         agg = scores.max(dim=0).values
         return torch.where(torch.isfinite(agg), agg, 0.0)
 
+    def __init_subclass__(cls, **kwargs):
+        """Legacy-plugin dispatch, resolved once at class creation.
+
+        A pre-semiring plugin overrides ``score_view``; the engine reads
+        ``result_view``.  Whenever a class (re-)defines ``score_view``
+        below the most-derived ``result_view`` in its MRO (a fresh
+        old-style plugin, or a subclass of a shipped algorithm that
+        customizes only ``score_view``), ``result_view`` is rerouted
+        through that override.  The position is the MRO's, not
+        ``issubclass``: a mixin's ``score_view`` that precedes the
+        algorithm base counts.  Classes defining both at one level are left
+        alone.  Rerouted methods are tagged so that the base ``score_view``
+        alias skips them when a legacy override chains up through
+        ``super().score_view(...)`` (no mutual recursion).  The reroute
+        happens before ``__abstractmethods__`` is computed, so a plugin that
+        defines only ``score_view`` can be built, and one that defines
+        neither view still fails at construction.
+        """
+        super().__init_subclass__(**kwargs)
+
+        def defining(name):
+            for klass in cls.__mro__:
+                if name in vars(klass):
+                    return klass
+            return None
+
+        sv, rv = defining("score_view"), defining("result_view")
+        if (sv not in (None, StreamingAlgorithm) and rv is not None
+                and sv is not rv
+                and cls.__mro__.index(sv) < cls.__mro__.index(rv)):
+            orig = vars(sv)["score_view"]
+
+            def _rerouted(self, state, _orig=orig):
+                return _orig(self, state)
+
+            _rerouted._legacy_reroute = True
+            _rerouted.__doc__ = (f"result_view rerouted through the legacy "
+                                 f"{sv.__name__}.score_view override.")
+            cls.result_view = _rerouted
+
     @abc.abstractmethod
     def result_view(self, state: AlgoState) -> torch.Tensor:
-        """The query answer, one entry per vertex."""
+        """The query answer, one entry per vertex.  Subclasses override it
+        (or, legacy plugins, ``score_view``: see :meth:`__init_subclass__`).
+        """
 
     def selection_view(self, state: AlgoState) -> torch.Tensor:
         """f32 volatility signal for the hot-set Δ bound (Eqs. 4-5);
         ranking algorithms use their scores."""
         return self.result_view(state).to(torch.float32)
+
+    def score_view(self, state: AlgoState) -> torch.Tensor:
+        """Deprecated pre-semiring alias of :meth:`result_view`.
+
+        Resolves to the first result_view in the MRO that is not a reroute,
+        so a legacy override calling ``super().score_view(...)`` gets its
+        parent's answer, not itself back.
+        """
+        for klass in type(self).__mro__:
+            rv = vars(klass).get("result_view")
+            if rv is not None and not getattr(rv, "_legacy_reroute", False):
+                return rv(self, state)
+        raise NotImplementedError(
+            f"{type(self).__name__} implements neither result_view nor the "
+            "legacy score_view")
 
 
 def summaries_overflow(summaries: Tuple[SummaryBuffers, ...]) -> torch.Tensor:

@@ -15,16 +15,20 @@ with weights stored in the semiring's dtype go to a hand-written kernel,
 ``[N]`` values to the single form and ``[B, N]`` values (B queries through
 one layout, the serving engine's waves) to the batched form:
 
-- ``plus_times`` to the SpMV kernel
+- every f32 sum (``plus_times``, and a registered sum with ⊗ = + or min)
+  to the SpMV kernel
   (:func:`repro_torch.kernels.spmv.kernel.spmv_push`,
   :func:`~repro_torch.kernels.spmv.kernel.spmv_push_batched`);
-- ``min_plus``, ``max_times`` and ``min_min`` to the min/max kernel
+- every min/max semiring over f32 or i32 (``min_plus``, ``max_times``,
+  ``min_min`` and any registered one, e.g. a ``max_min`` bottleneck) to the
+  min/max kernel
   (:func:`repro_torch.kernels.spmv.kernel.spmv_reduce_push`,
   :func:`~repro_torch.kernels.spmv.kernel.spmv_reduce_push_batched`).
 
 A CUDA tensor launches the kernel and a CPU tensor takes its plain
-version.  Compressed weights take the plain segment reduce on the CPU and
-raise ``NotImplementedError`` on the card until their kernels are ported.
+version.  Compressed weights and the semirings the reference's Pallas path
+refuses too (sums outside f32, min/max outside f32 and i32) take the plain
+segment reduce on the CPU and raise ``NotImplementedError`` on the card.
 The sharded layout and its collective push are not ported yet.
 """
 
@@ -290,7 +294,7 @@ def push(
     no unmasked in-edge get the ⊕-identity.  ``mask`` filters edges in the
     layout's sorted order and is shared by the rows.  A CUDA tensor
     launches the semiring's kernel, single or batched (see the module
-    docstring), one launch per call; what has no kernel yet raises
+    docstring), one launch per call; what has no kernel raises
     ``NotImplementedError`` there.
     """
     s = resolve_semiring(semiring)
@@ -309,12 +313,13 @@ def push(
     record_trace("push")
     if batched:
         record_trace("push[batched]")
-    sum_of_products = (s.add, s.mul, s.dtype) == ("sum", "times", "float32")
+    f32_sum = (s.add, s.dtype) == ("sum", "float32")
     reduce_entry = (s.add, s.mul, s.torch_dtype) in REDUCE_ENTRIES
     stored = layout.weight.dtype == s.torch_dtype
-    if stored and sum_of_products:
+    if stored and f32_sum:
         fn = spmv_push_batched if batched else spmv_push
-        return fn(values, layout.src, layout.weight, layout.row_offsets, mask)
+        return fn(values, layout.src, layout.weight, layout.row_offsets, mask,
+                  mul=s.mul)
     if stored and reduce_entry:
         fn = spmv_reduce_push_batched if batched else spmv_reduce_push
         return fn(values, layout.src, layout.weight, layout.row_offsets,
@@ -323,7 +328,8 @@ def push(
         raise NotImplementedError(
             "compressed edge weights on the GPU are not ported yet (ROADMAP "
             "queue 1 entry 14)" if not stored else
-            f"semiring {s.name!r} has no GPU kernel")
+            f"semiring {s.name!r} has no GPU kernel: the kernels sum in f32 "
+            f"and take min/max in f32 or i32")
     return gather_push(layout, values, layout.num_segments,
                        weight=layout.weight, mask=mask, semiring=s)
 

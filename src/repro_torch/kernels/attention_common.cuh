@@ -1,7 +1,7 @@
 // Helpers shared by the attention kernels (flash_attention/csrc and
 // decode_attention/csrc): 16-byte loads widened to f32, the cast back with
-// round-to-nearest-even, warp reductions, and the reference's finite mask
-// value.
+// round-to-nearest-even, warp reductions, cp.async copies into shared
+// memory, and the reference's finite mask value.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -67,6 +67,29 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared with cp.async, zero-filled where !valid.  The
+// copies of a thread land once cp_async_wait<k> leaves at most k of its
+// groups pending; other threads see them after a barrier.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
 }
 
 // The reference's finish: acc / max(l, 1e-30) where some key was seen,

@@ -11,8 +11,10 @@ H, vd)`` is in q's dtype.  It replaces the Pallas
 kernel ``repro/kernels/decode_attention/kernel.py::decode_attention_kernel``,
 and on the model path the full-row jnp softmax that stands in for it
 (``repro/models/layers.py::decode_attention``).  The CUDA source
-(``csrc/decode_attention.cu``, flash-decoding with the cache split across
-blocks) says how and what bounds it.
+(``csrc/decode_attention.cu``: one launch, a thread-block cluster per (b,
+KV head, row chunk) whose CTAs split the valid slots and merge their
+softmax states through distributed shared memory) says how and what bounds
+it; :func:`launch_grid` gives its grid.
 
 On a CUDA tensor the wrapper launches the kernel or raises; only a tensor
 that lies on the CPU takes :func:`decode_attention_plain`.  The source is
@@ -23,28 +25,40 @@ or loaded when this module is imported.
 from __future__ import annotations
 
 import ctypes
-import functools
 from pathlib import Path
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
-from repro_torch.kernels.build import load_entry
+from repro_torch.kernels.build import current_stream, load_entry
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 #: head dims (hd and vd) the kernel is built for
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 NEG_INF = -1e30
-#: cache slots one block of the kernel takes per pass (4 warps of 32)
-SLOTS_PER_PASS = 128
-#: query heads of a group per block (a wider group takes several)
+#: CTAs of one thread-block cluster (``kCluster`` in the source): they split
+#: the valid slots of one (b, KV head, row chunk), their shares computed on
+#: the device from ``cache_len``
+CLUSTER = 8
+#: slots a warp stages and scores per step (``kChunk``)
+SLOTS_PER_CHUNK = 32
+#: query heads of a group per cluster (``kRows``; a wider group takes
+#: several row chunks)
 ROWS_PER_BLOCK = 8
-#: blocks in flight per SM that the cache split aims at
-BLOCKS_PER_SM = 4
 
-_ARGTYPES = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 8
+_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6
              + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+
+
+def launch_grid(batch: int, num_heads: int, num_kv: int
+                ) -> Tuple[int, int, int]:
+    """The kernel's grid (CTAs in x, y, z) for ``batch`` sequences and GQA
+    heads ``num_heads`` over ``num_kv``: one cluster of :data:`CLUSTER` CTAs
+    per (b, KV head, row chunk).  It depends on neither S nor
+    ``cache_len``."""
+    chunks = -(-(num_heads // num_kv) // ROWS_PER_BLOCK)
+    return CLUSTER, num_kv * chunks, batch
 
 
 def _shapes(who: str, q, k_cache, v_cache):
@@ -63,24 +77,6 @@ def _shapes(who: str, q, k_cache, v_cache):
         raise ValueError(f"{who}: {h} query heads do not split into groups "
                          f"of {kvh} KV heads")
     return b, h, hd, s, kvh, v_cache.shape[-1]
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def split_plan(batch: int, num_heads: int, num_kv: int, s: int,
-               sm_count: int) -> tuple:
-    """``(split_len, num_splits)``: how the kernel cuts the S cache slots
-    across blocks, about :data:`BLOCKS_PER_SM` blocks per SM in all, each
-    split a multiple of :data:`SLOTS_PER_PASS` slots."""
-    chunks = -(-(num_heads // num_kv) // ROWS_PER_BLOCK)
-    per_split = batch * num_kv * chunks
-    passes = -(-s // SLOTS_PER_PASS)
-    splits = max(1, min(passes, -(-BLOCKS_PER_SM * sm_count // per_split)))
-    split_len = -(-passes // splits) * SLOTS_PER_PASS
-    return split_len, -(-s // split_len)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -131,8 +127,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{who}: {name} must be contiguous and 16-byte "
                              f"aligned")
-    chunks = -(-(h // kvh) // ROWS_PER_BLOCK)
-    if b > 65535 or kvh * chunks > 65535 or s >= 2**31 - SLOTS_PER_PASS:
+    grid = launch_grid(b, h, kvh)
+    if grid[1] > 65535 or grid[2] > 65535 or s >= 2**31 - SLOTS_PER_CHUNK:
         raise ValueError(f"{who}: shape {tuple(k_cache.shape)} is beyond "
                          f"the kernel's grid")
     if s == 0:
@@ -140,20 +136,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty((b, 1, h, vd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    split_len, splits = split_plan(b, h, kvh, s,
-                                   _sm_count(q.device.index or 0))
-    part_ml = torch.empty((2, b, h, splits), dtype=torch.float32,
-                          device=q.device)
-    part_acc = torch.empty((b, h, splits, vd), dtype=torch.float32,
-                           device=q.device)
     fn = load_entry(SOURCE, "decode_attention_fwd", _ARGTYPES)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                 cache_len.data_ptr(), out.data_ptr(), part_ml[0].data_ptr(),
-                 part_ml[1].data_ptr(), part_acc.data_ptr(), b, s, h, kvh,
-                 hd, vd, split_len, splits, float(scale),
-                 DTYPE_CODES[q.dtype], stream)
+                 cache_len.data_ptr(), out.data_ptr(), b, s, h, kvh, hd, vd,
+                 float(scale), DTYPE_CODES[q.dtype],
+                 current_stream(q.device))
     if err:
         raise RuntimeError(f"{who}: kernel launch failed with CUDA error "
                            f"{err}")

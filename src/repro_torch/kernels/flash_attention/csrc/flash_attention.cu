@@ -73,8 +73,12 @@
 
 namespace {
 
+using attn::cp_async16;
+using attn::cp_async_commit;
+using attn::cp_async_wait;
 using attn::Elem;
 using attn::kNegInf;
+using attn::smem_addr;
 
 // ---- f32: CUDA cores ------------------------------------------------------
 namespace simt {
@@ -296,27 +300,6 @@ constexpr size_t smem_bytes() {
   return sizeof(bf16) *
          (rows_per_block<HD, VD>() * (HD + kPad) + 2 * kKeys * (HD + kPad) +
           2 * kKeys * (VD + kPad));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, zero-filled where !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {

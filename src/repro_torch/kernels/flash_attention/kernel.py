@@ -30,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.build import load_entry
+from repro_torch.kernels.build import current_stream, load_entry
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 #: head dims (hd and vd) the kernel is built for
@@ -115,11 +115,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     fn = load_entry(SOURCE, "flash_attention_fwd", _ARGTYPES)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  b, sq, skv, h, kvh, hd, vd, int(causal),
                  0 if window is None else int(window), float(scale),
-                 DTYPE_CODES[q.dtype], stream)
+                 DTYPE_CODES[q.dtype], current_stream(q.device))
     if err:
         raise RuntimeError(f"{who}: kernel launch failed with CUDA error "
                            f"{err}")

@@ -2,7 +2,11 @@
 // vector or a batch of B of them.
 //
 //   out[b, v] = sum over e in [ro[v], ro[v+1]) of
-//               keep(e) * values[b, src[e]] * w[e]
+//               keep(e) * (values[b, src[e]] ⊗ w[e])
+//
+// with ⊗ ∈ {×, +, min} over f32 (× is the sum of products of PageRank,
+// HITS and Katz; + and min serve registered sum semirings).  Rows with no
+// edge, or with every edge masked, write 0.
 //
 // Replaces src/repro/kernels/spmv/kernel.py::spmv_push, the TPU kernel that
 // carries every push of the main path (the exact sweeps, the b_in pass and
@@ -11,8 +15,8 @@
 // through a one-hot MXU matmul over chunks staged in VMEM (a [B, chunk] @
 // [chunk, tile_n] product in the batched form) because the TPU has no
 // scatter; on Hopper the destination-sorted stream with its row offsets is a
-// CSR matrix, reduced row by row.  The gather values[b, src[e]], done
-// outside the TPU kernel, is fused in here.
+// CSR matrix, reduced row by row.  The gather values[b, src[e]] and the ⊗,
+// done outside the TPU kernel, are fused in here.
 //
 // Bound: HBM bytes.  A call moves about
 //   (ro[N] - ro[0]) * (4 + 4 [+ 1 with a mask]) + 4 * (N + 1)
@@ -21,285 +25,49 @@
 // flops per edge and batch row, far below the card's flop/byte ratio.  The
 // value gathers hit L2 (N_src * 4 bytes per row of values).
 //
-// Design: merge-path SpMV (Merrill and Garland, SC'16).  The N row ends
-// and the ro[N] - ro[0] edges form one merged list, and each block takes
-// an equal share of it, kTile items, whatever the row lengths: a hub row
-// with 240k in-edges is spread over ~140 blocks, and 300k short rows over as
-// many blocks as their edges need.
-// - A block finds its start and end on the merge path with a 32-ary warp
-//   search over row_offsets (no plan is built or cached per layout), stages
-//   its rows' ends and its edges' products values[src[e]] * w[e] in shared
-//   memory (coalesced src, w and mask reads; a masked edge loads its mask
-//   byte and nothing else), and each thread walks kItems items of it from
-//   its own diagonal (a binary search in shared memory).
-// - A thread writes every row it begins and ends; the first row it ends
-//   takes the partial sums of the earlier threads in that row, from a
-//   segmented scan of the threads' (row, partial) carries (warp shuffles,
-//   then across warps in shared memory).  The block's last carry, the row
-//   that crosses its end, goes to scratch.
-// - A second kernel adds each run of block carries, summed in block order,
-//   to the row the run belongs to (which a later block has written).
+// Design: the merge path of merge_path.cuh (equal shares of rows plus
+// edges per block, whatever the row lengths; a second kernel of the same
+// call folds the carries of rows that cross a block's end, in block order).
 // Every sum is taken in an order fixed by row_offsets and the compile-time
 // tile alone: there are no float atomics, every run gives the same bits,
-// and batch row b takes the same partition and order as a single push (the
-// B = 1 launch of the same entry), so each batch row is bitwise equal to
-// it.  Rows with no edge, or with every edge masked, write 0.
+// and each batch row is bitwise equal to the single push of its values.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "merge_path.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kItems = 7;                    // merge items per thread (odd:
-                                             // no bank conflicts in the walk)
-constexpr int kTile = kThreads * kItems;     // merge items per block
-constexpr int kWarps = kThreads / 32;
-constexpr int kFixWarps = 8;                 // fix-up: one warp per carry
-constexpr int kMaxBatch = 65535;             // gridDim.y
-constexpr unsigned kFull = 0xffffffffu;
-
-// The merge-path coordinate of diagonal d: how many of the N row ends come
-// before it, i.e. the count of rows p with ro[p+1] - ro[0] + p + 1 <= d
-// (strictly increasing in p).  A 32-ary search by one warp: each step
-// samples 32 pivots and keeps the span between the last true and the first
-// false one.  Uniform across the warp.
-__device__ __forceinline__ int merge_search(const int32_t* __restrict__ ro,
-                                            int lo, int nnz, int num_rows,
-                                            int d, int lane) {
-  int a = max(0, d - nnz), b = min(d, num_rows);  // the answer is in [a, b]
-  while (a < b) {
-    const int step = (b - a + 31) >> 5;
-    const int p = a + (lane + 1) * step - 1;
-    const bool before = p < b && __ldg(ro + p + 1) - lo + p + 1 <= d;
-    const int c = __popc(__ballot_sync(kFull, before));
-    const int next = a + c * step;
-    if (c < 32) b = min(b, next + step - 1);
-    a = next;
+struct Sum {
+  __device__ __forceinline__ static float identity() { return 0.0f; }
+  __device__ __forceinline__ static float apply(float a, float b) {
+    return a + b;
   }
-  return a;
-}
-
-// kMasked: whether `mask` is given (an unmasked launch loads no mask byte)
-template <bool kMasked>
-__global__ void __launch_bounds__(kThreads)
-merge_push_kernel(const float* __restrict__ values, int64_t values_stride,
-                  const int32_t* __restrict__ src,
-                  const float* __restrict__ w,
-                  const int32_t* __restrict__ row_offsets,
-                  const uint8_t* __restrict__ mask, float* __restrict__ out,
-                  int32_t* __restrict__ carry_row,
-                  float* __restrict__ carry_val, int32_t num_rows,
-                  int32_t num_blocks) {
-  __shared__ int32_t s_end[kTile];   // row ends, from the block's first edge
-  __shared__ float s_prod[kTile];    // keep(e) * values[src[e]] * w[e]
-  __shared__ int32_t s_bounds[2];
-  __shared__ int32_t s_warp_row[2][kWarps];  // first and last lane's row
-  __shared__ float s_warp_val[kWarps];       // last lane's scan value
-  __shared__ float s_scan[kThreads];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int64_t b = blockIdx.y;
-  values += b * values_stride;
-  out += b * num_rows;
-  carry_val += b * num_blocks;
-
-  const int lo = __ldg(row_offsets);
-  const int nnz = __ldg(row_offsets + num_rows) - lo;
-  const int total = num_rows + nnz;
-  const int d0 = blockIdx.x * kTile;
-  if (d0 >= total) return;  // past the merge path (E bounds the grid)
-  const int d1 = min(d0 + kTile, total);
-  if (warp < 2) {
-    const int x = merge_search(row_offsets, lo, nnz, num_rows,
-                               warp ? d1 : d0, lane);
-    if (lane == 0) s_bounds[warp] = x;
-  }
-  __syncthreads();
-  const int x0 = s_bounds[0];               // first row of the block
-  const int n_rows = s_bounds[1] - x0;      // row ends in the block
-  const int e0 = lo + d0 - x0;              // first edge of the block
-  const int n_items = d1 - d0;
-  const int n_edges = n_items - n_rows;
-
-  for (int i = tid; i < n_rows; i += kThreads) {
-    s_end[i] = __ldg(row_offsets + x0 + i + 1) - e0;
-  }
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int j = tid + k * kThreads;
-    if (j < n_edges) {
-      const int e = e0 + j;
-      float prod = 0.0f;
-      if (!kMasked || __ldg(mask + e)) {
-        prod = __ldg(values + __ldg(src + e)) * __ldg(w + e);
-      }
-      s_prod[j] = prod;
-    }
-  }
-  __syncthreads();
-
-  // this thread's start on the block's merge path
-  const int d = min(tid * kItems, n_items);
-  int x = max(0, d - n_edges);
-  for (int hi = min(d, n_rows); x < hi;) {
-    const int p = (x + hi) >> 1;
-    if (s_end[p] + p + 1 <= d) {
-      x = p + 1;
-    } else {
-      hi = p;
-    }
-  }
-  int y = d - x;
-  float run = 0.0f;
-  float first = 0.0f;
-  int first_row = -1;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    if (d + k < n_items) {
-      if (x < n_rows && s_end[x] <= y) {  // row x ends here
-        if (first_row < 0) {
-          first = run;
-          first_row = x;
-        } else {
-          out[x0 + x] = run;
-        }
-        run = 0.0f;
-        ++x;
-      } else {
-        run += s_prod[y];
-        ++y;
-      }
-    }
-  }
-
-  // segmented inclusive scan of the carries (x, run); rows never decrease
-  // from thread to thread, so equal rows at two lanes mean one run between
-  float val = run;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float v = __shfl_up_sync(kFull, val, off);
-    const int r = __shfl_up_sync(kFull, x, off);
-    if (lane >= off && r == x) val = v + val;
-  }
-  const int lane0_row = __shfl_sync(kFull, x, 0);
-  if (lane == 0) s_warp_row[0][warp] = x;
-  if (lane == 31) {
-    s_warp_row[1][warp] = x;
-    s_warp_val[warp] = val;
-  }
-  __syncthreads();
-  if (lane0_row == x) {  // the run reaches back into earlier warps
-    float before = 0.0f;
-    for (int v = warp - 1; v >= 0 && s_warp_row[1][v] == x; --v) {
-      before = s_warp_val[v] + before;
-      if (s_warp_row[0][v] != x) break;
-    }
-    val = before + val;
-  }
-  s_scan[tid] = val;
-  __syncthreads();
-  // the thread before this one ended inside the row this one starts in
-  if (first_row >= 0) {
-    out[x0 + first_row] = (tid > 0 ? s_scan[tid - 1] : 0.0f) + first;
-  }
-  if (tid == kThreads - 1) {
-    if (b == 0) carry_row[blockIdx.x] = x0 + x;
-    carry_val[blockIdx.x] = val;
-  }
-}
-
-// One warp per block carry: the first carry of each run of equal rows sums
-// the run in block order (lane-strided, then a fixed shuffle tree) and adds
-// it to the row, which the block that ended the row has written.
-__global__ void __launch_bounds__(kFixWarps * 32)
-carry_fixup_kernel(const int32_t* __restrict__ row_offsets,
-                   const int32_t* __restrict__ carry_row,
-                   const float* __restrict__ carry_val,
-                   float* __restrict__ out, int32_t num_rows,
-                   int32_t num_blocks) {
-  const int lane = threadIdx.x & 31;
-  const int blk = blockIdx.x * kFixWarps + (threadIdx.x >> 5);
-  const int64_t b = blockIdx.y;
-  carry_val += b * num_blocks;
-  out += b * num_rows;
-  const int total = num_rows + __ldg(row_offsets + num_rows) -
-                    __ldg(row_offsets);
-  const int ran = (total + kTile - 1) / kTile;  // blocks that wrote a carry
-  if (blk >= ran) return;
-  const int row = carry_row[blk];
-  if (row >= num_rows || (blk > 0 && carry_row[blk - 1] == row)) return;
-  float acc = 0.0f;
-  for (int base = blk; base < ran; base += 32) {
-    const int i = base + lane;
-    const bool in_run = i < ran && carry_row[i] == row;
-    if (in_run) acc += carry_val[i];
-    if (!__all_sync(kFull, in_run)) break;
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    acc += __shfl_down_sync(kFull, acc, off);
-  }
-  if (lane == 0) out[row] += acc;
-}
-
-int launch(const void* values, int64_t values_stride, const void* src,
-           const void* w, const void* row_offsets, const void* mask,
-           void* out, void* scratch, int64_t scratch_blocks, int num_rows,
-           int64_t num_edges, int batch, void* stream) {
-  if (num_rows <= 0 || batch <= 0) {
-    return static_cast<int>(cudaGetLastError());
-  }
-  const int64_t blocks = (num_rows + num_edges + kTile - 1) / kTile;
-  if (batch > kMaxBatch || num_rows + num_edges >= (int64_t{1} << 31)) {
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  }
-  if (blocks > scratch_blocks) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  // scratch: int32 carry rows [blocks], then f32 carry values [batch, blocks]
-  int32_t* carry_row = static_cast<int32_t*>(scratch);
-  float* carry_val = reinterpret_cast<float*>(carry_row + blocks);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto kernel = mask == nullptr ? merge_push_kernel<false>
-                                : merge_push_kernel<true>;
-  kernel<<<dim3(static_cast<unsigned>(blocks), batch), kThreads, 0, s>>>(
-      static_cast<const float*>(values), values_stride,
-      static_cast<const int32_t*>(src), static_cast<const float*>(w),
-      static_cast<const int32_t*>(row_offsets),
-      static_cast<const uint8_t*>(mask), static_cast<float*>(out), carry_row,
-      carry_val, num_rows, static_cast<int32_t>(blocks));
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  carry_fixup_kernel<<<
-      dim3(static_cast<unsigned>((blocks + kFixWarps - 1) / kFixWarps),
-           batch), kFixWarps * 32, 0, s>>>(
-      static_cast<const int32_t*>(row_offsets), carry_row, carry_val,
-      static_cast<float*>(out), num_rows, static_cast<int32_t>(blocks));
-  return static_cast<int>(cudaGetLastError());
-}
+};
 
 }  // namespace
 
 // The merge items (row ends and edges) one block takes: the wrapper sizes
 // the scratch from it.
-extern "C" int spmv_push_tile() { return kTile; }
+extern "C" int merge_path_tile() { return merge_path::kTile; }
 
-// `batch` value rows f32[batch, n_src], row-major -> out f32[batch, num_rows];
-// one value vector is the batch of one.  `num_edges` is the length of src, w
-// and mask (ro[num_rows] <= num_edges); `scratch` holds (batch + 1) *
-// scratch_blocks 4-byte words, scratch_blocks >= ceil((num_rows + num_edges)
-// / spmv_push_tile()).  Launches both passes on `stream` and returns
-// cudaGetLastError() (0 on success).  `mask` may be null.  Pointers are
-// device pointers.
-extern "C" int spmv_push_batched_f32(const void* values, const void* src,
-                                     const void* w, const void* row_offsets,
-                                     const void* mask, void* out,
-                                     void* scratch, int64_t scratch_blocks,
-                                     int num_rows, int64_t num_edges,
-                                     int batch, int64_t n_src, void* stream) {
-  return launch(values, n_src, src, w, row_offsets, mask, out, scratch,
-                scratch_blocks, num_rows, num_edges, batch, stream);
-}
+// One entry per ⊗, spmv_push_batched_f32 (×), spmv_push_batched_plus_f32
+// and spmv_push_batched_min_f32: `batch` value rows f32[batch, n_src],
+// row-major -> out f32[batch, num_rows]; one value vector is the batch of
+// one.  `num_edges` is the length of src, w and mask (ro[num_rows] <=
+// num_edges); `scratch` holds (batch + 1) * scratch_blocks 4-byte words,
+// scratch_blocks >= ceil((num_rows + num_edges) / merge_path_tile()).
+// Launches both passes on `stream` and returns cudaGetLastError() (0 on
+// success).  `mask` may be null.  Pointers are device pointers.
+#define SPMV_PUSH_ENTRY(name, M)                                             \
+  extern "C" int name(const void* values, const void* src, const void* w,   \
+                      const void* row_offsets, const void* mask, void* out, \
+                      void* scratch, int64_t scratch_blocks, int num_rows,  \
+                      int64_t num_edges, int batch, int64_t n_src,          \
+                      void* stream) {                                       \
+    return merge_path::merge_launch<float, Sum, merge_path::M<float>>(       \
+        values, n_src, src, w, row_offsets, mask, out, scratch,              \
+        scratch_blocks, num_rows, num_edges, batch, stream);                 \
+  }
+
+SPMV_PUSH_ENTRY(spmv_push_batched_f32, Times)
+SPMV_PUSH_ENTRY(spmv_push_batched_plus_f32, Plus)
+SPMV_PUSH_ENTRY(spmv_push_batched_min_f32, Min)

@@ -4,24 +4,24 @@ versions.
 :func:`spmv_push` computes, over a destination-sorted edge stream read as a
 CSR matrix (``row_offsets`` into ``src``/``w``),
 
-    out[v] = Σ_{e ∈ [ro[v], ro[v+1])} keep(e) · values[src[e]] · w[e]
+    out[v] = Σ_{e ∈ [ro[v], ro[v+1])} keep(e) · (values[src[e]] ⊗ w[e])
 
-with ``keep(e) = mask[e]`` when a mask is given.  :func:`spmv_reduce_push`
-is its min/max sibling, ``out[v] = ⊕_e keep(e) ? values[src[e]] ⊗ w[e]``
-with ⊕ ∈ {min, max}, ⊗ ∈ {+, ×, min} and the ⊕-identity in rows with no
-kept edge.  :func:`spmv_push_batched` and :func:`spmv_reduce_push_batched`
-push a ``[B, N_src]`` matrix of B value rows through the one shared stream
-in one launch, each output row bitwise equal to the single push of its
-value row.  They replace the Pallas kernels
-``repro/kernels/spmv/kernel.py::spmv_push``, ``::spmv_reduce_push``,
-``::spmv_push_batched`` and ``::spmv_reduce_push_batched``; the CUDA
-sources (``csrc/spmv_push.cu``, ``csrc/spmv_reduce_push.cu``) say how and
-what bounds them.  The sum push is a merge-path SpMV: every block takes an
-equal share of the rows and edges, whatever the row lengths, and a second
-pass, launched by the same call, adds the partial sums of the rows that
-cross a block's end (their scratch is allocated here).  The min/max push
-reduces one row per warp.  Neither uses float atomics: every launch on the
-same inputs gives the same bits.
+with ``keep(e) = mask[e]`` when a mask is given and ⊗ ∈ {×, +, min} (×
+by default).  :func:`spmv_reduce_push` is its min/max sibling, ``out[v] =
+⊕_e keep(e) ? values[src[e]] ⊗ w[e]`` with ⊕ ∈ {min, max}, ⊗ ∈ {+, ×,
+min}, f32 or i32 values and the ⊕-identity in rows with no kept edge.
+:func:`spmv_push_batched` and :func:`spmv_reduce_push_batched` push a
+``[B, N_src]`` matrix of B value rows through the one shared stream in one
+launch, each output row bitwise equal to the single push of its value row.
+They replace the Pallas kernels ``repro/kernels/spmv/kernel.py::spmv_push``,
+``::spmv_reduce_push``, ``::spmv_push_batched`` and
+``::spmv_reduce_push_batched``; the CUDA sources (``csrc/spmv_push.cu``,
+``csrc/spmv_reduce_push.cu``, both on ``csrc/merge_path.cuh``) say how and
+what bounds them.  Both are merge-path pushes: every block takes an equal
+share of the rows and edges, whatever the row lengths, and a second pass,
+launched by the same call, folds the partials of the rows that cross a
+block's end into them (their scratch is allocated here).  Neither uses
+atomics: every launch on the same inputs gives the same bits.
 
 On a CUDA tensor a wrapper launches its kernel or raises; only a tensor
 that lies on the CPU takes the plain version.  Each source is built at
@@ -38,43 +38,41 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.build import load_entry
+from repro_torch.kernels.build import current_stream, load_entry
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "spmv_push.cu"
 REDUCE_SOURCE = CSRC / "spmv_reduce_push.cu"
 
+#: ⊗ -> the entry of ``csrc/spmv_push.cu`` summing ``values[src] ⊗ w`` in
+#: f32
+SUM_ENTRIES = {"times": "spmv_push_batched_f32",
+               "plus": "spmv_push_batched_plus_f32",
+               "min": "spmv_push_batched_min_f32"}
 #: (⊕, ⊗, dtype) -> the name of the entry of ``csrc/spmv_reduce_push.cu``
-#: computing it (``spmv_reduce_push_batched_<name>``): one per min/max
-#: semiring the port registers
+#: computing it (``spmv_reduce_push_batched_<name>``): every min/max
+#: semiring over f32 or i32
 REDUCE_ENTRIES = {
-    ("min", "plus", torch.float32): "min_plus_f32",
-    ("max", "times", torch.float32): "max_times_f32",
-    ("min", "min", torch.int32): "min_min_i32",
-}
+    (op, mul, dtype): f"{op}_{mul}_{tag}"
+    for op in ("min", "max") for mul in ("plus", "times", "min")
+    for dtype, tag in ((torch.float32, "f32"), (torch.int32, "i32"))}
 #: the kernels' limit on batch rows
 MAX_BATCH = 65535
 
-
-#: every min/max entry takes six device pointers (values, src, w,
-#: row_offsets, mask or null, out), the row count, the batch, the values'
+#: every entry takes six device pointers (values, src, w, row_offsets, mask
+#: or null, out) and its carries' scratch, the scratch's block count
+#: (int64), the row count, the edge count (int64), the batch, the values'
 #: row stride (int64) and the stream
-_ARGTYPES = ((ctypes.c_void_p,) * 6
-             + (ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p))
-#: the sum entry takes the same six pointers and its carries' scratch, the
-#: scratch's block count (int64), the row count, the edge count (int64),
-#: the batch, the values' row stride (int64) and the stream
-_SUM_ARGTYPES = ((ctypes.c_void_p,) * 7
-                 + (ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
-                    ctypes.c_int, ctypes.c_int64, ctypes.c_void_p))
-SUM_ENTRY = "spmv_push_batched_f32"
+_ARGTYPES = ((ctypes.c_void_p,) * 7
+             + (ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+                ctypes.c_int64, ctypes.c_void_p))
 
 
 @functools.lru_cache(maxsize=None)
-def merge_tile() -> int:
-    """The merge items (row ends and edges) one block of the sum kernel
-    takes, as its source defines it; read once per process."""
-    return load_entry(SOURCE, "spmv_push_tile", ())()
+def merge_tile(source: Path = SOURCE) -> int:
+    """The merge items (row ends and edges) one block of ``source``'s
+    kernels takes, as the source defines it; read once per process."""
+    return load_entry(source, "merge_path_tile", ())()
 
 
 def _check_rank(who: str, values: torch.Tensor, batched: bool) -> None:
@@ -126,19 +124,11 @@ def _check(who: str, rows, src, w, row_offsets, mask, dtype) -> None:
         raise ValueError(f"{who}: sizes must fit in int32")
 
 
-def _current_stream(dev: torch.device) -> int:
-    """The raw pointer of ``dev``'s current stream.  It is what the public
-    ``torch.cuda.current_stream(dev).cuda_stream`` gives, read without
-    building a ``Stream`` object, which costs several µs of a push's
-    host time."""
-    return torch._C._cuda_getCurrentRawStream(dev.index)
-
-
 def _launch(who: str, dev: torch.device, fn, *args) -> None:
     """Call the ``extern "C"`` entry ``fn`` with ``args`` and the current
     stream of ``dev``; raises on a failed launch."""
     with torch.cuda.device(dev.index):
-        err = fn(*args, _current_stream(dev))
+        err = fn(*args, current_stream(dev))
     if err:
         raise RuntimeError(f"{who}: kernel launch failed with CUDA error "
                            f"{err}")
@@ -161,15 +151,10 @@ def _rows(row_offsets: torch.Tensor):
     return lo, hi, rows
 
 
-def _sum_push(who: str, batched: bool, values, src, w, row_offsets, mask):
-    """The SpMV push of one value vector or of ``[B, N_src]`` value rows:
-    the kernel for CUDA tensors, the plain version for CPU ones."""
-    _check_rank(who, values, batched)
-    if values.device.type == "cpu":
-        return spmv_push_plain(values, src, w, row_offsets, mask)
-    if values.dtype != torch.float32:
-        raise ValueError(f"{who}: values must be {torch.float32}; got "
-                         f"{values.dtype}")
+def _merge_launch(who: str, source: Path, entry: str, values, src, w,
+                  row_offsets, mask) -> torch.Tensor:
+    """Check the operands of a CUDA push, allocate its output and its
+    carries' scratch, and launch ``entry`` of ``source`` on them."""
     dev = values.device
     _check(who, values, src, w, row_offsets, mask, values.dtype)
     batch, n_src = _batch_shape(values)
@@ -181,9 +166,9 @@ def _sum_push(who: str, batched: bool, values, src, w, row_offsets, mask):
     if num_rows == 0:
         return out
     # the carries: a row id per block, then a value per block and batch row
-    blocks = -(-(num_rows + num_edges) // merge_tile())
+    blocks = -(-(num_rows + num_edges) // merge_tile(source))
     scratch = torch.empty((batch + 1) * blocks, dtype=torch.int32, device=dev)
-    _launch(who, dev, load_entry(SOURCE, SUM_ENTRY, _SUM_ARGTYPES),
+    _launch(who, dev, load_entry(source, entry, _ARGTYPES),
             values.data_ptr(), src.data_ptr(), w.data_ptr(),
             row_offsets.data_ptr(), None if mask is None else mask.data_ptr(),
             out.data_ptr(), scratch.data_ptr(), blocks, num_rows, num_edges,
@@ -191,17 +176,37 @@ def _sum_push(who: str, batched: bool, values, src, w, row_offsets, mask):
     return out
 
 
+def _sum_push(who: str, batched: bool, values, src, w, row_offsets, mask,
+              mul: str):
+    """The SpMV push of one value vector or of ``[B, N_src]`` value rows:
+    the kernel for CUDA tensors, the plain version for CPU ones."""
+    _check_rank(who, values, batched)
+    if mul not in SUM_ENTRIES:
+        raise ValueError(f"{who}: mul must be one of {sorted(SUM_ENTRIES)}; "
+                         f"got {mul!r}")
+    if values.device.type == "cpu":
+        return spmv_push_plain(values, src, w, row_offsets, mask, mul=mul)
+    if values.dtype != torch.float32:
+        raise ValueError(f"{who}: values must be {torch.float32}; got "
+                         f"{values.dtype}")
+    return _merge_launch(who, SOURCE, SUM_ENTRIES[mul], values, src, w,
+                         row_offsets, mask)
+
+
 def spmv_push(values: torch.Tensor, src: torch.Tensor, w: torch.Tensor,
               row_offsets: torch.Tensor,
-              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """f32[N] = Σ over each row's edge range of ``values[src]·w`` (masked).
+              mask: Optional[torch.Tensor] = None, *,
+              mul: str = "times") -> torch.Tensor:
+    """f32[N] = Σ over each row's edge range of ``values[src] ⊗ w``
+    (masked), ⊗ = ``mul`` ∈ {times, plus, min}.
 
     ``values`` f32[N_src], ``src`` i32[E], ``w`` f32[E], ``row_offsets``
     i32[N+1] (non-decreasing, ``row_offsets[N] <= E``), ``mask`` bool or
     u8[E].  CUDA tensors launch the kernel on the current stream (counted in
     ``spmv_push.launches``); CPU tensors take :func:`spmv_push_plain`.
     """
-    out = _sum_push("spmv_push", False, values, src, w, row_offsets, mask)
+    out = _sum_push("spmv_push", False, values, src, w, row_offsets, mask,
+                    mul)
     if values.is_cuda and out.numel():
         spmv_push.launches += 1
     return out
@@ -213,7 +218,8 @@ spmv_push.launches = 0
 
 def spmv_push_batched(values: torch.Tensor, src: torch.Tensor,
                       w: torch.Tensor, row_offsets: torch.Tensor,
-                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      mask: Optional[torch.Tensor] = None, *,
+                      mul: str = "times") -> torch.Tensor:
     """f32[B, N]: :func:`spmv_push` of each row of ``values`` f32[B, N_src]
     (row-major and contiguous) through the one stream, in one launch; the
     mask is per edge, shared by the rows.  Each output row is bitwise equal
@@ -221,7 +227,7 @@ def spmv_push_batched(values: torch.Tensor, src: torch.Tensor,
     on the current stream (counted in ``spmv_push_batched.launches``); CPU
     tensors take :func:`spmv_push_batched_plain`."""
     out = _sum_push("spmv_push_batched", True, values, src, w, row_offsets,
-                    mask)
+                    mask, mul)
     if values.is_cuda and out.numel():
         spmv_push_batched.launches += 1
     return out
@@ -231,19 +237,32 @@ def spmv_push_batched(values: torch.Tensor, src: torch.Tensor,
 spmv_push_batched.launches = 0
 
 
+def _combine(x: torch.Tensor, w: torch.Tensor, mul: str) -> torch.Tensor:
+    """``x ⊗ w`` elementwise for ⊗ = ``mul`` (min propagates NaN)."""
+    if mul == "times":
+        return x * w
+    if mul == "plus":
+        return x + w
+    if mul == "min":
+        return torch.minimum(x, w)
+    raise ValueError(f"mul must be 'plus', 'times' or 'min', got {mul!r}")
+
+
 def spmv_push_plain(values: torch.Tensor, src: torch.Tensor, w: torch.Tensor,
                     row_offsets: torch.Tensor,
                     mask: Optional[torch.Tensor] = None, *,
+                    mul: str = "times",
                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The plain PyTorch version of :func:`spmv_push` (and, for ``[B,
     N_src]`` values, of :func:`spmv_push_batched`): an ``index_add_`` along
-    the last axis over ``values[..., src]·w`` in edge order, computed in
+    the last axis over ``values[..., src] ⊗ w`` in edge order, computed in
     ``dtype``.  In f32 it repeats the JAX package's sequential segment sum;
     ``torch.float64`` makes it the oracle the kernel is held against (a
     sequential f32 sum over a 240k-edge hub row drifts ~1e-4 relative from
     it)."""
     lo, hi, rows = _rows(row_offsets)
-    contrib = values.to(dtype)[..., src[lo:hi].long()] * w[lo:hi].to(dtype)
+    contrib = _combine(values.to(dtype)[..., src[lo:hi].long()],
+                       w[lo:hi].to(dtype), mul)
     if mask is not None:
         contrib = torch.where(mask[lo:hi].bool(), contrib, 0.0)
     out = torch.zeros(values.shape[:-1] + (row_offsets.shape[0] - 1,),
@@ -279,21 +298,9 @@ def _reduce_push(who: str, batched: bool, values, src, w, row_offsets, mask,
         raise ValueError(f"{who}: no kernel for (op={op!r}, mul={mul!r}, "
                          f"{values.dtype}); it has "
                          f"{sorted(REDUCE_ENTRIES.values())}")
-    dev = values.device
-    _check(who, values, src, w, row_offsets, mask, values.dtype)
-    batch, n_src = _batch_shape(values)
-    num_rows = row_offsets.shape[0] - 1
-    out = torch.empty(values.shape[:-1] + (num_rows,), dtype=values.dtype,
-                      device=dev)
-    if num_rows == 0:
-        return out
-    _launch(who, dev, load_entry(REDUCE_SOURCE,
-                                 f"spmv_reduce_push_batched_{name}",
-                                 _ARGTYPES),
-            values.data_ptr(), src.data_ptr(), w.data_ptr(),
-            row_offsets.data_ptr(), None if mask is None else mask.data_ptr(),
-            out.data_ptr(), num_rows, batch, n_src)
-    return out
+    return _merge_launch(who, REDUCE_SOURCE,
+                         f"spmv_reduce_push_batched_{name}", values, src, w,
+                         row_offsets, mask)
 
 
 def spmv_reduce_push(values: torch.Tensor, src: torch.Tensor,
@@ -303,11 +310,10 @@ def spmv_reduce_push(values: torch.Tensor, src: torch.Tensor,
     """``out[v] = op over each row's (kept) edges of values[src] ⊗ w``.
 
     ``op`` ∈ {min, max}, ``mul`` ∈ {plus, times, min}; ``values`` and ``w``
-    share one dtype, and (op, mul, dtype) must be a semiring with a kernel
-    entry (:data:`REDUCE_ENTRIES`: min/plus and max/times over f32,
-    min/min over i32).  Rows with no kept edge get
-    :func:`reduce_identity`.  Other operands as :func:`spmv_push`.  CUDA
-    tensors launch the kernel on the current stream (counted in
+    share one dtype, f32 or i32 on the card (:data:`REDUCE_ENTRIES`; i32
+    ``plus`` and ``times`` wrap as two's complement).  Rows with no kept
+    edge get :func:`reduce_identity`.  Other operands as :func:`spmv_push`.
+    CUDA tensors launch the kernel on the current stream (counted in
     ``spmv_reduce_push.launches``); CPU tensors take
     :func:`spmv_reduce_push_plain`.
     """
@@ -355,13 +361,8 @@ def spmv_reduce_push_plain(values: torch.Tensor, src: torch.Tensor,
     identity.  Min and max give the same answer in any order, and NaN
     propagates."""
     ident = reduce_identity(values.dtype, op)
-    if mul not in ("plus", "times", "min"):
-        raise ValueError(f"mul must be 'plus', 'times' or 'min', got "
-                         f"{mul!r}")
     lo, hi, rows = _rows(row_offsets)
-    x, wt = values[..., src[lo:hi].long()], w[lo:hi]
-    contrib = (x + wt if mul == "plus" else x * wt if mul == "times"
-               else torch.minimum(x, wt))
+    contrib = _combine(values[..., src[lo:hi].long()], w[lo:hi], mul)
     if mask is not None:
         contrib = torch.where(mask[lo:hi].bool(), contrib, ident)
     out = torch.full(values.shape[:-1] + (row_offsets.shape[0] - 1,), ident,

@@ -21,7 +21,8 @@ from repro.kernels.decode_attention.kernel import decode_attention_kernel
 from repro.kernels.flash_attention.kernel import flash_attention as jflash
 from repro.models import layers as JL
 from repro_torch.kernels.decode_attention.kernel import (
-    decode_attention, decode_attention_plain, split_plan)
+    CLUSTER, ROWS_PER_BLOCK, decode_attention, decode_attention_plain,
+    launch_grid)
 from repro_torch.kernels.flash_attention.kernel import (
     flash_attention, flash_attention_plain)
 from repro_torch.models import layers as TL
@@ -183,14 +184,27 @@ def test_shape_and_option_checks():
         flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
 
 
-@pytest.mark.parametrize("b,h,kv,s,want", [
-    (8, 14, 2, 4096, (128, 32)),   # Qwen2 decode: 512 blocks on 132 SMs
-    (1, 14, 2, 4096, (128, 32)),
-    (64, 14, 2, 4096, (896, 5)),
-    (8, 16, 1, 100, (128, 1)),
+@pytest.mark.parametrize("b,h,kv,want", [
+    # Qwen2 decode: 16 clusters of 8 CTAs
+    (8, 14, 2, (8, 2, 8)),
+    # one head, one sequence: one cluster
+    (1, 1, 1, (8, 1, 1)),
+    # MHA: a group of one head per KV head
+    (2, 4, 4, (8, 4, 2)),
+    # a group of exactly ROWS_PER_BLOCK heads is one row chunk, one more
+    # head takes a second
+    (3, 16, 2, (8, 2, 3)),
+    (3, 18, 2, (8, 4, 3)),
+    # MQA with G = 16: two row chunks
+    (1, 16, 1, (8, 2, 1)),
+    # the largest grid the wrapper takes in y and z
+    (65535, 8 * 65535, 65535, (8, 65535, 65535)),
 ])
-def test_decode_split_plan(b, h, kv, s, want):
-    split_len, splits = split_plan(b, h, kv, s, 132)
-    assert (split_len, splits) == want
-    assert split_len % 128 == 0 and (splits - 1) * split_len < s <= \
-        splits * split_len
+def test_decode_launch_plan(b, h, kv, want):
+    grid = launch_grid(b, h, kv)
+    assert grid == want
+    assert grid[0] == CLUSTER
+    # the row chunks of each KV head cover its group, and none is empty
+    chunks, g = grid[1] // kv, h // kv
+    assert grid[1] == kv * chunks
+    assert (chunks - 1) * ROWS_PER_BLOCK < g <= chunks * ROWS_PER_BLOCK

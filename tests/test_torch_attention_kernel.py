@@ -2,8 +2,9 @@
 
 The plain versions' semantics are pinned on the CPU against a per-row
 numpy softmax in f64; each CUDA kernel is held against its plain version
-in f64 on the card (the flash kernel's f32 entry computes on the CUDA
-cores, its bf16 entry on the tensor cores, with P in two bf16 terms).
+in f64 on the card (the flash kernel's and the decode kernel's f32 entries
+compute on the CUDA cores, their bf16 entries on the tensor cores, with P
+in two bf16 terms).
 Tolerances: f32 outputs rtol = atol = 1e-5 (sums of
 up to 4096 f32 terms in another order); bf16 outputs against f64 rtol 5e-3
 (the output's one round-to-nearest, at most 2^-8 = 3.9e-3 of its value)
@@ -53,6 +54,19 @@ FLASH_BF16_CASES = {
     "window-512": (1, 1500, 14, 2, 64, 64, True, 512, None),
     "sq-3001": (1, 3001, 14, 2, 64, 64, True, None, None),
     "scale-0.3": (1, 300, 14, 2, 64, 64, True, None, 0.3),
+}
+
+#: cases of the one-launch decode kernel: B, S, H, KV, hd, vd, cache_len.
+#: The valid length at and beside its 32-slot chunks, the Qwen2 midpoint
+#: and a full cache; G of 1, 7 and 16; every head dim pair
+DECODE_CASES = {
+    **{f"cache-len-{n}": (2, 4096, 14, 2, 64, 64, n)
+       for n in (1, 127, 128, 129, 2100, 2560, 2561, 4096)},
+    "g1": (2, 600, 4, 4, 64, 64, 555),
+    "g7": (3, 600, 14, 2, 64, 64, 600),
+    "g16": (2, 600, 16, 1, 64, 64, 333),
+    **{f"hd{hd}-vd{vd}": (2, 300, 4, 2, hd, vd, 257)
+       for hd in HEAD_DIMS for vd in HEAD_DIMS},
 }
 
 DECODE_SHAPES = {
@@ -219,6 +233,30 @@ def test_decode_kernel_matches_plain_version(cuda_device, name, dtype):
         k2[:, clen:] = 99.0
         v2[:, clen:] = -99.0
         assert torch.equal(out, decode_attention(q, k2, v2, n))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(DECODE_CASES))
+def test_decode_kernel_on_its_plan_edges(cuda_device, name, dtype):
+    """The one-launch decode kernel against the f64 plain version on the
+    same inputs: f32 at 1e-5, bf16 at 1e-5 + 5e-3 |ref| (``chip_smoke``'s
+    limits), one launch a call and the same bits from a second launch."""
+    b, s, h, kv, hd, vd, clen = DECODE_CASES[name]
+    dt = getattr(torch, dtype)
+    q, k, v = (t.to(cuda_device, dt)
+               for t in _inputs(DECODE_CASES[name], 10, decode=True))
+    n = torch.tensor(clen, dtype=torch.int32, device=cuda_device)
+    before = decode_attention.launches
+    out = decode_attention(q, k, v, n)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    assert out.dtype == dt and out.shape == (b, 1, h, vd)
+    ref = decode_attention_plain(q, k, v, n, dtype=torch.float64)
+    np.testing.assert_allclose(out.double().cpu().numpy(), ref.cpu().numpy(),
+                               **(BF16_TOL if dtype == "bfloat16"
+                                  else F32_TOL))
+    assert torch.equal(out, decode_attention(q, k, v, n))
 
 
 @pytest.mark.gpu

@@ -220,3 +220,52 @@ def test_spmv_push_wrapper_plain_on_cpu_and_launch_count():
     # rows with no in-edge give 0; an empty row space gives an empty result
     empty = torch.zeros(1, dtype=torch.int32)
     assert spmv_push_plain(v, tl.src, tl.weight, empty).shape == (0,)
+
+
+#: registered here under names no other test uses (the reference's
+#: registry is process-global): (name, ⊕, ⊗, dtype, layout weight)
+CUSTOM_SEMIRINGS = [
+    ("parity_max_min_f32", "max", "min", "float32", "length"),
+    ("parity_min_plus_i32", "min", "plus", "int32", "length"),
+    ("parity_max_times_i32", "max", "times", "int32", "length"),
+    ("parity_sum_plus_f32", "sum", "plus", "float32", "length"),
+]
+
+
+@pytest.mark.parametrize("spec", CUSTOM_SEMIRINGS, ids=lambda s: s[0])
+def test_push_registered_custom_semiring_matches_reference(spec):
+    """A semiring registered in both packages goes through ``push`` (the
+    kernel wrapper's plain version here): min/max bitwise against the
+    reference's ``segment_sum`` push, a sum at its per-push tolerance."""
+    from repro.core import semiring as JS
+    from repro_torch.core import semiring as TS
+
+    name, add, mul, dtype, weight = spec
+    JS.register_semiring(JS.Semiring(name, add, mul, dtype))
+    TS.register_semiring(TS.Semiring(name, add, mul, dtype))
+    js, ts = _graphs(lengths=True)
+    jl = JB.build_layout(js, weight=weight, semiring=name)
+    tl = TB.build_layout(ts, weight=weight, semiring=name)
+    _assert_layouts_equal(jl, tl)
+    dt = np.dtype(dtype)
+    v = _values(js.node_capacity, 9, dt)
+    mask = np.random.default_rng(10).random(jl.dst.shape[0]) < 0.6
+    for m in (None, mask):
+        ref = np.asarray(JB.push(jnp.asarray(v), jl, semiring=name,
+                                 backend="segment_sum",
+                                 mask=None if m is None else jnp.asarray(m)))
+        out = TB.push(torch.from_numpy(v), tl, semiring=name,
+                      mask=None if m is None else torch.from_numpy(m))
+        assert out.dtype == getattr(torch, dtype)
+        if add == "sum":
+            np.testing.assert_allclose(out.numpy(), ref, **TOL)
+        else:
+            np.testing.assert_array_equal(out.numpy(), ref)
+    vb = np.stack([v, _values(js.node_capacity, 11, dt)])
+    ref_b = np.asarray(JB.push(jnp.asarray(vb), jl, semiring=name,
+                               backend="segment_sum"))
+    out_b = TB.push(torch.from_numpy(vb), tl, semiring=name).numpy()
+    if add == "sum":
+        np.testing.assert_allclose(out_b, ref_b, **TOL)
+    else:
+        np.testing.assert_array_equal(out_b, ref_b)

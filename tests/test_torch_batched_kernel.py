@@ -30,13 +30,17 @@ from repro_torch.kernels.spmv.kernel import (MAX_BATCH, spmv_push,
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 BATCH = 4
-#: (op, mul, numpy dtype) of every min/max kernel entry; op None = the sum
+#: (op, mul, numpy dtype) of the shipped semirings' kernel entries and of
+#: the sum's other ⊗ entries; op None = the sum
 SEMIRINGS = [(None, "times", np.float32), ("min", "plus", np.float32),
-             ("max", "times", np.float32), ("min", "min", np.int32)]
+             ("max", "times", np.float32), ("min", "min", np.int32),
+             (None, "plus", np.float32), (None, "min", np.float32)]
 
 
 def _ids(sr):
-    return "sum" if sr[0] is None else f"{sr[0]}_{sr[1]}"
+    if sr[0] is None:
+        return "sum" if sr[1] == "times" else f"sum_{sr[1]}"
+    return f"{sr[0]}_{sr[1]}"
 
 
 def _csr(semiring, seed, *, batch=BATCH):
@@ -71,14 +75,15 @@ def _csr(semiring, seed, *, batch=BATCH):
 def _batched(semiring):
     op, mul, _ = semiring
     if op is None:
-        return spmv_push_batched, spmv_push, {}
+        return spmv_push_batched, spmv_push, dict(mul=mul)
     return spmv_reduce_push_batched, spmv_reduce_push, dict(op=op, mul=mul)
 
 
 def _plain(semiring, batched):
     op, mul, _ = semiring
     if op is None:
-        return spmv_push_batched_plain if batched else spmv_push_plain, {}
+        return (spmv_push_batched_plain if batched else spmv_push_plain,
+                dict(mul=mul))
     return (spmv_reduce_push_batched_plain if batched
             else spmv_reduce_push_plain), dict(op=op, mul=mul)
 
@@ -166,7 +171,7 @@ def test_kernel_matches_plain_and_single_kernel(cuda_device, semiring,
     assert fn.launches == before + 1 and single.launches == single_before
     plain, _ = _plain(semiring, True)
     if semiring[0] is None:
-        ref = plain(*host, dtype=torch.float64)
+        ref = plain(*host, dtype=torch.float64, **kw)
         np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), **TOL)
     else:
         _same_bits(out.cpu().numpy(), plain(*host, **kw).numpy(),
@@ -233,3 +238,49 @@ def test_kernel_wrapper_rejects_what_it_cannot_take(cuda_device, semiring):
     big = values[:1].expand(MAX_BATCH + 1, -1).contiguous()
     with pytest.raises(ValueError, match="batch"):
         fn(big, src, w, ro, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("semiring", [
+    ("min", "plus", np.float32), ("max", "times", np.float32),
+    ("min", "min", np.int32), ("max", "min", np.float32),
+    ("min", "plus", np.int32)], ids=lambda sr: f"{sr[0]}_{sr[1]}_"
+    f"{np.dtype(sr[2]).name}")
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("batch", [1, 3, 4])
+def test_reduce_rows_on_a_hub_layout_are_the_single_push(
+        cuda_device, semiring, batch, masked):
+    """On a layout whose hub row spans many of the merge path's blocks,
+    each row of a batched min/max push is the single push of its value row,
+    bit for bit, whatever B is, and the batch is bitwise its plain
+    version."""
+    op, mul, dt = semiring
+    rng = np.random.default_rng(9)
+    counts = np.concatenate([rng.integers(0, 40, 3000), [300_000],
+                             np.zeros(500, np.int64),
+                             rng.integers(0, 40, 3000)])
+    ro = (3 + np.concatenate([[0], np.cumsum(counts)])).astype(np.int32)
+    e, n_src = int(ro[-1]) + 5, 4000
+    if dt == np.int32:
+        vals = rng.integers(-2**31, 2**31 - 1, (batch, n_src)).astype(dt)
+        w = rng.integers(-2**31, 2**31 - 1, e).astype(dt)
+    else:
+        vals = (10 * rng.random((batch, n_src))).astype(dt)
+        vals[:, ::9] = np.inf
+        w = rng.random(e).astype(dt)
+    host = [torch.from_numpy(a) for a in
+            (vals, rng.integers(0, n_src, e).astype(np.int32), w, ro,
+             rng.random(e) < 0.5)]
+    if not masked:
+        host[4] = None
+    values, src, w, ro, mask = [None if t is None else t.to(cuda_device)
+                                for t in host]
+    kw = dict(op=op, mul=mul)
+    out = spmv_reduce_push_batched(values, src, w, ro, mask, **kw)
+    _same_bits(out.cpu().numpy(),
+               spmv_reduce_push_batched_plain(*host, **kw).numpy(),
+               any_nan=True)
+    for b in range(batch):
+        _same_bits(out[b].cpu().numpy(),
+                   spmv_reduce_push(values[b], src, w, ro, mask,
+                                    **kw).cpu().numpy())

@@ -2,11 +2,14 @@
 
 The plain version's semantics are pinned on the CPU against a per-row loop
 in numpy, bitwise: min and max give the same answer in any order.  The CUDA
-kernel is held bitwise against the plain version on the card.  Each
-semiring with a kernel entry is covered (``min_plus`` and ``max_times``
-over f32, ``min_min`` over i32), with masks, empty rows, ±∞, NaN, the int32
-extrema and denormals.  This file imports neither JAX nor the JAX package,
-so the card's tests run where JAX is not installed:
+kernel is held bitwise against the plain version on the card.  Every
+(⊕, ⊗, dtype) with a kernel entry is covered, {min, max} × {+, ×, min} ×
+{f32, i32}, with masks, empty rows, ±∞, NaN, the int32 extrema, i32 sums
+and products that wrap, and denormals; on the card also the merge path's
+edge cases (every edge in one row, a hub between runs of empty rows, a
+sub-range of the edges, rows at the tile size ±1, a fully masked hub).
+This file imports neither JAX nor the JAX package, so the card's tests run
+where JAX is not installed:
 
     python -m pytest --noconftest -q tests/test_torch_reduce_kernel.py
 """
@@ -20,24 +23,40 @@ from repro_torch.kernels.spmv.kernel import (REDUCE_ENTRIES, reduce_identity,
                                              spmv_reduce_push_plain)
 
 #: (op, mul, numpy dtype) of every kernel entry
-SEMIRINGS = [("min", "plus", np.float32), ("max", "times", np.float32),
-             ("min", "min", np.int32)]
+SEMIRINGS = [(op, mul, dt) for op in ("min", "max")
+             for mul in ("plus", "times", "min")
+             for dt in (np.float32, np.int32)]
 TINY = np.float32(1e-38)  # just above the smallest normal f32
+I32 = np.iinfo(np.int32)
 
 
 def _operands(op, mul, dt, n_src, e, rng):
     """Values and weights that hit each semiring's edge cases."""
     if dt == np.int32:
         values = rng.integers(0, 1000, n_src).astype(np.int32)
-        values[::7] = np.iinfo(np.int32).max  # unlabelled vertices
-        w = np.full(e, np.iinfo(np.int32).max, np.int32)  # unit weights
-        w[::5] = rng.integers(0, 1000, w[::5].shape[0])
+        values[::7] = I32.max  # unlabelled vertices
+        if mul == "min":
+            w = np.full(e, I32.max, np.int32)  # unit weights
+            w[::5] = rng.integers(0, 1000, w[::5].shape[0])
+            return values, w
+        # sums and products past the int32 range wrap
+        values[1::7] = rng.integers(I32.min, I32.max, values[1::7].shape[0])
+        w = rng.integers(-1000, 1000, e).astype(np.int32)
+        w[::3] = rng.integers(I32.min, I32.max, w[::3].shape[0])
         return values, w
     if mul == "plus":  # distances: unreached +∞, a NaN, lengths >= 0
         values = (rng.random(n_src) * 10).astype(np.float32)
         values[::6] = np.inf
         values[3] = np.nan
         return values, rng.random(e).astype(np.float32)
+    if mul == "min":  # capacities: +∞ on both sides, a NaN
+        values = (rng.random(n_src) * 10).astype(np.float32)
+        values[::6] = np.inf
+        values[4] = np.nan
+        w = (rng.random(e) * 10).astype(np.float32)
+        w[::5] = np.inf
+        w[e // 2:e // 2 + 1] = np.nan
+        return values, w
     # widths in [0, 1] with zeros, denormals and a NaN; reliabilities
     # in (0, 1] that push tiny widths below the smallest normal
     values = rng.random(n_src).astype(np.float32)
@@ -80,7 +99,7 @@ def _loop(op, mul, values, src, w, ro, mask):
     ident = dt.type(reduce_identity(torch.from_numpy(values).dtype, op))
     out = np.full(ro.shape[0] - 1, ident, dt)
     red = np.minimum if op == "min" else np.maximum  # both keep NaN
-    with np.errstate(invalid="ignore"):
+    with np.errstate(invalid="ignore", over="ignore"):
         for v in range(out.shape[0]):
             for e in range(ro[v], ro[v + 1]):
                 if mask is not None and not mask[e]:
@@ -103,7 +122,12 @@ def _same_bits(a: np.ndarray, b: np.ndarray) -> None:
 
 
 def _ids(sr):
-    return f"{sr[0]}_{sr[1]}"
+    """``op_mul``, with the dtype appended where it is not the shipped
+    semiring's (i32 for min_min, f32 otherwise)."""
+    op, mul, dt = sr
+    usual = np.int32 if (op, mul) == ("min", "min") else np.float32
+    return f"{op}_{mul}" + ("" if dt == usual else
+                            "_i32" if dt == np.int32 else "_f32")
 
 
 @pytest.mark.parametrize("semiring", SEMIRINGS, ids=_ids)
@@ -201,7 +225,75 @@ def test_kernel_wrapper_rejects_what_it_cannot_take(cuda_device):
             spmv_reduce_push(*args, **kw)
     with pytest.raises(ValueError):
         spmv_reduce_push(values, src, w, ro, mask.float(), **kw)
+    # every min/max triple over f32 and i32 has an entry; other dtypes none
     with pytest.raises(ValueError, match="no kernel"):
-        spmv_reduce_push(values, src, w, ro, op="max", mul="plus")
+        spmv_reduce_push(values.double(), src, w.double(), ro, op="max",
+                         mul="plus")
     assert set(REDUCE_ENTRIES) == {(op, mul, getattr(torch, np.dtype(
         dt).name)) for op, mul, dt in SEMIRINGS}
+
+
+def _merge_cases(tile):
+    """Layouts that stress the merge path's partition, whose blocks take
+    ``tile`` merge items (row ends and edges) each: name -> (n_src, per-row
+    edge counts, ``_csr`` keywords, the hub row whose every edge a masked
+    run masks, or None)."""
+    rng = np.random.default_rng(5)
+    short = lambda n: rng.integers(0, 30, n)
+    empty = lambda n: np.zeros(n, np.int64)
+    return {
+        "one-row-holds-all": (1000, np.array([1 << 20]), {}, None),
+        "hub-between-empty-runs": (
+            5000, np.concatenate([empty(3000), [200_000], empty(3000)]), {},
+            None),
+        "offset-range": (
+            2000, np.concatenate([short(4000), [50_000], short(4000)]),
+            dict(lead=5003, tail=7001), None),
+        "tile-multiples": (
+            2000, np.array([0, 1, tile - 1] + [k * tile + dk
+                                              for k in (1, 2, 3)
+                                              for dk in (-1, 0, 1)]), {},
+            None),
+        "hub-fully-masked": (
+            2000, np.concatenate([short(1000), [100_000], short(1000)]), {},
+            1000),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("semiring", [
+    ("min", "plus", np.float32), ("max", "times", np.float32),
+    ("min", "min", np.int32), ("max", "min", np.float32),
+    ("min", "plus", np.int32)], ids=_ids)
+@pytest.mark.parametrize("name", ["one-row-holds-all",
+                                  "hub-between-empty-runs", "offset-range",
+                                  "tile-multiples", "hub-fully-masked"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_kernel_on_merge_path_edge_cases(cuda_device, semiring, name,
+                                         masked):
+    """Hub rows spread over many blocks, empty rows, a sub-range of the
+    edges, rows that end on and beside block boundaries: bitwise the plain
+    version, the identity in empty and fully masked rows, and a second
+    launch bit for bit the first."""
+    from repro_torch.kernels.spmv.kernel import REDUCE_SOURCE, merge_tile
+
+    op, mul, dt = semiring
+    n_src, counts, kw, hub = _merge_cases(merge_tile(REDUCE_SOURCE))[name]
+    host = [torch.from_numpy(a) for a in
+            _csr(op, mul, dt, len(counts), n_src, counts, 6, **kw)]
+    if not masked:
+        host[4] = None
+    elif hub is not None:
+        host[4][host[3][hub]:host[3][hub + 1]] = False
+    args = [None if t is None else t.to(cuda_device) for t in host]
+    before = spmv_reduce_push.launches
+    out = spmv_reduce_push(*args, op=op, mul=mul)
+    torch.cuda.synchronize()
+    assert spmv_reduce_push.launches == before + 1
+    got = out.cpu().numpy()
+    _same_bits(got, spmv_reduce_push_plain(*host, op=op, mul=mul).numpy())
+    ident = got.dtype.type(reduce_identity(out.dtype, op))
+    assert (got[counts == 0] == ident).all()
+    if masked and hub is not None:
+        assert got[hub] == ident
+    _same_bits(got, spmv_reduce_push(*args, op=op, mul=mul).cpu().numpy())

@@ -69,6 +69,28 @@ def test_plain_version_matches_a_row_loop(name, masked):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
+@pytest.mark.parametrize("mul", ["plus", "min"])
+def test_plain_version_sums_each_mul(mul):
+    """The sum over ⊗ = + and min (registered sum semirings), in f64,
+    against a row loop."""
+    rows, n_src, counts, kw = _shapes()["mixed"]
+    values, src, w, ro, mask = _csr(rows, n_src, counts, 3, **kw)
+    v, s, wt, r, m = (t.numpy() for t in (values, src, w, ro, mask))
+    want = np.zeros(rows)
+    for row in range(rows):
+        for e in range(r[row], r[row + 1]):
+            if m[e]:
+                x, y = float(v[s[e]]), float(wt[e])
+                want[row] += x + y if mul == "plus" else min(x, y)
+    got = spmv_push_plain(values, src, w, ro, mask, mul=mul,
+                          dtype=torch.float64)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=0)
+    np.testing.assert_allclose(
+        spmv_push(values, src, w, ro, mask, mul=mul).numpy(), want, **TOL)
+    with pytest.raises(ValueError, match="mul"):
+        spmv_push(values, src, w, ro, mask, mul="max")
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -220,3 +242,54 @@ def test_push_on_the_gpu_runs_the_kernel_or_raises(cuda_device):
         B.push(values[None].expand(2, -1), B.build_layout(state))
     with pytest.raises(NotImplementedError, match="queue 1 entry 14"):
         B.push(values, B.build_layout(state, weight_dtype="bfloat16"))
+
+
+@pytest.mark.gpu
+def test_push_launches_a_kernel_for_every_registered_semiring(cuda_device):
+    """A semiring a user registers runs on the card through ``push``: every
+    min/max one over f32 or i32 on the min/max kernel (bitwise the CPU's
+    push), every f32 sum on the SpMV kernel (within TOL); a sum outside f32
+    has no kernel, as on the reference's Pallas path."""
+    from repro_torch.core import backend as B
+    from repro_torch.core.semiring import Semiring, register_semiring
+    from repro_torch.graph.graph import from_edges
+    from repro_torch.kernels.spmv.kernel import spmv_reduce_push
+
+    rng = np.random.default_rng(12)
+    src = rng.integers(0, 60, 500).astype(np.int32)
+    dst = rng.integers(0, 60, 500).astype(np.int32)
+    lengths = (0.5 + rng.random(500)).astype(np.float32)
+    graphs = {d: from_edges(src, dst, 60, 520, weights=lengths, device=d)
+              for d in ("cpu", cuda_device)}
+    for add, mul, dtype in [("max", "min", "float32"),
+                            ("min", "plus", "int32"),
+                            ("max", "times", "int32"),
+                            ("min", "times", "float32"),
+                            ("sum", "plus", "float32"),
+                            ("sum", "min", "float32")]:
+        name = f"card_{add}_{mul}_{dtype}"
+        register_semiring(Semiring(name, add, mul, dtype))
+        values = torch.from_numpy(
+            rng.integers(0, 100, 60).astype(dtype) if dtype == "int32"
+            else rng.random(60).astype(dtype))
+        outs = {}
+        for d, g in graphs.items():
+            layout = B.build_layout(g, weight="length", semiring=name)
+            counts = (spmv_push.launches, spmv_reduce_push.launches)
+            outs[d] = B.push(values.to(d), layout, semiring=name).cpu()
+            made = (spmv_push.launches - counts[0],
+                    spmv_reduce_push.launches - counts[1])
+            assert made == ((0, 0) if d == "cpu" else
+                            (1, 0) if add == "sum" else (0, 1)), name
+        if add == "sum":
+            np.testing.assert_allclose(outs[cuda_device].numpy(),
+                                       outs["cpu"].numpy(), **TOL)
+        else:
+            assert torch.equal(outs[cuda_device], outs["cpu"]), name
+    register_semiring(Semiring("card_sum_times_float64", "sum", "times",
+                               "float64"))
+    layout = B.build_layout(graphs[cuda_device], weight="length",
+                            semiring="card_sum_times_float64")
+    with pytest.raises(NotImplementedError, match="no GPU kernel"):
+        B.push(torch.rand(60, dtype=torch.float64, device=cuda_device),
+               layout, semiring="card_sum_times_float64")

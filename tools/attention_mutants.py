@@ -43,6 +43,8 @@ MUTANTS = {
     "bf16-output-rounds-toward-zero": (
         COMMON, "return __float2bfloat16_rn(x);",
         "return __float2bfloat16_rz(x);"),
+    # n is the valid length the cluster's CTAs split: one more slot lands
+    # in the last busy CTA's share
     "decode-bf16-reads-one-slot-past-cache-len": (
         DECODE, "const int n = max(0, min(__ldg(cache_len), s));",
         "const int n = max(0, min(__ldg(cache_len) + (sizeof(T) == 2), s));"),
