@@ -29,7 +29,24 @@ Then it drives three paths over the ``synth-web-lg`` stream:
   replayed on the CPU (bitwise for the min/max lanes, whose answers also
   equal scipy's searches), and every ticket of the PPR, Katz and HITS
   lanes is held against an f64 replay of its wave, from a bank rebuilt
-  from the wave's tickets alone.
+  from the wave's tickets alone;
+- the closed loop: PageRank at ``quality_target=0.95`` (12 queries) and
+  SSSP at 0.9 (5 queries) through ``repro_torch.session``, and the serving
+  plan at 0.95.  Each drift reading is held against the host's f64
+  recomputation from the card's own state and layouts, each decision
+  against a fresh controller fed the card's readings, and each drift push
+  is one kernel launch; every query prints the quality measured against an
+  exact replay of its graph;
+- the async rebuild: PageRank, SSSP and CC (and PageRank at 0.95) with
+  ``async_rebuild=True``, each bitwise against a synchronous session fed
+  each epoch's updates before its first query serving it, under forced
+  approximate, exact and repeat-last actions; a served snapshot's buffers
+  hash alike across the next build, and an add-only integrate makes no
+  host sync (CUDA's sync debug mode).  One more PageRank run holds each
+  build back behind a sleep on the build stream, so that builds still run
+  when the next query promotes them.  The serving plan with
+  ``async_rebuild=True`` is bitwise a synchronous run fed each chunk one
+  wave later;
 
 and one LM path:
 
@@ -45,9 +62,10 @@ and one LM path:
   must agree.
 
 It prints one JSON line per phase.  The line before the last lists the
-kernels; the last is ``{"ok": true, "device": {...}}``.  Any failed check
-raises and the script exits non-zero.  It needs a CUDA device and the
-repository's ``src/`` beside it, and imports nothing of JAX.
+kernels, with each one's launches on every graph path; the last is
+``{"ok": true, "device": {...}}``.  Any failed check raises and the script
+exits non-zero.  It needs a CUDA device and the repository's ``src/``
+beside it, and imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -1153,26 +1171,28 @@ def capture_waves(store: dict):
                 "active_prev": active_prev.clone(), "r": r.clone(),
                 "delta": delta.clone(), "row_mask": row_mask.clone(),
                 "cold_rows": cold_rows.clone(), "kw": kw}
-        new_bank, stats, row_delta = real(state, bank, deg_prev, active_prev,
-                                          r, delta, row_mask, cold_rows, **kw)
-        keep["out"] = {k: v.clone() for k, v in new_bank.items()}
-        keep["iterations"] = stats.iterations
+        out = real(state, bank, deg_prev, active_prev, r, delta, row_mask,
+                   cold_rows, **kw)
+        keep["out"] = {k: v.clone() for k, v in out[0].items()}
+        keep["iterations"] = out[1].iterations
         store.setdefault(name, []).append(keep)
-        return new_bank, stats, row_delta
+        return out
 
     SG.fused_query_step_batched = wrapper
     return lambda: setattr(SG, "fused_query_step_batched", real)
 
 
-def drive_serving(stream, plan, device, capture=None):
+def drive_serving(stream, plan, device, capture=None, *, lag=0,
+                  **overrides):
     """The serving path through ``repro_torch.serve_session`` on
-    ``device``, with every kernel count set to 0 just before it: one stream
-    chunk buffered before each wave.  Checks per wave that every batched
-    push was one batched launch and that no single kernel ran outside an
-    exact fallback, and on the card that each finished SSSP, widest-path
-    and CC answer equals scipy's search of that wave's graph.  Returns
-    (rows, tickets, server, launch counts, wall seconds, and for each lane
-    the tickets each of its waves finished)."""
+    ``device`` (``overrides`` go to it), with every kernel count set to 0
+    just before it: one stream chunk buffered before each wave from wave
+    ``lag`` on.  Checks per wave that every batched push was one batched
+    launch and that no single kernel ran outside an exact fallback, and on
+    the card that each finished SSSP, widest-path and CC answer equals
+    scipy's search of the graph that wave served.  Returns (rows, tickets,
+    server, launch counts, wall seconds, and for each lane the tickets each
+    of its waves finished)."""
     import repro_torch
     from repro_torch.core import backend as B
 
@@ -1181,14 +1201,16 @@ def drive_serving(stream, plan, device, capture=None):
     reset_launch_counts()
     B.reset_trace_counts()
     t0 = time.perf_counter()
-    srv = repro_torch.serve_session(stream, slots=BATCH, device=device)
+    srv = repro_torch.serve_session(stream, slots=BATCH, device=device,
+                                    **overrides)
     tickets = [srv.submit(name, **kw) for name, kw in plan]
     chunks = iter(stream)
     rows, finished = [], {}
     try:
         while srv.pending:
-            s, d = next(chunks)
-            srv.add_edges(s, d)
+            if len(rows) >= lag:
+                s, d = next(chunks)
+                srv.add_edges(s, d)
             c0, p0, b0 = (launch_counts(), B.trace_count("push"),
                           B.trace_count("push[batched]"))
             logged, done = len(srv.wave_log), [t.done for t in tickets]
@@ -1214,12 +1236,17 @@ def drive_serving(stream, plan, device, capture=None):
                 raise AssertionError("the CPU run launched a kernel")
             row = {"phase": "serving-wave", "device": str(device),
                    "wave": len(rows), "wall_ms": wall_ms,
+                   "epoch": srv.stats.epoch,
+                   "snapshot_lag": srv.stats.snapshot_lag,
                    "batched_pushes": batched, "launches": made,
                    "lanes": [{"lane": w.algorithm, "occupied": w.occupied,
                               "cold": w.cold, "num_hot": w.num_hot,
                               "num_ek": w.num_ek, "num_eb": w.num_eb,
                               "iterations": w.iterations,
-                              "overflow_fallback": w.overflow_fallback}
+                              "overflow_fallback": w.overflow_fallback,
+                              **({} if w.row_drift is None else {
+                                  "row_drift": w.row_drift,
+                                  "refreshed": w.refreshed})}
                              for w in lanes]}
             newly = [tk for tk, was in zip(tickets, done)
                      if tk.done and not was]
@@ -1228,7 +1255,7 @@ def drive_serving(stream, plan, device, capture=None):
                     [tk for tk in newly if tk.algorithm == w.algorithm])
             if on_card:
                 row["finished_equal_to_search"] = check_served_answers(
-                    srv.engine.state, newly)
+                    srv._served_state(), newly)
             rows.append(row)
     finally:
         if undo is not None:
@@ -1512,7 +1539,710 @@ def serving_path(stream, src, dst, nodes, dev, rng):
             checks.append(check_batched_reduce_kernel(f"b_in pass of {tag}",
                                                       d, full, eb))
         del full, eb
-    return out, checks, counts
+    return out, checks, counts, plan
+
+
+# ---- closed-loop control and the async rebuild ---------------------------
+CONTROL_RUNS = (("pagerank", {}, 0.95, 12),      # (algorithm, params,
+                ("sssp", {"sources": (0,)}, 0.9, 5))  # target, queries)
+# the card's drift readings against the host's f64 recomputation from the
+# card's own state and layouts: |card - host| <= DRIFT_ATOL + DRIFT_RTOL *
+# |host| + the first-order bound of the f32 rounding of the card's residual
+# (a sum residual |F(x) - x| cancels: at a hub it is rounding noise)
+DRIFT_ATOL, DRIFT_RTOL = 2e-6, 1e-4
+F32_EPS = float(np.finfo(np.float32).eps)
+SUM_FAMILY = ("pagerank", "personalized-pagerank", "katz")
+# the async sessions: (algorithm, params, engine overrides); forced actions
+# per query (A approximate, E exact, R repeat-last), one removal batch
+ASYNC_RUNS = (("pagerank", {}, {}), ("sssp", {"sources": (0,)}, {}),
+              ("connected-components", {}, {}),
+              ("pagerank", {}, {"quality_target": 0.95}))
+# one more PageRank run whose build stream first sleeps this many cycles
+# (about 0.1 s) before every build, so that each build still runs when its
+# query returns and when the next query promotes it: the answers are then
+# bitwise only if promotion orders the main stream after the build
+SLOW_BUILD_CYCLES = 200_000_000
+ASYNC_ACTIONS = "AARAEAA"
+ASYNC_REMOVE_AT = 3         # this query's batch also removes 200 edges
+
+
+def capture_drift(store: list):
+    """Wrap the fused steps' drift estimate so that every call keeps what
+    a later recomputation needs (copies of what a later apply or wave may
+    change), its readings and the kernel launches it made; returns the
+    function that undoes it."""
+    from repro_torch.core import fused as F
+
+    real = F._drift_from_state
+
+    def wrapper(algo, new_state, old_state, graph, hot, probe_ids, *,
+                layouts):
+        c0 = launch_counts()
+        probe, cold = real(algo, new_state, old_state, graph, hot,
+                           probe_ids, layouts=layouts)
+        c1 = launch_counts()
+        store.append({
+            "algo": algo, "new": {k: v.clone() for k, v in new_state.items()},
+            "old": {k: v.clone() for k, v in old_state.items()},
+            "graph": graph._replace(node_active=graph.node_active.clone()),
+            "hot": hot.clone(), "probes": probe_ids, "layouts": layouts,
+            "probe": probe, "cold": cold,
+            "launches": {k: c1[k] - c0[k] for k in c0 if c1[k] != c0[k]}})
+        return probe, cold
+
+    F._drift_from_state = wrapper
+    return lambda: setattr(F, "_drift_from_state", real)
+
+
+def host_residual(cap, inc=None) -> tuple:
+    """One step's drift residual recomputed on the host from the card's
+    state and layouts, written apart from the port in numpy: in f64 for
+    the sums; for the min/max relaxations in f32 (their + and × round as on
+    the card, and min/max take any order), so bitwise; for HITS, which
+    defines no residual, the churn of its result.  Returns (the residual,
+    a first-order bound of the f32 rounding of the card's residual per
+    vertex: for a sum, ε·(|t| + 2|F(x)| + |x| + c·(L + 1)·Σ|w·x_src|) over a
+    row of L edges with factor c, 0 where the card's residual is exact);
+    ``[B, N]`` each for a bank, else ``[N]``.  ``inc`` (a sum's pushed
+    vector, as the card's kernel gave it) replaces the host's push: the
+    residual is then recomputed from it, and its bound drops the push's
+    term."""
+    algo, name = cap["algo"], cap["algo"].name
+    new = {k: v.cpu().numpy() for k, v in cap["new"].items()}
+    active = cap["graph"].node_active.cpu().numpy()
+    n = active.shape[0]
+
+    def edges(layout):
+        v = layout.valid.cpu().numpy()
+        return (layout.src.cpu().numpy()[v].astype(np.int64),
+                layout.dst.cpu().numpy()[v].astype(np.int64),
+                layout.weight.cpu().numpy()[v])
+
+    def rows(x):
+        return x if x.ndim == 2 else x[None]
+
+    view = algo.result_view(cap["new"]).cpu().numpy()
+    bound = None
+    if name in SUM_FAMILY:
+        s, d, w = edges(cap["layouts"][0])
+        w = w.astype(np.float64)
+        x = rows(new["katz" if name == "katz" else "ranks"]).astype(np.float64)
+        if inc is None:
+            inc = np.stack([np.bincount(d, weights=w * r[s], minlength=n)
+                            for r in x])
+            mag = np.stack([np.bincount(d, weights=np.abs(w * r[s]),
+                                        minlength=n) for r in x])
+            length = np.bincount(d, minlength=n).astype(np.float64)
+        else:
+            inc = rows(inc).astype(np.float64)
+            mag, length = np.abs(inc), 0.0
+        if name == "pagerank":
+            tele = 1.0 - algo.beta
+            if algo.teleport_by_n:
+                tele /= max(int(active.sum()), 1)
+            c = algo.beta
+        elif name == "personalized-pagerank":
+            tele = (1.0 - algo.beta) * rows(new["teleport"]).astype(
+                np.float64)
+            c = algo.beta
+        else:
+            tele, c = algo.beta, algo.alpha
+        f = tele + c * inc
+        out = np.abs(np.where(active, f, 0.0) - x)
+        bound = F32_EPS * (np.abs(tele) + 2 * np.abs(f) + np.abs(x)
+                           + c * (length + 1) * mag)
+    elif name in ("sssp", "widest-path"):
+        s, d, w = edges(cap["layouts"][0])
+        out = []
+        np_err = np.errstate(invalid="ignore")  # inf - inf, masked below
+        np_err.__enter__()
+        for r, pin in zip(rows(new[algo.value_key]), rows(new["source"])):
+            if name == "sssp":
+                inc = np.full(n, np.inf, np.float32)
+                np.minimum.at(inc, d, r[s] + w)
+                relaxed = np.where(pin, np.float32(0), np.minimum(r, inc))
+                both = np.isfinite(relaxed) & np.isfinite(r)
+                out.append(np.where(both, np.abs(relaxed - r),
+                                    (relaxed != r).astype(np.float32)))
+            else:
+                inc = np.full(n, -np.inf, np.float32)
+                np.maximum.at(inc, d, r[s] * w)
+                relaxed = np.where(pin, np.float32(1), np.maximum(r, inc))
+                out.append(np.abs(relaxed - r))
+        np_err.__exit__(None, None, None)
+        out = np.stack(out)
+    elif name == "connected-components":
+        out = []
+        for lab in rows(new["labels"]):
+            relaxed = lab.copy()
+            for layout in cap["layouts"]:
+                s, d, w = edges(layout)
+                inc = np.full(n, np.iinfo(np.int32).max, np.int32)
+                np.minimum.at(inc, d, np.minimum(lab[s], w))
+                relaxed = np.minimum(relaxed, inc)
+            out.append((active & (relaxed != lab)).astype(np.float32))
+        out = np.stack(out)
+    else:
+        a = rows(view).astype(np.float64)
+        b = rows(algo.result_view(cap["old"]).cpu().numpy()).astype(
+            np.float64)
+        both = np.isfinite(a) & np.isfinite(b)
+        out = np.where(both, np.abs(a - b), (a != b).astype(np.float64))
+        bound = F32_EPS * np.where(both, np.abs(a) + np.abs(b), 0.0)
+    if bound is None:
+        bound = np.zeros(out.shape)
+    if view.ndim == 2:
+        return out, bound
+    return out[0], bound[0]
+
+
+def host_signals(resid, result, hot, active, probes, normalize):
+    """``(drift_probe, drift_cold)`` of one residual row in f64 on the host,
+    written apart from ``repro_torch.core.control.drift_signals`` (the same
+    reduction of a per-vertex bound gives the bound of each scalar)."""
+    res = result.astype(np.float64)
+    r = resid.astype(np.float64)
+    finite = active & np.isfinite(res) & np.isfinite(r)
+    r = np.where(finite, np.maximum(r, 0.0), 0.0)
+    n_active = max(float(active.sum()), 1.0)
+    mass = (n_active if normalize == "count" else
+            max(float(np.where(finite, np.abs(res), 0.0).sum()), 1e-30))
+    cold = float(np.where(hot, 0.0, r).sum()) / mass
+    live = finite[probes]
+    p_mean = float((r[probes] * live).sum()) / max(float(live.sum()), 1.0)
+    return p_mean * n_active / mass, cold
+
+
+def check_drift(cap) -> dict:
+    """Check (a) of one captured step: every row's card readings against
+    the host's f64 recomputation, at (DRIFT_ATOL, DRIFT_RTOL); for the
+    min/max workloads the card's residual vector, recomputed on the card
+    from the same inputs, is also bitwise the host's."""
+    from repro_torch.core import backend as B
+
+    algo = cap["algo"]
+    result = algo.result_view(cap["new"]).cpu().numpy()
+    hot = cap["hot"].cpu().numpy()
+    active = cap["graph"].node_active.cpu().numpy()
+    probes = cap["probes"].cpu().numpy().astype(np.int64)
+    card_p = np.atleast_1d(cap["probe"].cpu().numpy()).astype(np.float64)
+    card_c = np.atleast_1d(cap["cold"].cpu().numpy()).astype(np.float64)
+    res_rows = result if result.ndim == 2 else result[None]
+
+    def compare(host, bound):
+        """Each row's readings against the host's signals of ``host``, at
+        the tolerance plus the bound's share; returns (worst excess over
+        the limit, rows of (card, host, bound) readings)."""
+        host_rows = host if host.ndim == 2 else host[None]
+        bound_rows = bound if bound.ndim == 2 else bound[None]
+        worst, readings = 0.0, []
+        for i, (h, b, res) in enumerate(zip(host_rows, bound_rows,
+                                            res_rows)):
+            hp, hc = host_signals(h, res, hot, active, probes,
+                                  algo.drift_normalize)
+            # where the residual is not finite host_signals drops it, and
+            # its bound with it
+            bp, bc = host_signals(np.where(np.isfinite(h), b, np.inf), res,
+                                  hot, active, probes, algo.drift_normalize)
+            for card, ref, f32_bound in ((card_p[i], hp, bp),
+                                         (card_c[i], hc, bc)):
+                excess = abs(card - ref) / (DRIFT_ATOL + DRIFT_RTOL * abs(ref)
+                                            + f32_bound)
+                worst = max(worst, excess)
+                if excess > 1.0:
+                    raise AssertionError(f"{algo.name}: card drift {card} "
+                                         f"against the host's f64 {ref} "
+                                         f"(f32 bound {f32_bound})")
+            readings.append((float(card_p[i]), float(card_c[i]), hp, hc, bp,
+                             bc))
+        return worst, readings
+
+    host, bound = host_residual(cap)
+    worst, readings = compare(host, bound)
+    out = {"rows": len(readings), "worst_excess_over_limit": worst,
+           "readings": readings}
+    if algo.name in SUM_FAMILY:
+        # the same from the card's own push: tight where a hub's f32 sum
+        # makes the bound of the full recomputation loose
+        x = cap["new"]["katz" if algo.name == "katz" else "ranks"]
+        inc = B.push(x, cap["layouts"][0]).cpu().numpy()
+        tight, tight_readings = compare(*host_residual(cap, inc))
+        out["given_push_worst_excess"] = tight
+        out["given_push_readings"] = [r[2:] for r in tight_readings]
+    if algo.name not in SUM_FAMILY and algo.name != "hits":
+        card = algo.drift_residual(cap["new"], cap["graph"],
+                                   layouts=cap["layouts"]).cpu().numpy()
+        if not same_bits(torch.from_numpy(np.ascontiguousarray(card)),
+                         torch.from_numpy(np.ascontiguousarray(
+                             host.astype(np.float32)))):
+            raise AssertionError(f"{algo.name}: the card's residual differs "
+                                 f"from the host's")
+        out["residual_bitwise"] = True
+    return out
+
+
+#: the drift pushes of one step, per algorithm: (kernel, launches), single
+#: form for a session's query, batched form for a serving lane's wave
+def drift_pushes(name: str, batched: bool) -> dict:
+    if name == "hits":
+        return {}
+    kernel = "spmv_push" if name in SUM_FAMILY else "spmv_reduce_push"
+    if batched:
+        kernel += "_batched"
+    return {kernel: 2 if name == "connected-components" else 1}
+
+
+def control_path(stream, dev) -> tuple:
+    """PageRank at quality_target=0.95 and SSSP at 0.9 through
+    ``repro_torch.session`` on the card, every kernel count set to 0 just
+    before each.  Per query: the drift readings, the controller's columns,
+    and the quality measured against an exact replay of that query's graph
+    (RBO@4000 against an f64 PageRank; for SSSP the share of vertices
+    equal to scipy's search).  Checks (a) the readings against the host's
+    f64 recomputation, (b) a fresh controller fed the card's readings
+    decides exactly as the engine did, (c) each approximate query made its
+    drift pushes as kernel launches, and every push of the run launched a
+    kernel.  Returns (rows, launch counts)."""
+    import repro_torch
+    from repro_torch.core import backend as B
+    from repro_torch.core.control import QualityController
+    from repro_torch.metrics import rbo_from_scores
+
+    out, totals = [], {}
+    for name, kw, target, queries in CONTROL_RUNS:
+        store = []
+        undo = capture_drift(store)
+        reset_launch_counts()
+        B.reset_trace_counts()
+        try:
+            t0 = time.perf_counter()
+            sess = repro_torch.session(stream, name, quality_target=target,
+                                       **kw)
+            plays = sess.play()
+            rows = []
+            for _ in range(queries):
+                c0, n0 = launch_counts(), len(store)
+                res = next(plays)
+                c1 = launch_counts()
+                st = res.stats
+                caps = store[n0:]
+                state = sess.engine.state
+                if name == "pagerank":
+                    quality = {"rbo_vs_f64_exact": rbo_from_scores(
+                        res.scores.astype(np.float64),
+                        exact_reference(state).cpu().numpy(),
+                        depth=RBO_DEPTH,
+                        active=state.node_active.cpu().numpy())}
+                else:
+                    truth = independent_exact(name, state)
+                    quality = {"share_equal_to_exact": float(
+                        np.mean(res.scores == truth))}
+                rows.append({
+                    "phase": "control", "algorithm": name,
+                    "quality_target": target, "query": st.query_id,
+                    "action": st.action, "refreshed": st.refreshed,
+                    "drift_probe": (float(caps[0]["probe"]) if caps
+                                    else None),
+                    "drift_cold": float(caps[0]["cold"]) if caps else None,
+                    "quality_est": st.quality_est, "r_eff": st.r_eff,
+                    "delta_eff": st.delta_eff, "num_hot": st.num_hot,
+                    "num_ek": st.num_ek, "iterations": st.iterations,
+                    "wall_ms": st.wall_time_s * 1e3,
+                    "launches": {k: c1[k] - c0[k] for k in c0
+                                 if c1[k] != c0[k]},
+                    "drift_launches": caps[0]["launches"] if caps else {},
+                    **quality})
+                # (c) the drift pushes of an approximate query
+                approx = st.action == "compute-approximate"
+                if len(caps) != approx or (approx and caps[0]["launches"]
+                                           != drift_pushes(name, False)):
+                    raise AssertionError(f"{name} query {st.query_id}: "
+                                         f"drift pushes {rows[-1]}")
+        finally:
+            undo()
+        wall = time.perf_counter() - t0
+        counts, pushes = launch_counts(), B.trace_count("push")
+        if sum(counts.values()) != pushes:
+            raise AssertionError(f"{name}: {counts} launches for {pushes} "
+                                 f"pushes")
+        # (b) a fresh controller fed the card's readings decides alike
+        cfg = sess.engine.config
+        ctl = QualityController(target, r0=cfg.r, delta0=cfg.delta,
+                                adjust_r=cfg.control_r,
+                                adjust_delta=cfg.control_delta,
+                                contraction=sess.algorithm.drift_contraction)
+        for row in rows:
+            if row["action"] != "compute-approximate":
+                if row["action"] == "compute-exact":
+                    ctl.refreshed()
+                continue
+            if (ctl.r_eff, ctl.delta_eff) != (row["r_eff"],
+                                               row["delta_eff"]):
+                raise AssertionError(f"{name} query {row['query']}: knobs "
+                                     f"differ from the replayed controller")
+            dec = ctl.observe(row["drift_probe"], row["drift_cold"])
+            if dec.refresh != row["refreshed"]:
+                raise AssertionError(f"{name} query {row['query']}: refresh "
+                                     f"differs from the replayed controller")
+            if dec.refresh:
+                ctl.refreshed()
+        # (a) the readings against the host's f64 recomputation
+        worst = tight = 0.0
+        for row, cap in zip([r for r in rows
+                             if r["action"] == "compute-approximate"],
+                            store):
+            got = check_drift(cap)
+            row["host_f64"] = got["readings"][0][2:4]
+            row["f32_bound"] = got["readings"][0][4:]
+            row["residual_bitwise"] = got.get("residual_bitwise")
+            if "given_push_readings" in got:
+                row["host_f64_given_push"] = got["given_push_readings"][0]
+                tight = max(tight, got["given_push_worst_excess"])
+            worst = max(worst, got["worst_excess_over_limit"])
+        out += rows
+        out.append({"phase": "control-total", "algorithm": name,
+                    "quality_target": target, "queries": queries,
+                    "wall_s": wall, "launches": counts, "pushes": pushes,
+                    "refreshes": sess.engine.controller.refreshes,
+                    "drift_tolerance": {"atol": DRIFT_ATOL,
+                                        "rtol": DRIFT_RTOL},
+                    "drift_worst_excess_over_limit": worst,
+                    "drift_given_push_worst_excess": tight,
+                    "controller_replay_exact": True,
+                    "drift_pushes_per_query": drift_pushes(name, False)})
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        del sess, store
+        torch.cuda.empty_cache()
+    return out, totals
+
+
+def control_serving_path(stream, plan, dev) -> tuple:
+    """The serving plan at quality_target=0.95 on the card: per lane-wave
+    the slots' drift, the lane's refreshes and the batched drift pushes'
+    launches; checks (a) and (b) per lane-wave.  A refresh re-marks the
+    lane's live slots cold; the live slots that were warm (not cold) on a
+    refreshing lane-wave, the only ones it can change, are counted.
+    Returns (rows, launch counts)."""
+    from repro_torch.core.control import QualityController
+
+    store = []
+    undo = capture_drift(store)
+    try:
+        rows, tickets, srv, counts, wall, _ = drive_serving(
+            stream, plan, dev, quality_target=0.95)
+    finally:
+        undo()
+    if len(store) != len(srv.wave_log):
+        raise AssertionError(f"{len(store)} drift estimates for "
+                             f"{len(srv.wave_log)} lane-waves")
+    cfg = srv.engine.config
+    replay, out, worst, min_q = {}, [], 0.0, 1.0
+    for w, cap in zip(srv.wave_log, store):
+        name = cap["algo"].name
+        if name != w.algorithm or cap["launches"] != drift_pushes(name, True):
+            raise AssertionError(f"lane-wave {w}: drift launches "
+                                 f"{cap['launches']}")
+        got = check_drift(cap)
+        worst = max(worst, got["worst_excess_over_limit"],
+                    got.get("given_push_worst_excess", 0.0))
+        # the engine read each live row's pair, and zeros for vacant ones
+        for i, (pair, (p, c, *_)) in enumerate(zip(w.row_drift or (),
+                                                     got["readings"])):
+            if pair != (0.0, 0.0) and pair != (p, c):
+                raise AssertionError(f"lane-wave {w.wave} {name} row {i}: "
+                                     f"read {pair}, estimated {(p, c)}")
+        # (b) the lane's controller replayed from the read readings
+        ctl = replay.setdefault(name, QualityController(
+            0.95, r0=cfg.r, delta0=cfg.delta, adjust_r=cfg.control_r,
+            adjust_delta=cfg.control_delta,
+            contraction=cap["algo"].drift_contraction))
+        quality = None
+        if w.overflow_fallback:
+            ctl.refreshed()
+        else:
+            dec = ctl.observe(max(p for p, _ in w.row_drift),
+                              max(c for _, c in w.row_drift))
+            if dec.refresh != w.refreshed:
+                raise AssertionError(f"lane-wave {w.wave} {name}: refresh "
+                                     f"differs from the replayed controller")
+            if dec.refresh:
+                ctl.refreshed()
+            quality = dec.quality_est
+            min_q = min(min_q, quality)
+        out.append({"phase": "control-serving-wave", "wave": w.wave,
+                    "lane": name, "occupied": w.occupied, "cold": w.cold,
+                    "row_drift": w.row_drift, "refreshed": w.refreshed,
+                    "lane_refreshes": ctl.refreshes, "quality_est": quality,
+                    "min_quality_est": min_q,
+                    "drift_launches": cap["launches"],
+                    "host_f64": [r[2:4] for r in got["readings"]],
+                    "f32_bound": [r[4:] for r in got["readings"]],
+                    "host_f64_given_push": got.get("given_push_readings"),
+                    "residual_bitwise": got.get("residual_bitwise")})
+    if min_q != srv.stats.min_quality_est:
+        raise AssertionError(f"the replayed controllers' lowest quality "
+                             f"estimate {min_q} differs from the served "
+                             f"{srv.stats.min_quality_est}")
+    for lane in srv._lanes.values():
+        ctl = replay[lane.template.name]
+        if (ctl.r_eff, ctl.delta_eff, ctl.refreshes) != (
+                lane.controller.r_eff, lane.controller.delta_eff,
+                lane.controller.refreshes):
+            raise AssertionError(f"{lane.template.name}: the replayed "
+                                 f"controller ended elsewhere")
+    st = srv.stats
+    out.append({"phase": "control-serving-total", "queries": len(tickets),
+                "waves": st.waves, "wall_s": wall,
+                "queries_per_s": st.queries_per_s,
+                "refreshes": st.refreshes, "last_drift": st.last_drift,
+                "min_quality_est": st.min_quality_est, "launches": counts,
+                "drift_worst_excess_over_limit": worst,
+                "warm_slots_on_refreshing_waves": sum(
+                    w.occupied - w.cold for w in srv.wave_log
+                    if w.refreshed),
+                "controller_replay_exact": True})
+    del srv, store
+    torch.cuda.empty_cache()
+    return rows + out, counts
+
+
+def snapshot_hash(snap, specs) -> str:
+    """A digest of a snapshot's graph buffers, baselines and the layouts of
+    ``specs``."""
+    import hashlib
+
+    h = hashlib.sha256()
+    tensors = [t for t in snap.state if t is not None]
+    tensors += [snap.deg, snap.active]
+    for layout in map(snap.layouts.__getitem__, specs):
+        tensors += [layout.src, layout.dst, layout.weight, layout.valid,
+                    layout.row_offsets]
+    for t in tensors:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def count_syncs(fn):
+    """Run ``fn()`` with CUDA's sync debug mode on; returns (its result,
+    the file:line of each synchronizing call it made)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                 if "called a synchronizing" in str(w.message)]
+
+
+def async_path(stream, dev) -> tuple:
+    """PageRank, SSSP and CC with ``async_rebuild=True`` on the card (and
+    PageRank with quality_target=0.95 too), each against a synchronous
+    oracle session fed each epoch's batches just before its first query
+    that serves the epoch, under the same forced actions: answers bitwise,
+    fallbacks and refreshes equal, epochs monotone with lag 0 or 1, a
+    served snapshot's buffers unchanged across the next build, and an
+    add-only integrate making no host sync.  A last PageRank run holds
+    each build back behind a sleep on the build stream, and must find a
+    build still running at a promotion.  Per query: the answer's and the
+    call's ms, async and sync, the build's device ms (its events on the
+    build stream) and whether it still ran when the call returned and when
+    the next query promoted it.  Returns (rows, launch counts)."""
+    import repro_torch
+    from repro_torch.core import backend as B
+    from repro_torch.core.algorithm import Action
+
+    act = {"A": Action.APPROXIMATE, "E": Action.EXACT,
+           "R": Action.REPEAT_LAST}
+    # one repeat-last query past the script promotes the last build
+    actions = [act[c] for c in ASYNC_ACTIONS] + [Action.REPEAT_LAST]
+    chunks = [c for _, c in zip(ASYNC_ACTIONS, stream)]
+    removal = (stream.init_src[:200], stream.init_dst[:200])
+    out, totals = [], {}
+    runs = [r + (False,) for r in ASYNC_RUNS] + [("pagerank", {}, {}, True)]
+    for name, kw, extra, slow in runs:
+        reset_launch_counts()
+        B.reset_trace_counts()
+        t0 = time.perf_counter()
+        sa = repro_torch.session(stream, name, async_rebuild=True,
+                                 on_query=lambda q, v: actions[q], **kw,
+                                 **extra)
+        eng = sa.engine
+        pipe = eng._pipeline
+        integrate, finalize = eng._async_integrate, eng._finalize_promotion
+        syncs, waited = [], {}
+
+        def counted():
+            if slow:
+                with torch.cuda.stream(eng._build_stream):
+                    torch.cuda._sleep(SLOW_BUILD_CYCLES)
+            t = time.perf_counter()
+            result, sites = count_syncs(integrate)
+            syncs.append((sites, (time.perf_counter() - t) * 1e3))
+            return result
+
+        def promoting(snap):
+            # whether the build was still running when promotion began
+            waited[snap.epoch] = not snap.events[1].query()
+            return finalize(snap)
+
+        eng._async_integrate = counted
+        eng._finalize_promotion = promoting
+        rows, batches, builds, latest = [], {}, [], 0
+        held, hash_checks = None, 0
+        for q, (s, d) in enumerate(chunks):
+            batch = [("add", s, d)]
+            eng.register_add_edges(s, d)
+            if q == ASYNC_REMOVE_AT:
+                eng.register_remove_edges(*removal)
+                batch.append(("rm",) + removal)
+            n_syncs = len(syncs)
+            t = time.perf_counter()
+            scores, st = eng.query()
+            call_ms = (time.perf_counter() - t) * 1e3
+            building = pipe.building
+            running = (building is not None
+                       and not building.events[1].query())
+            served = latest
+            dispatched = building is not None and building.epoch > latest
+            if dispatched:
+                latest = building.epoch
+                batches[latest] = batch
+            builds.append(building if dispatched else None)
+            if st.epoch != served or st.snapshot_lag not in (0, 1):
+                raise AssertionError(f"{name} query {q}: epoch {st.epoch} "
+                                     f"lag {st.snapshot_lag}, expected "
+                                     f"{served}")
+            if held is not None and held[0] is not pipe.current:
+                # the build that ran while this snapshot was served is
+                # promoted (and waited for): its buffers are unchanged
+                if snapshot_hash(*held[:2]) != held[2]:
+                    raise AssertionError(f"{name}: snapshot {held[0].epoch} "
+                                         f"changed under a build")
+                held, hash_checks = None, hash_checks + 1
+            if held is None and hash_checks < 2 and dispatched:
+                specs = tuple(pipe.current.layouts)
+                held = (pipe.current, specs,
+                        snapshot_hash(pipe.current, specs))
+            rows.append({"phase": "async", "algorithm": name,
+                         "quality_target": extra.get("quality_target"),
+                         "query": q, "action": st.action, "epoch": st.epoch,
+                         "snapshot_lag": st.snapshot_lag,
+                         "refreshed": st.refreshed,
+                         "overflow_fallback": st.overflow_fallback,
+                         "slow_build": slow,
+                         "async_answer_ms": st.wall_time_s * 1e3,
+                         "async_call_ms": call_ms,
+                         "build_running_at_return": running,
+                         "integrate_host_ms": (syncs[-1][1]
+                                               if len(syncs) > n_syncs
+                                               else None),
+                         "host_syncs_in_integrate": (
+                             syncs[-1][0] if len(syncs) > n_syncs else None),
+                         "scores": scores})
+            if (q != ASYNC_REMOVE_AT and len(syncs) > n_syncs
+                    and syncs[-1][0]):
+                raise AssertionError(f"{name} query {q}: the add-only "
+                                     f"integrate made host syncs at "
+                                     f"{syncs[-1][0]}")
+        eng.query()  # promote the last build (its events are done after)
+        wall = time.perf_counter() - t0
+        counts, pushes = launch_counts(), B.trace_count("push")
+        if sum(counts.values()) != pushes:
+            raise AssertionError(f"{name}: {counts} launches for {pushes} "
+                                 f"pushes")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        if hash_checks < 2:
+            raise AssertionError(f"{name}: {hash_checks} snapshot checks")
+        for row, snap in zip(rows, builds):
+            row["build_events_ms"] = (
+                None if snap is None
+                else snap.events[0].elapsed_time(snap.events[1]))
+            row["build_running_at_promotion"] = (
+                None if snap is None else waited[snap.epoch])
+        if slow and not any(waited.values()):
+            raise AssertionError("no build was still running at its "
+                                 "promotion, under a build stream held back")
+        del sa, eng, pipe, builds, held
+        torch.cuda.empty_cache()
+
+        # the synchronous oracle, fed at the served epochs
+        so = repro_torch.session(stream, name, on_query=lambda q, v:
+                                 actions[q], **kw, **extra)
+        fed = 0
+        for q, row in enumerate(rows):
+            while fed < row["epoch"]:
+                fed += 1
+                for kind, a, b in batches[fed]:
+                    (so.engine.register_add_edges if kind == "add" else
+                     so.engine.register_remove_edges)(a, b)
+            t = time.perf_counter()
+            ref, rst = so.engine.query()
+            row["sync_call_ms"] = (time.perf_counter() - t) * 1e3
+            scores = row.pop("scores")
+            if not np.array_equal(scores.view(np.uint8), ref.view(np.uint8)):
+                raise AssertionError(f"{name} query {q}: the async answer "
+                                     f"differs from the synchronous oracle")
+            if (row["overflow_fallback"], row["refreshed"]) != (
+                    rst.overflow_fallback, rst.refreshed):
+                raise AssertionError(f"{name} query {q}: fallback or "
+                                     f"refresh differs from the oracle")
+            row["sync_answer_ms"] = rst.wall_time_s * 1e3
+            row["bitwise_vs_sync_oracle"] = True
+        del so
+        torch.cuda.empty_cache()
+        out += rows
+        out.append({"phase": "async-total", "algorithm": name,
+                    "quality_target": extra.get("quality_target"),
+                    "slow_build": slow,
+                    "builds_running_at_promotion": sum(waited.values()),
+                    "queries": len(rows), "wall_s": wall,
+                    "launches": counts, "pushes": pushes,
+                    "epochs_built": latest,
+                    "snapshot_unchanged_across_build": hash_checks,
+                    "bitwise_vs_sync_oracle": True})
+    return out, totals
+
+
+def async_serving_path(stream, plan, dev) -> tuple:
+    """The serving plan with ``async_rebuild=True`` on the card against a
+    synchronous serving run fed each chunk one wave later: every wave
+    serves the epoch of the chunks before it, and every ticket's answer,
+    waves and flags are bitwise the oracle's.  Returns (rows, launch
+    counts)."""
+    rows, tickets, srv, counts, wall, _ = drive_serving(
+        stream, plan, dev, async_rebuild=True)
+    for w, row in enumerate(rows):
+        if (row["epoch"], row["snapshot_lag"]) != (w, 1):
+            raise AssertionError(f"async wave {w}: epoch {row['epoch']}, "
+                                 f"lag {row['snapshot_lag']}")
+    card = [(t.waves_run, t.converged, t.exact_fallback, t.result)
+            for t in tickets]
+    st = srv.stats
+    del srv
+    torch.cuda.empty_cache()
+    _, oracle, _, _, sync_wall, _ = drive_serving(stream, plan, dev, lag=1)
+    for (waves, conv, fb, res), t in zip(card, oracle):
+        if (waves, conv, fb) != (t.waves_run, t.converged,
+                                 t.exact_fallback) or not np.array_equal(
+                res.view(np.uint8), t.result.view(np.uint8)):
+            raise AssertionError(f"ticket {t.ticket_id} ({t.algorithm}): "
+                                 f"the async answer differs from the "
+                                 f"synchronous run one wave later")
+    for row in rows:
+        row["phase"] = "async-serving-wave"
+    return rows + [{"phase": "async-serving-total", "queries": len(tickets),
+                    "waves": st.waves, "wall_s": wall,
+                    "sync_oracle_wall_s": sync_wall,
+                    "queries_per_s": st.queries_per_s,
+                    "p50_wave_latency_s": st.p50_wave_latency_s,
+                    "launches": counts,
+                    "tickets_bitwise_vs_sync_one_wave_later": True}], counts
 
 
 # ---- the LM serving path (Qwen2-0.5B) -----------------------------------
@@ -2027,6 +2757,7 @@ def main() -> int:
           "edges": int(src.shape[0]),
           "seconds": time.perf_counter() - t0})
     checks = []
+    by_path = {}  # each graph path's launches, its counts set to 0 before it
     full = build_layout(from_edges(src, dst, spec.nodes, src.shape[0],
                                    device=dev))
     v = torch.from_numpy(rng.random(spec.nodes).astype(np.float32)).to(dev)
@@ -2139,6 +2870,7 @@ def main() -> int:
     del sess, engine, holder, g_sum_first
     torch.cuda.empty_cache()
 
+    by_path["main-path"] = {"spmv_push": launches}
     # ---- 5. traversal path: SSSP, widest path, connected components --------
     rows, ek_check, reduce_launches, reduce_pushes = traversal_path(
         stream, dev, rng)
@@ -2150,9 +2882,10 @@ def main() -> int:
           "pushes": reduce_pushes})
     torch.cuda.empty_cache()
 
+    by_path["traversal"] = {"spmv_reduce_push": reduce_launches}
     # ---- 6. serving path: serve_session, slot-batched waves ---------------
-    rows, serve_checks, serve_counts = serving_path(stream, src, dst,
-                                                    spec.nodes, dev, rng)
+    rows, serve_checks, serve_counts, plan = serving_path(
+        stream, src, dst, spec.nodes, dev, rng)
     for row in rows + serve_checks:
         emit(row)
         if row["phase"] == "kernel-check":
@@ -2161,6 +2894,23 @@ def main() -> int:
             reduce_rows.append(row)
         elif row["phase"] == "batched-kernel-check":
             batched_rows.append(row)
+
+    by_path["serving"] = serve_counts
+    # ---- 6b. closed-loop control: sessions and serving lanes -------------
+    rows, by_path["control"] = control_path(stream, dev)
+    for row in rows:
+        emit(row)
+    rows, by_path["control-serving"] = control_serving_path(stream, plan, dev)
+    for row in rows:
+        emit(row)
+
+    # ---- 6c. the async rebuild: sessions and serving waves ---------------
+    rows, by_path["async"] = async_path(stream, dev)
+    for row in rows:
+        emit(row)
+    rows, by_path["async-serving"] = async_serving_path(stream, plan, dev)
+    for row in rows:
+        emit(row)
 
     for row in attention_bounds():
         emit(row)
@@ -2205,6 +2955,13 @@ def main() -> int:
                                         r["kernel_device_ms"])
         return sorted(out.values(), key=lambda e: e["entry"])
 
+    def total(kernel):
+        """A kernel's launches over the graph paths, with the launches of
+        each path beside it."""
+        per = {path: c[kernel] for path, c in by_path.items()
+               if c.get(kernel)}
+        return {"launches": sum(per.values()), "launches_by_path": per}
+
     sums = [r for r in batched_rows if r["kernel"] == "spmv_push_batched"]
     mins = [r for r in batched_rows
             if r["kernel"] == "spmv_reduce_push_batched"]
@@ -2212,7 +2969,7 @@ def main() -> int:
         "name": "spmv_push", "route": "cuda",
         "source": "src/repro_torch/kernels/spmv/csrc/spmv_push.cu",
         "replaces": "src/repro/kernels/spmv/kernel.py:305",
-        "launches": launches,
+        **total("spmv_push"),
         "check": "pass",
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         "ms": main_check["kernel_ms"], "plain_ms": main_check["plain_ms"],
@@ -2223,7 +2980,7 @@ def main() -> int:
         "name": "spmv_reduce_push", "route": "cuda",
         "source": "src/repro_torch/kernels/spmv/csrc/spmv_reduce_push.cu",
         "replaces": "src/repro/kernels/spmv/kernel.py:338",
-        "launches": reduce_launches,
+        **total("spmv_reduce_push"),
         "check": "pass (bitwise)",
         "max_abs_err": max(c["max_abs_err"]
                            for c in reduce_rows + entry_reduce_rows),
@@ -2235,7 +2992,7 @@ def main() -> int:
         "name": "spmv_push_batched", "route": "cuda",
         "source": "src/repro_torch/kernels/spmv/csrc/spmv_push.cu",
         "replaces": "src/repro/kernels/spmv/kernel.py:458",
-        "launches": serve_counts["spmv_push_batched"],
+        **total("spmv_push_batched"),
         "check": "pass (each row bitwise vs spmv_push)",
         "max_abs_err": max(c["max_abs_err"] for c in sums),
         "ms": sums[0]["kernel_ms"], "plain_ms": sums[0]["plain_ms"],
@@ -2244,7 +3001,7 @@ def main() -> int:
         "name": "spmv_reduce_push_batched", "route": "cuda",
         "source": "src/repro_torch/kernels/spmv/csrc/spmv_reduce_push.cu",
         "replaces": "src/repro/kernels/spmv/kernel.py:517",
-        "launches": serve_counts["spmv_reduce_push_batched"],
+        **total("spmv_reduce_push_batched"),
         "check": "pass (bitwise, each row vs spmv_reduce_push)",
         "max_abs_err": max(c["max_abs_err"] for c in mins),
         "ms": mins[0]["kernel_ms"], "plain_ms": mins[0]["plain_ms"],

@@ -200,12 +200,28 @@ def session(
     capacities, ``r``/``n``/``delta``, ...) override the auto-sized
     config; the rest go to the algorithm factory.  ``device=None`` (the
     default) runs on the card and raises when there is none.
+
+    ``quality_target=`` (e.g. ``0.95``) closes the accuracy loop
+    (:mod:`repro_torch.core.control`): the approximate step measures drift
+    on the device and a controller steers the effective ``r``/``delta``
+    and the exact refreshes to keep the estimated error within ``1 -
+    quality_target``.  A knob passed with it (``quality_target=0.95,
+    r=0.1``) is pinned at that value; the controller moves only the others.
+    ``async_rebuild=True`` serves each query from the last built epoch
+    while the next epoch's apply and layout sorts run behind it
+    (:mod:`repro_torch.core.epoch`); updates become visible one query
+    later.
     """
     init_src, init_dst, stream, node_hint, edge_hint = _resolve_source(
         graph_source)
     cfg_over = {k: v for k, v in overrides.items() if k in CONFIG_FIELDS}
     algo_params = {k: v for k, v in overrides.items()
                    if k not in CONFIG_FIELDS}
+    if cfg_over.get("quality_target") is not None:
+        # knob precedence: an r or delta passed here is pinned, unless the
+        # caller set the control_* flag itself
+        cfg_over.setdefault("control_r", "r" not in cfg_over)
+        cfg_over.setdefault("control_delta", "delta" not in cfg_over)
     # beta/num_iters/tol configure the algorithm itself once one is named
     legacy = [k for k in ("beta", "num_iters", "tol") if k in cfg_over]
     if isinstance(algorithm, StreamingAlgorithm):
@@ -269,9 +285,13 @@ def serve_session(
         t1.result, srv.stats.queries_per_s
 
     ``algorithm``/``config``/``overrides`` configure the engine as in
-    :func:`session` (``device``, capacities, hot-set knobs); ``algorithm``
-    only sets the workload of the initial exact compute, since each served
-    query carries its own.  ``device=None`` runs on the card and raises
+    :func:`session` (``device``, capacities, hot-set knobs,
+    ``quality_target`` with the same knob precedence, ``async_rebuild``);
+    ``algorithm`` only sets the workload of the initial exact compute, since
+    each served query carries its own.  Under ``quality_target`` each lane
+    runs its own controller; under ``async_rebuild`` every wave serves one
+    epoch and updates buffered before a wave become visible one wave
+    later.  ``device=None`` runs on the card and raises
     when there is none.  The session stays reachable at ``.session`` and
     is closed by the serving engine's ``with``-exit.
     """

@@ -17,9 +17,8 @@ the action policy; everything rank-specific lives behind
 All seven algorithms of the JAX package's registry are ported: PageRank
 (the paper's case study), personalized PageRank, HITS, Katz, connected
 components, SSSP and widest path.  ``summarized_batched`` is the serving
-engine's sweep over a bank of B queries (``[B, ...]`` state leaves).  The
-drift residual of the quality controller is not ported yet (ROADMAP queue
-1 entry 11).
+engine's sweep over a bank of B queries (``[B, ...]`` state leaves), and
+``drift_residual`` the quality controller's signal (``core/control.py``).
 """
 
 from __future__ import annotations
@@ -32,6 +31,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core import backend as B
 from repro_torch.core.hits import hits as _hits
 from repro_torch.core.hits import summarized_hits as _summarized_hits
 from repro_torch.core.hits import \
@@ -102,6 +102,16 @@ class StreamingAlgorithm(abc.ABC):
     #: source sets): the serving engine batches requests that differ only
     #: in these into one lane, whose bank rows carry them.
     per_query_params: Tuple[str, ...] = ()
+    #: how the drift estimate normalizes (:func:`repro_torch.core.control.
+    #: drift_signals`): ``"mass"`` by the total |result| (scores,
+    #: distances), ``"count"`` by the active vertices (0/1 residuals such
+    #: as connected components' label flips).
+    drift_normalize: str = "mass"
+    #: the contraction c of the exact update, from which the controller
+    #: takes its drift→error gain 1/(1 − c); None keeps the conservative
+    #: gain 3 (damped ranking algebras).  The min/max relaxations settle in
+    #: finitely many sweeps and declare 0.0.
+    drift_contraction: Optional[float] = None
     #: full-graph edge layouts the sweeps consume, as (weight, reverse,
     #: semiring) triples; the engine caches one layout per entry.
     layout_specs: Tuple[Tuple, ...] = (("inv_out", False, "plus_times"),)
@@ -191,6 +201,18 @@ class StreamingAlgorithm(abc.ABC):
                     f"{self.name}: batch state[{key!r}] must have a leading "
                     f"batch axis of {batch} rows; got shape "
                     f"{tuple(t.shape)}")
+
+    def drift_residual(self, state: AlgoState, graph: GraphState, *,
+                       layouts=None) -> Optional[torch.Tensor]:
+        """f32[N] fixed-point residual ``|F(x) − x|`` of ``state`` for one
+        application F of the exact update over the full graph, the
+        controller's drift signal: zero at the fixed point, concentrated
+        where a summarized sweep froze vertices or the stream changed their
+        inputs.  One full-layout push per query (``layouts`` is the cached
+        tuple of :attr:`layout_specs`), no host read; ``[B, N]`` state
+        leaves give ``[B, N]``.  None (this default) makes the fused step
+        use the churn of :meth:`result_view` instead."""
+        return None
 
     def batched_cold_seeds(
             self, batch_state: AlgoState) -> Optional[torch.Tensor]:
@@ -341,6 +363,21 @@ class PageRankAlgorithm(StreamingAlgorithm):
             num_iters=self.num_iters, tol=self.tol, row_mask=row_mask)
         return {"ranks": ranks}, iters, row_delta
 
+    def drift_residual(self, state, graph, *, layouts=None):
+        # |(1-β)·t + β·push(r) − r|, zero at pagerank()'s fixed point; the
+        # dangling redistribution is left out, as in the JAX package
+        if layouts is None:
+            return None
+        r = state["ranks"]
+        incoming = B.push(r, layouts[0])
+        tele = 1.0 - self.beta
+        if self.teleport_by_n:
+            tele = tele / graph.num_active_nodes().to(torch.float32).clamp(
+                min=1.0)
+        new_r = torch.where(graph.node_active, tele + self.beta * incoming,
+                            0.0)
+        return (new_r - r).abs()
+
     def result_view(self, state):
         return state["ranks"]
 
@@ -405,6 +442,17 @@ class PersonalizedPageRankAlgorithm(StreamingAlgorithm):
             teleport_v=batch_state["teleport"], row_mask=row_mask)
         return ({"ranks": ranks, "teleport": batch_state["teleport"]}, iters,
                 row_delta)
+
+    def drift_residual(self, state, graph, *, layouts=None):
+        # |(1-β)·t(v) + β·push(r) − r| for the personalized teleport
+        if layouts is None:
+            return None
+        r = state["ranks"]
+        incoming = B.push(r, layouts[0])
+        new_r = torch.where(graph.node_active,
+                            (1.0 - self.beta) * state["teleport"]
+                            + self.beta * incoming, 0.0)
+        return (new_r - r).abs()
 
     def batched_cold_seeds(self, batch_state):
         # ranks are nonzero only where the teleport support reaches
@@ -534,6 +582,16 @@ class KatzAlgorithm(StreamingAlgorithm):
             num_iters=self.num_iters, tol=self.tol, row_mask=row_mask)
         return {"katz": c}, iters, row_delta
 
+    def drift_residual(self, state, graph, *, layouts=None):
+        # |β + α·push(c) − c|, zero at katz()'s fixed point
+        if layouts is None:
+            return None
+        c = state["katz"]
+        incoming = B.push(c, layouts[0])
+        new_c = torch.where(graph.node_active,
+                            self.beta + self.alpha * incoming, 0.0)
+        return (new_c - c).abs()
+
     def result_view(self, state):
         return state["katz"]
 
@@ -584,6 +642,8 @@ class ConnectedComponentsAlgorithm(StreamingAlgorithm):
     rank_descending = False  # smaller labels first (component min ids)
     semiring = "min_min"
     summary_weight = "unit"
+    drift_normalize = "count"  # residual = label flips, not id magnitudes
+    drift_contraction = 0.0  # label relaxation has no geometric tail
     state_dtypes = {"labels": "int32", "churn": "float32"}
     layout_specs = (("unit", False, "min_min"), ("unit", True, "min_min"))
 
@@ -637,6 +697,17 @@ class ConnectedComponentsAlgorithm(StreamingAlgorithm):
         return (self._with_churn(labels, batch_state), iters,
                 changed.to(torch.float32))
 
+    def drift_residual(self, state, graph, *, layouts=None):
+        # 1.0 where one more min-label relaxation, both orientations, would
+        # still change a vertex
+        if layouts is None or len(layouts) < 2:
+            return None
+        lab = state["labels"]
+        relaxed = torch.minimum(lab, torch.minimum(
+            B.push(lab, layouts[0], semiring="min_min"),
+            B.push(lab, layouts[1], semiring="min_min")))
+        return (graph.node_active & (relaxed != lab)).to(torch.float32)
+
     def result_view(self, state):
         return state["labels"]
 
@@ -659,8 +730,10 @@ class _PathAlgorithm(StreamingAlgorithm):
 
     normalize_selection_scores = True
     summary_weight = "length"
+    drift_contraction = 0.0  # the relaxation settles, no geometric tail
     # subclasses set (class attributes, not fields): the state key, the
-    # value of sources and of unreached vertices, and the two sweeps
+    # value of sources and of unreached vertices, the sweeps, and the
+    # relaxation and residual of drift_residual
     per_query_params = ("sources",)
     value_key = ""
     pinned = 0.0
@@ -668,6 +741,8 @@ class _PathAlgorithm(StreamingAlgorithm):
     exact_sweep = None
     summarized_sweep = None
     summarized_batched_sweep = None
+    relax = None
+    residual = None
 
     def __post_init__(self):
         if not self.sources:
@@ -714,6 +789,17 @@ class _PathAlgorithm(StreamingAlgorithm):
         return (self._after(value, batch_state), iters,
                 changed.to(torch.float32))
 
+    def drift_residual(self, state, graph, *, layouts=None):
+        # how far one more full-graph relaxation would still move the
+        # values (SSSP encodes a reachability flip as 1.0)
+        if layouts is None:
+            return None
+        value = state[self.value_key]
+        incoming = B.push(value, layouts[0], semiring=self.semiring)
+        relaxed = torch.where(state["source"], self.pinned,
+                              self.relax(value, incoming))
+        return self.residual(relaxed, value)
+
     def batched_cold_seeds(self, batch_state):
         # the answer is non-trivial only where the sources reach
         return batch_state["source"]
@@ -737,6 +823,8 @@ class SSSPAlgorithm(_PathAlgorithm):
     layout_specs = (("length", False, "min_plus"),)
     value_key = "dist"
     unreached = float("inf")
+    relax = staticmethod(torch.minimum)
+    residual = staticmethod(_finite_churn)
     exact_sweep = staticmethod(_sssp)
     summarized_sweep = staticmethod(_summarized_sssp)
     summarized_batched_sweep = staticmethod(_summarized_sssp_batched)
@@ -754,6 +842,8 @@ class WidestPathAlgorithm(_PathAlgorithm):
     layout_specs = (("length", False, "max_times"),)
     value_key = "width"
     pinned = 1.0
+    relax = staticmethod(torch.maximum)
+    residual = staticmethod(lambda relaxed, value: (relaxed - value).abs())
     exact_sweep = staticmethod(_widest_path)
     summarized_sweep = staticmethod(_summarized_widest_path)
     summarized_batched_sweep = staticmethod(_summarized_widest_path_batched)

@@ -122,9 +122,9 @@ def bake_weights(s: Semiring, weight: str, valid: torch.Tensor,
     if weight == "inv_out":
         w = torch.where(valid, inv_deg[src], 0.0)
     elif weight == "unit":
-        w = torch.where(valid, torch.tensor(s.one.item(), dtype=dtype,
-                                            device=valid.device),
-                        torch.tensor(zero, dtype=dtype, device=valid.device))
+        # filled on the device: no scalar is copied from the host
+        w = torch.full(valid.shape, s.one.item(), dtype=dtype,
+                       device=valid.device).masked_fill_(~valid, zero)
     else:
         per_edge = (torch.ones_like(src, dtype=dtype) if lengths is None
                     else lengths.to(dtype))

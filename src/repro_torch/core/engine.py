@@ -1,5 +1,5 @@
-"""VeilGraph execution engine, the paper's Alg. 1 (PyTorch port of the
-synchronous path of ``repro.core.engine``).
+"""VeilGraph execution engine, the paper's Alg. 1 (PyTorch port of
+``repro.core.engine``).
 
 The engine ingests stream messages (add / remove edges, query), buffers
 updates until a query arrives, and serves each query through the five UDFs:
@@ -9,12 +9,21 @@ updates until a query arrives, and serves each query through the five UDFs:
 
 Graph state, layouts and algorithm state live on ``EngineConfig.device``
 (the card unless the config names another device); the UDFs are host
-callbacks.  Sharding, autotuning, compressed weights, closed-loop quality
-control and the async rebuild are not ported yet: their knobs raise.
+callbacks.
+
+``quality_target`` closes the accuracy loop (:mod:`repro_torch.core.
+control`): the approximate step also computes a drift estimate, read with
+its other stats, and a controller steers the effective r/Δ and asks for
+exact refreshes.  ``async_rebuild`` serves queries from epoch snapshots
+(:mod:`repro_torch.core.epoch`) while the next epoch's apply and layout
+sorts run on a side CUDA stream.  Sharding, autotuning and compressed
+weights are not ported yet: their knobs raise.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import time
 from dataclasses import dataclass, fields
 from typing import Callable, Dict, List, Optional, Tuple, Union
@@ -26,6 +35,9 @@ from repro_torch.core import backend as B
 from repro_torch.core.algorithm import (Action, AlgoState, PageRankAlgorithm,
                                         StreamingAlgorithm, make_algorithm,
                                         summaries_overflow)
+from repro_torch.core.control import QualityController, default_probe_ids
+from repro_torch.core.epoch import (AsyncRebuildPipeline, EpochSnapshot,
+                                    snapshot_counts)
 from repro_torch.core.hotset import select_hot_set
 from repro_torch.device import resolve_device
 from repro_torch.graph import graph as G
@@ -70,10 +82,21 @@ class EngineConfig:
     num_shards: Optional[int] = None
     shard_hot_edge_capacity: Optional[int] = None
     rebalance_threshold: Optional[float] = 1.0
+    # closed-loop quality control (core/control.py): an accuracy target in
+    # (0, 1), e.g. 0.95.  The approximate step also computes the drift
+    # estimate (the fixed-point residual on drift_probes fixed vertices and
+    # its mass outside K), and a QualityController steers the effective
+    # r/Δ and asks for exact refreshes to keep the estimated error within
+    # 1 - quality_target.  control_r/control_delta=False pin a knob (an r
+    # or delta passed to the session pins it).  Needs the fused path.
     quality_target: Optional[float] = None
     control_r: bool = True
     control_delta: bool = True
     drift_probes: int = 64
+    # epoch-versioned async rebuild (core/epoch.py): queries serve a frozen
+    # snapshot N while snapshot N+1's apply and layout sorts run on a side
+    # CUDA stream; epochs promote at query or wave boundaries only
+    # (snapshot_lag 0 or 1).  Needs the fused path.
     async_rebuild: bool = False
 
 
@@ -82,8 +105,7 @@ class EngineConfig:
 _NOT_PORTED = {
     "mesh": (None, 15), "num_shards": (None, 15),
     "shard_hot_edge_capacity": (None, 15), "autotune": ("off", 14),
-    "weight_dtype": (None, 14), "quality_target": (None, 11),
-    "async_rebuild": (False, 13),
+    "weight_dtype": (None, 14),
 }
 
 
@@ -126,6 +148,18 @@ class QueryStats:
     removals_requested: int = 0
     removals_resolved: int = 0
     algorithm: str = "pagerank"
+    # quality_target engines: the drift this query observed, the
+    # controller's quality estimate, the knobs it ran with, and whether it
+    # was refreshed exactly (an exact action and an overflow fallback count)
+    drift: float = 0.0
+    quality_est: float = 1.0
+    r_eff: float = 0.0
+    delta_eff: float = 0.0
+    refreshed: bool = False
+    # async_rebuild engines: the epoch this query was served from, and how
+    # far it trailed the newest dispatched build (0 or 1)
+    epoch: int = 0
+    snapshot_lag: int = 0
 
     @property
     def vertex_ratio(self) -> float:
@@ -196,11 +230,46 @@ class VeilGraphEngine:
         self._pending_removals: List = []
         self._pending_count = 0
         self._pending_removal_count = 0
+        # the state's num_edges, held on the host so that an apply reads
+        # nothing from the device
+        self._num_edges = 0
+        # closed-loop quality control: the controller and the probe set
+        self.controller: Optional[QualityController] = None
+        self._probe_ids: Optional[torch.Tensor] = None
+        if config.quality_target is not None:
+            self._require_fused("quality_target")
+            self.controller = QualityController(
+                config.quality_target, r0=config.r, delta0=config.delta,
+                adjust_r=config.control_r,
+                adjust_delta=config.control_delta,
+                contraction=self.algorithm.drift_contraction)
+            self._probe_ids = default_probe_ids(
+                config.node_capacity, config.drift_probes, self.device)
+        # async rebuild: the pipeline (from start()), the ordered set of
+        # layout specs every new snapshot sorts at build time (the
+        # algorithm's, and each serving lane's), and the build stream
+        self._pipeline: Optional[AsyncRebuildPipeline] = None
+        self._async_specs: Dict[Tuple, bool] = {}
+        self._build_stream = None
+        if config.async_rebuild:
+            self._require_fused("async_rebuild")
+            for spec in map(B.normalize_layout_spec,
+                            self.algorithm.layout_specs):
+                self._async_specs[spec] = True
+            if self.device.type == "cuda":
+                self._build_stream = torch.cuda.Stream(self.device)
         # updates integrated while serving repeat-last answers
         self._stale_updates = 0
         self.stats_log: List[QueryStats] = []
         self._query_id = 0
         self._started = False
+
+    def _require_fused(self, knob: str) -> None:
+        if not (self.config.fused and self.algorithm.supports_fused):
+            raise ValueError(
+                f"{knob} requires the fused query path (fused=True and a "
+                f"supports_fused algorithm; got fused={self.config.fused}, "
+                f"algorithm={self.algorithm.name!r})")
 
     @property
     def ranks(self) -> torch.Tensor:
@@ -231,6 +300,7 @@ class VeilGraphEngine:
                                   self.config.node_capacity,
                                   self.config.edge_capacity,
                                   device=self.device)
+        self._num_edges = int(np.asarray(init_src).shape[0])
         self._edge_layouts = None
         self.algo_state = self._init_algo_state()
         t0 = time.perf_counter()
@@ -240,6 +310,12 @@ class VeilGraphEngine:
         wall = time.perf_counter() - t0
         self.deg_prev = self._degree_snapshot()
         self.active_prev = self.state.node_active.clone()
+        if self.config.async_rebuild:
+            # epoch 0 is the initial graph, its layouts those of the exact
+            # pass; it is never promoted, so its counts are read here
+            snap0 = self._make_snapshot(0)
+            self._finalize_promotion(snap0)
+            self._pipeline = AsyncRebuildPipeline(snap0)
         self._started = True
         num_nodes, num_edges = self._counts()
         st = QueryStats(query_id=-1, action="initial-exact", wall_time_s=wall,
@@ -346,22 +422,45 @@ class VeilGraphEngine:
             return self.state.in_deg.clone()
         return self.state.out_deg + self.state.in_deg
 
-    def _apply_pending(self) -> Tuple[int, int, int]:
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device; to the card through pinned
+        memory without waiting for the copy (it is ordered on the current
+        stream), so an apply makes no host read."""
+        t = torch.from_numpy(a)
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _apply_pending(self, preserve: bool = False) -> Tuple[int, int, int]:
         """Apply buffered updates.  Returns ``(applied, removals_requested,
         removals_resolved)``; ``applied`` counts additions + resolved
-        removals."""
+        removals.
+
+        ``preserve=True`` (the async rebuild) applies to a clone of the
+        state, so the served snapshot's buffers stay as they are.  Removals
+        are resolved to slots on the host (one read of the live state);
+        additions read nothing from the device."""
         if not self._pending_count:
             return 0, 0, 0
+        cloned = not preserve
+
+        def writable():
+            nonlocal cloned
+            if not cloned:
+                self.state = G.clone(self.state)
+                cloned = True
+
         removals_requested = self._pending_removal_count
         removals_resolved = 0
         if self._pending_removals:
             r_src = np.concatenate([a for a, _ in self._pending_removals])
             r_dst = np.concatenate([b for _, b in self._pending_removals])
             slots = G.find_edge_slots(self.state, r_src, r_dst)
-            self.state = G.remove_edges_by_slot(
-                self.state, torch.from_numpy(slots))
             removals_resolved = int((slots >= 0).sum())
             if removals_resolved:
+                writable()
+                self.state = G.remove_edges_by_slot(self.state,
+                                                    self._to_device(slots))
                 self._edge_layouts = None
             self._pending_removals.clear()
             self._pending_removal_count = 0
@@ -380,14 +479,18 @@ class VeilGraphEngine:
         else:
             lens = None
         self._edge_layouts = None
-        to = lambda a: torch.from_numpy(a).to(self.device)
+        writable()
+        to = self._to_device
         pad = self.config.update_pad
         k = src.shape[0]
         for lo in range(0, k, pad):
             hi = min(lo + pad, k)
             self.state = G.add_edges(
                 self.state, to(src[lo:hi]), to(dst[lo:hi]),
-                None if lens is None else to(lens[lo:hi]))
+                None if lens is None else to(lens[lo:hi]),
+                num_edges=self._num_edges)
+            self._num_edges = min(self._num_edges + hi - lo,
+                                  self.config.edge_capacity)
             applied += hi - lo
         self._pending_src.clear()
         self._pending_dst.clear()
@@ -412,21 +515,263 @@ class VeilGraphEngine:
             self.algo_state, self.state, layouts=self.edge_layouts())
         st.iterations = int(iters)
 
-    def _take_stats(self, st: QueryStats, stats) -> None:
-        """Copy the size counters of a query step into ``st`` with one
-        device read."""
+    def _take_stats(self, st: QueryStats,
+                    stats) -> Optional[Tuple[float, float]]:
+        """Copy the size counters and the overflow flag of a query step
+        into ``st`` with one device read, and return its drift pair
+        ``(drift_probe, drift_cold)`` from the same read (None without
+        it).  f64 holds the int32 counts and the f32 drifts exactly."""
         names = ("num_hot", "num_kr", "num_kn", "num_kdelta", "num_ek",
-                 "num_eb")
-        vals = torch.stack([getattr(stats, k).to(torch.int64)
-                            for k in names]).tolist()
-        for k, v in zip(names, vals):
+                 "num_eb", "used_fallback")
+        parts = [getattr(stats, k) for k in names]
+        if isinstance(stats.drift_probe, torch.Tensor):
+            parts += [stats.drift_probe, stats.drift_cold]
+        vals = torch.stack([t.to(torch.float64) for t in parts]).tolist()
+        for k, v in zip(names[:-1], vals):
             setattr(st, k, int(v))
+        st.overflow_fallback = bool(vals[len(names) - 1])
+        return tuple(vals[len(names):]) or None
+
+    def _observe(self, st: QueryStats, drift, r_now: float,
+                 delta_now: float, refresh: Callable[[], None]) -> None:
+        """Fold an approximate query's drift reading into the controller:
+        knobs for the next query and, when the estimate leaves the budget,
+        ``refresh()`` (an exact recompute).  An overflow fallback was a
+        refresh already."""
+        ctl = self.controller
+        if ctl is None:
+            return
+        st.r_eff, st.delta_eff = float(r_now), float(delta_now)
+        if st.overflow_fallback:
+            st.quality_est = 1.0
+            return
+        probe, cold = drift
+        dec = ctl.observe(probe, cold)
+        st.drift = max(probe, cold)
+        st.quality_est = dec.quality_est
+        if dec.refresh:
+            refresh()
+            ctl.refreshed()
+            st.refreshed = True
+            st.quality_est = 1.0
+
+    def _refreshed(self, st: QueryStats) -> None:
+        """An exact answer (action or fallback) resets the controller."""
+        if self.controller is not None:
+            self.controller.refreshed()
+            st.refreshed = True
+
+    def _knobs(self) -> Tuple[float, float]:
+        """The (r, Δ) of the next approximate query: the controller's when
+        there is one."""
+        ctl = self.controller
+        if ctl is None:
+            return self.config.r, self.config.delta
+        return ctl.r_eff, ctl.delta_eff
+
+    # ---- epoch-versioned async rebuild -----------------------------------
+    def _make_snapshot(self, epoch: int, *, applied: int = 0,
+                       removals_requested: int = 0,
+                       removals_resolved: int = 0) -> EpochSnapshot:
+        """Freeze the current state as snapshot ``epoch`` and enqueue what
+        it serves from: its baselines, its counts and the layout of every
+        spec the engine has served so far.  Nothing here reads the
+        device."""
+        snap = EpochSnapshot(
+            epoch=epoch, state=self.state, deg=self._degree_snapshot(),
+            active=self.state.node_active.clone(),
+            counts=snapshot_counts(self.state), applied=applied,
+            removals_requested=removals_requested,
+            removals_resolved=removals_resolved,
+            rebalance_probe=(self._dispatch_rebalance_probe()
+                             if applied else None))
+        if self._edge_layouts is not None:
+            # start(): the engine's layouts are those of this very state
+            for spec, layout in zip(
+                    map(B.normalize_layout_spec, self.algorithm.layout_specs),
+                    self._edge_layouts):
+                snap.layouts[spec] = layout
+        built = False
+        for spec in self._async_specs:
+            if spec not in snap.layouts:
+                snap.layout_for(spec, self._build_spec_layout)
+                built = True
+        if built:
+            self.layout_builds += 1
+        return snap
+
+    def _snapshot_layouts(self, snap: EpochSnapshot) -> Tuple:
+        """The snapshot's layouts per ``algorithm.layout_specs``."""
+        return tuple(
+            snap.layout_for(spec, self._build_spec_layout)
+            for spec in map(B.normalize_layout_spec,
+                            self.algorithm.layout_specs))
+
+    def _dispatch_rebalance_probe(self):
+        """The shard-rebalance verdict of the state being snapshotted, left
+        on the device until promotion.  The port has no mesh yet (ROADMAP
+        queue 1 entry 15), so there is none."""
+        return None
+
+    def _finalize_promotion(self, snap: EpochSnapshot) -> None:
+        """Host bookkeeping of a snapshot about to be served: the current
+        stream waits for its build, takes over its tensors (so that the
+        allocator reuses none of them while this stream may still read
+        them), and its counts are read (the one read per epoch that
+        replaces the synchronous path's per-query count read; it waits for
+        the build, which the query needs anyway)."""
+        if snap.events is not None:
+            main = torch.cuda.current_stream(self.device)
+            main.wait_event(snap.events[1])
+            for t in _snapshot_tensors(snap):
+                t.record_stream(main)
+        snap.num_nodes, snap.num_edges = snap.counts.tolist()
+
+    def _async_integrate(self) -> Tuple[int, int, int]:
+        """ApplyUpdates of the async path, after the query's answer is
+        read: apply the buffered updates to a clone of the state and
+        dispatch the next epoch's snapshot.  On the card the work runs on
+        the build stream, after the work enqueued so far on the current
+        stream, between two timing events.  An all-unresolved removal
+        batch mutates nothing and dispatches no epoch."""
+        pipe = self._pipeline
+        side, events = self._build_stream, None
+        if side is not None:
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        with (torch.cuda.stream(side) if side is not None
+              else contextlib.nullcontext()):
+            if events is not None:
+                events[0].record(side)
+            applied, requested, resolved = self._apply_pending(preserve=True)
+            snap = None
+            if applied:
+                snap = self._make_snapshot(
+                    pipe.latest_epoch + 1, applied=applied,
+                    removals_requested=requested,
+                    removals_resolved=resolved)
+            if events is not None:
+                events[1].record(side)
+        if snap is not None:
+            snap.events = events
+            pipe.dispatch(snap)
+        return applied, requested, resolved
+
+    def _run_exact_on(self, snap: EpochSnapshot, st: QueryStats) -> None:
+        """An exact recompute on the served snapshot (a refresh or
+        fallback of the async path must not see the epoch being built)."""
+        self.algo_state, iters = self.algorithm.exact(
+            self.algo_state, snap.state, layouts=self._snapshot_layouts(snap))
+        st.iterations = int(iters)
+
+    def _query_async(self, msg: Optional[Dict]) -> Tuple[np.ndarray,
+                                                         QueryStats]:
+        """Serve one query from the epoch pipeline, in four steps: (1)
+        promote the finished build; (2) compute on the served snapshot;
+        (3) read the stats and the answer; (4) integrate the buffered
+        updates and dispatch the next epoch.  The reference integrates
+        before its reads, as its dispatch returns at once; here enqueuing
+        the build is eager host work, so the answer is read first and
+        ``wall_time_s`` ends there.  Updates integrated at
+        query q become visible at q+1's promotion and are charged to that
+        query's row."""
+        from repro_torch.core.fused import fused_query_step
+
+        qid = self._query_id
+        self._query_id += 1
+        cfg = self.config
+        pipe = self._pipeline
+
+        # (1) the boundary: flip in the finished build, if any
+        promoted = pipe.promote()
+        if promoted is not None:
+            self._finalize_promotion(promoted)
+        snap = pipe.current
+        applied = promoted.applied if promoted is not None else 0
+        view = {
+            "pending": self._pending_count,
+            "applied": applied,
+            "since_compute": (self._stale_updates + applied
+                              + self._pending_count),
+            "num_nodes": snap.num_nodes,
+            "num_edges": snap.num_edges,
+            "algorithm": self.algorithm.name,
+            "epoch": snap.epoch,
+        }
+        integrate = self._before_updates(self._pending_count, view)
+        action = self._on_query(qid, view)
+        t0 = time.perf_counter()
+        st = QueryStats(
+            query_id=qid, action=action.value, wall_time_s=0.0,
+            num_nodes=snap.num_nodes, num_edges=snap.num_edges,
+            pending_applied=applied,
+            removals_requested=(promoted.removals_requested
+                                if promoted is not None else 0),
+            removals_resolved=(promoted.removals_resolved
+                               if promoted is not None else 0),
+            algorithm=self.algorithm.name, epoch=snap.epoch)
+
+        # (2) this query's compute on the served snapshot
+        new_state = qs = None
+        r_now, delta_now = self._knobs()
+        if action == Action.APPROXIMATE:
+            new_state, qs = fused_query_step(
+                snap.state, self.algo_state, self.deg_prev, self.active_prev,
+                self._scalar(r_now), self._scalar(delta_now),
+                self._probe_ids, algo=self.algorithm,
+                hot_node_capacity=cfg.hot_node_capacity,
+                hot_edge_capacity=cfg.hot_edge_capacity, n=cfg.n,
+                delta_hop_cap=cfg.delta_hop_cap, degree_mode=cfg.degree_mode,
+                expand_both=cfg.expand_both,
+                layouts=self._snapshot_layouts(snap),
+                with_drift=self.controller is not None)
+        elif action == Action.EXACT:
+            self._run_exact_on(snap, st)
+
+        # (3) the reads, which wait for step 2's work
+        if action == Action.REPEAT_LAST:
+            self._stale_updates += applied
+        elif action == Action.EXACT:
+            self._refreshed(st)
+        else:
+            drift = self._take_stats(st, qs)
+            if st.overflow_fallback:
+                self._run_exact_on(snap, st)
+                self._refreshed(st)
+            else:
+                self.algo_state = new_state
+                st.iterations = int(qs.iterations)
+            self._observe(st, drift, r_now, delta_now,
+                          lambda: self._run_exact_on(snap, st))
+        if action != Action.REPEAT_LAST:
+            # the epoch's own baselines become the next query's, so drift
+            # is measured across whole epochs
+            self.deg_prev, self.active_prev = snap.deg, snap.active
+            self._stale_updates = 0
+        scores = self.ranks.cpu().numpy()
+        st.wall_time_s = time.perf_counter() - t0
+
+        # (4) integrate and dispatch epoch N+1, behind the answer
+        if integrate and self._pending_count:
+            _, extra_req, extra_res = self._async_integrate()
+            if pipe.building is None and extra_req:
+                # nothing mutated (every removal unresolved): no new
+                # epoch, so the request shows on this row only
+                st.removals_requested += extra_req - extra_res
+        st.snapshot_lag = pipe.snapshot_lag
+        self.stats_log.append(st)
+        if self._on_query_result:
+            self._on_query_result(qid, msg, action, self.ranks, st)
+        return scores, st
 
     # ---- query serving ---------------------------------------------------
     def query(self, msg: Optional[Dict] = None) -> Tuple[np.ndarray, QueryStats]:
         """Serve one query (Alg. 1 lines 6-21).  Returns (scores, stats)."""
         if not self._started:
             raise RuntimeError("call start() first")
+        if self._pipeline is not None:
+            return self._query_async(msg)
         qid = self._query_id
         self._query_id += 1
         cfg = self.config
@@ -452,27 +797,32 @@ class VeilGraphEngine:
             self._stale_updates += applied  # previous scores returned as is
         elif action == Action.EXACT:
             self._run_exact(st)
+            self._refreshed(st)
             self._refresh_baselines()
         elif cfg.fused and self.algorithm.supports_fused:
             from repro_torch.core.fused import fused_query_step
 
+            r_now, delta_now = self._knobs()
             new_state, qs = fused_query_step(
                 self.state, self.algo_state, self.deg_prev, self.active_prev,
-                self._scalar(cfg.r), self._scalar(cfg.delta),
-                algo=self.algorithm,
+                self._scalar(r_now), self._scalar(delta_now),
+                self._probe_ids, algo=self.algorithm,
                 hot_node_capacity=cfg.hot_node_capacity,
                 hot_edge_capacity=cfg.hot_edge_capacity, n=cfg.n,
                 delta_hop_cap=cfg.delta_hop_cap, degree_mode=cfg.degree_mode,
-                expand_both=cfg.expand_both, layouts=self.edge_layouts())
-            self._take_stats(st, qs)
-            if bool(qs.used_fallback):
+                expand_both=cfg.expand_both, layouts=self.edge_layouts(),
+                with_drift=self.controller is not None)
+            drift = self._take_stats(st, qs)
+            if st.overflow_fallback:
                 # capacities exceeded: the summarized state is invalid;
                 # discard it and recompute exactly
-                st.overflow_fallback = True
                 self._run_exact(st)
+                self._refreshed(st)
             else:
                 self.algo_state = new_state
                 st.iterations = int(qs.iterations)
+            self._observe(st, drift, r_now, delta_now,
+                          lambda: self._run_exact(st))
             self._refresh_baselines()
         else:  # APPROXIMATE, unfused: the same stages as separate steps
             hot, hstats = select_hot_set(
@@ -519,6 +869,18 @@ class VeilGraphEngine:
         """The current degrees and activity become the next query's t-1."""
         self.deg_prev = self._degree_snapshot()
         self.active_prev = self.state.node_active.clone()
+
+
+def _snapshot_tensors(snap: EpochSnapshot):
+    """Every tensor of a snapshot: its graph buffers, baselines, counts and
+    layouts."""
+    yield from (t for t in snap.state if t is not None)
+    yield from (snap.deg, snap.active, snap.counts)
+    for layout in snap.layouts.values():
+        for f in dataclasses.fields(layout):
+            t = getattr(layout, f.name)
+            if isinstance(t, torch.Tensor):
+                yield t
 
 
 #: EngineConfig field names (the session front door splits overrides on it)

@@ -7,17 +7,26 @@ The overflow fallback (|K| or |E_K| over capacity → exact recompute) stays
 a flag in the stats: the summarized result is computed unconditionally and
 the caller discards it when ``used_fallback`` is set.
 :func:`fused_query_step_batched` is the serving engine's wave: B queries of
-one algorithm over one shared hot set and summary.  The drift estimator and
-the mesh path are not ported yet.
+one algorithm over one shared hot set and summary.  Under
+``with_drift=True`` both also compute the quality controller's drift
+estimate (:mod:`repro_torch.core.control`) on the step's device.  The mesh
+path is not ported yet.
+
+Under ``EngineConfig.async_rebuild`` every input here is epoch-bound: the
+graph, the layouts and the ``deg_prev``/``active_prev`` baselines all come
+from one frozen :class:`~repro_torch.core.epoch.EpochSnapshot`.  The step
+itself is the same in both modes.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.core.algorithm import PageRankAlgorithm, summaries_overflow
+from repro_torch.core.algorithm import (PageRankAlgorithm, _finite_churn,
+                                        summaries_overflow)
+from repro_torch.core.control import drift_signals
 from repro_torch.core.hotset import _frontier_sweep, select_hot_set
 from repro_torch.graph.graph import GraphState
 
@@ -34,13 +43,24 @@ class QueryStepStats(NamedTuple):
     num_eb: torch.Tensor
     iterations: int
     used_fallback: torch.Tensor  # bool
+    # the drift estimate (f32 0-d tensors) under with_drift=True; 0.0
+    # otherwise, as in the JAX package
+    drift_probe: Union[torch.Tensor, float] = 0.0
+    drift_cold: Union[torch.Tensor, float] = 0.0
 
 
-def _refuse_drift(with_drift: bool) -> None:
-    if with_drift:
-        raise NotImplementedError(
-            "the drift estimator is not ported yet (ROADMAP queue 1 "
-            "entry 11)")
+def _drift_from_state(algo, new_state, old_state, graph, hot, probe_ids, *,
+                      layouts):
+    """``(drift_probe, drift_cold)`` of one step: from the algorithm's
+    fixed-point residual, or, where it defines none, from the churn of its
+    result view.  ``[B, ...]`` states give one pair per row, f32[B]."""
+    resid = algo.drift_residual(new_state, graph, layouts=layouts)
+    if resid is None:
+        resid = _finite_churn(algo.result_view(new_state),
+                              algo.result_view(old_state))
+    return drift_signals(resid, algo.result_view(new_state), hot,
+                         graph.node_active, probe_ids,
+                         normalize=algo.drift_normalize)
 
 
 def _wave_stats(hstats, summaries, iters, num_hot=None) -> QueryStepStats:
@@ -62,6 +82,7 @@ def fused_query_step(
     active_prev: torch.Tensor,
     r: torch.Tensor,
     delta: torch.Tensor,
+    probe_ids: Optional[torch.Tensor] = None,
     *,
     algo,
     hot_node_capacity: int,
@@ -78,8 +99,10 @@ def fused_query_step(
     ``layouts`` is the cached layout tuple matching ``algo.layout_specs``.
     Returns ``(new_algo_state, QueryStepStats)``; the caller discards the
     new state and recomputes exactly when ``used_fallback`` is set.
+    ``with_drift=True`` also fills the stats' ``drift_probe`` and
+    ``drift_cold`` (probed on ``probe_ids``), on the device: they reach the
+    host in the caller's one stats read.
     """
-    _refuse_drift(with_drift)
     hot, hstats = select_hot_set(
         state, deg_prev, algo.selection_view(algo_state), r, delta,
         active_prev=active_prev, n=n, delta_hop_cap=delta_hop_cap,
@@ -89,7 +112,12 @@ def fused_query_step(
         algo_state, state, hot, hot_node_capacity=hot_node_capacity,
         hot_edge_capacity=hot_edge_capacity, layouts=layouts)
     new_state, iters = algo.summarized(algo_state, state, summaries)
-    return new_state, _wave_stats(hstats, summaries, iters)
+    stats = _wave_stats(hstats, summaries, iters)
+    if with_drift:
+        probe, cold = _drift_from_state(algo, new_state, algo_state, state,
+                                        hot, probe_ids, layouts=layouts)
+        stats = stats._replace(drift_probe=probe, drift_cold=cold)
+    return new_state, stats
 
 
 def _cold_coverage(state: GraphState, algo, batch_state,
@@ -122,6 +150,7 @@ def fused_query_step_batched(
     delta: torch.Tensor,
     row_mask: torch.Tensor,
     cold_rows: Optional[torch.Tensor] = None,
+    probe_ids: Optional[torch.Tensor] = None,
     *,
     algo,
     hot_node_capacity: int,
@@ -156,9 +185,11 @@ def fused_query_step_batched(
     stats describe the shared wave and ``row_delta`` is each slot's
     convergence signal.  As in :func:`fused_query_step`, the caller
     discards the new state and recomputes each live row exactly when
-    ``used_fallback`` is set.
+    ``used_fallback`` is set.  ``with_drift=True`` adds a fourth value,
+    ``row_drift f32[B, 2]`` (each slot's drift_probe and drift_cold, zero on
+    vacant rows), for the caller to read with ``row_delta``; the stats then
+    carry the maximum over the live rows.
     """
-    _refuse_drift(with_drift)
     scores = algo.batched_selection_scores(batch_state, row_mask)
     hot, hstats = select_hot_set(
         state, deg_prev, scores, r, delta, active_prev=active_prev, n=n,
@@ -177,8 +208,16 @@ def fused_query_step_batched(
         hot_edge_capacity=hot_edge_capacity, layouts=layouts)
     new_state, iters, row_delta = algo.summarized_batched(
         batch_state, state, summaries, row_mask=row_mask)
-    return new_state, _wave_stats(hstats, summaries, iters, num_hot), \
-        row_delta
+    stats = _wave_stats(hstats, summaries, iters, num_hot)
+    if not with_drift:
+        return new_state, stats, row_delta
+    probe, cold = _drift_from_state(algo, new_state, batch_state, state, hot,
+                                    probe_ids, layouts=layouts)
+    live = row_mask.to(torch.float32)
+    row_drift = torch.stack([probe, cold], dim=-1) * live[:, None]
+    stats = stats._replace(drift_probe=(probe * live).max(),
+                           drift_cold=(cold * live).max())
+    return new_state, stats, row_delta, row_drift
 
 
 def approximate_query_step(

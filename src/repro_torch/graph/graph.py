@@ -5,7 +5,9 @@ KV cache.  Streaming additions and removals write into the preallocated
 buffers **in place**: the functions below update the tensors of the state
 they are given and return a state that shares them, so a caller must not
 keep using the input state (the counterpart of the JAX package's buffer
-donation).
+donation).  A caller that must keep the input state intact (the async
+rebuild's served snapshot, the counterpart of the JAX package's
+``*_preserving`` variants) applies to a :func:`clone` of it.
 
 Layout (dtypes match the JAX package byte for byte):
 
@@ -145,9 +147,16 @@ def from_edges(
     )
 
 
+def clone(state: GraphState) -> GraphState:
+    """A copy of every buffer of ``state``, for an in-place apply that
+    must leave ``state`` itself untouched."""
+    return GraphState(*(None if t is None else t.clone() for t in state))
+
+
 def add_edges(state: GraphState, new_src: torch.Tensor,
               new_dst: torch.Tensor,
-              new_len: Optional[torch.Tensor] = None) -> GraphState:
+              new_len: Optional[torch.Tensor] = None, *,
+              num_edges: Optional[int] = None) -> GraphState:
     """Append a chunk of edges **in place** (the input state's buffers are
     updated and shared with the returned state).
 
@@ -155,11 +164,13 @@ def add_edges(state: GraphState, new_src: torch.Tensor,
     buffer and no degree (callers check capacity first).  ``new_len``
     optionally streams a per-edge length column; the first weighted chunk
     materializes ``edge_len`` with earlier slots at 1.0, and later
-    unweighted chunks leave their slots at 1.0.
+    unweighted chunks leave their slots at 1.0.  ``num_edges`` is the
+    state's ``num_edges`` when the caller holds it on the host already;
+    then the apply reads nothing from the device.
     """
     k = new_src.shape[0]
     e_cap = state.edge_capacity
-    base = int(state.num_edges)
+    base = int(state.num_edges) if num_edges is None else num_edges
     kept = max(0, min(k, e_cap - base))  # the slots that fit form a prefix
     lo, hi = base, base + kept
     state.src[lo:hi] = new_src[:kept]
@@ -175,10 +186,10 @@ def add_edges(state: GraphState, new_src: torch.Tensor,
     one = torch.ones(kept, dtype=torch.int32, device=state.device)
     state.out_deg.index_add_(0, ks, one)
     state.in_deg.index_add_(0, kd, one)
-    state.node_active[ks] = True
-    state.node_active[kd] = True
-    num_edges = torch.tensor(min(base + k, e_cap), dtype=torch.int32,
-                             device=state.device)
+    state.node_active.index_fill_(0, ks, True)
+    state.node_active.index_fill_(0, kd, True)
+    num_edges = torch.full((), min(base + k, e_cap), dtype=torch.int32,
+                           device=state.device)
     return state._replace(num_edges=num_edges, edge_len=edge_len)
 
 
@@ -240,3 +251,17 @@ def compact(state: GraphState) -> GraphState:
     w = None if state.edge_len is None else state.edge_len.cpu().numpy()[mask]
     return from_edges(s, d, state.node_capacity, state.edge_capacity,
                       weights=w, device=state.device)
+
+
+def to_networkx(state: GraphState):
+    """The live edges as a ``networkx.DiGraph`` over the active vertices
+    (a debugging and test helper)."""
+    import networkx as nx
+
+    mask = state.edge_mask().cpu().numpy()
+    s = state.src.cpu().numpy()[mask]
+    d = state.dst.cpu().numpy()[mask]
+    g = nx.DiGraph()
+    g.add_nodes_from(np.nonzero(state.node_active.cpu().numpy())[0].tolist())
+    g.add_edges_from(zip(s.tolist(), d.tolist()))
+    return g

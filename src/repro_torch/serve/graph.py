@@ -21,9 +21,16 @@ port of ``repro.serve.graph``).
 - Summary overflow keeps the engine's contract: the wave's batch result is
   discarded and every live row is recomputed exactly, row by row.
 
-Only the synchronous wave loop is ported: the async rebuild (ROADMAP queue
-1 entry 13) and the quality controller (entry 11) raise when the wrapped
-engine is built.  Usage::
+- Under ``quality_target`` each lane runs its own
+  :class:`~repro_torch.core.control.QualityController` (lanes disagree on
+  residual scale): the wave's per-slot drift rides the ``row_delta`` read,
+  and a refresh re-marks the lane's live slots cold, so the next wave
+  covers their seeds' reach again.
+- Under ``async_rebuild`` a wave promotes the finished epoch build, serves
+  every lane from that snapshot, and only then integrates the buffered
+  updates and dispatches the next epoch's build.
+
+Usage::
 
     srv = repro_torch.serve_session((src, dst), slots=4)
     t1 = srv.submit("personalized-pagerank", seeds=(3,))
@@ -46,6 +53,7 @@ import torch
 from repro_torch.core import backend as B
 from repro_torch.core.algorithm import (AlgoState, StreamingAlgorithm,
                                         make_algorithm)
+from repro_torch.core.control import QualityController
 from repro_torch.core.engine import VeilGraphEngine
 from repro_torch.core.fused import fused_query_step_batched
 
@@ -93,6 +101,16 @@ class ServeStats:
     overflow_fallbacks: int = 0
     occupancy_sum: float = 0.0
     wave_latencies_s: List[float] = field(default_factory=list)
+    # quality_target engines: refreshes over all lanes, the last lane-wave's
+    # worst-slot drift, the controller's last and lowest quality estimate
+    refreshes: int = 0
+    last_drift: float = 0.0
+    quality_est: float = 1.0
+    min_quality_est: float = 1.0
+    # async_rebuild engines: the epoch the last wave served, and how far it
+    # trailed the newest dispatched build (0 or 1)
+    epoch: int = 0
+    snapshot_lag: int = 0
 
     @property
     def queries_per_s(self) -> float:
@@ -131,7 +149,9 @@ class ServeStats:
 @dataclass
 class LaneWave:
     """What one lane's batched step did in one wave (the shared hot set
-    and summary sizes, read back in the wave's one stats transfer)."""
+    and summary sizes, read back in the wave's one stats transfer), and
+    under ``quality_target`` each slot's ``(drift_probe, drift_cold)`` and
+    whether the lane's controller asked for a refresh."""
 
     wave: int
     algorithm: str
@@ -142,6 +162,8 @@ class LaneWave:
     num_eb: int
     iterations: int
     overflow_fallback: bool
+    row_drift: Optional[List[Tuple[float, float]]] = None
+    refreshed: bool = False
 
 
 @dataclass
@@ -150,7 +172,8 @@ class _Lane:
     shared by its requests, ``bank`` the ``[S, ...]`` state, ``tickets[i]``
     slot i's occupant (None = vacant), ``waves[i]`` the waves it has run and
     ``cold[i]`` whether it has yet to converge once (its waves then cover
-    its seeds' reach, see :func:`fused_query_step_batched`)."""
+    its seeds' reach, see :func:`fused_query_step_batched`);
+    ``controller`` is the lane's own under ``quality_target``."""
 
     template: StreamingAlgorithm
     bank: AlgoState
@@ -158,6 +181,7 @@ class _Lane:
     waves: List[int]
     cold: List[bool]
     queue: List[QueryTicket] = field(default_factory=list)
+    controller: Optional[QualityController] = None
 
     @property
     def occupied(self) -> int:
@@ -257,27 +281,48 @@ class GraphServingEngine:
         return self
 
     # ---- internals -------------------------------------------------------
+    def _served_state(self):
+        """The graph the next wave serves: the engine's, or under
+        ``async_rebuild`` the served snapshot's (the live state may be
+        under construction on the build stream)."""
+        pipe = self.engine._pipeline
+        return self.engine.state if pipe is None else pipe.current.state
+
     def _lane_for(self, algo: StreamingAlgorithm) -> _Lane:
         key = _lane_key(algo)
         lane = self._lanes.get(key)
         if lane is None:
-            proto = algo.init_state(self.engine.state)
+            proto = algo.init_state(self._served_state())
             bank = {k: v[None].expand((self.slots,) + v.shape).clone()
                     for k, v in proto.items()}
             algo.validate_batch_state(bank, self.slots)
+            cfg = self.engine.config
+            controller = None
+            if cfg.quality_target is not None:
+                controller = QualityController(
+                    cfg.quality_target, r0=cfg.r, delta0=cfg.delta,
+                    adjust_r=cfg.control_r, adjust_delta=cfg.control_delta,
+                    contraction=algo.drift_contraction)
             lane = _Lane(template=algo, bank=bank,
                          tickets=[None] * self.slots,
-                         waves=[0] * self.slots, cold=[False] * self.slots)
+                         waves=[0] * self.slots, cold=[False] * self.slots,
+                         controller=controller)
             self._lanes[key] = lane
         return lane
 
-    def _spec_layouts(self, algo: StreamingAlgorithm) -> Tuple:
+    def _spec_layouts(self, algo: StreamingAlgorithm, snap=None) -> Tuple:
         """The layouts of ``algo.layout_specs``, built once per applied
         update batch and shared by every lane that declares the same
-        spec."""
+        spec.  With ``snap`` (the async path's served snapshot) they are the
+        snapshot's own, and each spec is registered with the engine so that
+        every later snapshot sorts it at build time."""
         eng = self.engine
         out = []
         for spec in map(B.normalize_layout_spec, algo.layout_specs):
+            if snap is not None:
+                eng._async_specs[spec] = True
+                out.append(snap.layout_for(spec, eng._build_spec_layout))
+                continue
             layout = self._layouts.get(spec)
             if layout is None:
                 layout = eng._build_spec_layout(eng.state, spec)
@@ -295,15 +340,16 @@ class GraphServingEngine:
         if applied:
             self._layouts.clear()
 
-    def _refill(self, lane: _Lane) -> None:
+    def _refill(self, lane: _Lane, state) -> None:
         """Seat queued requests in vacant slots: each newcomer's rows come
-        from its own instance (its seeds or sources) and are written into
-        the bank in place, so the bank keeps its shapes."""
+        from its own instance (its seeds or sources) over ``state`` (the
+        wave's graph) and are written into the bank in place, so the bank
+        keeps its shapes."""
         for i in range(self.slots):
             if lane.tickets[i] is not None or not lane.queue:
                 continue
             ticket = lane.queue.pop(0)
-            row = ticket._instance.init_state(self.engine.state)
+            row = ticket._instance.init_state(state)
             for k, v in lane.bank.items():
                 v[i] = row[k]
             lane.tickets[i] = ticket
@@ -339,52 +385,78 @@ class GraphServingEngine:
             lane.cold[i] = False
             self.stats.queries_completed += 1
 
-    def _exact_fallback(self, lane: _Lane) -> None:
+    def _exact_fallback(self, lane: _Lane, state, snap=None) -> None:
         """Summary overflow: serve every live row with an exact recompute
-        of its own (single pushes), then harvest them all."""
-        state = self.engine.state
+        of its own (single pushes) over the wave's graph ``state`` (and
+        snapshot ``snap`` under ``async_rebuild``), then harvest them
+        all."""
         for i, ticket in enumerate(lane.tickets):
             if ticket is None:
                 continue
             row = {k: v[i] for k, v in lane.bank.items()}
             new_row, _ = ticket._instance.exact(
-                row, state, layouts=self._spec_layouts(ticket._instance))
+                row, state,
+                layouts=self._spec_layouts(ticket._instance, snap))
             for k, v in lane.bank.items():
                 v[i] = new_row[k]
             ticket.exact_fallback = True
         self.stats.overflow_fallbacks += 1
+        if lane.controller is not None:
+            # exact answers: the accumulated drift resets
+            lane.controller.refreshed()
         self._harvest(lane, np.zeros(self.slots, np.float32), force=True)
 
     # ---- the wave loop ---------------------------------------------------
     def step(self) -> int:
         """Run one wave: apply updates, refill, one batched fused step per
-        non-empty lane, harvest.  Returns the queries completed."""
+        non-empty lane, harvest.  Returns the queries completed.
+
+        Under ``async_rebuild`` the wave promotes the finished epoch build
+        first, serves every lane from that snapshot, and integrates the
+        buffered updates last, dispatching the next epoch's build behind
+        the wave's work."""
         eng = self.engine
         cfg = eng.config
+        pipe = eng._pipeline
         t0 = time.perf_counter()
         completed_before = self.stats.queries_completed
-        self._apply_updates()
+        snap = None
+        if pipe is not None:
+            promoted = pipe.promote()
+            if promoted is not None:
+                eng._finalize_promotion(promoted)
+            snap = pipe.current
+            state = snap.state
+            self.stats.epoch = snap.epoch
+        else:
+            self._apply_updates()
+            state = eng.state
         occupied = 0
         for lane in self._lanes.values():
-            self._refill(lane)
+            self._refill(lane, state)
             occupied += lane.occupied
 
         for lane in self._lanes.values():
             if lane.occupied == 0:
                 continue
             row_mask = lane.row_mask(eng.device)
+            ctl = lane.controller
+            r_now = ctl.r_eff if ctl is not None else cfg.r
+            delta_now = ctl.delta_eff if ctl is not None else cfg.delta
             cold = [c and t is not None
                     for c, t in zip(lane.cold, lane.tickets)]
-            new_bank, qs, row_delta = fused_query_step_batched(
-                eng.state, lane.bank, eng.deg_prev, eng.active_prev,
-                eng._scalar(cfg.r), eng._scalar(cfg.delta), row_mask,
+            out = fused_query_step_batched(
+                state, lane.bank, eng.deg_prev, eng.active_prev,
+                eng._scalar(r_now), eng._scalar(delta_now), row_mask,
                 torch.tensor(cold, dtype=torch.bool, device=eng.device),
-                algo=lane.template,
+                probe_ids=eng._probe_ids, algo=lane.template,
                 hot_node_capacity=cfg.hot_node_capacity,
                 hot_edge_capacity=cfg.hot_edge_capacity, n=cfg.n,
                 delta_hop_cap=cfg.delta_hop_cap, degree_mode=cfg.degree_mode,
                 expand_both=cfg.expand_both,
-                layouts=self._spec_layouts(lane.template))
+                layouts=self._spec_layouts(lane.template, snap),
+                with_drift=ctl is not None)
+            new_bank, qs, row_delta = out[:3]
             # one transfer: the overflow flag and the wave's sizes
             num_hot, num_ek, num_eb, overflow = torch.stack([
                 qs.num_hot.to(torch.int64), qs.num_ek.to(torch.int64),
@@ -397,16 +469,50 @@ class GraphServingEngine:
                 overflow_fallback=bool(overflow)))
             if overflow:
                 # the batch result is invalid: discard it, serve rows exactly
-                self._exact_fallback(lane)
+                self._exact_fallback(lane, state, snap)
                 continue
             lane.bank = new_bank
             for i in range(self.slots):
                 if lane.tickets[i] is not None:
                     lane.waves[i] += 1
-            self._harvest(lane, row_delta.cpu().numpy())
+            if ctl is None:
+                self._harvest(lane, row_delta.cpu().numpy())
+                continue
+            # the slots' drift rides the row_delta read
+            vals = torch.cat([row_delta[:, None], out[3]], dim=1).cpu().numpy()
+            drift = vals[:, 1:]
+            probe = float(drift[:, 0].max(initial=0.0))
+            cold_d = float(drift[:, 1].max(initial=0.0))
+            dec = ctl.observe(probe, cold_d)
+            self.stats.last_drift = max(probe, cold_d)
+            self.stats.quality_est = dec.quality_est
+            self.stats.min_quality_est = min(self.stats.min_quality_est,
+                                             dec.quality_est)
+            self.wave_log[-1].row_drift = [tuple(map(float, d))
+                                           for d in drift]
+            if dec.refresh:
+                # out of budget: the live slots go cold again, so the next
+                # wave covers them in full (the batched analogue of an
+                # exact refresh), and the accumulated drift resets
+                for i, t in enumerate(lane.tickets):
+                    if t is not None:
+                        lane.cold[i] = True
+                self.stats.refreshes += 1
+                self.wave_log[-1].refreshed = True
+                ctl.refreshed()
+            self._harvest(lane, vals[:, 0])
 
-        # the hot-set baselines advance as after engine.query()
-        eng._refresh_baselines()
+        if pipe is not None:
+            # every lane's answer is read: integrate the buffered updates
+            # and dispatch epoch N+1's build behind this wave's work
+            if eng._pending_count:
+                eng._async_integrate()
+            self.stats.snapshot_lag = pipe.snapshot_lag
+            # the served epoch's baselines become the next wave's
+            eng.deg_prev, eng.active_prev = snap.deg, snap.active
+        else:
+            # the hot-set baselines advance as after engine.query()
+            eng._refresh_baselines()
         wave_s = time.perf_counter() - t0
         self.stats.waves += 1
         self.stats.wall_s += wave_s

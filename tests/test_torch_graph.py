@@ -94,6 +94,46 @@ def test_add_remove_sequence_matches_reference():
     _assert_states_equal(JG.compact(js), TG.compact(ts))
 
 
+def test_to_networkx_matches_reference():
+    """The live edges (tombstones dropped, duplicates merged) over the
+    active vertices, as the reference's export gives them."""
+    src, dst = _edges()
+    js = JG.from_edges(src, dst, 400, src.shape[0] + 100)
+    ts = TG.from_edges(src, dst, 400, src.shape[0] + 100, device="cpu")
+    slots = JG.find_edge_slots(js, src[:30], dst[:30])
+    js = JG.remove_edges_by_slot(js, jnp.asarray(slots))
+    ts = TG.remove_edges_by_slot(ts, torch.from_numpy(slots))
+    jg, tg = JG.to_networkx(js), TG.to_networkx(ts)
+    assert sorted(tg.nodes) == sorted(jg.nodes)
+    assert sorted(tg.edges) == sorted(jg.edges)
+    assert tg.number_of_edges() < len(set(zip(src.tolist(), dst.tolist())))
+
+
+def test_apply_to_a_clone_preserves_the_input_state():
+    """The async rebuild's apply: a clone takes the updates (matching the
+    reference's non-donating variants), the input state keeps its bytes,
+    and a host-held edge count gives the same state as the device's."""
+    src, dst = _edges()
+    n_cap, e_cap = 400, src.shape[0] + 200
+    js = JG.from_edges(src[:-200], dst[:-200], n_cap, e_cap)
+    ts = TG.from_edges(src[:-200], dst[:-200], n_cap, e_cap, device="cpu")
+    before = {k: None if v is None else v.clone()
+              for k, v in ts._asdict().items()}
+    s, d = src[-200:], dst[-200:]
+    js2 = JG.add_edges_preserving(js, jnp.asarray(s), jnp.asarray(d))
+    ts2 = TG.add_edges(TG.clone(ts), torch.from_numpy(s), torch.from_numpy(d),
+                       num_edges=src.shape[0] - 200)
+    _assert_states_equal(js2, ts2)
+    slots = JG.find_edge_slots(js2, s[:20], d[:20])
+    js3 = JG.remove_edges_by_slot_preserving(js2, jnp.asarray(slots))
+    ts3 = TG.remove_edges_by_slot(TG.clone(ts2), torch.from_numpy(slots))
+    _assert_states_equal(js3, ts3)
+    _assert_states_equal(js2, ts2)
+    _assert_states_equal(js, ts)
+    for k, v in ts._asdict().items():
+        assert v is None or torch.equal(v, before[k]), k
+
+
 def test_weighted_chunks_match_reference():
     src, dst = _edges()
     n_cap, e_cap = 400, src.shape[0] + 200

@@ -133,10 +133,23 @@ def test_fused_query_step_matches_reference(caps):
     assert int(tst2.num_ek) == int(jst.num_ek)
     np.testing.assert_allclose(tr.numpy(), np.asarray(jr), rtol=1e-5,
                                atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        TF.fused_query_step(
-            ts, {"ranks": torch.from_numpy(ranks)},
-            torch.from_numpy(deg_prev), torch.from_numpy(active_prev),
-            torch.tensor(0.2), torch.tensor(0.1), algo=TPageRank(),
-            hot_node_capacity=k_cap, hot_edge_capacity=h_cap,
-            with_drift=True)
+    # the drift estimate rides the same step (core/control.py)
+    from repro.core.control import default_probe_ids as jprobes
+    from repro_torch.core.control import default_probe_ids as tprobes
+
+    _, jdst = JF.fused_query_step(
+        js, {"ranks": jnp.asarray(ranks)}, jnp.asarray(deg_prev),
+        jnp.asarray(active_prev), jnp.float32(0.2), jnp.float32(0.1),
+        jprobes(js.node_capacity), algo=JPageRank(), hot_node_capacity=k_cap,
+        hot_edge_capacity=h_cap, layouts=(JB.build_layout(js),),
+        backend="segment_sum", with_drift=True)
+    _, tdst = TF.fused_query_step(
+        ts, {"ranks": torch.from_numpy(ranks)},
+        torch.from_numpy(deg_prev), torch.from_numpy(active_prev),
+        torch.tensor(0.2), torch.tensor(0.1), tprobes(ts.node_capacity),
+        algo=TPageRank(), hot_node_capacity=k_cap, hot_edge_capacity=h_cap,
+        layouts=(TB.build_layout(ts),), with_drift=True)
+    for k in ("drift_probe", "drift_cold"):
+        np.testing.assert_allclose(float(getattr(tdst, k)),
+                                   float(getattr(jdst, k)), rtol=1e-4,
+                                   atol=1e-7)

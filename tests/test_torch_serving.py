@@ -457,11 +457,15 @@ def test_submit_and_wrap_refusals():
                                        hot_edge_capacity=16, device="cpu"))
     with pytest.raises(ValueError, match="started"):
         GraphServingEngine(eng, slots=2)
-    with pytest.raises(NotImplementedError, match="entry 11"):
-        tfused(eng.state, {}, eng.deg_prev, eng.active_prev,
-               torch.tensor(0.1), torch.tensor(0.1), torch.tensor([True]),
-               algo=tmake("pagerank"), hot_node_capacity=8,
-               hot_edge_capacity=16, with_drift=True)
+    # with_drift adds the per-slot drift, zero on vacant rows
+    bank = {"ranks": torch.ones(2, 8)}
+    out = tfused(eng.state, bank, eng.deg_prev, eng.active_prev,
+                 torch.tensor(0.1), torch.tensor(0.1),
+                 torch.tensor([True, False]), probe_ids=torch.arange(
+                     4, dtype=torch.int32), algo=tmake("pagerank"),
+                 hot_node_capacity=8, hot_edge_capacity=16, with_drift=True)
+    assert len(out) == 4 and out[3].shape == (2, 2)
+    assert out[3][1].abs().sum() == 0
 
 
 def test_serve_stats_guards_and_nearest_rank_quantiles():

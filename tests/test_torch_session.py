@@ -144,7 +144,6 @@ def test_import_pulls_in_neither_jax_nor_the_reference():
 @pytest.mark.parametrize("knob,value", [
     ("mesh", object()), ("num_shards", 2), ("shard_hot_edge_capacity", 8),
     ("autotune", "cached"), ("weight_dtype", "bfloat16"),
-    ("quality_target", 0.95), ("async_rebuild", True),
 ])
 def test_unported_knobs_raise(knob, value):
     src, dst = barabasi_albert_edges(100, 2, 0, 0.3)
@@ -155,16 +154,18 @@ def test_unported_knobs_raise(knob, value):
 @pytest.mark.parametrize("name", ["personalized-pagerank", "ppr", "hits",
                                   "katz"])
 def test_unported_algorithms_raise(name):
-    # every registered algorithm is ported; what these still lack is the
-    # closed quality loop (their drift residual), which raises by entry
+    # every registered algorithm is ported, the closed quality loop too:
+    # each of these runs under quality_target with the conservative gain
     src, dst = barabasi_albert_edges(100, 2, 0, 0.3)
     s = repro_torch.session((src, dst), name, device="cpu")
     assert s.algorithm.name == {"ppr": "personalized-pagerank"}.get(name,
                                                                     name)
     assert s.algorithm.name in repro_torch.available_algorithms()
-    with pytest.raises(NotImplementedError, match="entry 11"):
-        repro_torch.session((src, dst), name, device="cpu",
+    q = repro_torch.session((src, dst), name, device="cpu",
                             quality_target=0.9)
+    assert q.engine.controller.gain == 3.0
+    st = q.add_edges(src[:5], dst[:5]).query().stats
+    assert st.r_eff > 0.0 and 0.0 <= st.quality_est <= 1.0
 
 
 @pytest.mark.parametrize("name,canonical", [
@@ -194,12 +195,14 @@ def test_backend_names_and_serving_raise():
     # serving runs; its later-slice knobs raise naming their entries
     with repro_torch.serve_session((src, dst), device="cpu") as srv:
         assert srv.slots == 4 and srv.pending == 0
-    for knob, value, entry in (("async_rebuild", True, "entry 13"),
-                               ("quality_target", 0.9, "entry 11"),
-                               ("num_shards", 2, "entry 15")):
-        with pytest.raises(NotImplementedError, match=entry):
-            repro_torch.serve_session((src, dst), device="cpu",
-                                      **{knob: value})
+    for knob, value in (("async_rebuild", True), ("quality_target", 0.9)):
+        with repro_torch.serve_session((src, dst), device="cpu",
+                                       **{knob: value}) as srv:
+            t = srv.submit("sssp", sources=(0,))
+            srv.run()
+            assert t.done
+    with pytest.raises(NotImplementedError, match="entry 15"):
+        repro_torch.serve_session((src, dst), device="cpu", num_shards=2)
     with pytest.raises(KeyError):
         repro_torch.session((src, dst), "no-such-algorithm", device="cpu")
 
