@@ -4,15 +4,20 @@
     python3 chip_smoke.py
 
 Builds the four kernel sources (``src/repro_torch/kernels/*/csrc``: the
-SpMV push and the min/max push, each in a single and a batched form, the
-flash attention forward and decode attention; one ``nvcc`` per source,
-started together) and holds every kernel against its plain version at the
-shapes its path gives it, each batched row also bitwise against the single
-kernel and each push against a second launch of itself (the shapes
-include every edge of the stream in one row).  Every entry that no shipped
-semiring launches (nine min/max semirings, the sum with ⊗ = + and min) is
-checked once, as a registered semiring, at a small synth-web-lg layout.
-Then it drives three paths over the ``synth-web-lg`` stream:
+SpMV push and the min/max push, each in a single and a batched form and
+once per merge-path tile, the flash attention forward and decode
+attention; one ``nvcc`` per source and tile, started together) and holds
+every kernel against its plain version at the shapes its path gives it,
+each batched row also bitwise against the single kernel and each push
+against a second launch of itself (the shapes include every edge of the
+stream in one row).  Every entry that no shipped semiring launches (nine
+min/max semirings, the sum with ⊗ = + and min) is checked once, as a
+registered semiring, at a small synth-web-lg layout; every bf16/f16-weight
+entry at the full layout, with and without the b_in mask; every built
+tile against the default one, timed at the full layout and at a
+summary-sized one beside the cost model.  Each SpMV bound comes from
+``repro_torch.launch.roofline``, the tuner's own byte count.  Then it
+drives these paths over the ``synth-web-lg`` stream:
 
 - PageRank through ``repro_torch.session``: the initial exact query, 11
   approximate queries and one exact one, every push through ``spmv_push``;
@@ -47,6 +52,14 @@ Then it drives three paths over the ``synth-web-lg`` stream:
   when the next query promotes them.  The serving plan with
   ``async_rebuild=True`` is bitwise a synchronous run fed each chunk one
   wave later;
+- the tuned narrow path: PageRank with ``weight_dtype="bfloat16"`` and
+  ``autotune="full"`` (RBO@4000 against the exact replay), again under
+  ``"cached"`` after ``load_cache`` of what ``full`` saved (no timed run,
+  the same tiles), SSSP over bf16-exact lengths bitwise the f32 session,
+  and the serving plan with both knobs (min/max answers bitwise the f32
+  run's, sums within 1% L1); the bf16 PageRank session's summed push
+  device time under ``autotune="off"`` and ``"full"``, full-graph and
+  summary layouts apart;
 
 and one LM path:
 
@@ -83,7 +96,6 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
-F32_FLOPS = 67e12           # H100 SXM f32 rate outside the tensor cores
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core rate
 SEED = 0
 QUERIES = 12                # 11 approximate + 1 exact (query id 11)
@@ -170,19 +182,18 @@ def check_kernel(name, values, layout, mask=None, mul="times") -> dict:
     library_ms = library_device_ms = lib_err = None
     if mul == "times" and nnz <= num_rows * n_src:
         wl = (w[lo:hi] if mask is None
-              else torch.where(mask[lo:hi], w[lo:hi], 0.0))
+              else torch.where(mask[lo:hi], w[lo:hi], 0.0)).float()
         csr = torch.sparse_csr_tensor(
             (ro - lo).contiguous(), src[lo:hi].contiguous(), wl.contiguous(),
             size=(num_rows, n_src))
         library_ms = cuda_ms(lambda: torch.mv(csr, values))
         library_device_ms = graph_ms(lambda: torch.mv(csr, values))
         lib_err = float((torch.mv(csr, values).double() - ref).abs().max())
-    nbytes = nnz * (8 + (mask is not None)) + 4 * (num_rows + 1) \
-        + 4 * num_rows + 4 * n_src
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    op_ms = 2 * nnz / F32_FLOPS * 1e3
+    nbytes, byte_ms, op_ms = push_bound(nnz, num_rows, n_src, 1,
+                                        mask is not None, w)
     return {"phase": "kernel-check", "shape": name, "mul": mul,
-            "entry": SUM_ENTRIES[mul], "rows": num_rows,
+            "entry": entry_name(SUM_ENTRIES[mul], w),
+            "weight_dtype": str(w.dtype).split(".")[-1], "rows": num_rows,
             "n_src": n_src, "nnz": nnz,
             "max_row": int(lens.max()) if num_rows else 0,
             "rows_over_1024": int(hubs.sum()),
@@ -289,17 +300,17 @@ def check_reduce_kernel(name, values, layout, mask=None) -> dict:
         library_ms = cuda_ms(seg)
     except RuntimeError as exc:  # segment_reduce takes no int32
         library_ok, library_note = None, f"not timed: {exc}".splitlines()[0]
-    nbytes = nnz * (8 + (mask is not None)) + 4 * (num_rows + 1) \
-        + 4 * num_rows + 4 * n_src
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     # two operations per edge, over the f32 rate (the int32 rate is lower,
     # but the bytes bound these shapes by three orders of magnitude)
-    op_ms = 2 * nnz / F32_FLOPS * 1e3
+    nbytes, byte_ms, op_ms = push_bound(nnz, num_rows, n_src, 1,
+                                        mask is not None, w, reduce=s.add)
     bound_ms = max(byte_ms, op_ms)
     return {"phase": "reduce-kernel-check", "shape": name,
-            "semiring": s.name, "entry": "spmv_reduce_push_batched_"
-            + REDUCE_ENTRIES[(s.add, s.mul, values.dtype)],
+            "semiring": s.name, "entry": entry_name(
+                "spmv_reduce_push_batched_"
+                + REDUCE_ENTRIES[(s.add, s.mul, values.dtype)], w),
             "dtype": str(values.dtype).split(".")[-1],
+            "weight_dtype": str(w.dtype).split(".")[-1],
             "rows": num_rows, "n_src": n_src, "nnz": nnz,
             "max_row": int(lens.max()) if num_rows else 0,
             "masked": mask is not None, "bitwise": ok, "max_abs_err": err,
@@ -444,13 +455,51 @@ def check_denormals(width, layout) -> int:
     return count
 
 
-def stream_bound(nnz, rows, n_src, batch, masked):
-    """(bytes, byte ms, operation ms) of one push: the stream (src, w and
-    the mask) and row offsets read once, each value row read once, each
-    output row written once; two operations per edge and batch row."""
-    nbytes = nnz * (8 + masked) + 4 * (rows + 1) + batch * 4 * (rows + n_src)
-    return (nbytes, nbytes / HBM_BYTES_PER_S * 1e3,
-            2 * batch * nnz / F32_FLOPS * 1e3)
+def push_bound(nnz, rows, n_src, batch, masked, w, *, reduce="sum",
+               tile=None):
+    """(bytes, byte ms, operation ms) of one push, from
+    ``repro_torch.launch.roofline`` (the tuner's cost model, at this card's
+    figures): the stream (src, w at its width and the mask) and row
+    offsets read once, each value row read once, each output row written
+    once, the carries written and read; two operations per edge and batch
+    row."""
+    from repro_torch.launch.roofline import push_roofline_check
+
+    rec = push_roofline_check(
+        edge_capacity=nnz, num_segments=rows, n_src=n_src, batch=batch,
+        masked=masked, reduce=reduce,
+        weight_dtype=str(w.dtype).split(".")[-1], tile=tile,
+        platform=torch.cuda.get_device_name(0))
+    return (rec["hbm_bytes"], rec["memory_s"] * 1e3,
+            rec["compute_s"] * 1e3)
+
+
+def entry_name(base: str, w) -> str:
+    """The kernel entry that ``base`` names for weights ``w``: its
+    narrow-weight form for bf16/f16 weights."""
+    from repro_torch.kernels.spmv.kernel import WEIGHT_TAGS
+
+    return base + WEIGHT_TAGS.get(w.dtype, "")
+
+
+def ptxas_summary(lib, full: bool) -> dict:
+    """What ``-Xptxas -v`` said of a library: every line (``full``), or
+    its kernel count, the most registers and shared memory of a kernel,
+    and any line that reports a spill."""
+    import re
+
+    lines = [ln.strip() for ln in lib.with_suffix(".log").read_text()
+             .splitlines() if "ptxas" in ln or "spill" in ln]
+    if full:
+        return {"ptxas": lines}
+    regs = [int(x) for ln in lines for x in re.findall(r"Used (\d+) reg", ln)]
+    smem = [int(x) for ln in lines for x in re.findall(r"(\d+) bytes smem",
+                                                        ln)]
+    return {"kernels": len(regs), "max_registers": max(regs, default=0),
+            "max_smem_bytes": max(smem, default=0),
+            "spills": [ln for ln in lines if "spill" in ln
+                       and not re.search(r"\b0 bytes spill stores, 0 bytes "
+                                         r"spill loads", ln)]}
 
 
 def host_us(fn, reps: int = 50) -> float:
@@ -473,26 +522,30 @@ def rows_match_single(out, single, values) -> None:
                                  f"kernel on that row")
 
 
-def check_batched_kernel(name, values, layout, mask=None) -> dict:
-    """``spmv_push_batched`` on ``values`` [B, N]: against the plain
-    version in f64 (the tolerance of ``check_kernel``), each row bitwise
-    against ``spmv_push``; then kernel, plain and cuSPARSE SpMM times."""
-    from repro_torch.kernels.spmv.kernel import (spmv_push, spmv_push_batched,
+def check_batched_kernel(name, values, layout, mask=None,
+                         mul="times") -> dict:
+    """``spmv_push_batched`` on ``values`` [B, N] (⊗ = ``mul``): against
+    the plain version in f64 (the tolerance of ``check_kernel``), each row
+    bitwise against ``spmv_push``; then kernel, plain and, for ⊗ = ×,
+    cuSPARSE SpMM times."""
+    from repro_torch.kernels.spmv.kernel import (SUM_ENTRIES, spmv_push,
+                                                 spmv_push_batched,
                                                  spmv_push_batched_plain)
 
     src, w, ro = layout.src, layout.weight, layout.row_offsets
-    run = lambda: spmv_push_batched(values, src, w, ro, mask)
+    run = lambda: spmv_push_batched(values, src, w, ro, mask, mul=mul)
     out = run()
     torch.cuda.synchronize()
-    ref = spmv_push_batched_plain(values, src, w, ro, mask,
+    ref = spmv_push_batched_plain(values, src, w, ro, mask, mul=mul,
                                   dtype=torch.float64)
     scale = spmv_push_batched_plain(values.abs(), src, w.abs(), ro, mask,
-                                    dtype=torch.float64)
+                                    mul=mul, dtype=torch.float64)
     err = (out.double() - ref).abs()
     if not bool((err <= 1e-5 * scale).all()):
         raise AssertionError(f"{name}: batched kernel disagrees with the f64 "
                              f"plain version (max abs err {float(err.max())})")
-    rows_match_single(out, lambda v: spmv_push(v, src, w, ro, mask), values)
+    rows_match_single(out, lambda v: spmv_push(v, src, w, ro, mask,
+                                               mul=mul), values)
     batch, n_src = values.shape
     num_rows = ro.shape[0] - 1
     lo, hi = int(ro[0]), int(ro[-1])
@@ -501,20 +554,26 @@ def check_batched_kernel(name, values, layout, mask=None) -> dict:
     device_ms = graph_ms(run)
     launch_us = host_us(run)
     plain_ms = cuda_ms(lambda: spmv_push_batched_plain(values, src, w, ro,
-                                                       mask))
+                                                       mask, mul=mul))
     # library yardstick: cuSPARSE SpMM through torch, CSR @ values^T; timed
     # here only, never called by the port
-    wl = w[lo:hi] if mask is None else torch.where(mask[lo:hi], w[lo:hi], 0.0)
-    csr = torch.sparse_csr_tensor((ro - lo).contiguous(),
-                                  src[lo:hi].contiguous(), wl.contiguous(),
-                                  size=(num_rows, n_src))
-    vt = values.t().contiguous()
-    library_ms = cuda_ms(lambda: torch.sparse.mm(csr, vt))
-    lib_err = float((torch.sparse.mm(csr, vt).t().double() - ref).abs().max())
-    nbytes, byte_ms, op_ms = stream_bound(hi - lo, num_rows, n_src, batch,
-                                          mask is not None)
+    library_ms = lib_err = None
+    if mul == "times":
+        wl = (w[lo:hi] if mask is None
+              else torch.where(mask[lo:hi], w[lo:hi], 0.0)).float()
+        csr = torch.sparse_csr_tensor((ro - lo).contiguous(),
+                                      src[lo:hi].contiguous(),
+                                      wl.contiguous(),
+                                      size=(num_rows, n_src))
+        vt = values.t().contiguous()
+        library_ms = cuda_ms(lambda: torch.sparse.mm(csr, vt))
+        lib_err = float((torch.sparse.mm(csr, vt).t().double()
+                         - ref).abs().max())
+    nbytes, byte_ms, op_ms = push_bound(hi - lo, num_rows, n_src, batch,
+                                        mask is not None, w)
     bound_ms = max(byte_ms, op_ms)
     return {"phase": "batched-kernel-check", "kernel": "spmv_push_batched",
+            "entry": entry_name(SUM_ENTRIES[mul], w), "mul": mul,
             "shape": name, "batch": batch, "rows": num_rows, "n_src": n_src,
             "nnz": hi - lo, "max_row": int(lens.max()) if num_rows else 0,
             "masked": mask is not None, "host_us_per_launch": launch_us,
@@ -537,8 +596,8 @@ def check_batched_reduce_kernel(name, values, layout, mask=None) -> dict:
     int32)."""
     from repro_torch.core.semiring import resolve_semiring
     from repro_torch.kernels.spmv.kernel import (
-        reduce_identity, spmv_reduce_push, spmv_reduce_push_batched,
-        spmv_reduce_push_batched_plain)
+        REDUCE_ENTRIES, reduce_identity, spmv_reduce_push,
+        spmv_reduce_push_batched, spmv_reduce_push_batched_plain)
 
     s = resolve_semiring(layout.semiring)
     kw = dict(op=s.add, mul=s.mul)
@@ -582,11 +641,13 @@ def check_batched_reduce_kernel(name, values, layout, mask=None) -> dict:
             raise AssertionError(f"{name}: segment_reduce yardstick differs")
         library_ms = cuda_ms(seg)
         del contrib, x
-    nbytes, byte_ms, op_ms = stream_bound(hi - lo, num_rows, n_src, batch,
-                                          mask is not None)
+    nbytes, byte_ms, op_ms = push_bound(hi - lo, num_rows, n_src, batch,
+                                        mask is not None, w, reduce=s.add)
     bound_ms = max(byte_ms, op_ms)
     return {"phase": "batched-kernel-check",
             "kernel": "spmv_reduce_push_batched", "shape": name,
+            "entry": entry_name("spmv_reduce_push_batched_" + REDUCE_ENTRIES[
+                (s.add, s.mul, values.dtype)], w),
             "semiring": s.name, "dtype": str(values.dtype).split(".")[-1],
             "batch": batch, "rows": num_rows, "n_src": n_src, "nnz": hi - lo,
             "max_row": int(lens.max()) if num_rows else 0,
@@ -662,6 +723,363 @@ def batched_checks(src, dst, nodes, dev, rng, hot) -> list:
     return rows
 
 
+# ---- narrow edge weights, merge tiles and the tuned sessions --------------
+NARROW = ("bfloat16", "float16")
+SUMMARY_ROWS, SUMMARY_EDGES = 5_000, 20_000  # a summary-sized layout
+SERVE_SUM_L1 = 1e-2         # a sum lane's bf16 answer against the f32 run's,
+                            # relative L1 (bf16 keeps 1/d_out to 2^-9)
+RBO_FLOOR = 0.95            # the paper's bar for an approximate answer
+
+
+def f32_semiring(op: str, mul: str) -> str:
+    """The name of an f32 min/max semiring (op, mul): the shipped one, or
+    one registered here as a user would."""
+    from repro_torch.core.semiring import (Semiring, available_semirings,
+                                           register_semiring)
+
+    shipped = {("min", "plus"): "min_plus", ("max", "times"): "max_times"}
+    name = shipped.get((op, mul), f"narrow_{op}_{mul}_f32")
+    if name not in available_semirings():
+        register_semiring(Semiring(name, op, mul, "float32"))
+    return name
+
+
+def narrow_checks(src, dst, nodes, dev, rng, hot) -> tuple:
+    """Every narrow-weight entry (bf16 and f16 weights under f32 values) at
+    synth-web-lg's full layout, unmasked and with the b_in mask of ``hot``:
+    the three sums within the f64 tolerance (the inv_out weights), the
+    twelve min/max bitwise (lengths in [0.5, 1.5) stored narrow), each
+    batched row (B = 4, masked) bitwise its single push.  Returns (sum
+    rows, min/max rows, batched rows)."""
+    from repro_torch.core.backend import build_layout
+    from repro_torch.graph.graph import from_edges
+
+    state = from_edges(src, dst, nodes, src.shape[0], device=dev)
+    e = state.edge_capacity
+    v = torch.from_numpy(rng.random(nodes).astype(np.float32)).to(dev)
+    bank = torch.from_numpy(rng.random((BATCH, nodes)).astype(
+        np.float32)).to(dev)
+    dist = 10 * rng.random((BATCH, nodes))
+    dist[rng.random((BATCH, nodes)) < 0.1] = np.inf
+    dist = torch.from_numpy(dist.astype(np.float32)).to(dev)
+    lengths = torch.from_numpy((0.5 + rng.random(e)).astype(
+        np.float32)).to(dev)
+    sums, reduces, batched = [], [], []
+    for wd in NARROW:
+        lay = build_layout(state, weight_dtype=wd)
+        eb = b_in_mask(hot, lay)
+        for mul in ("times", "plus", "min"):
+            for mask in (None, eb):
+                tag = (f"synth-web-lg inv_out {wd} ⊗={mul}"
+                       + ("" if mask is None else ", b_in mask"))
+                sums.append(check_kernel(tag, v, lay, mask, mul=mul))
+            batched.append(check_batched_kernel(
+                f"synth-web-lg inv_out {wd} ⊗={mul}, b_in mask", bank, lay,
+                eb, mul=mul))
+        del lay, eb
+        for op in ("min", "max"):
+            for mul in ("plus", "times", "min"):
+                name = f32_semiring(op, mul)
+                lay = build_layout(state, weight="length", semiring=name,
+                                   lengths=lengths, weight_dtype=wd)
+                eb = b_in_mask(hot, lay)
+                for mask in (None, eb):
+                    reduces.append(check_reduce_kernel(
+                        f"synth-web-lg {name} length {wd}"
+                        + ("" if mask is None else ", b_in mask"), dist[0],
+                        lay, mask))
+                batched.append(check_batched_reduce_kernel(
+                    f"synth-web-lg {name} length {wd}, b_in mask", dist, lay,
+                    eb))
+                del lay, eb
+    return sums, reduces, batched
+
+
+def tile_sweep(src, dst, nodes, dev, rng) -> list:
+    """Every built tile against the default one: the full synth-web-lg
+    layouts (sum over f32 and bf16 weights, min_plus) and a summary-sized
+    layout (SUMMARY_EDGES edges into SUMMARY_ROWS rows; sum and min_plus).
+    Sums within the f64 tolerance of ``check_kernel`` (another tile folds
+    in another order), min/max bitwise the default tile; each tile's device
+    time (20 pushes replayed from a CUDA graph) beside its bound from
+    ``repro_torch.launch.roofline``."""
+    from repro_torch.core.backend import build_layout
+    from repro_torch.graph.generators import gnm_edges
+    from repro_torch.graph.graph import from_edges
+    from repro_torch.kernels.spmv.kernel import (DEFAULT_TILE, TILES,
+                                                 spmv_push, spmv_push_plain,
+                                                 spmv_reduce_push)
+    from repro_torch.launch.roofline import push_roofline_check
+
+    full = from_edges(src, dst, nodes, src.shape[0], device=dev)
+    s_src, s_dst = gnm_edges(SUMMARY_ROWS, SUMMARY_EDGES, seed=SEED)
+    small = from_edges(s_src, s_dst, SUMMARY_ROWS, SUMMARY_EDGES, device=dev)
+    cases = []
+    for tag, state in (("full", full), ("summary-sized", small)):
+        n = state.node_capacity
+        lengths = torch.from_numpy((0.5 + rng.random(
+            state.edge_capacity)).astype(np.float32)).to(dev)
+        v = torch.from_numpy(rng.random(n).astype(np.float32)).to(dev)
+        d = 10 * rng.random(n)
+        d[rng.random(n) < 0.1] = np.inf
+        d = torch.from_numpy(d.astype(np.float32)).to(dev)
+        cases.append((f"{tag} sum f32", "sum", v, build_layout(state)))
+        if tag == "full":
+            cases.append((f"{tag} sum bf16", "sum", v, build_layout(
+                state, weight_dtype="bfloat16")))
+        cases.append((f"{tag} min_plus f32", "min", d, build_layout(
+            state, weight="length", semiring="min_plus", lengths=lengths)))
+    rows = []
+    for name, reduce, values, lay in cases:
+        src_, w, ro = lay.src, lay.weight, lay.row_offsets
+        if reduce == "sum":
+            push = lambda t: spmv_push(values, src_, w, ro, tile=t)
+            ref = spmv_push_plain(values, src_, w, ro, dtype=torch.float64)
+            scale = spmv_push_plain(values.abs(), src_, w.abs(), ro,
+                                    dtype=torch.float64)
+        else:
+            push = lambda t: spmv_reduce_push(values, src_, w, ro, op="min",
+                                              mul="plus", tile=t)
+        default = push(DEFAULT_TILE)
+        nnz = int(ro[-1] - ro[0])
+        per_tile = []
+        for tile in TILES:
+            out = push(tile)
+            torch.cuda.synchronize()
+            if reduce == "sum":
+                err = (out.double() - ref).abs()
+                if not bool((err <= 1e-5 * scale).all()):
+                    raise AssertionError(f"{name}: tile {tile} disagrees "
+                                         f"with the f64 plain version")
+                check = {"max_abs_err_vs_f64": float(err.max()),
+                         "max_abs_diff_vs_default": float(
+                             (out - default).abs().max())}
+            else:
+                if not same_bits(out, default):
+                    raise AssertionError(f"{name}: tile {tile} differs "
+                                         f"from the default tile")
+                check = {"bitwise_vs_default": True}
+            model = push_roofline_check(
+                edge_capacity=nnz, num_segments=ro.shape[0] - 1,
+                reduce=reduce, weight_dtype=str(w.dtype).split(".")[-1],
+                tile=tile, platform=torch.cuda.get_device_name(0))
+            per_tile.append({
+                "tile": tile, "items_per_thread": tile // 256,
+                "device_ms": graph_ms(lambda: push(tile)), **check,
+                "bound_ms": model["bound_time_s"] * 1e3,
+                "blocks": model["blocks"],
+                "smem_bytes": model["smem_bytes"]})
+        fastest = min(per_tile, key=lambda r: r["device_ms"])
+        rows.append({"phase": "tile-sweep", "layout": name, "nnz": nnz,
+                     "rows": ro.shape[0] - 1,
+                     "weight_dtype": str(w.dtype).split(".")[-1],
+                     "tiles": per_tile, "fastest_tile": fastest["tile"],
+                     "timing": "device_ms: 20 pushes replayed from one "
+                               "CUDA graph, inputs warm in L2"})
+    return rows
+
+
+def push_time_by_mode(stream, modes=("off", "full", "full", "off")) -> list:
+    """The device time of the pushes of the bf16 PageRank main path (the
+    session defaults, QUERIES queries at the main path's policy) under
+    each autotune mode in ``modes``, alternated so that a drift of the
+    card's clock shows.  Every push through ``backend.push`` is counted by
+    its layout and whether it is masked; after the run each such class is
+    timed once from a CUDA graph of its first call's inputs (an event pair
+    around an eager push would time the host's launch too, since the
+    host-bound loop leaves the card idle before each push), and count ×
+    time is summed apart for the full-graph layouts (the exact sweeps and
+    the ``b_in`` pass) and the summaries' E_K layouts.  ``"full"`` answers
+    from the tuning cache of the run before it."""
+    import itertools
+
+    import repro_torch
+    from repro_torch.core import backend as B
+    from repro_torch.core.policies import periodic_exact
+
+    real, seen = B.push, {}
+
+    def counted(values, layout, **kwargs):
+        key = (id(layout), kwargs.get("mask") is not None)
+        if key not in seen:
+            # held here, so that no later layout takes this one's id
+            seen[key] = [0, layout, values.clone(), kwargs]
+        seen[key][0] += 1
+        return real(values, layout, **kwargs)
+
+    rows = []
+    for mode in modes:
+        seen.clear()
+        B.push = counted
+        try:
+            sess = repro_torch.session(
+                stream, weight_dtype="bfloat16", autotune=mode,
+                on_query=periodic_exact(QUERIES - 1))
+            for _ in itertools.islice(sess.play(), QUERIES):
+                pass
+        finally:
+            B.push = real
+        pushes = {False: 0, True: 0}
+        ms = {False: 0.0, True: 0.0}
+        for count, layout, values, kwargs in seen.values():
+            summary = layout.weight_mode == "summary"
+            pushes[summary] += count
+            ms[summary] += count * graph_ms(
+                lambda: real(values, layout, **kwargs))
+        rows.append({
+            "phase": "tuned-narrow-push-time", "autotune": mode,
+            "tiles": layout_tiles(sess.engine),
+            "full_layout_pushes": pushes[False],
+            "full_layout_push_ms": ms[False],
+            "summary_pushes": pushes[True], "summary_push_ms": ms[True],
+            "push_ms": ms[False] + ms[True],
+            "timing": "per layout and mask, 20 pushes replayed from one "
+                      "CUDA graph, times the pushes made"})
+        del sess
+        seen.clear()
+    return rows
+
+
+def layout_tiles(engine) -> list:
+    """The merge tile stamped on each of the engine's layouts."""
+    return [lay.merge_tile for lay in engine.edge_layouts()]
+
+
+def tuned_sessions(stream, plan, main_rows, dev, rng) -> tuple:
+    """The sessions with both knobs, each with the kernel counts set to 0
+    just before it and read just after: PageRank at the session defaults
+    with ``weight_dtype="bfloat16"`` and ``autotune="full"`` (12 queries,
+    RBO@4000 against the f64 exact replay, beside the f32 main path's);
+    then ``"cached"`` after ``load_cache`` of what ``full`` saved (no timed
+    run, the same tiles); SSSP over streamed lengths that bf16 holds
+    exactly, bitwise the f32 session query for query; the 19-ticket
+    serving plan with both knobs, its min/max answers bitwise the f32
+    run's and its sum answers within SERVE_SUM_L1 of them.  Returns (rows,
+    {path: launches})."""
+    import itertools
+    import tempfile
+
+    import repro_torch
+    from repro_torch.core.policies import periodic_exact
+    from repro_torch.kernels.spmv import autotune as AT
+    from repro_torch.kernels.spmv.kernel import spmv_reduce_push
+
+    rows, by_path = [], {}
+    knobs = dict(weight_dtype="bfloat16", autotune="full")
+    AT.clear_cache()
+    t0 = time.perf_counter()
+    sess, q_rows, launches, _ = drive_main_path(
+        stream, {"inputs": {}, "outputs": {}}, **knobs)
+    wall = time.perf_counter() - t0
+    engine = sess.engine
+    runs, tiles = engine.autotune_runs, layout_tiles(engine)
+    if runs < 1:
+        raise AssertionError("autotune='full' timed no tile")
+    if engine.edge_layouts()[0].weight.dtype != torch.bfloat16:
+        raise AssertionError("the PageRank layout is not bf16")
+    f32_rbo = {r["query"]: r.get("rbo_vs_exact") for r in main_rows}
+    for r in q_rows:
+        r["phase"] = "tuned-narrow-pagerank"
+        r["f32_rbo_vs_exact"] = f32_rbo.get(r["query"])
+        if r.get("rbo_vs_exact", 1.0) < RBO_FLOOR:
+            raise AssertionError(f"bf16 query {r['query']}: RBO@4000 "
+                                 f"{r['rbo_vs_exact']} < {RBO_FLOOR}")
+    rows += q_rows
+    by_path["tuned-narrow"] = {"spmv_push": launches}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "autotune_cache.json"
+        AT.save_cache(path)
+        entries = AT.cache_entries()
+        AT.clear_cache()
+        loaded = AT.load_cache(path)
+    del sess, engine
+    reset_launch_counts()
+    cached = repro_torch.session(stream, weight_dtype="bfloat16",
+                                 autotune="cached")
+    if cached.engine.autotune_runs or layout_tiles(cached.engine) != tiles:
+        raise AssertionError(f"'cached' after load_cache: "
+                             f"{cached.engine.autotune_runs} runs, tiles "
+                             f"{layout_tiles(cached.engine)} != {tiles}")
+    by_path["tuned-narrow"]["spmv_push"] += launch_counts()["spmv_push"]
+    rows.append({"phase": "tuned-narrow-cache", "full_timed_runs": runs,
+                 "full_wall_s": wall, "cache_entries": entries,
+                 "loaded": loaded, "cached_timed_runs": 0,
+                 "tiles_full": tiles,
+                 "tiles_cached": layout_tiles(cached.engine)})
+    del cached
+    # SSSP over lengths bf16 holds exactly, streamed with each chunk
+    policy = periodic_exact(TRAVERSAL_EXACT_EVERY)
+    chunks = list(itertools.islice(iter(stream), TRAVERSAL_QUERIES))
+    lens = [rng.choice([0.5, 1.0, 1.5, 2.0, 3.0], len(s)).astype(np.float32)
+            for s, _ in chunks]
+    answers, sssp_runs = {}, {}
+    for wd in (None, "bfloat16"):
+        reset_launch_counts()
+        s = repro_torch.session(
+            stream, "sssp", sources=(0,),
+            r=TRAVERSAL_R, on_query=policy, weight_dtype=wd,
+            autotune="off" if wd is None else "full")
+        out = [s.scores.copy()]
+        for (a, b), w in zip(chunks, lens):
+            s.engine.register_add_edges(a, b, w)
+            out.append(s.query().scores)
+        answers[wd] = out
+        sssp_runs[wd] = (launch_counts()["spmv_reduce_push"],
+                         [st.action for st in s.stats_log],
+                         layout_tiles(s.engine))
+        if wd is not None:
+            by_path["tuned-narrow"]["spmv_reduce_push"] = sssp_runs[wd][0]
+            if s.engine.edge_layouts()[0].weight.dtype != torch.bfloat16:
+                raise AssertionError("the SSSP layout is not bf16")
+        del s
+    for q, (a, b) in enumerate(zip(answers[None], answers["bfloat16"])):
+        if not np.array_equal(a.view(np.uint8), b.view(np.uint8)):
+            raise AssertionError(f"bf16 SSSP query {q - 1} differs from f32")
+    rows.append({"phase": "tuned-narrow-sssp", "queries": len(chunks),
+                 "actions": sssp_runs["bfloat16"][1],
+                 "bitwise_vs_f32_session": True,
+                 "reached": int(np.isfinite(answers[None][-1]).sum()),
+                 "launches": sssp_runs["bfloat16"][0],
+                 "f32_launches": sssp_runs[None][0],
+                 "tiles": sssp_runs["bfloat16"][2]})
+    # the serving plan with both knobs, against the f32 run of the plan
+    s_rows, s_tickets, srv, counts, s_wall, _ = drive_serving(
+        stream, plan, dev, **knobs)
+    by_path["tuned-narrow-serving"] = counts
+    st = srv.stats
+    tiles = {f"{name}@B={b}": tile
+             for (name, b), tile in srv.engine._tiles.items()}
+    del srv
+    _, f_tickets, f_srv, _, _, _ = drive_serving(stream, plan, dev)
+    del f_srv
+    sum_l1 = 0.0
+    for t, f in zip(s_tickets, f_tickets):
+        if t.algorithm in SEMIRING_OF:
+            if not np.array_equal(t.result.view(np.uint8),
+                                  f.result.view(np.uint8)):
+                raise AssertionError(f"ticket {t.ticket_id} ({t.algorithm}):"
+                                     f" bf16 answer differs from f32")
+        else:
+            l1 = float(np.abs(t.result.astype(np.float64) - f.result).sum()
+                       / max(np.abs(f.result.astype(np.float64)).sum(),
+                             1e-30))
+            sum_l1 = max(sum_l1, l1)
+    if sum_l1 > SERVE_SUM_L1:
+        raise AssertionError(f"a sum lane's bf16 answer is {sum_l1} (L1, "
+                             f"relative) from f32")
+    rows.append({"phase": "tuned-narrow-serving", "queries": len(s_tickets),
+                 "waves": st.waves, "wall_s": s_wall,
+                 "queries_per_s": st.queries_per_s,
+                 "p50_wave_latency_s": st.p50_wave_latency_s,
+                 "launches": counts, "lane_tiles": tiles,
+                 "autotune_runs": AT.run_count(),
+                 "min_max_answers_bitwise_vs_f32": True,
+                 "sum_answers_l1_rel_vs_f32_max": sum_l1})
+    rows += push_time_by_mode(stream)
+    AT.clear_cache()
+    return rows, by_path
+
+
 def attention_bound(*, b, sq, skv, h, kv, hd, vd, pairs, elt=2) -> dict:
     """The least device time of one attention call: its bytes (q, the K/V
     slots it needs, the output, each once, ``elt`` bytes an element) over
@@ -726,9 +1144,10 @@ def snapshot(engine) -> dict:
             "active_prev": engine.active_prev.clone()}
 
 
-def drive_main_path(stream, holder: dict):
-    """The port's main path through its front door; returns the session,
-    per-query rows and the kernel launches it made."""
+def drive_main_path(stream, holder: dict, **overrides):
+    """The port's main path through its front door (``overrides`` go to
+    the session); returns the session, per-query rows and the kernel
+    launches it made."""
     import repro_torch
     from repro_torch.core.algorithm import Action
     from repro_torch.core.policies import periodic_exact
@@ -750,7 +1169,7 @@ def drive_main_path(stream, holder: dict):
     spmv_push.launches = spmv_reduce_push.launches = 0
     t0 = time.perf_counter()
     sess = repro_torch.session(stream, on_query=on_query,
-                               on_query_result=on_query_result)
+                               on_query_result=on_query_result, **overrides)
     holder["engine"] = sess.engine
     init = sess.stats_log[0]
     expected = init.iterations
@@ -1363,7 +1782,7 @@ def f64_wave(cap, hot, bank, state, row_mask):
     bank = {k: v.double() if v.dtype == torch.float32 else v
             for k, v in bank.items()}
     real = B.spmv_push_batched
-    B.spmv_push_batched = lambda v, s, w, ro, m=None, mul="times": \
+    B.spmv_push_batched = lambda v, s, w, ro, m=None, mul="times", **_: \
         spmv_push_batched_plain(v, s, w, ro, m, mul=mul, dtype=torch.float64)
     try:
         layouts = tuple(B.build_layout(state, weight=w, reverse=r, semiring=s)
@@ -2738,16 +3157,18 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
 
     # ---- 1. build -----------------------------------------------------------
-    # one nvcc per source, started together
+    # one nvcc per source and merge tile, started together
     t0 = time.perf_counter()
-    sources = (K.SOURCE, K.REDUCE_SOURCE, FA.SOURCE, DA.SOURCE)
-    with ThreadPoolExecutor(len(sources)) as pool:
-        libs = list(pool.map(build_library, sources))
+    jobs = [(source, K.tile_defines(tile))
+            for source in (K.SOURCE, K.REDUCE_SOURCE) for tile in K.TILES]
+    jobs += [(FA.SOURCE, ()), (DA.SOURCE, ())]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        libs = list(pool.map(lambda job: build_library(*job), jobs))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_flags": " ".join(NVCC_FLAGS),
-          "libraries": [{"library": lib.name, "ptxas": [
-              ln.strip() for ln in lib.with_suffix(".log").read_text()
-              .splitlines() if "ptxas" in ln or "spill" in ln]} for lib in libs]})
+          "libraries": [{"library": lib.name, "defines": list(defines),
+                         **ptxas_summary(lib, full=not defines)}
+                        for lib, (_, defines) in zip(libs, jobs)]})
 
     # ---- 2. kernel check at the full-graph shapes ---------------------------
     spec = DATASETS["synth-web-lg"]
@@ -2795,12 +3216,24 @@ def main() -> int:
     for row in batched_rows:
         emit(row)
     torch.cuda.empty_cache()
+    # every narrow-weight entry, then every built tile against the default
+    narrow_sums, narrow_reduces, narrow_batched = narrow_checks(
+        src, dst, spec.nodes, dev, rng, hot)
+    for row in narrow_sums + narrow_reduces + narrow_batched:
+        emit(row)
+    batched_rows += narrow_batched
+    torch.cuda.empty_cache()
+    tile_rows = tile_sweep(src, dst, spec.nodes, dev, rng)
+    for row in tile_rows:
+        emit(row)
+    torch.cuda.empty_cache()
 
     # ---- 3. main path ---------------------------------------------------------
     stream = build_stream(src, dst, StreamConfig(
         stream_size=spec.stream_size, num_queries=50))
     holder = {"inputs": {}, "outputs": {}}
     sess, rows, launches, wall = drive_main_path(stream, holder)
+    main_rows = rows
     for row in rows:
         emit(row)
     emit({"phase": "main-path-total", "queries": QUERIES, "wall_s": wall,
@@ -2912,6 +3345,12 @@ def main() -> int:
     for row in rows:
         emit(row)
 
+    # ---- 6d. narrow weights and tuned tiles through the front doors -------
+    rows, paths = tuned_sessions(stream, plan, main_rows, dev, rng)
+    by_path.update(paths)
+    for row in rows:
+        emit(row)
+
     for row in attention_bounds():
         emit(row)
     del stream, src, dst
@@ -2943,7 +3382,7 @@ def main() -> int:
 
     def entries(rows):
         """Each entry's checks: the worst error and the slowest device time
-        over its shapes."""
+        over its shapes, and its bound and plain time at that shape."""
         out = {}
         for r in rows:
             e = out.setdefault(r["entry"], {"entry": r["entry"], "checks": 0,
@@ -2951,9 +3390,17 @@ def main() -> int:
                                             "kernel_device_ms": 0.0})
             e["checks"] += 1
             e["max_abs_err"] = max(e["max_abs_err"], r["max_abs_err"])
-            e["kernel_device_ms"] = max(e["kernel_device_ms"],
-                                        r["kernel_device_ms"])
+            if r["kernel_device_ms"] >= e["kernel_device_ms"]:
+                e.update(kernel_device_ms=r["kernel_device_ms"],
+                         bound_ms=r["bound_ms"], plain_ms=r["plain_ms"],
+                         shape=r["shape"])
         return sorted(out.values(), key=lambda e: e["entry"])
+
+    def tiles(reduce):
+        """Each tile's device time on the sweep's layouts of ``reduce``."""
+        return {r["layout"]: {str(t["tile"]): t["device_ms"]
+                              for t in r["tiles"]}
+                for r in tile_rows if ("min_plus" in r["layout"]) == reduce}
 
     def total(kernel):
         """A kernel's launches over the graph paths, with the launches of
@@ -2971,24 +3418,26 @@ def main() -> int:
         "replaces": "src/repro/kernels/spmv/kernel.py:305",
         **total("spmv_push"),
         "check": "pass",
-        "max_abs_err": max(c["max_abs_err"] for c in checks),
+        "max_abs_err": max(c["max_abs_err"] for c in checks + narrow_sums),
         "ms": main_check["kernel_ms"], "plain_ms": main_check["plain_ms"],
         "bound_ms": main_check["bound_ms"],
         "bound_by": main_check["bound_by"],
         "library_ms": main_check["library_ms"],
-        "entries": entries(checks + entry_sum_rows)}, {
+        "entries": entries(checks + entry_sum_rows + narrow_sums),
+        "tile_device_ms": tiles(False)}, {
         "name": "spmv_reduce_push", "route": "cuda",
         "source": "src/repro_torch/kernels/spmv/csrc/spmv_reduce_push.cu",
         "replaces": "src/repro/kernels/spmv/kernel.py:338",
         **total("spmv_reduce_push"),
         "check": "pass (bitwise)",
-        "max_abs_err": max(c["max_abs_err"]
-                           for c in reduce_rows + entry_reduce_rows),
+        "max_abs_err": max(c["max_abs_err"] for c in
+                           reduce_rows + entry_reduce_rows + narrow_reduces),
         "ms": reduce_main["kernel_ms"], "plain_ms": reduce_main["plain_ms"],
         "bound_ms": reduce_main["bound_ms"],
         "bound_by": reduce_main["bound_by"],
         "library_ms": reduce_main["library_ms"],
-        "entries": entries(reduce_rows + entry_reduce_rows)}, {
+        "entries": entries(reduce_rows + entry_reduce_rows + narrow_reduces),
+        "tile_device_ms": tiles(True)}, {
         "name": "spmv_push_batched", "route": "cuda",
         "source": "src/repro_torch/kernels/spmv/csrc/spmv_push.cu",
         "replaces": "src/repro/kernels/spmv/kernel.py:458",
@@ -2997,7 +3446,7 @@ def main() -> int:
         "max_abs_err": max(c["max_abs_err"] for c in sums),
         "ms": sums[0]["kernel_ms"], "plain_ms": sums[0]["plain_ms"],
         "bound_ms": sums[0]["bound_ms"], "bound_by": sums[0]["bound_by"],
-        "library_ms": sums[0]["library_ms"]}, {
+        "library_ms": sums[0]["library_ms"], "entries": entries(sums)}, {
         "name": "spmv_reduce_push_batched", "route": "cuda",
         "source": "src/repro_torch/kernels/spmv/csrc/spmv_reduce_push.cu",
         "replaces": "src/repro/kernels/spmv/kernel.py:517",
@@ -3006,7 +3455,7 @@ def main() -> int:
         "max_abs_err": max(c["max_abs_err"] for c in mins),
         "ms": mins[0]["kernel_ms"], "plain_ms": mins[0]["plain_ms"],
         "bound_ms": mins[0]["bound_ms"], "bound_by": mins[0]["bound_by"],
-        "library_ms": mins[0]["library_ms"]}, *[{
+        "library_ms": mins[0]["library_ms"], "entries": entries(mins)}, *[{
         "name": row["kernel"], "route": "cuda", "source": source,
         "replaces": replaces, "launches": lm_counts[row["kernel"]],
         "check": "pass (f32 and bf16 vs the f64 plain version)",

@@ -210,7 +210,10 @@ def session(
     ``async_rebuild=True`` serves each query from the last built epoch
     while the next epoch's apply and layout sorts run behind it
     (:mod:`repro_torch.core.epoch`); updates become visible one query
-    later.
+    later.  ``autotune="cached"``/``"full"`` tunes each layout's
+    merge-path tile (:mod:`repro_torch.kernels.spmv.autotune`) and
+    ``weight_dtype="bfloat16"``/``"float16"`` stores the f32 semirings'
+    edge weights narrow (the kernels accumulate in f32).
     """
     init_src, init_dst, stream, node_hint, edge_hint = _resolve_source(
         graph_source)
@@ -286,7 +289,9 @@ def serve_session(
 
     ``algorithm``/``config``/``overrides`` configure the engine as in
     :func:`session` (``device``, capacities, hot-set knobs,
-    ``quality_target`` with the same knob precedence, ``async_rebuild``);
+    ``quality_target`` with the same knob precedence, ``async_rebuild``,
+    ``autotune`` and ``weight_dtype``, the lanes' tiles tuned for
+    ``slots`` batch rows);
     ``algorithm`` only sets the workload of the initial exact compute, since
     each served query carries its own.  Under ``quality_target`` each lane
     runs its own controller; under ``async_rebuild`` every wave serves one

@@ -11,7 +11,10 @@ per-edge weight baked in.  Sorting is the amortized cost: the engine builds
 a layout once per applied update batch and reuses it across queries.
 
 Dispatch is by the device of ``values``, not by a backend name.  Values
-with weights stored in the semiring's dtype go to a hand-written kernel,
+with weights stored in the semiring's dtype, or in bf16/f16 under an f32
+semiring (``weight_dtype=``: narrow edge weights, widened to f32 at the
+product), go to a hand-written kernel at the layout's merge tile
+(``EdgeLayout.merge_tile``, stamped by the engine's tuner),
 ``[N]`` values to the single form and ``[B, N]`` values (B queries through
 one layout, the serving engine's waves) to the batched form:
 
@@ -26,9 +29,9 @@ one layout, the serving engine's waves) to the batched form:
   :func:`~repro_torch.kernels.spmv.kernel.spmv_reduce_push_batched`).
 
 A CUDA tensor launches the kernel and a CPU tensor takes its plain
-version.  Compressed weights and the semirings the reference's Pallas path
-refuses too (sums outside f32, min/max outside f32 and i32) take the plain
-segment reduce on the CPU and raise ``NotImplementedError`` on the card.
+version.  The semirings the reference's Pallas path refuses too (sums
+outside f32, min/max outside f32 and i32) take the plain segment reduce on
+the CPU and raise ``NotImplementedError`` on the card.
 The sharded layout and its collective push are not ported yet.
 """
 
@@ -46,7 +49,8 @@ from repro_torch.graph.graph import GraphState, inv_out_degree
 from repro_torch.kernels.spmv.kernel import (REDUCE_ENTRIES, spmv_push,
                                              spmv_push_batched,
                                              spmv_reduce_push,
-                                             spmv_reduce_push_batched)
+                                             spmv_reduce_push_batched,
+                                             weight_dtypes)
 
 #: stream padding granularity, kept from the JAX package so layouts match
 #: it byte for byte (the CUDA kernel itself reads only each row's range)
@@ -70,6 +74,9 @@ class EdgeLayout:
     the position within the destination run, baked for min/max layouts.
     ``weight_mode``/``reverse``/``semiring`` record how the layout was built
     so a mismatched consumer is rejected (:func:`require_layout`).
+    ``merge_tile`` is the kernels' merge-path tile for this layout (``None``
+    = the default), stamped by the engine's tuner when it builds the
+    layout, so every push through the layout takes it.
     """
 
     src: torch.Tensor          # int32[E_pad]
@@ -83,6 +90,7 @@ class EdgeLayout:
     reverse: bool = False
     pad_chunk: int = CHUNK
     semiring: str = "plus_times"
+    merge_tile: Optional[int] = None
 
     @property
     def num_segments(self) -> int:
@@ -198,6 +206,8 @@ def build_layout(
     ``length``, the latter from ``lengths``, else ``state.edge_len``, else
     1).  ``reverse=True`` builds the transposed layout.  Degrees are baked
     in, so a layout is valid until the next applied update batch.
+    ``weight_dtype`` stores the weights as bfloat16/float16 (f32 semirings
+    only).
     """
     record_trace("build_layout")
     if weight == "length" and lengths is None:
@@ -226,7 +236,8 @@ def build_layout(
 def summary_layout(summary, *, chunk: int = CHUNK,
                    semiring: str = "plus_times") -> EdgeLayout:
     """Propagation layout over a summary's compacted, pre-sorted E_K
-    buffer (valid edges first, padding at the ``K_cap`` sentinel)."""
+    buffer (valid edges first, padding at the ``K_cap`` sentinel), at
+    the kernels' default merge tile."""
     record_trace("summary_layout")
     s = resolve_semiring(semiring)
     if summary.semiring != s.name:
@@ -294,8 +305,8 @@ def push(
     no unmasked in-edge get the ⊕-identity.  ``mask`` filters edges in the
     layout's sorted order and is shared by the rows.  A CUDA tensor
     launches the semiring's kernel, single or batched (see the module
-    docstring), one launch per call; what has no kernel raises
-    ``NotImplementedError`` there.
+    docstring), at the layout's merge tile, one launch per call; what has
+    no kernel raises ``NotImplementedError`` there.
     """
     s = resolve_semiring(semiring)
     if not isinstance(layout, EdgeLayout):
@@ -315,21 +326,22 @@ def push(
         record_trace("push[batched]")
     f32_sum = (s.add, s.dtype) == ("sum", "float32")
     reduce_entry = (s.add, s.mul, s.torch_dtype) in REDUCE_ENTRIES
-    stored = layout.weight.dtype == s.torch_dtype
+    # the semiring's own dtype, or bf16/f16 under an f32 semiring
+    stored = layout.weight.dtype in weight_dtypes(s.torch_dtype)
     if stored and f32_sum:
         fn = spmv_push_batched if batched else spmv_push
         return fn(values, layout.src, layout.weight, layout.row_offsets, mask,
-                  mul=s.mul)
+                  mul=s.mul, tile=layout.merge_tile)
     if stored and reduce_entry:
         fn = spmv_reduce_push_batched if batched else spmv_reduce_push
         return fn(values, layout.src, layout.weight, layout.row_offsets,
-                  mask, op=s.add, mul=s.mul)
+                  mask, op=s.add, mul=s.mul, tile=layout.merge_tile)
     if values.is_cuda:
         raise NotImplementedError(
-            "compressed edge weights on the GPU are not ported yet (ROADMAP "
-            "queue 1 entry 14)" if not stored else
-            f"semiring {s.name!r} has no GPU kernel: the kernels sum in f32 "
-            f"and take min/max in f32 or i32")
+            f"semiring {s.name!r} over {layout.weight.dtype} weights has no "
+            f"GPU kernel: the kernels sum in f32 and take min/max in f32 or "
+            f"i32, with weights in the semiring's dtype or, under f32, "
+            f"bf16/f16")
     return gather_push(layout, values, layout.num_segments,
                        weight=layout.weight, mask=mask, semiring=s)
 

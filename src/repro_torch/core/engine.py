@@ -16,8 +16,12 @@ control`): the approximate step also computes a drift estimate, read with
 its other stats, and a controller steers the effective r/Δ and asks for
 exact refreshes.  ``async_rebuild`` serves queries from epoch snapshots
 (:mod:`repro_torch.core.epoch`) while the next epoch's apply and layout
-sorts run on a side CUDA stream.  Sharding, autotuning and compressed
-weights are not ported yet: their knobs raise.
+sorts run on a side CUDA stream.  ``autotune`` picks each layout's
+merge-path tile (:mod:`repro_torch.kernels.spmv.autotune`) and
+``weight_dtype`` stores the f32 semirings' full-graph edge weights as
+bfloat16/float16; both are resolved at layout-build time, so every sweep
+through a layout inherits them.  Sharding is not ported yet: its knobs
+raise.
 """
 
 from __future__ import annotations
@@ -39,8 +43,10 @@ from repro_torch.core.control import QualityController, default_probe_ids
 from repro_torch.core.epoch import (AsyncRebuildPipeline, EpochSnapshot,
                                     snapshot_counts)
 from repro_torch.core.hotset import select_hot_set
+from repro_torch.core.semiring import resolve_semiring
 from repro_torch.device import resolve_device
 from repro_torch.graph import graph as G
+from repro_torch.kernels.spmv import autotune as AT
 
 
 @dataclass
@@ -74,9 +80,18 @@ class EngineConfig:
     backend: str = "auto"
     # where the engine's tensors live; None = the card (raises without one)
     device: Optional[str] = None
-    # not ported yet (ROADMAP queue 1): must keep these defaults
+    # the kernels' merge-path tile per full-graph layout: "off" (the
+    # default tile), "cached" (a cached tuning, else the default) or "full"
+    # (time every tile once per key on the first layout built for it, on
+    # the card); tuned at the first build of a layout spec, never on an
+    # async build's stream; summaries keep the default tile.
+    # engine.autotune_runs counts the timed searches.
     autotune: str = "off"
+    # the full-graph layouts' edge-weight storage: None (the semiring's
+    # dtype) or "bfloat16"/"float16" (f32 semirings only; integer algebras
+    # keep theirs).  Accumulation stays f32; summary weights stay f32.
     weight_dtype: Optional[str] = None
+    # not ported yet (ROADMAP queue 1 entry 15): must keep these defaults
     mesh: Optional[object] = None
     mesh_axes: Optional[Tuple[str, ...]] = None
     num_shards: Optional[int] = None
@@ -104,8 +119,7 @@ class EngineConfig:
 #: ROADMAP queue 1 entry that ports it)
 _NOT_PORTED = {
     "mesh": (None, 15), "num_shards": (None, 15),
-    "shard_hot_edge_capacity": (None, 15), "autotune": ("off", 14),
-    "weight_dtype": (None, 14),
+    "shard_hot_edge_capacity": (None, 15),
 }
 
 
@@ -115,6 +129,9 @@ def _check_config(config: EngineConfig) -> None:
             raise NotImplementedError(
                 f"EngineConfig.{name}={getattr(config, name)!r} is not "
                 f"ported to PyTorch yet (ROADMAP queue 1 entry {entry})")
+    if config.autotune not in AT.MODES:
+        raise ValueError(f"EngineConfig.autotune={config.autotune!r}; "
+                         f"expected one of {AT.MODES}")
     if config.backend != "auto":
         raise ValueError(
             f"EngineConfig.backend={config.backend!r}: the PyTorch port has "
@@ -220,6 +237,13 @@ class VeilGraphEngine:
         # every sweep until the next one
         self._edge_layouts: Optional[Tuple[B.EdgeLayout, ...]] = None
         self.layout_builds = 0
+        # the batch rows of this engine's pushes, part of each tuning key:
+        # 1 here, the slots under a serving engine
+        self.autotune_batch_hint = 1
+        # tuned merge tiles by (semiring, batch hint), resolved at the first
+        # build of a spec, on the current stream
+        self._tiles: Dict[Tuple[str, int], int] = {}
+        self._in_build = False
         self.deg_prev = torch.zeros(config.node_capacity, dtype=torch.int32,
                                     device=self.device)
         self.active_prev = torch.zeros(config.node_capacity, dtype=torch.bool,
@@ -400,9 +424,76 @@ class VeilGraphEngine:
                            spec: Tuple) -> B.EdgeLayout:
         """The sorted layout of one normalized ``(weight, reverse,
         semiring)`` spec over ``state``: the one layout constructor of the
-        engine's cache and of the serving engine's spec-keyed cache."""
+        engine's cache, of the serving engine's spec-keyed cache and of the
+        epoch snapshots' builds.  It stamps the tuned merge tile and stores
+        the weights in the configured ``weight_dtype``."""
         w, rev, s = spec
-        return B.build_layout(state, weight=w, reverse=rev, semiring=s)
+        layout = B.build_layout(state, weight=w, reverse=rev, semiring=s,
+                                weight_dtype=self._weight_dtype_for(s))
+        tile = self._tuned_geometry(s, layout)
+        return (layout if tile is None
+                else dataclasses.replace(layout, merge_tile=tile))
+
+    def _tuned_geometry(self, semiring,
+                        layout: B.EdgeLayout) -> Optional[int]:
+        """The merge tile of one layout spec's semiring, resolved at its
+        first layout build and kept for the engine's life, so every push
+        through its full-graph layouts (exact sweeps, ``b_in``, batched)
+        takes it; ``None`` (the kernels' default) when autotuning is off.
+        Summaries' E_K layouts keep the default tile.  A ``"full"`` tuning
+        times the candidates on ``layout``, the first one built, and on
+        the current stream, so it must never first run inside an async
+        build (:meth:`_resolve_tiles` runs it before one)."""
+        cfg = self.config
+        if cfg.autotune == "off":
+            return None
+        s = resolve_semiring(semiring)
+        key = (s.name, self.autotune_batch_hint)
+        tile = self._tiles.get(key)
+        if tile is None:
+            if self._in_build:
+                raise RuntimeError(
+                    f"merge tile of {s.name!r} at batch "
+                    f"{self.autotune_batch_hint} not resolved before an "
+                    f"async build")
+            tile = self._tiles[key] = AT.tune_for_push(
+                edge_capacity=cfg.edge_capacity,
+                num_segments=cfg.node_capacity,
+                batch=self.autotune_batch_hint, dtype=s.dtype, reduce=s.add,
+                weight_dtype=self._weight_dtype_for(s), mode=cfg.autotune,
+                device=self.device,
+                sample=(layout.src, layout.weight, layout.row_offsets))
+        return tile
+
+    def _resolve_tiles(self) -> None:
+        """Tune every spec an async build sorts whose tile is not resolved
+        yet, here on the current stream and on the served snapshot's
+        layout of the spec, before the build's stream takes over."""
+        if self.config.autotune == "off":
+            return
+        snap = self._pipeline.current
+        for spec in self._async_specs:
+            s = resolve_semiring(spec[2])
+            if (s.name, self.autotune_batch_hint) not in self._tiles:
+                self._tuned_geometry(
+                    s, snap.layout_for(spec, self._build_spec_layout))
+
+    def _weight_dtype_for(self, semiring) -> Optional[str]:
+        """The configured weight storage for an f32 semiring; integer
+        algebras (``min_min`` labels) keep their own dtype, so that a
+        mixed-algebra algorithm is not refused."""
+        wd = self.config.weight_dtype
+        if wd is None:
+            return None
+        if resolve_semiring(semiring).dtype != "float32":
+            return None
+        return wd
+
+    @property
+    def autotune_runs(self) -> int:
+        """Timed tile searches so far in this process (cache answers and
+        ``"cached"`` misses excluded)."""
+        return AT.run_count()
 
     def _synchronize(self) -> None:
         if self.device.type == "cuda":
@@ -635,6 +726,7 @@ class VeilGraphEngine:
         stream, between two timing events.  An all-unresolved removal
         batch mutates nothing and dispatches no epoch."""
         pipe = self._pipeline
+        self._resolve_tiles()
         side, events = self._build_stream, None
         if side is not None:
             side.wait_stream(torch.cuda.current_stream(self.device))
@@ -642,17 +734,22 @@ class VeilGraphEngine:
                       torch.cuda.Event(enable_timing=True))
         with (torch.cuda.stream(side) if side is not None
               else contextlib.nullcontext()):
-            if events is not None:
-                events[0].record(side)
-            applied, requested, resolved = self._apply_pending(preserve=True)
-            snap = None
-            if applied:
-                snap = self._make_snapshot(
-                    pipe.latest_epoch + 1, applied=applied,
-                    removals_requested=requested,
-                    removals_resolved=resolved)
-            if events is not None:
-                events[1].record(side)
+            self._in_build = True
+            try:
+                if events is not None:
+                    events[0].record(side)
+                applied, requested, resolved = self._apply_pending(
+                    preserve=True)
+                snap = None
+                if applied:
+                    snap = self._make_snapshot(
+                        pipe.latest_epoch + 1, applied=applied,
+                        removals_requested=requested,
+                        removals_resolved=resolved)
+                if events is not None:
+                    events[1].record(side)
+            finally:
+                self._in_build = False
         if snap is not None:
             snap.events = events
             pipe.dispatch(snap)

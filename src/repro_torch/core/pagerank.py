@@ -180,7 +180,9 @@ class SummaryBuffers:
     destination.  ``b_in[z]`` is the frozen big-vertex contribution.
     ``overflow`` is True if |K| or |E_K| exceeded a capacity: the caller
     must fall back to exact recomputation.  ``weight_mode``/``semiring``
-    record how ``ek_w``/``b_in`` were baked.
+    record how ``ek_w``/``b_in`` were baked.  ``ek_w`` stays in the
+    semiring's dtype whatever the full layout stores (as in the
+    reference).
     """
 
     hot_ids: torch.Tensor         # int32[K_cap]
@@ -242,7 +244,7 @@ def build_summary(
         # cannot diverge from the b_in boundary pass
         lengths = _set_drop(
             torch.full((e_cap,), s_zero, dtype=w_dtype, device=dev),
-            layout.order, layout.weight)
+            layout.order, layout.weight.to(w_dtype))
 
     e_src, e_dst = (state.dst, state.src) if reverse else (state.src, state.dst)
     src_hot = hot_mask[e_src]

@@ -4,8 +4,10 @@ Each ``csrc/*.cu`` of a kernel family is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, at first use,
 into ``build/`` beside the family's ``kernel.py`` (the parent of its
 ``csrc/``).  A build is keyed by a hash of its source, the local headers it
-includes (``#include "..."``) and the flags, so an edited source builds
-anew and an unchanged one is loaded as it is.  The
+includes (``#include "..."``) and the flags, its ``-D`` defines included
+(one library per define set, e.g. per merge-path tile of the SpMV
+sources), so an edited source builds anew and an unchanged one is loaded
+as it is.  The
 compiler's output (``-Xptxas -v``: registers, shared memory, spills) is
 kept beside the library as ``.log``.  Libraries are loaded with ``ctypes``;
 nothing here runs when a module is imported.
@@ -49,19 +51,21 @@ def _key_bytes(source: Path) -> bytes:
                            for h in headers)
 
 
-def build_library(source: Path) -> Path:
+def build_library(source: Path, defines: tuple = ()) -> Path:
     """Compile one ``csrc/*.cu`` into a shared library unless a build of
     this exact source, its headers and the flag set exists; returns its
-    path."""
+    path.  ``defines`` are extra preprocessor defines (``"NAME=value"``
+    strings, passed as ``-D``)."""
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
     key = hashlib.sha256(_key_bytes(source)
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                         + " ".join(flags).encode()).hexdigest()[:16]
     out_dir = source.resolve().parent.parent / "build"  # <family>/build
     lib = out_dir / f"lib{source.stem}_{key}.so"
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f"{lib.name}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+    proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(source)],
                           capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on {source.name} with exit code "
@@ -81,10 +85,12 @@ def current_stream(dev) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def load_entry(source: Path, entry: str, argtypes: tuple):
-    """One ``extern "C"`` entry of a source's library, built and loaded once
-    per process; it returns a CUDA error code (``int``, 0 on success)."""
-    fn = getattr(ctypes.CDLL(str(build_library(source))), entry)
+def load_entry(source: Path, entry: str, argtypes: tuple,
+               defines: tuple = ()):
+    """One ``extern "C"`` entry of the library of ``source`` built with
+    ``defines``, built and loaded once per process; it returns a CUDA error
+    code (``int``, 0 on success)."""
+    fn = getattr(ctypes.CDLL(str(build_library(source, defines))), entry)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn

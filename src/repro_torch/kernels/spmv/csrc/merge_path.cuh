@@ -3,12 +3,21 @@
 // of B of them,
 //
 //   out[b, v] = ⊕ over e in [ro[v], ro[v+1]) with keep(e) of
-//               values[b, src[e]] ⊗ w[e]
+//               values[b, src[e]] ⊗ T(w[e])
 //
 // and ⊕'s identity in a row with no kept edge.  A source instantiates
-// merge_launch<T, Add, Mul> with two policies:
+// merge_launch<T, W, Add, Mul> with two policies:
 //   Add: static T identity();  static T apply(T earlier, T later)  (⊕)
 //   Mul: static T apply(T value, T weight)  (⊗: Plus, Times or Min below)
+// W is the stored weight's type: T itself, or bf16 / f16 under f32 values
+// (narrow edge weights, the weight stream at 2 bytes an edge).  A narrow
+// weight is widened exactly to f32 before the ⊗ (__bfloat162float,
+// __half2float: f16 subnormals, such as 1/d_out above d_out = 16384, stay
+// exact), which is what PyTorch's and XLA's promotion of bf16 ⊗ f32 does.
+//
+// The tile, kTile = kThreads * kItems merge items a block, is a build
+// parameter: -DMERGE_ITEMS=k (odd, default 7) builds one library per tile,
+// and the wrapper loads the library of the layout's tuned tile.
 // Every fold below passes the earlier partial first, so a non-commutative
 // rounding (a float sum) or a tie rule (which NaN or which zero a min keeps)
 // is the same on every run.
@@ -33,13 +42,16 @@
 // - A second kernel, launched by the same call, folds each run of block
 //   carries, in block order, into the row the run belongs to (which a later
 //   block has written).
-// Every fold is taken in an order fixed by row_offsets and the compile-time
-// tile alone: there are no atomics, every run gives the same bits, and batch
-// row b takes the same partition and order as a single push (the B = 1
-// launch of the same entry), so each batch row is bitwise equal to it.
+// Every fold is taken in an order fixed by row_offsets and the build's
+// tile alone: there are no atomics, every run of one tile gives the same
+// bits (another tile folds a sum in another order), and batch row b takes
+// the same partition and order as a single push (the B = 1 launch of the
+// same entry), so each batch row is bitwise equal to it.
 
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -48,9 +60,14 @@
 
 namespace merge_path {
 
+#ifndef MERGE_ITEMS
+#define MERGE_ITEMS 7
+#endif
+
 constexpr int kThreads = 256;
-constexpr int kItems = 7;                    // merge items per thread (odd:
+constexpr int kItems = MERGE_ITEMS;          // merge items per thread (odd:
                                              // no bank conflicts in the walk)
+static_assert(kItems % 2 == 1 && kItems > 0, "MERGE_ITEMS must be odd");
 constexpr int kTile = kThreads * kItems;     // merge items per block
 constexpr int kWarps = kThreads / 32;
 constexpr int kFixWarps = 8;                 // fix-up: one warp per carry
@@ -103,6 +120,17 @@ struct Min {
   }
 };
 
+// A stored weight as the ⊗ operand: the same type as the values, or a
+// narrow float widened exactly to f32.
+template <typename W>
+__device__ __forceinline__ W widen(W w) {
+  return w;
+}
+__device__ __forceinline__ float widen(__nv_bfloat16 w) {
+  return __bfloat162float(w);
+}
+__device__ __forceinline__ float widen(__half w) { return __half2float(w); }
+
 // The merge-path coordinate of diagonal d: how many of the N row ends come
 // before it, i.e. the count of rows p with ro[p+1] - ro[0] + p + 1 <= d
 // (strictly increasing in p).  A 32-ary search by one warp: each step
@@ -125,10 +153,10 @@ __device__ __forceinline__ int merge_search(const int32_t* __restrict__ ro,
 }
 
 // kMasked: whether `mask` is given (an unmasked launch loads no mask byte)
-template <typename T, typename Add, typename Mul, bool kMasked>
+template <typename T, typename W, typename Add, typename Mul, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 merge_push_kernel(const T* __restrict__ values, int64_t values_stride,
-                  const int32_t* __restrict__ src, const T* __restrict__ w,
+                  const int32_t* __restrict__ src, const W* __restrict__ w,
                   const int32_t* __restrict__ row_offsets,
                   const uint8_t* __restrict__ mask, T* __restrict__ out,
                   int32_t* __restrict__ carry_row, T* __restrict__ carry_val,
@@ -176,7 +204,8 @@ merge_push_kernel(const T* __restrict__ values, int64_t values_stride,
       const int e = e0 + j;
       T prod = Add::identity();
       if (!kMasked || __ldg(mask + e)) {
-        prod = Mul::apply(__ldg(values + __ldg(src + e)), __ldg(w + e));
+        prod = Mul::apply(__ldg(values + __ldg(src + e)),
+                          static_cast<T>(widen(__ldg(w + e))));
       }
       s_prod[j] = prod;
     }
@@ -291,12 +320,15 @@ carry_fixup_kernel(const int32_t* __restrict__ row_offsets,
 // Launches both passes on `stream`; returns cudaGetLastError() (0 on
 // success).  `scratch` holds int32 carry rows [blocks], then T carry values
 // [batch, blocks] (T is 4 bytes: (batch + 1) * scratch_blocks words).
-template <typename T, typename Add, typename Mul>
+template <typename T, typename W, typename Add, typename Mul>
 int merge_launch(const void* values, int64_t values_stride, const void* src,
                  const void* w, const void* row_offsets, const void* mask,
                  void* out, void* scratch, int64_t scratch_blocks,
                  int num_rows, int64_t num_edges, int batch, void* stream) {
   static_assert(sizeof(T) == 4, "carries are 4-byte words");
+  static_assert(std::is_same<W, T>::value ||
+                    (std::is_same<T, float>::value && sizeof(W) == 2),
+                "weights are T, or bf16 / f16 under f32 values");
   if (num_rows <= 0 || batch <= 0) {
     return static_cast<int>(cudaGetLastError());
   }
@@ -310,11 +342,11 @@ int merge_launch(const void* values, int64_t values_stride, const void* src,
   int32_t* carry_row = static_cast<int32_t*>(scratch);
   T* carry_val = reinterpret_cast<T*>(carry_row + blocks);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto kernel = mask == nullptr ? merge_push_kernel<T, Add, Mul, false>
-                                : merge_push_kernel<T, Add, Mul, true>;
+  auto kernel = mask == nullptr ? merge_push_kernel<T, W, Add, Mul, false>
+                                : merge_push_kernel<T, W, Add, Mul, true>;
   kernel<<<dim3(static_cast<unsigned>(blocks), batch), kThreads, 0, s>>>(
       static_cast<const T*>(values), values_stride,
-      static_cast<const int32_t*>(src), static_cast<const T*>(w),
+      static_cast<const int32_t*>(src), static_cast<const W*>(w),
       static_cast<const int32_t*>(row_offsets),
       static_cast<const uint8_t*>(mask), static_cast<T*>(out), carry_row,
       carry_val, num_rows, static_cast<int32_t>(blocks));

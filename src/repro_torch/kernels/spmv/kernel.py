@@ -7,9 +7,12 @@ CSR matrix (``row_offsets`` into ``src``/``w``),
     out[v] = Σ_{e ∈ [ro[v], ro[v+1])} keep(e) · (values[src[e]] ⊗ w[e])
 
 with ``keep(e) = mask[e]`` when a mask is given and ⊗ ∈ {×, +, min} (×
-by default).  :func:`spmv_reduce_push` is its min/max sibling, ``out[v] =
-⊕_e keep(e) ? values[src[e]] ⊗ w[e]`` with ⊕ ∈ {min, max}, ⊗ ∈ {+, ×,
-min}, f32 or i32 values and the ⊕-identity in rows with no kept edge.
+by default); ``w`` is f32, or bf16/f16 (narrow edge weights, widened to
+f32 at the product as PyTorch's promotion does).
+:func:`spmv_reduce_push` is its min/max sibling, ``out[v] = ⊕_e keep(e) ?
+values[src[e]] ⊗ w[e]`` with ⊕ ∈ {min, max}, ⊗ ∈ {+, ×,
+min}, f32 or i32 values (f32 ones also under bf16/f16 weights) and the
+⊕-identity in rows with no kept edge.
 :func:`spmv_push_batched` and :func:`spmv_reduce_push_batched` push a
 ``[B, N_src]`` matrix of B value rows through the one shared stream in one
 launch, each output row bitwise equal to the single push of its value row.
@@ -26,7 +29,10 @@ atomics: every launch on the same inputs gives the same bits.
 On a CUDA tensor a wrapper launches its kernel or raises; only a tensor
 that lies on the CPU takes the plain version.  Each source is built at
 first use by :mod:`repro_torch.kernels.build`, into ``build/`` beside this
-file; nothing is compiled or loaded when this module is imported.
+file, once per merge-path tile that a call asks for (``tile=``, one of
+:data:`TILES`; :mod:`repro_torch.kernels.spmv.autotune` picks it per
+layout); nothing is compiled or loaded when this module is imported.  The
+plain versions ignore the tile.
 """
 
 from __future__ import annotations
@@ -45,10 +51,12 @@ SOURCE = CSRC / "spmv_push.cu"
 REDUCE_SOURCE = CSRC / "spmv_reduce_push.cu"
 
 #: ⊗ -> the entry of ``csrc/spmv_push.cu`` summing ``values[src] ⊗ w`` in
-#: f32
+#: f32 (f32 weights; :data:`WEIGHT_TAGS` names the narrow-weight entries)
 SUM_ENTRIES = {"times": "spmv_push_batched_f32",
                "plus": "spmv_push_batched_plus_f32",
                "min": "spmv_push_batched_min_f32"}
+#: narrow weight dtype -> the suffix of its entries, which take f32 values
+WEIGHT_TAGS = {torch.bfloat16: "_wbf16", torch.float16: "_wf16"}
 #: (⊕, ⊗, dtype) -> the name of the entry of ``csrc/spmv_reduce_push.cu``
 #: computing it (``spmv_reduce_push_batched_<name>``): every min/max
 #: semiring over f32 or i32
@@ -58,6 +66,14 @@ REDUCE_ENTRIES = {
     for dtype, tag in ((torch.float32, "f32"), (torch.int32, "i32"))}
 #: the kernels' limit on batch rows
 MAX_BATCH = 65535
+#: threads of a merge-path block; a tile is THREADS × an odd number of
+#: merge items a thread (``-DMERGE_ITEMS``)
+THREADS = 256
+#: the tiles (merge items, row ends and edges, a block) the tuner may pick:
+#: 3, 5, 7, 11 and 15 items a thread
+TILES = (768, 1280, 1792, 2816, 3840)
+#: the tile of a layout that names none (7 items a thread)
+DEFAULT_TILE = 1792
 
 #: every entry takes six device pointers (values, src, w, row_offsets, mask
 #: or null, out) and its carries' scratch, the scratch's block count
@@ -68,11 +84,30 @@ _ARGTYPES = ((ctypes.c_void_p,) * 7
                 ctypes.c_int64, ctypes.c_void_p))
 
 
+def check_tile(tile: Optional[int]) -> int:
+    """``tile`` (``None`` = :data:`DEFAULT_TILE`), checked against
+    :data:`TILES`."""
+    tile = DEFAULT_TILE if tile is None else tile
+    if tile not in TILES:
+        raise ValueError(f"merge tile {tile!r} is not one of {TILES}")
+    return tile
+
+
+def tile_defines(tile: int) -> tuple:
+    """The ``-D`` defines that build ``tile`` into a source."""
+    return (f"MERGE_ITEMS={check_tile(tile) // THREADS}",)
+
+
 @functools.lru_cache(maxsize=None)
-def merge_tile(source: Path = SOURCE) -> int:
-    """The merge items (row ends and edges) one block of ``source``'s
-    kernels takes, as the source defines it; read once per process."""
-    return load_entry(source, "merge_path_tile", ())()
+def merge_tile(source: Path = SOURCE, tile: int = DEFAULT_TILE) -> int:
+    """The merge items one block of ``source``'s library for ``tile``
+    takes, as the library reports it; read once per ``(source, tile)``.
+    Raises unless it is ``tile``: the carries' scratch is sized from it."""
+    got = load_entry(source, "merge_path_tile", (), tile_defines(tile))()
+    if got != tile:
+        raise RuntimeError(f"the library of {source.name} built for tile "
+                           f"{tile} reports tile {got}")
+    return got
 
 
 def _check_rank(who: str, values: torch.Tensor, batched: bool) -> None:
@@ -84,16 +119,22 @@ def _check_rank(who: str, values: torch.Tensor, batched: bool) -> None:
                          f"{tuple(values.shape)}")
 
 
+def weight_dtypes(dtype: torch.dtype) -> tuple:
+    """The weight dtypes a kernel takes with ``dtype`` values: the values'
+    own, and bf16/f16 under f32."""
+    return (dtype,) + (tuple(WEIGHT_TAGS) if dtype == torch.float32 else ())
+
+
 def _check(who: str, rows, src, w, row_offsets, mask, dtype) -> None:
     """Device (CUDA), dtype, shape and contiguity checks of a kernel's
     operands, raising on the first that fails; ``rows`` (a vector, or
-    ``[B, N_src]``) and ``w`` must be ``dtype``.  A non-contiguous bank
-    (transposed or sliced) is refused, not copied: the caller makes it
-    contiguous once."""
+    ``[B, N_src]``) must be ``dtype`` and ``w`` one of
+    :func:`weight_dtypes`.  A non-contiguous bank (transposed or sliced) is
+    refused, not copied: the caller makes it contiguous once."""
     dev = rows.device
     if dev.type != "cuda":
         raise ValueError(f"{who}: unsupported device {dev}")
-    named = [("src", src, (torch.int32,)), ("w", w, (dtype,)),
+    named = [("src", src, (torch.int32,)), ("w", w, weight_dtypes(dtype)),
              ("row_offsets", row_offsets, (torch.int32,))]
     if mask is not None:
         named.append(("mask", mask, (torch.bool, torch.uint8)))
@@ -151,12 +192,21 @@ def _rows(row_offsets: torch.Tensor):
     return lo, hi, rows
 
 
+def scratch_blocks(num_rows: int, num_edges: int, tile: int) -> int:
+    """The blocks of one merge-path launch over ``num_rows`` row ends and
+    ``num_edges`` edges at ``tile``: what the carries' scratch is sized
+    from."""
+    return -(-(num_rows + num_edges) // tile)
+
+
 def _merge_launch(who: str, source: Path, entry: str, values, src, w,
-                  row_offsets, mask) -> torch.Tensor:
+                  row_offsets, mask, tile: int) -> torch.Tensor:
     """Check the operands of a CUDA push, allocate its output and its
-    carries' scratch, and launch ``entry`` of ``source`` on them."""
+    carries' scratch, and launch ``entry`` (or its narrow-weight form) of
+    ``source``'s library for ``tile`` on them."""
     dev = values.device
     _check(who, values, src, w, row_offsets, mask, values.dtype)
+    entry += WEIGHT_TAGS.get(w.dtype, "")  # a narrow weight's entry
     batch, n_src = _batch_shape(values)
     num_rows, num_edges = row_offsets.shape[0] - 1, src.shape[0]
     if num_rows + num_edges >= 2**31:
@@ -166,9 +216,10 @@ def _merge_launch(who: str, source: Path, entry: str, values, src, w,
     if num_rows == 0:
         return out
     # the carries: a row id per block, then a value per block and batch row
-    blocks = -(-(num_rows + num_edges) // merge_tile(source))
+    blocks = scratch_blocks(num_rows, num_edges, merge_tile(source, tile))
     scratch = torch.empty((batch + 1) * blocks, dtype=torch.int32, device=dev)
-    _launch(who, dev, load_entry(source, entry, _ARGTYPES),
+    _launch(who, dev, load_entry(source, entry, _ARGTYPES,
+                                 tile_defines(tile)),
             values.data_ptr(), src.data_ptr(), w.data_ptr(),
             row_offsets.data_ptr(), None if mask is None else mask.data_ptr(),
             out.data_ptr(), scratch.data_ptr(), blocks, num_rows, num_edges,
@@ -177,10 +228,11 @@ def _merge_launch(who: str, source: Path, entry: str, values, src, w,
 
 
 def _sum_push(who: str, batched: bool, values, src, w, row_offsets, mask,
-              mul: str):
+              mul: str, tile: Optional[int]):
     """The SpMV push of one value vector or of ``[B, N_src]`` value rows:
     the kernel for CUDA tensors, the plain version for CPU ones."""
     _check_rank(who, values, batched)
+    tile = check_tile(tile)
     if mul not in SUM_ENTRIES:
         raise ValueError(f"{who}: mul must be one of {sorted(SUM_ENTRIES)}; "
                          f"got {mul!r}")
@@ -190,23 +242,25 @@ def _sum_push(who: str, batched: bool, values, src, w, row_offsets, mask,
         raise ValueError(f"{who}: values must be {torch.float32}; got "
                          f"{values.dtype}")
     return _merge_launch(who, SOURCE, SUM_ENTRIES[mul], values, src, w,
-                         row_offsets, mask)
+                         row_offsets, mask, tile)
 
 
 def spmv_push(values: torch.Tensor, src: torch.Tensor, w: torch.Tensor,
               row_offsets: torch.Tensor,
               mask: Optional[torch.Tensor] = None, *,
-              mul: str = "times") -> torch.Tensor:
+              mul: str = "times", tile: Optional[int] = None) -> torch.Tensor:
     """f32[N] = Σ over each row's edge range of ``values[src] ⊗ w``
     (masked), ⊗ = ``mul`` ∈ {times, plus, min}.
 
-    ``values`` f32[N_src], ``src`` i32[E], ``w`` f32[E], ``row_offsets``
-    i32[N+1] (non-decreasing, ``row_offsets[N] <= E``), ``mask`` bool or
-    u8[E].  CUDA tensors launch the kernel on the current stream (counted in
-    ``spmv_push.launches``); CPU tensors take :func:`spmv_push_plain`.
+    ``values`` f32[N_src], ``src`` i32[E], ``w`` f32, bf16 or f16 [E],
+    ``row_offsets`` i32[N+1] (non-decreasing, ``row_offsets[N] <= E``),
+    ``mask`` bool or u8[E], ``tile`` the merge-path tile (one of
+    :data:`TILES`; ``None`` = :data:`DEFAULT_TILE`).  CUDA tensors launch
+    the kernel on the current stream (counted in ``spmv_push.launches``);
+    CPU tensors take :func:`spmv_push_plain`.
     """
     out = _sum_push("spmv_push", False, values, src, w, row_offsets, mask,
-                    mul)
+                    mul, tile)
     if values.is_cuda and out.numel():
         spmv_push.launches += 1
     return out
@@ -219,15 +273,17 @@ spmv_push.launches = 0
 def spmv_push_batched(values: torch.Tensor, src: torch.Tensor,
                       w: torch.Tensor, row_offsets: torch.Tensor,
                       mask: Optional[torch.Tensor] = None, *,
-                      mul: str = "times") -> torch.Tensor:
+                      mul: str = "times",
+                      tile: Optional[int] = None) -> torch.Tensor:
     """f32[B, N]: :func:`spmv_push` of each row of ``values`` f32[B, N_src]
     (row-major and contiguous) through the one stream, in one launch; the
     mask is per edge, shared by the rows.  Each output row is bitwise equal
-    to :func:`spmv_push` of its value row.  CUDA tensors launch the kernel
-    on the current stream (counted in ``spmv_push_batched.launches``); CPU
-    tensors take :func:`spmv_push_batched_plain`."""
+    to :func:`spmv_push` of its value row at the same tile.  CUDA tensors
+    launch the kernel on the current stream (counted in
+    ``spmv_push_batched.launches``); CPU tensors take
+    :func:`spmv_push_batched_plain`."""
     out = _sum_push("spmv_push_batched", True, values, src, w, row_offsets,
-                    mask, mul)
+                    mask, mul, tile)
     if values.is_cuda and out.numel():
         spmv_push_batched.launches += 1
     return out
@@ -286,10 +342,11 @@ def reduce_identity(dtype: torch.dtype, op: str):
 
 
 def _reduce_push(who: str, batched: bool, values, src, w, row_offsets, mask,
-                 op: str, mul: str):
+                 op: str, mul: str, tile: Optional[int]):
     """The min/max push of one value vector or of ``[B, N_src]`` value rows:
     the kernel for CUDA tensors, the plain version for CPU ones."""
     _check_rank(who, values, batched)
+    tile = check_tile(tile)
     if values.device.type == "cpu":
         return spmv_reduce_push_plain(values, src, w, row_offsets, mask,
                                       op=op, mul=mul)
@@ -300,25 +357,25 @@ def _reduce_push(who: str, batched: bool, values, src, w, row_offsets, mask,
                          f"{sorted(REDUCE_ENTRIES.values())}")
     return _merge_launch(who, REDUCE_SOURCE,
                          f"spmv_reduce_push_batched_{name}", values, src, w,
-                         row_offsets, mask)
+                         row_offsets, mask, tile)
 
 
 def spmv_reduce_push(values: torch.Tensor, src: torch.Tensor,
                      w: torch.Tensor, row_offsets: torch.Tensor,
                      mask: Optional[torch.Tensor] = None, *, op: str,
-                     mul: str) -> torch.Tensor:
+                     mul: str, tile: Optional[int] = None) -> torch.Tensor:
     """``out[v] = op over each row's (kept) edges of values[src] ⊗ w``.
 
-    ``op`` ∈ {min, max}, ``mul`` ∈ {plus, times, min}; ``values`` and ``w``
-    share one dtype, f32 or i32 on the card (:data:`REDUCE_ENTRIES`; i32
-    ``plus`` and ``times`` wrap as two's complement).  Rows with no kept
-    edge get :func:`reduce_identity`.  Other operands as :func:`spmv_push`.
-    CUDA tensors launch the kernel on the current stream (counted in
-    ``spmv_reduce_push.launches``); CPU tensors take
-    :func:`spmv_reduce_push_plain`.
+    ``op`` ∈ {min, max}, ``mul`` ∈ {plus, times, min}; ``values`` f32 or
+    i32 on the card (:data:`REDUCE_ENTRIES`; i32 ``plus`` and ``times``
+    wrap as two's complement), ``w`` of the same dtype or, under f32
+    values, bf16/f16.  Rows with no kept edge get :func:`reduce_identity`.
+    Other operands as :func:`spmv_push`.  CUDA tensors launch the kernel on
+    the current stream (counted in ``spmv_reduce_push.launches``); CPU
+    tensors take :func:`spmv_reduce_push_plain`.
     """
     out = _reduce_push("spmv_reduce_push", False, values, src, w,
-                       row_offsets, mask, op, mul)
+                       row_offsets, mask, op, mul, tile)
     if values.is_cuda and out.numel():
         spmv_reduce_push.launches += 1
     return out
@@ -331,16 +388,17 @@ spmv_reduce_push.launches = 0
 def spmv_reduce_push_batched(values: torch.Tensor, src: torch.Tensor,
                              w: torch.Tensor, row_offsets: torch.Tensor,
                              mask: Optional[torch.Tensor] = None, *, op: str,
-                             mul: str) -> torch.Tensor:
+                             mul: str,
+                             tile: Optional[int] = None) -> torch.Tensor:
     """``[B, N]``: :func:`spmv_reduce_push` of each row of ``values``
     ``[B, N_src]`` (row-major and contiguous) through the one stream, in one
     launch; the mask is per edge, shared by the rows.  Each output row is
-    bitwise equal to :func:`spmv_reduce_push` of its value row.  CUDA
-    tensors launch the kernel on the current stream (counted in
+    bitwise equal to :func:`spmv_reduce_push` of its value row at the same
+    tile.  CUDA tensors launch the kernel on the current stream (counted in
     ``spmv_reduce_push_batched.launches``); CPU tensors take
     :func:`spmv_reduce_push_batched_plain`."""
     out = _reduce_push("spmv_reduce_push_batched", True, values, src, w,
-                       row_offsets, mask, op, mul)
+                       row_offsets, mask, op, mul, tile)
     if values.is_cuda and out.numel():
         spmv_reduce_push_batched.launches += 1
     return out
@@ -357,12 +415,13 @@ def spmv_reduce_push_plain(values: torch.Tensor, src: torch.Tensor,
     """The plain PyTorch version of :func:`spmv_reduce_push` (and, for
     ``[B, N_src]`` values, of :func:`spmv_reduce_push_batched`): the
     ``scatter_reduce`` segment reduce along the last axis of ``values[...,
-    src] ⊗ w`` over each row's edge range, with masked edges at the
-    identity.  Min and max give the same answer in any order, and NaN
-    propagates."""
+    src] ⊗ w`` over each row's edge range (a narrow ``w`` promoted to the
+    values' f32), with masked edges at the identity.  Min and max give the
+    same answer in any order, and NaN propagates."""
     ident = reduce_identity(values.dtype, op)
     lo, hi, rows = _rows(row_offsets)
-    contrib = _combine(values[..., src[lo:hi].long()], w[lo:hi], mul)
+    contrib = _combine(values[..., src[lo:hi].long()],
+                       w[lo:hi].to(values.dtype), mul)
     if mask is not None:
         contrib = torch.where(mask[lo:hi].bool(), contrib, ident)
     out = torch.full(values.shape[:-1] + (row_offsets.shape[0] - 1,), ident,

@@ -223,6 +223,8 @@ class GraphServingEngine:
                 "repro_torch.serve_session)")
         self.engine = engine
         self.slots = slots
+        # the lanes push [slots, N] banks: tune their tiles for that batch
+        engine.autotune_batch_hint = slots
         self.stats = ServeStats()
         self.wave_log: List[LaneWave] = []
         self._lanes: Dict[Tuple, _Lane] = {}

@@ -7,7 +7,9 @@ kernel is held bitwise against the plain version on the card.  Every
 {f32, i32}, with masks, empty rows, ±∞, NaN, the int32 extrema, i32 sums
 and products that wrap, and denormals; on the card also the merge path's
 edge cases (every edge in one row, a hub between runs of empty rows, a
-sub-range of the edges, rows at the tile size ±1, a fully masked hub).
+sub-range of the edges, rows at the tile size ±1, a fully masked hub) at
+every built tile.  The f32 semirings also run over bf16/f16 weights
+(widened exactly), bitwise the same way.
 This file imports neither JAX nor the JAX package, so the card's tests run
 where JAX is not installed:
 
@@ -174,11 +176,71 @@ def test_plain_version_edge_cases():
         reduce_identity(torch.float32, "sum")
 
 
+#: the f32 semirings, which also take bf16/f16 weights
+F32_SEMIRINGS = [sr for sr in SEMIRINGS if sr[2] == np.float32]
+NARROW = [torch.bfloat16, torch.float16]
+
+
+def _narrow_csr(semiring, wdtype, seed):
+    """``_csr`` over the mixed shape with the weights rounded to
+    ``wdtype``: (values, src, narrow w, row offsets, mask) tensors."""
+    op, mul, dt = semiring
+    rows, n_src, counts, kw = _shapes()["mixed"]
+    values, src, w, ro, mask = (torch.from_numpy(a) for a in _csr(
+        op, mul, dt, rows, n_src, counts, seed, **kw))
+    return values, src, w.to(wdtype), ro, mask
+
+
+@pytest.mark.parametrize("semiring", F32_SEMIRINGS, ids=_ids)
+@pytest.mark.parametrize("wdtype", NARROW, ids=str)
+def test_plain_version_widens_narrow_weights(semiring, wdtype):
+    """bf16/f16 weights under f32 values: the push is the row loop over the
+    exactly widened weights, bit for bit, and the f32 push of them."""
+    op, mul, _ = semiring
+    values, src, w, ro, mask = _narrow_csr(semiring, wdtype, 8)
+    got = spmv_reduce_push_plain(values, src, w, ro, mask, op=op, mul=mul)
+    assert got.dtype == torch.float32
+    _same_bits(got.numpy(), _loop(op, mul, values.numpy(), src.numpy(),
+                                  w.float().numpy(), ro.numpy(),
+                                  mask.numpy()))
+    _same_bits(spmv_reduce_push(values, src, w, ro, mask, op=op,
+                                mul=mul).numpy(), got.numpy())
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the min/max kernel has no CPU mode")
     return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("semiring", F32_SEMIRINGS, ids=_ids)
+@pytest.mark.parametrize("wdtype", NARROW, ids=str)
+@pytest.mark.parametrize("masked", [False, True])
+def test_narrow_entries_match_plain_version_bitwise(cuda_device, semiring,
+                                                    wdtype, masked):
+    """Each of the twelve narrow-weight entries bitwise the plain version,
+    and each row of its batched launch bitwise the single push."""
+    from repro_torch.kernels.spmv.kernel import spmv_reduce_push_batched
+
+    op, mul, _ = semiring
+    host = list(_narrow_csr(semiring, wdtype, 10))
+    if not masked:
+        host[4] = None
+    args = [None if t is None else t.to(cuda_device) for t in host]
+    before = spmv_reduce_push.launches
+    out = spmv_reduce_push(*args, op=op, mul=mul)
+    torch.cuda.synchronize()
+    assert spmv_reduce_push.launches == before + 1
+    _same_bits(out.cpu().numpy(),
+               spmv_reduce_push_plain(*host, op=op, mul=mul).numpy())
+    values = args[0]
+    bank = torch.stack([values, values.flip(0), values * 0.5])
+    rows = spmv_reduce_push_batched(bank, *args[1:], op=op, mul=mul)
+    for b in range(3):
+        _same_bits(rows[b].cpu().numpy(), spmv_reduce_push(
+            bank[b].contiguous(), *args[1:], op=op, mul=mul).cpu().numpy())
 
 
 @pytest.mark.gpu
@@ -297,3 +359,31 @@ def test_kernel_on_merge_path_edge_cases(cuda_device, semiring, name,
     if masked and hub is not None:
         assert got[hub] == ident
     _same_bits(got, spmv_reduce_push(*args, op=op, mul=mul).cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [768, 1280, 1792, 2816, 3840])
+@pytest.mark.parametrize("name", ["one-row-holds-all",
+                                  "hub-between-empty-runs", "offset-range",
+                                  "tile-multiples", "hub-fully-masked"])
+def test_every_tile_bitwise_the_plain_version(cuda_device, tile, name):
+    """Each built tile, ``min_plus`` over f32 and bf16 weights and
+    ``min_min`` over i32, masked, on the edge cases cut for that tile:
+    bitwise the plain version."""
+    from repro_torch.kernels.spmv.kernel import REDUCE_SOURCE, merge_tile
+
+    assert merge_tile(REDUCE_SOURCE, tile) == tile
+    n_src, counts, kw, hub = _merge_cases(tile)[name]
+    for op, mul, dt, wdtype in (("min", "plus", np.float32, None),
+                                ("min", "plus", np.float32, torch.bfloat16),
+                                ("min", "min", np.int32, None)):
+        host = [torch.from_numpy(a) for a in
+                _csr(op, mul, dt, len(counts), n_src, counts, 6, **kw)]
+        if wdtype is not None:
+            host[2] = host[2].to(wdtype)
+        if hub is not None:
+            host[4][host[3][hub]:host[3][hub + 1]] = False
+        args = [t.to(cuda_device) for t in host]
+        out = spmv_reduce_push(*args, op=op, mul=mul, tile=tile)
+        _same_bits(out.cpu().numpy(),
+                   spmv_reduce_push_plain(*host, op=op, mul=mul).numpy())

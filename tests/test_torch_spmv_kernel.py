@@ -3,7 +3,10 @@
 The plain version's semantics are pinned on the CPU against a per-row
 loop; the CUDA kernel is held against the plain version in f64 on the card.
 f32 results hold rtol 1e-5 against f64: the hub row sums 5000 f32
-products, whose rounding alone reaches about 2e-6 relative.  This file imports
+products, whose rounding alone reaches about 2e-6 relative.  bf16/f16
+weights are widened exactly, so the same tolerance holds against the f64
+plain version over the same narrow weights; every built merge tile is
+held to it too.  This file imports
 neither JAX nor the JAX package, so the card's tests run where JAX is not
 installed:
 
@@ -91,11 +94,168 @@ def test_plain_version_sums_each_mul(mul):
         spmv_push(values, src, w, ro, mask, mul="max")
 
 
+@pytest.mark.parametrize("wdtype", [torch.bfloat16, torch.float16],
+                         ids=str)
+@pytest.mark.parametrize("mul", ["times", "plus", "min"])
+def test_plain_version_widens_narrow_weights(wdtype, mul):
+    """bf16/f16 weights: the push is the f32 push of the exactly widened
+    weights, bit for bit, and the f64 row loop over them."""
+    rows, n_src, counts, kw = _shapes()["mixed"]
+    values, src, w, ro, mask = _csr(rows, n_src, counts, 8, **kw)
+    narrow = w.to(wdtype)
+    got = spmv_push(values, src, narrow, ro, mask, mul=mul)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, spmv_push(values, src, narrow.float(), ro, mask,
+                                      mul=mul))
+    if mul == "times":
+        want = _loop(*(t.numpy() for t in (values, src, narrow.float(), ro,
+                                           mask)))
+        np.testing.assert_allclose(
+            spmv_push_plain(values, src, narrow, ro, mask,
+                            dtype=torch.float64).numpy(), want, rtol=1e-12,
+            atol=0)
+
+
+def test_tiles_are_checked_and_sized():
+    from repro_torch.kernels.spmv.kernel import (DEFAULT_TILE, THREADS,
+                                                 TILES, scratch_blocks,
+                                                 tile_defines)
+
+    assert DEFAULT_TILE in TILES
+    for tile in TILES:
+        assert tile % THREADS == 0 and (tile // THREADS) % 2 == 1
+        assert tile_defines(tile) == (f"MERGE_ITEMS={tile // THREADS}",)
+    assert scratch_blocks(300, 5000, 1792) == 3
+    assert scratch_blocks(300, 5076, 768) == 7
+    values, src, w, ro, mask = _csr(10, 20, np.full(10, 3), 3)
+    for bad in (1000, 2048, 0):
+        with pytest.raises(ValueError, match="merge tile"):
+            spmv_push(values, src, w, ro, tile=bad)
+    # the plain version ignores a valid tile
+    assert torch.equal(spmv_push(values, src, w, ro, tile=768),
+                       spmv_push(values, src, w, ro))
+
+
+def test_merge_tile_refuses_a_library_of_another_tile(monkeypatch):
+    """The carries' scratch is sized from the library's own tile: one that
+    reports another tile than it was built for is refused."""
+    from repro_torch.kernels.spmv import kernel as K
+
+    asked = []
+
+    def fake_entry(source, entry, argtypes, defines=()):
+        asked.append(defines)
+        return lambda: 1280
+
+    monkeypatch.setattr(K, "load_entry", fake_entry)
+    K.merge_tile.cache_clear()
+    try:
+        assert K.merge_tile(K.SOURCE, 1280) == 1280
+        with pytest.raises(RuntimeError, match="reports tile 1280"):
+            K.merge_tile(K.REDUCE_SOURCE, 768)
+    finally:
+        K.merge_tile.cache_clear()
+    assert asked == [("MERGE_ITEMS=5",), ("MERGE_ITEMS=3",)]
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the SpMV kernel has no CPU mode")
     return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wdtype", [torch.bfloat16, torch.float16],
+                         ids=str)
+@pytest.mark.parametrize("mul", ["times", "plus", "min"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_narrow_entries_match_plain_version(cuda_device, wdtype, mul,
+                                            masked):
+    """Each narrow-weight entry within TOL of the f64 plain version, twice
+    bit for bit, and each row of its batched launch bitwise the single."""
+    from repro_torch.kernels.spmv.kernel import spmv_push_batched
+
+    rows, n_src, counts, kw = _shapes()["mixed"]
+    values, src, w, ro, mask = [t.to(cuda_device)
+                                for t in _csr(rows, n_src, counts, 9, **kw)]
+    w = w.to(wdtype)
+    mask = mask if masked else None
+    before = spmv_push.launches
+    out = spmv_push(values, src, w, ro, mask, mul=mul)
+    torch.cuda.synchronize()
+    assert spmv_push.launches == before + 1
+    ref = spmv_push_plain(values, src, w, ro, mask, mul=mul,
+                          dtype=torch.float64)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **TOL)
+    assert torch.equal(out, spmv_push(values, src, w, ro, mask, mul=mul))
+    bank = torch.stack([values, values * 0.5, values.flip(0)])
+    rows_out = spmv_push_batched(bank, src, w, ro, mask, mul=mul)
+    for b in range(3):
+        assert torch.equal(rows_out[b], spmv_push(bank[b].contiguous(), src,
+                                                  w, ro, mask, mul=mul))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [768, 1280, 1792, 2816, 3840])
+@pytest.mark.parametrize("name", ["one-row-holds-all",
+                                  "hub-between-empty-runs", "offset-range",
+                                  "tile-multiples", "hub-fully-masked"])
+def test_every_tile_on_merge_path_edge_cases(cuda_device, tile, name):
+    """Each built tile, f32 and bf16 weights, masked: within TOL of the
+    f64 plain version on the edge cases cut for that tile, empty and fully
+    masked rows exactly 0, the batched rows bitwise the single push."""
+    from repro_torch.kernels.spmv.kernel import merge_tile, spmv_push_batched
+
+    assert merge_tile(tile=tile) == tile
+    n_src, counts, kw, hub = _merge_cases(tile)[name]
+    host = _csr(len(counts), n_src, counts, 6, **kw)
+    values, src, w, ro, mask = [t.to(cuda_device) for t in host]
+    if hub is not None:
+        mask[ro[hub]:ro[hub + 1]] = False
+    for wt in (w, w.to(torch.bfloat16)):
+        out = spmv_push(values, src, wt, ro, mask, tile=tile)
+        ref = spmv_push_plain(values, src, wt, ro, mask, dtype=torch.float64)
+        np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                                   **TOL)
+        assert bool((out[torch.from_numpy(counts == 0).to(cuda_device)]
+                     == 0).all())
+        if hub is not None:
+            assert float(out[hub]) == 0.0
+        bank = torch.stack([values, values * 0.5])
+        rows = spmv_push_batched(bank, src, wt, ro, mask, tile=tile)
+        assert torch.equal(rows[0], out)
+
+
+@pytest.mark.gpu
+def test_a_missing_entry_raises_and_never_falls_back(cuda_device,
+                                                    monkeypatch):
+    """A narrow-weight push whose entry the library lacks raises; it does
+    not take the plain version."""
+    from repro_torch.kernels.spmv import kernel as K
+
+    values, src, w, ro, _ = [t.to(cuda_device)
+                             for t in _csr(10, 20, np.full(10, 3), 3)]
+    monkeypatch.setitem(K.WEIGHT_TAGS, torch.bfloat16, "_wmissing")
+    before = spmv_push.launches
+    with pytest.raises(AttributeError, match="_wmissing"):
+        spmv_push(values, src, w.to(torch.bfloat16), ro)
+    assert spmv_push.launches == before
+
+
+@pytest.mark.gpu
+def test_scratch_sized_for_another_tile_is_refused(cuda_device, monkeypatch):
+    """Scratch for fewer blocks than the library's tile launches is
+    refused by the launch, not overrun."""
+    from repro_torch.kernels.spmv import kernel as K
+
+    values, src, w, ro, _ = [t.to(cuda_device)
+                             for t in _csr(300, 500, np.full(300, 20), 3)]
+    real = K.scratch_blocks
+    monkeypatch.setattr(K, "scratch_blocks",
+                        lambda rows, edges, tile: real(rows, edges, 3840))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        spmv_push(values, src, w, ro, tile=768)
 
 
 @pytest.mark.gpu
@@ -240,8 +400,17 @@ def test_push_on_the_gpu_runs_the_kernel_or_raises(cuda_device):
     assert sums.shape == widths.shape == (2, 50)
     with pytest.raises(ValueError, match="contiguous"):
         B.push(values[None].expand(2, -1), B.build_layout(state))
-    with pytest.raises(NotImplementedError, match="queue 1 entry 14"):
-        B.push(values, B.build_layout(state, weight_dtype="bfloat16"))
+    # narrow weights launch their entries of the same kernel, within TOL of
+    # the plain version over the same narrow weights
+    for wd in ("bfloat16", "float16"):
+        narrow = B.build_layout(state, weight_dtype=wd)
+        before = spmv_push.launches
+        got = B.push(values, narrow)
+        assert spmv_push.launches == before + 1
+        ref = spmv_push_plain(values, narrow.src, narrow.weight,
+                              narrow.row_offsets, dtype=torch.float64)
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   **TOL)
 
 
 @pytest.mark.gpu
