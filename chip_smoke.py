@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the four kernel sources (``src/repro_torch/kernels/*/csrc``: the
+Builds the five kernel sources (``src/repro_torch/kernels/*/csrc``: the
 SpMV push and the min/max push, each in a single and a batched form and
-once per merge-path tile, the flash attention forward and decode
-attention; one ``nvcc`` per source and tile, started together) and holds
+once per merge-path tile, the flash attention forward and backward and
+decode attention; one ``nvcc`` per source and tile, started together) and holds
 every kernel against its plain version at the shapes its path gives it,
 each batched row also bitwise against the single kernel and each push
 against a second launch of itself (the shapes include every edge of the
@@ -61,7 +61,7 @@ drives these paths over the ``synth-web-lg`` stream:
   device time under ``autotune="off"`` and ``"full"``, full-graph and
   summary layouts apart;
 
-and one LM path:
+and two LM paths:
 
 - the two attention kernels against their plain versions at Qwen2-0.5B's
   widths (f32 against f64, bf16 against f64), timed in bf16 beside the
@@ -72,7 +72,23 @@ and one LM path:
   launch of ``flash_attention`` (prefill) or ``decode_attention`` (decode
   step) and no plain call; wave 0 is replayed on the card through the
   plain attention versions on the served tokens, and every step's logits
-  must agree.
+  must agree; no serving launch writes the log-sum-exp;
+- the flash backward (and the forward's log-sum-exp and f32 output)
+  against their f64 plain versions at the training shape (B = 4, S = 2048,
+  14 heads, 2 KV heads, bf16), a ragged length with a window, G = 1 and
+  the f32 entry, each gradient bitwise across two launches; at the
+  training shape the backward's device time beside the forward's (with
+  and without lse), the plain backward, ``scaled_dot_product_attention``
+  forward + backward and the bound;
+- LM training on Qwen2-0.5B at full width and depth (f32 params, bf16
+  activations, ``SyntheticLMData(lag=1)`` over 4,096 ids, B = 4, S =
+  2048): one step's gradients through the kernels against the same step
+  through the plain attention (loss, grad norm, every leaf's relative
+  L2), then 30 AdamW steps with remat and the cosine schedule through
+  ``RestartableLoop`` (the loss must fall; 48 flash forward launches, the
+  24 of remat's recomputation included, all with lse, and 24 backward
+  calls a step), a checkpoint saved at step 10 restored bitwise into
+  fresh tensors and steps 11 and 12 resumed from it.
 
 It prints one JSON line per phase.  The line before the last lists the
 kernels, with each one's launches on every graph path; the last is
@@ -1527,6 +1543,7 @@ def traversal_path(stream, dev, rng):
 KERNELS = {"spmv_push": "spmv", "spmv_reduce_push": "spmv",
            "spmv_push_batched": "spmv", "spmv_reduce_push_batched": "spmv",
            "flash_attention": "flash_attention",
+           "flash_attention_bwd": "flash_attention",
            "decode_attention": "decode_attention"}
 KERNEL_NAMES = tuple(KERNELS)
 
@@ -3000,8 +3017,10 @@ def lm_serve_path(dev, rng) -> tuple:
             for i in range(LM_REQUESTS)]
     torch.cuda.reset_peak_memory_stats()
     plain_calls = []
+    flash = wrapper("flash_attention")
     with counting_plain_attention(plain_calls):
         reset_launch_counts()
+        flash.lse_launches = 0
         t0 = time.perf_counter()
         stats = engine.run(reqs)
         torch.cuda.synchronize()
@@ -3010,6 +3029,9 @@ def lm_serve_path(dev, rng) -> tuple:
     if plain_calls:
         raise AssertionError(f"LM serving called a plain version: "
                              f"{sorted(set(plain_calls))}")
+    if flash.lse_launches:
+        raise AssertionError(f"LM serving wrote the log-sum-exp in "
+                             f"{flash.lse_launches} flash launches")
     waves = -(-LM_REQUESTS // LM_SLOTS)
     want = dict.fromkeys(KERNEL_NAMES, 0)
     want.update(flash_attention=cfg.num_layers * waves,
@@ -3050,7 +3072,8 @@ def lm_serve_path(dev, rng) -> tuple:
            "decode_step_device_ms": step_device_ms,
            "decode_step_device_busy_share": step_device_ms / step_eager_ms,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "launches": counts, "plain_attention_calls": len(plain_calls)}
+           "launches": counts, "plain_attention_calls": len(plain_calls),
+           "flash_lse_launches": flash.lse_launches}
     return row, engine, prompts, counts
 
 
@@ -3127,6 +3150,407 @@ def lm_teacher_forced(engine, prompts, dev) -> dict:
     return row
 
 
+# ---- training: the flash backward and Qwen2-0.5B steps ------------------
+# the flash backward's checks: (tag, (B, S, H, KV, hd, vd, causal, window),
+# dtype); the first is the training shape, the one that is timed
+FLASH_BWD_CHECKS = (
+    ("training shape, B=4, S=2048, G=7", (4, 2048, 14, 2, 64, 64, True, None),
+     "bfloat16"),
+    ("S=1999 (no tile multiple), window 256", (1, 1999, 14, 2, 64, 64, True,
+                                               256), "bfloat16"),
+    ("G=1, B=2, S=1024", (2, 1024, 4, 4, 64, 64, True, None), "bfloat16"),
+    ("G=7, f32 entry, B=1, S=1000", (1, 1000, 14, 2, 64, 64, True, None),
+     "float32"),
+)
+# Tolerances against the f64 plain versions on the same inputs (|err| <=
+# atol + rtol |ref|).  lse: 1e-5 (a sum of exps in f32, log of it; the bf16
+# kernel's ex2.approx adds 2^-22 relative).  The forward's f32 output: the
+# f32 entry 1e-5 (ATTN_F32_TOL); the bf16 entry 2e-5, its P entering P.V as
+# two bf16 terms (2^-17 relative each, times |v| up to about 4).  The
+# gradients, of f32 sums over up to 14,336 (row, key) terms: atol 1e-5 of
+# the gradient's largest element, rtol 1e-5 in f32; the bf16 entry computes
+# in f32 from the exactly widened inputs and rounds each gradient once to
+# bf16, at most 2^-8 = 3.9e-3 of its value, so rtol 5e-3.
+BWD_LSE_TOL = 1e-5
+BWD_OUT_TOL = {"float32": ATTN_F32_TOL, "bfloat16": 2e-5}
+BWD_GRAD_ATOL = 1e-5        # times max |ref| of each gradient
+BWD_GRAD_RTOL = {"float32": 1e-5, "bfloat16": 5e-3}
+# the training phase: Qwen2-0.5B at full width and depth (its 151,936-id
+# vocabulary, embedding and f32 logits), on a synthetic stream whose ids
+# are drawn from the first TRAIN_DATA_VOCAB of them: over 30 steps of 8,192
+# tokens each id then recurs about 60 times, where drawn over all 151,936
+# it recurs 1.6 times and no learning rate from 1e-4 to 3e-3 moved the
+# 30-step loss off 12.0
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_EVERY = 4, 2048, 30, 10
+TRAIN_DATA_VOCAB, TRAIN_LR, TRAIN_WARMUP = 4096, 1e-3, 5
+# the kernel step against the plain one (bf16 activations: a bf16 rounding
+# the two paths take apart moves a value by 2^-8 and the difference grows
+# through 24 layers; the CPU smoke config measured 1.6e-3 to 3.4e-3
+# relative L2 per leaf): loss within 1e-3 relative, grad norm within 1e-2,
+# every leaf's gradient within 0.05 relative L2 (the bf16 tolerance of
+# tests/test_arch_smoke.py)
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_GRAD_RTOL = 1e-3, 1e-2, 0.05
+# a run resumed from the step-10 checkpoint against the first run at steps
+# 11 and 12: the restored state is bitwise, the embedding's gradient
+# (index_put with accumulation) is not bitwise on the card
+TRAIN_RESUME_RTOL = 1e-4
+
+
+def flash_bwd_bound(b, s, h, kv, hd, vd, causal, window, elt) -> dict:
+    """The least device time of one backward call: 2 (3 hd + 2 vd)
+    operations per allowed (query, key) pair and head over the bf16
+    tensor-core peak, or its bytes (q, k, v, dq, dk, dv at ``elt`` bytes;
+    O, dO and lse in f32, each once) over HBM's rate."""
+    pairs = allowed_pairs(s, s, causal, window)
+    ops = 2 * (3 * hd + 2 * vd) * h * b * pairs
+    nbytes = (2 * elt * (b * s * h * hd + b * s * kv * (hd + vd))
+              + 4 * (2 * b * s * h * vd + b * h * s))
+    byte_s, op_s = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS
+    return {"pairs": pairs, "operations": ops, "bytes": nbytes,
+            "bound_ms": max(byte_s, op_s) * 1e3,
+            "bound_by": "bytes" if byte_s >= op_s else "operations"}
+
+
+def sdpa_fwd_bwd(q, k, v, dout, causal, window):
+    """``scaled_dot_product_attention`` forward and backward (enable_gqa)
+    on the same inputs, as one callable: the library yardstick."""
+    import torch.nn.functional as F
+
+    s = q.shape[1]
+    mask = None
+    if window is not None:
+        i = torch.arange(s, device=q.device)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    gt = dout.to(q.dtype).transpose(1, 2).contiguous()
+
+    def call():
+        o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                           is_causal=mask is None and causal,
+                                           enable_gqa=True)
+        return torch.autograd.grad(o, (qt, kt, vt), gt)
+    return call
+
+
+def check_flash_backward(tag, shape, dtype, rng, dev, timed) -> dict:
+    """The forward with lse and the backward kernel against their plain
+    versions in f64 on the card; on the training shape also their device
+    times beside the plain backward, SDPA forward+backward and the
+    bound."""
+    from repro_torch.kernels.flash_attention import kernel as FA
+
+    b, s, h, kv, hd, vd, causal, window = shape
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.standard_normal(d).astype(np.float32))
+               .to(dev, dt) for d in ((b, s, h, hd), (b, s, kv, hd),
+                                      (b, s, kv, vd)))
+    dout = torch.from_numpy(rng.standard_normal((b, s, h, vd)).astype(
+        np.float32)).to(dev)
+    opts = dict(causal=causal, window=window)
+    out, lse = FA.flash_attention(q, k, v, return_lse=True, **opts)
+    grads = FA.flash_attention_bwd(q, k, v, out, lse, dout, **opts)
+    torch.cuda.synchronize()
+    row = {"phase": "flash-bwd-kernel", "shape": tag, "dims": list(shape),
+           "dtype": dtype}
+    ref_out, ref_lse = FA.flash_attention_plain(q, k, v, dtype=torch.float64,
+                                                return_lse=True, q_block=512,
+                                                kv_block=1024, **opts)
+    shares = {}
+    row["lse_max_abs_err"], shares["lse"] = max_excess(lse, ref_lse,
+                                                       BWD_LSE_TOL)
+    row["out_f32_max_abs_err"], shares["out_f32"] = max_excess(
+        out, ref_out, BWD_OUT_TOL[dtype])
+    del ref_out, ref_lse
+    # the training launch's output, cast, is the serving launch's output
+    row["out_bitwise_vs_no_lse_launch"] = bool(torch.equal(
+        out.to(dt), FA.flash_attention(q, k, v, **opts)))
+    refs = FA.flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                        dtype=torch.float64, q_block=512,
+                                        kv_block=1024, **opts)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        scale = float(r.abs().max())
+        err, shares[name] = max_excess(g, r, BWD_GRAD_ATOL * scale,
+                                       BWD_GRAD_RTOL[dtype])
+        row[f"{name}_max_abs_err"], row[f"{name}_max_abs_ref"] = err, scale
+        if g.dtype != dt or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"flash backward, {tag}: {name} is "
+                                 f"{g.dtype} or not finite")
+    del refs
+    again = FA.flash_attention_bwd(q, k, v, out, lse, dout, **opts)
+    row["bitwise_second_launch"] = all(
+        torch.equal(x, y) for x, y in zip(grads, again))
+    row["share_of_limit"] = shares
+    row["tolerance"] = {
+        "lse": BWD_LSE_TOL, "out_f32": BWD_OUT_TOL[dtype],
+        "grads": {"atol": f"{BWD_GRAD_ATOL} * max|ref|",
+                  "rtol": BWD_GRAD_RTOL[dtype]}}
+    if max(shares.values()) > 1 or not row["bitwise_second_launch"] \
+            or not row["out_bitwise_vs_no_lse_launch"]:
+        raise AssertionError(f"flash backward, {tag}: {row}")
+    row["max_abs_err"] = max(row[f"{n}_max_abs_err"]
+                             for n in ("dq", "dk", "dv"))
+    if timed:
+        del again
+        bwd = lambda: FA.flash_attention_bwd(q, k, v, out, lse, dout, **opts)
+        nodes = graph_kernel_nodes(bwd)
+        if nodes != 2:
+            raise AssertionError(f"flash backward, {tag}: one call captured "
+                                 f"{nodes} kernel nodes, expected its two "
+                                 f"passes")
+        row.update(
+            kernel_nodes_per_call=nodes,
+            kernel_ms=graph_ms(bwd),
+            kernel_eager_ms=cuda_ms(bwd, reps=5),
+            fwd_lse_ms=graph_ms(lambda: FA.flash_attention(
+                q, k, v, return_lse=True, **opts)),
+            fwd_ms=graph_ms(lambda: FA.flash_attention(q, k, v, **opts)),
+            plain_ms=graph_ms(lambda: FA.flash_attention_bwd_plain(
+                q, k, v, out, lse, dout, q_block=512, kv_block=1024,
+                **opts), reps=3),
+            library="scaled_dot_product_attention(enable_gqa=True) "
+                    "forward + backward, eager",
+            library_ms=cuda_ms(sdpa_fwd_bwd(q, k, v, dout, causal, window),
+                               reps=10),
+            timing="device time of 20 calls (plain: 3) replayed from one "
+                   "CUDA graph; kernel_eager_ms and library_ms: eager calls "
+                   "back to back between two events",
+            **flash_bwd_bound(b, s, h, kv, hd, vd, causal, window,
+                              q.element_size()))
+        row["kernel_fwd_lse_plus_bwd_ms"] = row["fwd_lse_ms"] + row[
+            "kernel_ms"]
+        row["roofline_share"] = row["bound_ms"] / row["kernel_ms"]
+    return row
+
+
+@contextlib.contextmanager
+def plain_training_attention():
+    """Within this block a training call of the model's attention runs
+    autograd through ``flash_attention_plain``, on any device: the step
+    the kernel step is held against."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_plain)
+    from repro_torch.models import layers as L
+
+    saved = L.flash_attention_differentiable
+    L.flash_attention_differentiable = (
+        lambda q, k, v, **kw: flash_attention_plain(q, k, v, **kw))
+    try:
+        yield
+    finally:
+        L.flash_attention_differentiable = saved
+
+
+def flat_tree(tree, prefix="") -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(flat_tree(tree[k], f"{prefix}/{k}"))
+        return out
+    if hasattr(tree, "_fields"):
+        return flat_tree(tree._asdict(), prefix)
+    return {prefix: tree}
+
+
+def lm_train_path(dev) -> tuple:
+    """Train Qwen2-0.5B at full width and depth on the card
+    (``SyntheticLMData(lag=1)`` over TRAIN_DATA_VOCAB ids, B = 4, S = 2048,
+    AdamW, remat, the cosine schedule) through ``make_train_step``, ``RestartableLoop`` and
+    ``CheckpointManager``: one step's gradients with the kernels against
+    the same step through the plain attention, TRAIN_STEPS steps whose
+    loss must fall, and a resume from the step-10 checkpoint.  Returns
+    (rows, launch counts of the TRAIN_STEPS-step run)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import (DataConfig, SyntheticLMData,
+                                           shard_batch)
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.models.params import init_params, param_count_actual
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.fault_tolerance import LoopConfig, RestartableLoop
+    from repro_torch.train.optimizer import (adamw_init, cosine_schedule,
+                                             global_norm)
+    from repro_torch.train.step import loss_and_grads, make_train_step
+
+    cfg = get_config(LM_ARCH)
+    layers = cfg.num_layers
+    # what earlier phases still hold on the card, apart from training's own
+    held_before_gb = torch.cuda.memory_allocated() / 1e9
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    data = SyntheticLMData(DataConfig(TRAIN_DATA_VOCAB, TRAIN_SEQ,
+                                      TRAIN_BATCH, seed=SEED, lag=1),
+                           host_batch=TRAIN_BATCH)
+    rows = []
+
+    # -- one step's gradients: kernels against the plain attention --------
+    batch = shard_batch(data.batch_at(0), dev)
+    reset_launch_counts()
+    FA.flash_attention.lse_launches = 0
+    loss_k, _, grads_k = loss_and_grads(params, cfg, batch, remat=True)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want.update(flash_attention=2 * layers, flash_attention_bwd=layers)
+    if counts != want or FA.flash_attention.lse_launches != 2 * layers:
+        raise AssertionError(f"a training step launched {counts} (lse "
+                             f"{FA.flash_attention.lse_launches}), expected "
+                             f"{want}")
+    with plain_training_attention():
+        loss_p, _, grads_p = loss_and_grads(params, cfg, batch, remat=True)
+    torch.cuda.synchronize()
+    if launch_counts() != counts:
+        raise AssertionError("the plain training step launched a kernel")
+    gn_k, gn_p = float(global_norm(grads_k)), float(global_norm(grads_p))
+    plain_leaves = flat_tree(grads_p)
+    rel = {k: float((g.float() - plain_leaves[k].float()).norm()
+                    / plain_leaves[k].float().norm().clamp_min(1e-30))
+           for k, g in flat_tree(grads_k).items()}
+    worst = max(rel, key=rel.get)
+    cmp_row = {"phase": "lm-train-vs-plain", "model": cfg.name,
+               "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+               "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+               "loss_rel_diff": abs(float(loss_k) - float(loss_p))
+               / abs(float(loss_p)),
+               "grad_norm_kernel": gn_k, "grad_norm_plain": gn_p,
+               "grad_norm_rel_diff": abs(gn_k - gn_p) / gn_p,
+               "grad_rel_l2": rel, "worst_leaf": worst,
+               "tolerance": {"loss": TRAIN_LOSS_RTOL,
+                             "grad_norm": TRAIN_GNORM_RTOL,
+                             "grad_rel_l2": TRAIN_GRAD_RTOL},
+               "launches_kernel_step": counts}
+    rows.append(cmp_row)
+    del grads_k, grads_p, plain_leaves, batch
+    torch.cuda.empty_cache()
+    if (cmp_row["loss_rel_diff"] > TRAIN_LOSS_RTOL
+            or cmp_row["grad_norm_rel_diff"] > TRAIN_GNORM_RTOL
+            or rel[worst] > TRAIN_GRAD_RTOL):
+        raise AssertionError(f"kernel step disagrees with the plain step: "
+                             f"{cmp_row}")
+
+    # -- TRAIN_STEPS steps with checkpoints ---------------------------------
+    step_fn = make_train_step(cfg, learning_rate=cosine_schedule(
+        TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS), remat=True)
+    losses, snap = {}, {}
+
+    def one_step(state, step):
+        batch = shard_batch(data.batch_at(step), dev)
+        p, o, metrics = step_fn(state["params"], state["opt"], batch)
+        losses[step] = float(metrics["loss"])
+        out = {"params": p, "opt": o}
+        if step == TRAIN_CKPT_EVERY:
+            # a host copy of what the loop saves at this step
+            snap["state"] = {k: t.cpu() for k, t in flat_tree(out).items()}
+        return out
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        ckpt = CheckpointManager(tmp, keep_last_k=3)
+        loop = RestartableLoop(ckpt, LoopConfig(
+            total_steps=TRAIN_STEPS, checkpoint_every=TRAIN_CKPT_EVERY,
+            log_every=0), log=lambda s: None)
+        # the loop gets the only reference to the first state, so that it
+        # is freed once the first step has made the next one
+        held = [{"params": params, "opt": adamw_init(params)}]
+        del params
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        FA.flash_attention.lse_launches = 0
+        t0 = time.perf_counter()
+        state = loop.run(held.pop(), one_step, start_step=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run_counts = launch_counts()
+        lse_launches = FA.flash_attention.lse_launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = dict.fromkeys(KERNEL_NAMES, 0)
+        want.update(flash_attention=2 * layers * TRAIN_STEPS,
+                    flash_attention_bwd=layers * TRAIN_STEPS)
+        if run_counts != want or lse_launches != 2 * layers * TRAIN_STEPS:
+            raise AssertionError(f"{TRAIN_STEPS} steps launched "
+                                 f"{run_counts} (lse {lse_launches}), "
+                                 f"expected {want}")
+        curve = [losses[i] for i in range(TRAIN_STEPS)]
+        first, last = np.mean(curve[:5]), np.mean(curve[-5:])
+        times = loop.timer.history
+        step_s = float(np.median(times[1:]))
+        rows.append({
+            "phase": "lm-train", "model": cfg.name,
+            "params": param_count_actual(cfg), "layers": layers,
+            "d_model": cfg.d_model, "heads": cfg.num_heads,
+            "kv_heads": cfg.num_kv_heads, "head_dim": cfg.resolved_head_dim,
+            "vocab": cfg.vocab_size, "param_dtype": cfg.param_dtype,
+            "activation_dtype": cfg.activation_dtype, "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "data_vocab": TRAIN_DATA_VOCAB,
+            "steps": TRAIN_STEPS, "remat": True,
+            "lr": TRAIN_LR, "warmup": TRAIN_WARMUP, "losses": curve,
+            "mean_loss_first_5": float(first),
+            "mean_loss_last_5": float(last), "wall_s": wall,
+            "step_s_first": times[0], "step_s_median": step_s,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+            "timer": loop.timer.summary(), "peak_memory_gb": peak_gb,
+            "held_by_earlier_phases_gb": held_before_gb,
+            "peak_memory_own_gb": peak_gb - held_before_gb,
+            "launches": run_counts,
+            "launches_per_step": {
+                "flash_attention": run_counts["flash_attention"]
+                / TRAIN_STEPS, "flash_attention_lse": lse_launches
+                / TRAIN_STEPS, "flash_attention_bwd":
+                run_counts["flash_attention_bwd"] / TRAIN_STEPS},
+            "timing": "host clock around each step, which ends in a read "
+                      "of the loss (a sync); the median leaves out step 0 "
+                      "and the checkpoint snapshots, which run after the "
+                      "step's clock stops"})
+        if not last < first:
+            raise AssertionError(f"loss did not fall: {curve}")
+
+        # -- restore step 10 into fresh tensors and resume ------------------
+        ckpt.wait()
+        t0 = time.perf_counter()
+        restored = ckpt.restore(TRAIN_CKPT_EVERY, state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del state
+        flat_r = flat_tree(restored)
+        bitwise = all(torch.equal(flat_r[k].cpu(), t)
+                      for k, t in snap["state"].items())
+        if not bitwise or sorted(flat_r) != sorted(snap["state"]):
+            bad = [k for k, t in snap["state"].items()
+                   if k not in flat_r or not torch.equal(flat_r[k].cpu(), t)]
+            raise AssertionError(f"the step-10 checkpoint does not restore "
+                                 f"bitwise: {bad[:5]}, keys "
+                                 f"{sorted(set(flat_r) ^ set(snap['state']))}")
+        del snap["state"]
+        resumed = {}
+        state = restored
+        for step in (TRAIN_CKPT_EVERY + 1, TRAIN_CKPT_EVERY + 2):
+            first_run = losses[step]
+            state = one_step(state, step)
+            resumed[step] = losses[step]
+            losses[step] = first_run
+        diffs = {s: abs(resumed[s] - losses[s]) / abs(losses[s])
+                 for s in resumed}
+        rows.append({"phase": "lm-train-resume",
+                     "checkpoint_step": TRAIN_CKPT_EVERY,
+                     "checkpoint_steps_kept": ckpt.all_steps(),
+                     "restore_s": restore_s, "restored_bitwise": True,
+                     "losses_first_run": {s: losses[s] for s in resumed},
+                     "losses_resumed": resumed,
+                     "rel_diff": diffs,
+                     "bitwise": {s: resumed[s] == losses[s] for s in resumed},
+                     "tolerance": TRAIN_RESUME_RTOL})
+        if max(diffs.values()) > TRAIN_RESUME_RTOL:
+            raise AssertionError(f"the resumed run disagrees: {rows[-1]}")
+        del state, restored
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return rows, run_counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -3161,7 +3585,7 @@ def main() -> int:
     t0 = time.perf_counter()
     jobs = [(source, K.tile_defines(tile))
             for source in (K.SOURCE, K.REDUCE_SOURCE) for tile in K.TILES]
-    jobs += [(FA.SOURCE, ()), (DA.SOURCE, ())]
+    jobs += [(FA.SOURCE, ()), (FA.BWD_SOURCE, ()), (DA.SOURCE, ())]
     with ThreadPoolExecutor(len(jobs)) as pool:
         libs = list(pool.map(lambda job: build_library(*job), jobs))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -3377,6 +3801,21 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
 
+    # ---- 9b. the flash backward against its plain version -----------------
+    bwd_rows = []
+    for i, (tag, shape, dtype) in enumerate(FLASH_BWD_CHECKS):
+        bwd_rows.append(check_flash_backward(tag, shape, dtype, rng, dev,
+                                             timed=i == 0))
+        emit(bwd_rows[-1])
+    torch.cuda.empty_cache()
+
+    # ---- 9c. LM training: Qwen2-0.5B at full width -------------------------
+    t0 = time.perf_counter()
+    train_rows, train_counts = lm_train_path(dev)
+    for row in train_rows:
+        emit(row)
+    emit({"phase": "lm-train-total", "wall_s": time.perf_counter() - t0})
+
     # ---- 10. summary --------------------------------------------------------
     main_check, reduce_main = checks[0], reduce_rows[0]
 
@@ -3458,6 +3897,8 @@ def main() -> int:
         "library_ms": mins[0]["library_ms"], "entries": entries(mins)}, *[{
         "name": row["kernel"], "route": "cuda", "source": source,
         "replaces": replaces, "launches": lm_counts[row["kernel"]],
+        "launches_by_path": {"lm-serve": lm_counts[row["kernel"]],
+                             "lm-train": train_counts[row["kernel"]]},
         "check": "pass (f32 and bf16 vs the f64 plain version)",
         "max_abs_err": max(r["f32_max_abs_err_vs_f64"] for r in attn_rows
                            if r["kernel"] == row["kernel"]),
@@ -3469,7 +3910,25 @@ def main() -> int:
              "src/repro/kernels/flash_attention/kernel.py:85"),
             (decode_main, "src/repro_torch/kernels/decode_attention/csrc/"
              "decode_attention.cu",
-             "src/repro/kernels/decode_attention/kernel.py:68"))]]})
+             "src/repro/kernels/decode_attention/kernel.py:68"))], {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention_bwd.cu",
+        "replaces": "src/repro/models/layers.py:174",
+        "launches": train_counts["flash_attention_bwd"],
+        "launches_by_path": {
+            "lm-serve": lm_counts["flash_attention_bwd"],
+            "lm-train": train_counts["flash_attention_bwd"]},
+        "check": "pass (dq, dk, dv and the forward's lse, f32 and bf16, vs "
+                 "the f64 plain version)",
+        "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
+        "ms": bwd_rows[0]["kernel_ms"], "plain_ms": bwd_rows[0]["plain_ms"],
+        "bound_ms": bwd_rows[0]["bound_ms"],
+        "bound_by": bwd_rows[0]["bound_by"],
+        "library_ms": bwd_rows[0]["library_ms"],
+        "library": bwd_rows[0]["library"],
+        "fwd_lse_ms": bwd_rows[0]["fwd_lse_ms"],
+        "fwd_ms": bwd_rows[0]["fwd_ms"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

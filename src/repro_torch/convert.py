@@ -2,10 +2,10 @@
 
 The JAX package's "weights" are its graph buffers, its edge layouts and its
 algorithm state (a serving lane's slot bank too), and an LM's parameter
-tree.  Handed over as numpy arrays (``np.asarray`` of each JAX array), these
-functions rebuild the port's tensors byte for byte on ``device`` (the card
-unless another device is named), so both packages can be fed exactly the
-same buffers.
+tree and its AdamW state.  Handed over as numpy arrays (``np.asarray`` of
+each JAX array), these functions rebuild the port's tensors byte for byte
+on ``device`` (the card unless another device is named), so both packages
+can be fed exactly the same buffers.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from repro_torch.device import resolve_device
 from repro_torch.graph.graph import GraphState
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import param_shapes
+from repro_torch.train.optimizer import AdamWState
 
 _LAYOUT_ARRAYS = ("src", "dst", "weight", "valid", "row_offsets", "order",
                   "rank")
@@ -107,3 +108,22 @@ def lm_params_from_numpy(tree: Mapping, cfg: ModelConfig,
         return out
 
     return rebuild(tree, param_shapes(cfg), "")
+
+
+def adamw_state_from_numpy(state, cfg: ModelConfig,
+                           device=None) -> AdamWState:
+    """The port's :class:`~repro_torch.train.optimizer.AdamWState` from
+    the JAX ``adamw_init``/``adamw_update`` state as numpy: an object with
+    ``step``, ``mu`` and ``nu`` (JAX's ``AdamWState`` with numpy leaves),
+    or a mapping with those keys.  The moments are checked as the
+    parameters are (f32, like ``params.build_defs(cfg)``)."""
+    device = resolve_device(device)
+    get = (state.__getitem__ if isinstance(state, Mapping)
+           else lambda k: getattr(state, k))
+    step = np.asarray(get("step"))
+    if step.shape != () or step.dtype != np.int32:
+        raise ValueError(f"AdamW step: {step.dtype}{step.shape}, expected "
+                         f"a 0-d int32")
+    return AdamWState(step=_tensor(step, device),
+                      mu=lm_params_from_numpy(get("mu"), cfg, device),
+                      nu=lm_params_from_numpy(get("nu"), cfg, device))

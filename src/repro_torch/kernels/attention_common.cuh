@@ -98,6 +98,13 @@ __device__ __forceinline__ float finish(float acc, float l) {
   return l > 0.0f ? acc / fmaxf(l, 1e-30f) : 0.0f;
 }
 
+// The reference's saved log-sum-exp of a row with running max m and sum
+// l: m + log(max(l, 1e-30)) where some key was seen, else +inf
+// (repro/models/layers.py::_make_flash)
+__device__ __forceinline__ float log_sum_exp(float m, float l) {
+  return l > 0.0f ? m + logf(fmaxf(l, 1e-30f)) : __int_as_float(0x7f800000);
+}
+
 }  // namespace attn
 
 // Every (head dim, value head dim) pair the kernels are built for

@@ -68,6 +68,19 @@
 // shuffles, writes the 8 x 32 probabilities to shared memory, and each lane
 // accumulates its own value columns (vd / 32 of them).  Nothing on the
 // serving path runs it.
+//
+// Training (kLse): with an lse pointer, both kernels also store each row's
+// log-sum-exp, lse = m + log(max(l, 1e-30)) in natural-log units of the
+// scaled score (+inf where l == 0), into (B, H, Sq) f32, and the bf16
+// kernel stores the output in f32 instead of bf16: the residuals the
+// reference's custom_vjp saves (repro/models/layers.py::_make_flash) and
+// flash_attention_bwd.cu reads.  m and l are kept in natural-log units in
+// both kernels (the bf16 one scales the score before its max and takes
+// exp2 of (s - m) log2(e)), so nothing needs converting.  Without the
+// pointer the launch is the kLse = false instantiation, the same code,
+// grid and shared memory as before the training path existed.
+
+#include <type_traits>
 
 #include "../../attention_common.cuh"
 
@@ -95,13 +108,14 @@ constexpr size_t smem_bytes() {
          (kRows * HD + HD * kKStride + kKeys * VD + kRows * kKeys);
 }
 
-template <int HD, int VD>
+template <int HD, int VD, bool kLse>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_f32_kernel(const float* __restrict__ q,
                      const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
-                     int sq, int skv, int num_heads, int num_kv, int groups,
-                     int causal, int window, float scale) {
+                     float* __restrict__ lse, int sq, int skv, int num_heads,
+                     int num_kv, int groups, int causal, int window,
+                     float scale) {
   constexpr int kVec = Elem<float>::kPerVec;
   constexpr int kCols = (VD + 31) / 32;  // value columns per lane
   extern __shared__ float4 smem4[];
@@ -267,6 +281,11 @@ flash_fwd_f32_kernel(const float* __restrict__ q,
       const int d = lane + 32 * c;
       if (d < VD) dst[d] = Elem<float>::narrow(attn::finish(acc[i][c], l[i]));
     }
+    if constexpr (kLse) {
+      if (lane == 0) {
+        lse[(b * num_heads + h) * sq + pos] = attn::log_sum_exp(m[i], l[i]);
+      }
+    }
   }
 }
 
@@ -357,13 +376,15 @@ __device__ __forceinline__ bool allowed(int key, int pos, int skv, int causal,
 // and g + 8 of A and of the accumulators, columns 2 t and 2 t + 1 of each
 // 8-wide accumulator tile.  Each warp owns m_tiles() such 16-row tiles,
 // which share every K and V fragment it loads.
-template <int HD, int VD>
+// The output is bf16, or f32 with kLse (the training residual).
+template <int HD, int VD, bool kLse>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ out,
-                      int batch, int sq, int skv, int num_heads, int num_kv,
-                      int groups, int q_tiles, int causal, int window,
-                      float scale) {
+                      const bf16* __restrict__ v,
+                      std::conditional_t<kLse, float, bf16>* __restrict__ out,
+                      float* __restrict__ lse, int batch, int sq, int skv,
+                      int num_heads, int num_kv, int groups, int q_tiles,
+                      int causal, int window, float scale) {
   constexpr int QS = HD + kPad;  // shared-memory row strides (elements)
   constexpr int VS = VD + kPad;
   constexpr int M = m_tiles<HD, VD>();
@@ -589,14 +610,28 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (f >= rows_total) continue;
       const int64_t pos = f / groups;
       const int64_t h = static_cast<int64_t>(kvh) * groups + f % groups;
-      bf16* dst = out + ((b * sq + pos) * num_heads + h) * VD + 2 * t;
+      auto* dst = out + ((b * sq + pos) * num_heads + h) * VD + 2 * t;
+      if constexpr (kLse) {
 #pragma unroll
-      for (int n = 0; n < VD / 8; ++n) {
-        __nv_bfloat162 pair;
-        pair.x = Elem<bf16>::narrow(attn::finish(o[mi][n][2 * r], l[mi][r]));
-        pair.y =
-            Elem<bf16>::narrow(attn::finish(o[mi][n][2 * r + 1], l[mi][r]));
-        *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) = pair;
+        for (int n = 0; n < VD / 8; ++n) {
+          *reinterpret_cast<float2*>(dst + n * 8) =
+              make_float2(attn::finish(o[mi][n][2 * r], l[mi][r]),
+                          attn::finish(o[mi][n][2 * r + 1], l[mi][r]));
+        }
+        if (t == 0) {
+          lse[(b * num_heads + h) * sq + pos] =
+              attn::log_sum_exp(m[mi][r], l[mi][r]);
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < VD / 8; ++n) {
+          __nv_bfloat162 pair;
+          pair.x =
+              Elem<bf16>::narrow(attn::finish(o[mi][n][2 * r], l[mi][r]));
+          pair.y =
+              Elem<bf16>::narrow(attn::finish(o[mi][n][2 * r + 1], l[mi][r]));
+          *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) = pair;
+        }
       }
     }
   }
@@ -604,12 +639,13 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 }  // namespace tc
 
-template <int HD, int VD>
+template <int HD, int VD, bool kLse>
 int launch_f32(const void* q, const void* k, const void* v, void* out,
-               int batch, int sq, int skv, int num_heads, int num_kv,
-               int causal, int window, float scale, cudaStream_t stream) {
+               float* lse, int batch, int sq, int skv, int num_heads,
+               int num_kv, int causal, int window, float scale,
+               cudaStream_t stream) {
   constexpr size_t smem = simt::smem_bytes<HD, VD>();
-  auto kernel = simt::flash_fwd_f32_kernel<HD, VD>;
+  auto kernel = simt::flash_fwd_f32_kernel<HD, VD, kLse>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -623,17 +659,19 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
                   num_kv, batch);
   kernel<<<grid, simt::kWarps * 32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), sq, skv,
+      static_cast<const float*>(v), static_cast<float*>(out), lse, sq, skv,
       num_heads, num_kv, groups, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD, int VD>
+template <int HD, int VD, bool kLse>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                int batch, int sq, int skv, int num_heads, int num_kv,
-                int causal, int window, float scale, cudaStream_t stream) {
+                float* lse, int batch, int sq, int skv, int num_heads,
+                int num_kv, int causal, int window, float scale,
+                cudaStream_t stream) {
+  using Out = std::conditional_t<kLse, float, __nv_bfloat16>;
   constexpr size_t smem = tc::smem_bytes<HD, VD>();
-  auto kernel = tc::flash_fwd_bf16_kernel<HD, VD>;
+  auto kernel = tc::flash_fwd_bf16_kernel<HD, VD, kLse>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -651,7 +689,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   kernel<<<static_cast<unsigned>(blocks), tc::kWarps * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      static_cast<const __nv_bfloat16*>(v), static_cast<Out*>(out), lse,
       batch, sq, skv, num_heads, num_kv, groups, static_cast<int>(q_tiles),
       causal, window, scale);
   return static_cast<int>(cudaGetLastError());
@@ -660,24 +698,29 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // dtype: 0 f32 (CUDA cores), 1 bf16 (tensor cores).  window <= 0: no
-// window.  Returns the CUDA error of the launch (0 on success); the wrapper
-// has checked every shape.
+// window.  lse: null, or (B, H, Sq) f32 for each row's log-sum-exp, and
+// then a bf16 launch writes `out` in f32.  Returns the CUDA error of the
+// launch (0 on success); the wrapper has checked every shape.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* out, int batch,
-                                   int sq, int skv, int num_heads, int num_kv,
-                                   int hd, int vd, int causal, int window,
-                                   float scale, int dtype, void* stream) {
+                                   const void* v, void* out, void* lse,
+                                   int batch, int sq, int skv, int num_heads,
+                                   int num_kv, int hd, int vd, int causal,
+                                   int window, float scale, int dtype,
+                                   void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+#define ATTN_LAUNCH(FN, H, V)                                                \
+  return l ? FN<H, V, true>(q, k, v, out, l, batch, sq, skv, num_heads,      \
+                            num_kv, causal, window, scale, s)                \
+           : FN<H, V, false>(q, k, v, out, l, batch, sq, skv, num_heads,     \
+                             num_kv, causal, window, scale, s);
 #define ATTN_CASE(H, V)                                                     \
   if (hd == H && vd == V) {                                                 \
-    if (dtype == 0)                                                         \
-      return launch_f32<H, V>(q, k, v, out, batch, sq, skv, num_heads,      \
-                              num_kv, causal, window, scale, s);            \
-    if (dtype == 1)                                                         \
-      return launch_bf16<H, V>(q, k, v, out, batch, sq, skv, num_heads,     \
-                               num_kv, causal, window, scale, s);           \
+    if (dtype == 0) ATTN_LAUNCH(launch_f32, H, V)                           \
+    if (dtype == 1) ATTN_LAUNCH(launch_bf16, H, V)                          \
   }
   ATTN_FOR_EACH_DIMS(ATTN_CASE)
 #undef ATTN_CASE
+#undef ATTN_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }

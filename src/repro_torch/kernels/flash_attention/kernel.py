@@ -16,10 +16,17 @@ model path the jnp scan that stands in for it
 (``repro/models/layers.py::blocked_attention`` at static offsets).  The
 CUDA source (``csrc/flash_attention.cu``) says how and what bounds it.
 
-On a CUDA tensor the wrapper launches the kernel or raises; only a tensor
-that lies on the CPU takes :func:`flash_attention_plain`.  The source is
-built at first use by :mod:`repro_torch.kernels.build`; nothing is compiled
-or loaded when this module is imported.
+Training: ``flash_attention(..., return_lse=True)`` also returns each
+row's log-sum-exp and the output in f32 (the residuals the reference's
+custom_vjp saves), :func:`flash_attention_bwd` launches the hand-written
+backward (``csrc/flash_attention_bwd.cu``: dq, dk, dv, in two passes
+without atomics) and :class:`FlashAttention` ties the two into autograd.
+:func:`flash_attention_bwd_plain` ports the reference's ``flash_bwd``.
+
+On a CUDA tensor each wrapper launches its kernel or raises; only a tensor
+that lies on the CPU takes the plain version.  The sources are built at
+first use by :mod:`repro_torch.kernels.build`; nothing is compiled or
+loaded when this module is imported.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch
 from repro_torch.kernels.build import current_stream, load_entry
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 #: head dims (hd and vd) the kernel is built for
 HEAD_DIMS = (16, 32, 64, 128)
 #: dtype -> the code the CUDA entry takes
@@ -40,8 +48,10 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the reference's mask value (finite: see the CUDA source)
 NEG_INF = -1e30
 
-_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 9
+_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 9
              + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+_BWD_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 9
+                 + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
 
 
 def _shapes(who: str, q, k, v):
@@ -67,19 +77,56 @@ def _check_window(who: str, window) -> None:
         raise ValueError(f"{who}: window must be None or >= 1; got {window}")
 
 
+def _check_cuda_operands(who: str, named, dtype: torch.dtype) -> None:
+    """Raise unless every ``(name, tensor)`` is ``dtype`` on the first
+    one's CUDA device, contiguous and 16-byte aligned."""
+    dev = named[0][1].device
+    if dev.type != "cuda":
+        raise ValueError(f"{who}: unsupported device {dev}")
+    for name, t in named:
+        if t.device != dev or t.dtype != dtype:
+            raise ValueError(f"{who}: {name} is {t.dtype} on {t.device}, "
+                             f"expected {dtype} on {dev}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{who}: {name} must be contiguous and 16-byte "
+                             f"aligned")
+
+
+def _check_kernel_shape(who: str, q, b, sq, h, hd, skv, kvh, vd) -> None:
+    """Raise unless the kernels are built for this dtype, these head dims
+    and this grid."""
+    if q.dtype not in DTYPE_CODES:
+        raise ValueError(f"{who}: no kernel for {q.dtype}; it takes "
+                         f"{sorted(map(str, DTYPE_CODES))}")
+    if hd not in HEAD_DIMS or vd not in HEAD_DIMS:
+        raise ValueError(f"{who}: no kernel for head dims hd={hd}, vd={vd}; "
+                         f"it is built for {HEAD_DIMS}")
+    if skv == 0:
+        raise ValueError(f"{who}: no keys (Skv = 0)")
+    if b > 65535 or kvh > 65535 or sq * (h // kvh) >= 2**31 - 64:
+        raise ValueError(f"{who}: shape {tuple(q.shape)} is beyond the "
+                         f"kernel's grid")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     scale: Optional[float] = None, q_block: int = 128,
-                    kv_block: int = 512) -> torch.Tensor:
+                    kv_block: int = 512, return_lse: bool = False):
     """``(B, Sq, H, vd)``: softmax attention of q over k, v in q's dtype.
 
     q ``(B, Sq, H, hd)``, k ``(B, Skv, KV, hd)``, v ``(B, Skv, KV, vd)``,
     one dtype (f32 or bf16 on the card), ``H % KV == 0``; ``scale``
     defaults to ``hd^-0.5``.  CUDA tensors launch the kernel on the current
-    stream (counted in ``flash_attention.launches``); it takes contiguous
-    operands with hd and vd in :data:`HEAD_DIMS` and raises on anything
-    else.  CPU tensors take :func:`flash_attention_plain`, whose tiles are
-    ``q_block`` by ``kv_block`` (the kernel chooses its own).
+    stream (counted in ``flash_attention.launches``, and those with
+    ``return_lse`` also in ``flash_attention.lse_launches``); it takes
+    contiguous operands with hd and vd in :data:`HEAD_DIMS` and raises on
+    anything else.  CPU tensors take :func:`flash_attention_plain`, whose
+    tiles are ``q_block`` by ``kv_block`` (the kernel chooses its own).
+
+    With ``return_lse`` it returns ``(out, lse)``, the backward's
+    residuals: ``out`` in f32 whatever q's dtype, and each row's
+    log-sum-exp of the scaled scores ``(B, H, Sq)`` in f32 (``+inf`` for a
+    row that saw no key).
     """
     who = "flash_attention"
     b, sq, h, hd, skv, kvh, vd = _shapes(who, q, k, v)
@@ -88,34 +135,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale, q_block=q_block,
-                                     kv_block=kv_block)
-    if q.device.type != "cuda":
-        raise ValueError(f"{who}: unsupported device {q.device}")
-    for name, t in (("k", k), ("v", v)):
-        if t.device != q.device or t.dtype != q.dtype:
-            raise ValueError(f"{who}: {name} is {t.dtype} on {t.device}, q "
-                             f"{q.dtype} on {q.device}")
-    if q.dtype not in DTYPE_CODES:
-        raise ValueError(f"{who}: no kernel for {q.dtype}; it takes "
-                         f"{sorted(map(str, DTYPE_CODES))}")
-    if hd not in HEAD_DIMS or vd not in HEAD_DIMS:
-        raise ValueError(f"{who}: no kernel for head dims hd={hd}, vd={vd}; "
-                         f"it is built for {HEAD_DIMS}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{who}: {name} must be contiguous and 16-byte "
-                             f"aligned")
-    if skv == 0:
-        raise ValueError(f"{who}: no keys (Skv = 0)")
-    if b > 65535 or kvh > 65535 or sq * (h // kvh) >= 2**31 - 64:
-        raise ValueError(f"{who}: shape {tuple(q.shape)} is beyond the "
-                         f"kernel's grid")
-    out = torch.empty((b, sq, h, vd), dtype=q.dtype, device=q.device)
+                                     kv_block=kv_block,
+                                     return_lse=return_lse)
+    _check_cuda_operands(who, (("q", q), ("k", k), ("v", v)), q.dtype)
+    _check_kernel_shape(who, q, b, sq, h, hd, skv, kvh, vd)
+    out = torch.empty((b, sq, h, vd), device=q.device,
+                      dtype=torch.float32 if return_lse else q.dtype)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     fn = load_entry(SOURCE, "flash_attention_fwd", _ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if lse is None else lse.data_ptr(),
                  b, sq, skv, h, kvh, hd, vd, int(causal),
                  0 if window is None else int(window), float(scale),
                  DTYPE_CODES[q.dtype], current_stream(q.device))
@@ -123,11 +156,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"{who}: kernel launch failed with CUDA error "
                            f"{err}")
     flash_attention.launches += 1
+    if return_lse:
+        flash_attention.lse_launches += 1
+        return out, lse
     return out
 
 
-#: kernel launches since the last reset (a plain integer)
+#: kernel launches since the last reset (plain integers): all of them, and
+#: those that also wrote the log-sum-exp (the training forward)
 flash_attention.launches = 0
+flash_attention.lse_launches = 0
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -135,21 +173,25 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           window: Optional[int] = None,
                           scale: Optional[float] = None, q_block: int = 128,
                           kv_block: int = 512,
-                          dtype: Optional[torch.dtype] = None
-                          ) -> torch.Tensor:
+                          dtype: Optional[torch.dtype] = None,
+                          return_lse: bool = False):
     """The plain PyTorch version of :func:`flash_attention`: the
     reference's tiled online-softmax scan (``repro/models/layers.py``'s
     static-offset flash path, ``_blocked_attention_ref``'s tiles), over
     ``q_block`` by ``kv_block`` tiles with q widened before it is scaled,
     masked scores at -1e30 and ``out = l > 0 ? acc / max(l, 1e-30) : 0``.
 
-    It computes in f32 and returns q's dtype; ``dtype=torch.float64``
-    computes and returns f64, the oracle the kernel is held against.
+    It computes in f32 (f64 inputs in f64) and returns q's dtype;
+    ``dtype=torch.float64`` computes and returns f64, the oracle the kernel
+    is held against.  With ``return_lse`` it returns ``(out, lse)`` as
+    :func:`flash_attention` does, ``out`` in the compute dtype and ``lse =
+    l > 0 ? m + log(max(l, 1e-30)) : inf`` ``(B, H, Sq)``, as the
+    reference's ``fwd_impl`` saves them.
     """
     b, sq, h, hd, skv, kvh, vd = _shapes("flash_attention_plain", q, k, v)
     _check_window("flash_attention_plain", window)
-    ct = torch.float32 if dtype is None else dtype
-    out_dtype = q.dtype if dtype is None else dtype
+    ct = _compute_dtype(q, dtype)
+    out_dtype = ct if return_lse or dtype is not None else q.dtype
     scale = hd ** -0.5 if scale is None else scale
     groups = h // kvh
     dev = q.device
@@ -164,7 +206,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qb = q.reshape(b, nq, q_block, kvh, groups, hd).permute(1, 0, 3, 4, 2, 5)
     kb = k.reshape(b, nk, kv_block, kvh, hd).permute(1, 0, 3, 2, 4)
     vb = v.reshape(b, nk, kv_block, kvh, vd).permute(1, 0, 3, 2, 4)
-    outs = []
+    outs, lses = [], []
     for qi in range(nq):
         qs = qb[qi].to(ct) * scale
         q_pos = qi * q_block + torch.arange(q_block, device=dev)
@@ -191,6 +233,222 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l_ = l_run[..., None]
         outs.append(torch.where(l_ > 0, acc / torch.clamp(l_, min=1e-30),
                                 0.0))
+        lses.append(torch.where(
+            l_run > 0, m_run + torch.log(torch.clamp(l_run, min=1e-30)),
+            torch.inf))
     out = torch.stack(outs)                    # (nq, B, KV, G, qb, vd)
     out = out.permute(1, 0, 4, 2, 3, 5).reshape(b, sq_p, h, vd)[:, :sq]
-    return out.to(out_dtype)
+    if not return_lse:
+        return out.to(out_dtype)
+    lse = torch.stack(lses)                    # (nq, B, KV, G, qb)
+    lse = lse.permute(1, 2, 3, 0, 4).reshape(b, h, sq_p)[:, :, :sq]
+    return out.to(out_dtype), lse
+
+
+def _compute_dtype(q: torch.Tensor, dtype: Optional[torch.dtype]):
+    """The plain versions' arithmetic: ``dtype`` if given, else f64 for
+    f64 inputs and f32 for the others."""
+    if dtype is not None:
+        return dtype
+    return torch.float64 if q.dtype == torch.float64 else torch.float32
+
+
+def _check_residuals(who: str, b, sq, h, vd, out, lse, dout) -> None:
+    for name, t, shape in (("out", out, (b, sq, h, vd)),
+                           ("dout", dout, (b, sq, h, vd)),
+                           ("lse", lse, (b, h, sq))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{who}: {name} is {tuple(t.shape)}, expected "
+                             f"{shape}")
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None, q_block: int = 128,
+                        kv_block: int = 512):
+    """``(dq, dk, dv)``, in q's dtype: the gradients of
+    :func:`flash_attention` at q, k, v given its residuals ``out`` (f32,
+    ``(B, Sq, H, vd)``) and ``lse`` (f32, ``(B, H, Sq)``) from
+    ``return_lse=True``, and the output's gradient ``dout`` (f32, like
+    ``out``).
+
+    CUDA tensors launch the backward kernel's two passes on the current
+    stream (one call counted in ``flash_attention_bwd.launches``); the
+    masks, scale and head dims are the forward's, and anything the kernel
+    does not take raises.  CPU tensors take
+    :func:`flash_attention_bwd_plain` over ``q_block`` by ``kv_block``
+    tiles.
+    """
+    who = "flash_attention_bwd"
+    b, sq, h, hd, skv, kvh, vd = _shapes(who, q, k, v)
+    _check_window(who, window)
+    _check_residuals(who, b, sq, h, vd, out, lse, dout)
+    scale = hd ** -0.5 if scale is None else scale
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                         causal=causal, window=window,
+                                         scale=scale, q_block=q_block,
+                                         kv_block=kv_block)
+    _check_cuda_operands(who, (("q", q), ("k", k), ("v", v)), q.dtype)
+    _check_cuda_operands(who, (("out", out), ("lse", lse), ("dout", dout)),
+                         torch.float32)
+    if out.device != q.device:
+        raise ValueError(f"{who}: residuals on {out.device}, q on "
+                         f"{q.device}")
+    _check_kernel_shape(who, q, b, sq, h, hd, skv, kvh, vd)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    fn = load_entry(BWD_SOURCE, "flash_attention_bwd", _BWD_ARGTYPES)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 b, sq, skv, h, kvh, hd, vd, int(causal),
+                 0 if window is None else int(window), float(scale),
+                 DTYPE_CODES[q.dtype], current_stream(q.device))
+    if err:
+        raise RuntimeError(f"{who}: kernel launch failed with CUDA error "
+                           f"{err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+#: calls that launched the backward's two passes since the last reset
+flash_attention_bwd.launches = 0
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              lse: torch.Tensor, dout: torch.Tensor, *,
+                              causal: bool = True,
+                              window: Optional[int] = None,
+                              scale: Optional[float] = None,
+                              q_block: int = 128, kv_block: int = 512,
+                              dtype: Optional[torch.dtype] = None):
+    """The plain PyTorch version of :func:`flash_attention_bwd`: the
+    reference's ``flash_bwd`` (``repro/models/layers.py::_make_flash``),
+    its two tiled passes over ``q_block`` by ``kv_block`` tiles: ``delta =
+    rowsum(dO O)``, ``P = exp(s - lse)`` from the recomputed masked score,
+    ``dS = P (dP - delta)``, ``dq = scale dS K`` (pass 1), ``dk = scale
+    dS^T Q`` and ``dv = P^T dO`` summed over each KV head's group (pass 2).
+
+    It computes in f32 (f64 inputs in f64) and returns q's dtype;
+    ``dtype=torch.float64`` computes and returns f64, the oracle the kernel
+    is held against.
+    """
+    who = "flash_attention_bwd_plain"
+    b, sq, h, hd, skv, kvh, vd = _shapes(who, q, k, v)
+    _check_window(who, window)
+    _check_residuals(who, b, sq, h, vd, out, lse, dout)
+    ct = _compute_dtype(q, dtype)
+    scale = hd ** -0.5 if scale is None else scale
+    groups = h // kvh
+    dev = q.device
+    q_block, kv_block = max(1, min(q_block, sq)), max(1, min(kv_block, skv))
+    sq_p = -(-sq // q_block) * q_block
+    skv_p = -(-skv // kv_block) * kv_block
+    nq, nk = sq_p // q_block, skv_p // kv_block
+    pad_q = lambda t: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, sq_p - sq))
+    pad_k = lambda t: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, skv_p - skv))
+    # padded query rows carry dO = 0, so they add nothing (as the
+    # reference's, whose padded outputs are sliced away)
+    qb = pad_q(q.to(ct)).reshape(b, nq, q_block, kvh, groups, hd).permute(
+        1, 0, 3, 4, 2, 5)                      # (nq, B, KV, G, qb, hd)
+    dob = pad_q(dout.to(ct)).reshape(b, nq, q_block, kvh, groups,
+                                     vd).permute(1, 0, 3, 4, 2, 5)
+    ob = pad_q(out.to(ct)).reshape(b, nq, q_block, kvh, groups,
+                                   vd).permute(1, 0, 3, 4, 2, 5)
+    lb = torch.nn.functional.pad(lse.to(ct), (0, sq_p - sq)).reshape(
+        b, kvh, groups, nq, q_block).permute(3, 0, 1, 2, 4)
+    kb = pad_k(k.to(ct)).reshape(b, nk, kv_block, kvh, hd).permute(
+        1, 0, 3, 2, 4)                         # (nk, B, KV, kvb, hd)
+    vb = pad_k(v.to(ct)).reshape(b, nk, kv_block, kvh, vd).permute(
+        1, 0, 3, 2, 4)
+    delta = (dob * ob).sum(dim=-1)             # (nq, B, KV, G, qb)
+
+    def probs(qi, ki):
+        q_pos = qi * q_block + torch.arange(q_block, device=dev)
+        k_pos = ki * kv_block + torch.arange(kv_block, device=dev)
+        mask = (k_pos < skv)[None, :].expand(q_block, kv_block)
+        if causal:
+            mask = mask & (k_pos[None, :] <= q_pos[:, None])
+        if window is not None:
+            mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+        s = torch.einsum("bkgqd,bkcd->bkgqc", qb[qi] * scale, kb[ki])
+        s = torch.where(mask, s, NEG_INF)
+        return torch.exp(s - lb[qi][..., None])
+
+    def d_scores(qi, ki, p):
+        dp = torch.einsum("bkgqd,bkcd->bkgqc", dob[qi], vb[ki])
+        return p * (dp - delta[qi][..., None])
+
+    dq = []
+    for qi in range(nq):                       # pass 1: dq
+        acc = torch.zeros((b, kvh, groups, q_block, hd), dtype=ct,
+                          device=dev)
+        for ki in range(nk):
+            ds = d_scores(qi, ki, probs(qi, ki))
+            acc = acc + scale * torch.einsum("bkgqc,bkcd->bkgqd", ds, kb[ki])
+        dq.append(acc)
+    dk, dv = [], []
+    for ki in range(nk):                       # pass 2: dk, dv
+        acc_k = torch.zeros((b, kvh, kv_block, hd), dtype=ct, device=dev)
+        acc_v = torch.zeros((b, kvh, kv_block, vd), dtype=ct, device=dev)
+        for qi in range(nq):
+            p = probs(qi, ki)
+            acc_v = acc_v + torch.einsum("bkgqc,bkgqd->bkcd", p, dob[qi])
+            acc_k = acc_k + scale * torch.einsum(
+                "bkgqc,bkgqd->bkcd", d_scores(qi, ki, p), qb[qi])
+        dk.append(acc_k)
+        dv.append(acc_v)
+    out_dtype = q.dtype if dtype is None else dtype
+    dq = torch.stack(dq).permute(1, 0, 4, 2, 3, 5).reshape(
+        b, sq_p, h, hd)[:, :sq]
+    dk = torch.stack(dk).permute(1, 0, 3, 2, 4).reshape(b, skv_p, kvh,
+                                                        hd)[:, :skv]
+    dv = torch.stack(dv).permute(1, 0, 3, 2, 4).reshape(b, skv_p, kvh,
+                                                        vd)[:, :skv]
+    return dq.to(out_dtype), dk.to(out_dtype), dv.to(out_dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its hand-written backward, for training: the
+    reference's ``custom_vjp`` (``repro/models/layers.py::_make_flash``).
+    The forward returns the output in f32 (the caller casts it to q's
+    dtype, as the reference casts its f32 result) and saves ``(q, k, v,
+    out, lse)``; the backward recomputes P from ``lse`` with
+    :func:`flash_attention_bwd`, the kernel on CUDA tensors, the plain
+    version on CPU ones."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, q_block, kv_block):
+        opts = dict(causal=causal, window=window, scale=scale,
+                    q_block=q_block, kv_block=kv_block)
+        out, lse = flash_attention(q, k, v, return_lse=True, **opts)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = opts
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         dout.float().contiguous(),
+                                         **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention_differentiable(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, *, causal: bool = True,
+                                   window: Optional[int] = None,
+                                   scale: Optional[float] = None,
+                                   q_block: int = 128,
+                                   kv_block: int = 512) -> torch.Tensor:
+    """:class:`FlashAttention` applied: the attention output in f32, with
+    gradients to q, k and v through the backward kernel."""
+    return FlashAttention.apply(q, k, v, causal, window, scale, q_block,
+                                kv_block)

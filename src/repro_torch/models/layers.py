@@ -9,7 +9,9 @@ Every attention call of the model goes through one of two hand-written
 CUDA kernels on the card: :func:`blocked_attention` (prefill and
 full-sequence) launches ``kernels/flash_attention``, :func:`decode_attention`
 (one token against a cache) launches ``kernels/decode_attention``.  On CPU
-tensors both take the kernels' plain versions.
+tensors both take the kernels' plain versions.  A training call of
+:func:`blocked_attention` goes through the flash kernel's autograd
+function, whose backward is the flash backward kernel.
 """
 
 from __future__ import annotations
@@ -21,7 +23,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.decode_attention.kernel import (
     decode_attention as decode_attention_kernel)
-from repro_torch.kernels.flash_attention.kernel import flash_attention
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention, flash_attention_differentiable)
+from repro_torch.models.params import NOT_PORTED_ENTRY
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -96,16 +100,28 @@ def blocked_attention(
     vd) in q's dtype with f32 accumulation.  The static-offset path only
     (every model call): on the card it is one launch of the flash kernel;
     ``q_block``/``kv_block`` tile its plain version.  Dynamic offsets or a
-    valid length raise."""
+    valid length raise.
+
+    Where autograd records (grad enabled, and q, k or v requires grad) the
+    call goes through :class:`FlashAttention`, as the reference's static
+    path goes through its ``custom_vjp``: the forward keeps its f32 output
+    and log-sum-exp, the cast to q's dtype comes after, and the backward
+    is the flash backward kernel.  Otherwise the launch writes no
+    log-sum-exp."""
     if not (isinstance(q_offset, int) and q_offset == 0
             and isinstance(kv_offset, int) and kv_offset == 0
             and kv_valid_len is None):
         raise NotImplementedError(
-            "blocked_attention: only static zero offsets are ported (the "
-            "model path); dynamic offsets and kv_valid_len are not")
-    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                           causal=causal, window=window, scale=softmax_scale,
-                           q_block=q_block, kv_block=kv_block)
+            f"blocked_attention: only static zero offsets are ported (the "
+            f"model path); dynamic offsets and kv_valid_len are not "
+            f"({NOT_PORTED_ENTRY})")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    opts = dict(causal=causal, window=window, scale=softmax_scale,
+                q_block=q_block, kv_block=kv_block)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return flash_attention_differentiable(q, k, v, **opts).to(q.dtype)
+    return flash_attention(q, k, v, **opts)
 
 
 def decode_attention(

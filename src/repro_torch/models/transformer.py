@@ -1,7 +1,8 @@
 """Model assembly for the dense GQA family: the port of the dense half of
 ``repro.models.transformer``.
 
-- ``lm_forward``: full-sequence logits;
+- ``lm_forward``: full-sequence logits (training, eval; ``remat=True``
+  recomputes each block in the backward);
 - ``lm_prefill``: prompt -> (full logits, KV caches);
 - ``lm_decode_step``: one token against the caches (serving).
 
@@ -17,6 +18,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Tuple, Union
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models.config import ModelConfig
@@ -25,11 +27,18 @@ from repro_torch.models.params import require_dense
 
 
 def _layers(params: Dict[str, Any], cfg: ModelConfig) -> List[Dict[str, Any]]:
-    """One tree of views ``blocks[...][l]`` per layer."""
+    """One tree of views ``blocks[...][l]`` per layer, from one ``unbind``
+    of each stacked leaf (whose backward stacks the layers' gradients in
+    one copy, where indexing would add a zero-filled stack per layer)."""
+    def split(tree):
+        return {k: split(v) if isinstance(v, dict) else v.unbind(0)
+                for k, v in tree.items()}
+
     def pick(tree, l):
         return {k: pick(v, l) if isinstance(v, dict) else v[l]
                 for k, v in tree.items()}
-    return [pick(params["blocks"], l) for l in range(cfg.num_layers)]
+    per_layer = split(params["blocks"])
+    return [pick(per_layer, l) for l in range(cfg.num_layers)]
 
 
 def _dense_block_full(lp: Dict[str, Any], x: torch.Tensor,
@@ -58,12 +67,19 @@ def _head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def lm_forward(params: Dict[str, Any], cfg: ModelConfig,
-               tokens: torch.Tensor) -> torch.Tensor:
-    """Logits (B, S, V) of a dense GQA model."""
+               tokens: torch.Tensor, *, remat: bool = False) -> torch.Tensor:
+    """Logits (B, S, V) of a dense GQA model.  ``remat=True`` runs each
+    block under ``torch.utils.checkpoint`` (non-reentrant): the backward
+    recomputes the block and its forward saves nothing inside it, the
+    reference's ``jax.checkpoint`` with ``nothing_saveable``."""
     require_dense(cfg)
     x = _embed(params, cfg, tokens)
     for lp in _layers(params, cfg):
-        x = _dense_block_full(lp, x, cfg)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                _dense_block_full, lp, x, cfg, use_reentrant=False)
+        else:
+            x = _dense_block_full(lp, x, cfg)
     return _head(params, cfg, x)
 
 

@@ -4,7 +4,13 @@ The plain versions' semantics are pinned on the CPU against a per-row
 numpy softmax in f64; each CUDA kernel is held against its plain version
 in f64 on the card (the flash kernel's and the decode kernel's f32 entries
 compute on the CUDA cores, their bf16 entries on the tensor cores, with P
-in two bf16 terms).
+in two bf16 terms).  The flash backward kernel (both entries in f32 on
+the CUDA cores) is held against its plain version in f64 on the forward's
+own residuals: gradients at rtol 1e-5 in f32 and 5e-3 in bf16 (each
+gradient rounded once), atol 1e-5 of each gradient's largest element (f32
+sums over up to thousands of rows); the forward's log-sum-exp at 1e-5 and
+its f32 output at the f32 tolerance (2e-5 from the bf16 entry, whose P
+enters P.V as two bf16 terms).
 Tolerances: f32 outputs rtol = atol = 1e-5 (sums of
 up to 4096 f32 terms in another order); bf16 outputs against f64 rtol 5e-3
 (the output's one round-to-nearest, at most 2^-8 = 3.9e-3 of its value)
@@ -23,7 +29,8 @@ import torch
 from repro_torch.kernels.decode_attention.kernel import (
     decode_attention, decode_attention_plain)
 from repro_torch.kernels.flash_attention.kernel import (
-    HEAD_DIMS, flash_attention, flash_attention_plain)
+    HEAD_DIMS, flash_attention, flash_attention_bwd,
+    flash_attention_bwd_plain, flash_attention_plain)
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=5e-3, atol=1e-5)
@@ -67,6 +74,19 @@ DECODE_CASES = {
     "g16": (2, 600, 16, 1, 64, 64, 333),
     **{f"hd{hd}-vd{vd}": (2, 300, 4, 2, hd, vd, 257)
        for hd in HEAD_DIMS for vd in HEAD_DIMS},
+}
+
+#: cases of the flash backward kernel: B, S, H, KV, hd, vd, causal, window
+FLASH_BWD_CASES = {
+    **{f"hd{hd}-vd{vd}": (1, 130, 4, 2, hd, vd, True, None)
+       for hd in HEAD_DIMS for vd in HEAD_DIMS},
+    "g1": (2, 257, 4, 4, 64, 64, True, None),
+    "g7": (1, 300, 14, 2, 64, 64, True, None),
+    "g16": (1, 200, 16, 1, 64, 64, True, None),
+    "not-causal": (2, 333, 14, 2, 64, 64, False, None),
+    "window-100": (1, 777, 14, 2, 64, 64, True, 100),
+    "window-not-causal": (1, 300, 6, 3, 32, 64, False, 50),
+    "s-1999": (1, 1999, 14, 2, 64, 64, True, None),
 }
 
 DECODE_SHAPES = {
@@ -305,3 +325,90 @@ def test_model_layers_launch_the_kernels(cuda_device, monkeypatch):
     np.testing.assert_allclose(last.float().cpu().numpy(),
                                out[:, -1:].float().cpu().numpy(),
                                **BF16_PAIR_TOL)
+
+
+def _check_grads(got, want, rtol):
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        scale = float(w.abs().max())
+        np.testing.assert_allclose(g.double().cpu().numpy(),
+                                   w.cpu().numpy(), rtol=rtol,
+                                   atol=1e-5 * scale, err_msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(FLASH_BWD_CASES))
+def test_flash_bwd_kernel_matches_plain_version(cuda_device, name, dtype):
+    """The forward's residuals (lse, f32 output) and the backward's dq, dk,
+    dv against their f64 plain versions, bitwise across two launches."""
+    b, s, h, kv, hd, vd, causal, window = FLASH_BWD_CASES[name]
+    dt = getattr(torch, dtype)
+    q, k, v = (t.to(cuda_device, dt)
+               for t in _inputs(FLASH_BWD_CASES[name], 11))
+    dout = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (b, s, h, vd)).astype(np.float32)).to(cuda_device)
+    opts = dict(causal=causal, window=window)
+    f0, l0 = flash_attention.launches, flash_attention.lse_launches
+    out, lse = flash_attention(q, k, v, return_lse=True, **opts)
+    assert (flash_attention.launches, flash_attention.lse_launches) == (
+        f0 + 1, l0 + 1)
+    assert out.dtype == lse.dtype == torch.float32
+    assert torch.equal(out.to(dt), flash_attention(q, k, v, **opts))
+    ref_out, ref_lse = flash_attention_plain(q, k, v, dtype=torch.float64,
+                                             return_lse=True, **opts)
+    np.testing.assert_allclose(lse.double().cpu().numpy(),
+                               ref_lse.cpu().numpy(), rtol=1e-5, atol=1e-5)
+    out_tol = 1e-5 if dtype == "float32" else 2e-5
+    np.testing.assert_allclose(out.double().cpu().numpy(),
+                               ref_out.cpu().numpy(), rtol=out_tol,
+                               atol=out_tol)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, out, lse, dout, **opts)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    assert all(g.dtype == dt for g in got)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                     dtype=torch.float64, **opts)
+    _check_grads(got, want, 1e-5 if dtype == "float32" else 5e-3)
+    again = flash_attention_bwd(q, k, v, out, lse, dout, **opts)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_flash_bwd_wrapper_rejects_what_it_cannot_take(cuda_device):
+    q, k, v = (t.to(cuda_device) for t in _inputs(FLASH_SHAPES["gqa"], 13))
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    dout = torch.ones_like(out)
+    bad = [
+        (q, k, v, out.to(torch.bfloat16), lse, dout),   # residual dtype
+        (q, k, v, out, lse, dout.cpu()),                 # mixed devices
+        (q, k, v, out, lse[:, :, ::2], dout),            # lse shape
+        (q[:, ::2], k[:, ::2], v[:, ::2], out[:, ::2], lse[:, :, ::2],
+         dout[:, ::2]),                                  # not contiguous
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            flash_attention_bwd(*args)
+
+
+@pytest.mark.gpu
+def test_training_call_launches_the_backward_kernel(cuda_device):
+    """blocked_attention under autograd: one forward launch with lse, and
+    one backward call in the backward pass, whose gradients match autograd
+    through the plain version."""
+    from repro_torch.models import layers as L
+
+    q, k, v = (t.to(cuda_device, torch.bfloat16).requires_grad_()
+               for t in _inputs(FLASH_SHAPES["qwen2-window"], 14))
+    l0, b0 = flash_attention.lse_launches, flash_attention_bwd.launches
+    out = L.blocked_attention(q, k, v, window=100)
+    assert flash_attention.lse_launches == l0 + 1
+    g = torch.randn_like(out)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    assert flash_attention_bwd.launches == b0 + 1
+    plain = flash_attention_plain(q, k, v, window=100)
+    want = torch.autograd.grad(plain, (q, k, v), g)
+    for x, y in zip(got, want):
+        np.testing.assert_allclose(x.float().cpu().numpy(),
+                                   y.float().cpu().numpy(), rtol=2e-2,
+                                   atol=1e-2 * float(y.abs().max()))

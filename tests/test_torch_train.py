@@ -1,0 +1,371 @@
+"""The port's training path against the JAX package's, on the CPU.
+
+The same numpy inputs go through both packages: logits and labels
+through ``cross_entropy``; gradient trees through ``clip_by_global_norm``
+and ``adamw_update``; steps through ``cosine_schedule``; (seed, step)
+through ``SyntheticLMData.batch_at`` (bitwise).  Three ``make_train_step``
+steps of the ``qwen2_0_5b`` smoke config (3 layers, d_model 96, head dim
+16, vocab 512, remat on) start from JAX's parameters and AdamW state after
+one JAX step, carried across with ``convert``; a checkpoint written by
+JAX's ``CheckpointManager`` restores in the port, and one the port writes
+restores in JAX.  The loop pieces mirror ``tests/test_train_substrate.py``.
+
+Tolerances: the loss, optimizer and schedule arithmetic in f32 at rtol
+1e-6 (the same f32 operations; XLA may fuse them into another rounding
+order).  The train steps with ``activation_dtype="float32"``: loss and
+grad norm rtol 1e-5 (f32 matmuls summed in another order); every
+parameter within 1e-3 of the summed learning rates of JAX's (AdamW's
+normalized step moves an element by about lr, and the gradients agree to
+about 1e-5 relative, so the steps agree far inside a thousandth of lr;
+an element whose step took the other sign would be up to 2 lr off).  In
+the default bf16 activations, the loss and grad norm at 0.05 relative (the
+bf16 tolerance of ``tests/test_torch_lm.py``).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as jget
+from repro.data.pipeline import DataConfig as JDataConfig
+from repro.data.pipeline import SyntheticLMData as JData
+from repro.models.params import init_params as jinit
+from repro.train import checkpoint as JC
+from repro.train import loss as JLoss
+from repro.train import optimizer as JO
+from repro.train.step import make_train_step as jmake_train_step
+from repro_torch.configs import get_smoke_config as tget
+from repro_torch.convert import adamw_state_from_numpy, lm_params_from_numpy
+from repro_torch.data.pipeline import (DataConfig, Prefetcher,
+                                       SyntheticLMData, shard_batch)
+from repro_torch.train import checkpoint as TC
+from repro_torch.train import optimizer as TO
+from repro_torch.train.compression import compressed_mean
+from repro_torch.train.fault_tolerance import (LoopConfig, RestartableLoop,
+                                               StepTimer, elastic_reshard)
+from repro_torch.train.loss import cross_entropy
+from repro_torch.train.step import (loss_and_grads, make_eval_step,
+                                    make_train_step)
+
+ARCH = "qwen2_0_5b"
+B, S = 2, 32
+LR, WARMUP, TOTAL = 3e-3, 2, 10
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _torch_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _torch_tree(v) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree))
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flat(tree[k], f"{prefix}/{k}"))
+        return out
+    return {prefix: np.asarray(tree.detach() if torch.is_tensor(tree)
+                               else tree, dtype=np.float32)}
+
+
+# ------------------------------------------------------------------- loss
+@pytest.mark.parametrize("z_loss", [0.0, 1e-3])
+@pytest.mark.parametrize("masked", [False, True])
+def test_cross_entropy_matches_reference(masked, z_loss):
+    rng = np.random.default_rng(0)
+    logits = (4 * rng.standard_normal((3, 7, 50))).astype(np.float32)
+    labels = rng.integers(0, 50, (3, 7)).astype(np.int32)
+    labels[0, :3] = logits[0, :3].argmax(-1)   # some right answers
+    mask = (rng.random((3, 7)) > 0.3).astype(np.float32) if masked else None
+    want = JLoss.cross_entropy(jnp.asarray(logits), jnp.asarray(labels),
+                               None if mask is None else jnp.asarray(mask),
+                               z_loss=z_loss)
+    got = cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels),
+                        None if mask is None else torch.from_numpy(mask),
+                        z_loss=z_loss)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.item(), float(w), rtol=1e-6)
+    # the gradient through the detached max is the reference's
+    jg = jax.grad(lambda x: JLoss.cross_entropy(
+        x, jnp.asarray(labels), z_loss=z_loss)[0])(jnp.asarray(logits))
+    x = torch.from_numpy(logits).requires_grad_()
+    cross_entropy(x, torch.from_numpy(labels), z_loss=z_loss)[0].backward()
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(jg), rtol=1e-5,
+                               atol=1e-8)
+
+
+# -------------------------------------------------------------- optimizer
+def _grad_trees(seed):
+    rng = np.random.default_rng(seed)
+    shapes = {"a": {"w": (4, 5), "b": (5,)}, "c": (3, 2, 2)}
+
+    def make(shape_tree, scale):
+        if isinstance(shape_tree, dict):
+            return {k: make(v, scale) for k, v in shape_tree.items()}
+        return (scale * rng.standard_normal(shape_tree)).astype(np.float32)
+    return make(shapes, 1.0), make(shapes, 0.5)
+
+
+@pytest.mark.parametrize("max_norm", [1.0, 1e9])
+def test_clip_by_global_norm_matches_reference(max_norm):
+    grads, _ = _grad_trees(1)
+    want, wnorm = JO.clip_by_global_norm(jax.tree_util.tree_map(
+        jnp.asarray, grads), max_norm)
+    got, norm = TO.clip_by_global_norm(_torch_tree(grads), max_norm)
+    np.testing.assert_allclose(norm.item(), float(wnorm), rtol=1e-6)
+    np.testing.assert_allclose(TO.global_norm(got).item(),
+                               float(JO.global_norm(want)), rtol=1e-6)
+    for k, v in _flat(got).items():
+        np.testing.assert_allclose(v, _flat(_np_tree(want))[k], rtol=1e-6)
+
+
+@pytest.mark.parametrize("weight_decay", [0.0, 0.1])
+def test_adamw_update_matches_reference(weight_decay):
+    _, params = _grad_trees(2)
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    js = JO.adamw_init(jp)
+    tp = _torch_tree(params)
+    ts = TO.adamw_init(tp)
+    for i in range(4):
+        g = _grad_trees(10 + i)[0]
+        jp, js = JO.adamw_update(jax.tree_util.tree_map(jnp.asarray, g), js,
+                                 jp, jnp.float32(0.01),
+                                 weight_decay=weight_decay)
+        tp, ts = TO.adamw_update(_torch_tree(g), ts, tp,
+                                 torch.tensor(0.01), weight_decay=weight_decay)
+    assert int(ts.step) == int(js.step) == 4 and ts.step.dtype == torch.int32
+    for mine, ref in ((tp, jp), (ts.mu, js.mu), (ts.nu, js.nu)):
+        want = _flat(_np_tree(ref))
+        for k, v in _flat(mine).items():
+            np.testing.assert_allclose(v, want[k], rtol=1e-6, atol=1e-9)
+
+
+def test_cosine_schedule_matches_reference():
+    want = JO.cosine_schedule(1e-3, warmup=10, total=100)
+    got = TO.cosine_schedule(1e-3, warmup=10, total=100)
+    for step in (0, 1, 5, 10, 11, 50, 99, 100, 130):
+        np.testing.assert_allclose(
+            got(torch.tensor(step, dtype=torch.int32)).item(),
+            float(want(jnp.int32(step))), rtol=1e-6, atol=1e-12)
+    assert got(torch.tensor(0)).item() == 0.0
+
+
+# ------------------------------------------------------------------- data
+@pytest.mark.parametrize("lag", [1, 2])
+def test_batch_at_is_bitwise_the_reference(lag):
+    kw = dict(vocab_size=97, seq_len=40, global_batch=3, seed=5, lag=lag)
+    mine = SyntheticLMData(DataConfig(**kw))
+    ref = JData(JDataConfig(**kw))
+    assert mine.host_batch == ref.host_batch == 3
+    for step in (0, 1, 17):
+        got, want = mine.batch_at(step), ref.batch_at(step)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert got[k].dtype == want[k].dtype
+            np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_prefetcher_and_shard_batch():
+    pf = Prefetcher(iter(range(10)), depth=3)
+    assert [next(pf) for _ in range(10)] == list(range(10))
+    batch = SyntheticLMData(DataConfig(64, 8, 2)).batch_at(0)
+    placed = shard_batch(batch, "cpu")
+    assert placed["tokens"].dtype == torch.int32
+    assert torch.equal(placed["labels"], torch.from_numpy(batch["labels"]))
+
+
+# ------------------------------------------------------------- train step
+def _configs(dtype):
+    over = dict(activation_dtype=dtype)
+    return (dataclasses.replace(jget(ARCH), **over),
+            dataclasses.replace(tget(ARCH), **over))
+
+
+def _start(jcfg, jstep, seed=0):
+    """JAX's params and AdamW state after one JAX step from its init."""
+    params = jinit(jax.random.PRNGKey(seed), jcfg)
+    state = JO.adamw_init(params)
+    data = JData(JDataConfig(jcfg.vocab_size, S, B, seed=seed, lag=1))
+    batch = {k: jnp.asarray(v) for k, v in data.batch_at(0).items()}
+    params, state, _ = jstep(params, state, batch)
+    return params, state, data
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_three_train_steps_match_jax(dtype):
+    jcfg, tcfg = _configs(dtype)
+    sched = dict(base_lr=LR, warmup=WARMUP, total=TOTAL)
+    jstep = jax.jit(jmake_train_step(
+        jcfg, learning_rate=JO.cosine_schedule(**sched), remat=True))
+    tstep = make_train_step(tcfg, learning_rate=TO.cosine_schedule(**sched),
+                            remat=True)
+    jp, js, data = _start(jcfg, jstep)
+    tp = lm_params_from_numpy(_np_tree(jp), tcfg, device="cpu")
+    ts = adamw_state_from_numpy(_np_tree(js), tcfg, device="cpu")
+    moved = []
+    for step in (1, 2, 3):
+        batch = data.batch_at(step)
+        jp, js, jm = jstep(jp, js, {k: jnp.asarray(v)
+                                    for k, v in batch.items()})
+        tp, ts, tm = tstep(tp, ts, shard_batch(batch, "cpu"))
+        lr = float(jm["lr"])
+        assert tm["lr"].item() == pytest.approx(lr, rel=1e-6)
+        if dtype == "float32":
+            np.testing.assert_allclose(tm["loss"].item(), float(jm["loss"]),
+                                       rtol=1e-5)
+            np.testing.assert_allclose(tm["grad_norm"].item(),
+                                       float(jm["grad_norm"]), rtol=1e-5)
+            np.testing.assert_allclose(tm["accuracy"].item(),
+                                       float(jm["accuracy"]), atol=1e-6)
+        else:
+            for name in ("loss", "grad_norm"):
+                assert tm[name].item() == pytest.approx(float(jm[name]),
+                                                        rel=0.05), name
+        moved.append(lr)
+    assert int(ts.step) == int(js.step) == 4
+    if dtype != "float32":
+        return
+    want = _flat(_np_tree(jp))
+    for k, v in _flat(tp).items():
+        np.testing.assert_allclose(v, want[k], rtol=0, atol=1e-3 * sum(moved),
+                                   err_msg=k)
+
+
+def test_loss_and_grads_without_remat_match_remat():
+    _, tcfg = _configs("float32")
+    params = lm_params_from_numpy(_np_tree(jinit(jax.random.PRNGKey(1),
+                                                 dataclasses.replace(
+                                                     jget(ARCH),
+                                                     activation_dtype=
+                                                     "float32"))),
+                                  tcfg, device="cpu")
+    batch = shard_batch(SyntheticLMData(DataConfig(
+        tcfg.vocab_size, 16, 2, lag=1)).batch_at(3), "cpu")
+    l1, _, g1 = loss_and_grads(params, tcfg, batch, remat=True)
+    l0, _, g0 = loss_and_grads(params, tcfg, batch, remat=False)
+    assert torch.equal(l1, l0)
+    for k, v in _flat(g1).items():
+        np.testing.assert_array_equal(v, _flat(g0)[k])
+    ev = make_eval_step(tcfg)(params, batch)
+    assert ev["loss"].item() == pytest.approx(l0.item(), rel=1e-6)
+
+
+# ------------------------------------------------------------- checkpoint
+def _jax_state(dtype):
+    jcfg, tcfg = _configs(dtype)
+    jstep = jax.jit(jmake_train_step(jcfg, learning_rate=LR, remat=True))
+    jp, js, data = _start(jcfg, jstep, seed=4)
+    return jcfg, tcfg, jstep, jp, js, data
+
+
+def test_port_restores_a_jax_checkpoint_and_steps_alike(tmp_path):
+    jcfg, tcfg, jstep, jp, js, data = _jax_state("float32")
+    JC.CheckpointManager(tmp_path, async_save=False).save(
+        7, {"params": jp, "opt": js})
+    template = {"params": lm_params_from_numpy(
+        jax.tree_util.tree_map(np.zeros_like, _np_tree(jp)), tcfg,
+        device="cpu"), "opt": TO.adamw_init(lm_params_from_numpy(
+            _np_tree(jp), tcfg, device="cpu"))}
+    ckpt = TC.CheckpointManager(tmp_path)
+    assert ckpt.latest_step() == 7
+    got = ckpt.restore(7, template)
+    assert isinstance(got["opt"], TO.AdamWState)
+    assert got["opt"].step.shape == () and got["opt"].step.dtype == torch.int32
+    assert int(got["opt"].step) == int(js.step) == 1
+    for mine, ref in ((got["params"], jp), (got["opt"].mu, js.mu),
+                      (got["opt"].nu, js.nu)):
+        want = _flat(_np_tree(ref))
+        for k, v in _flat(mine).items():
+            np.testing.assert_array_equal(v, want[k])
+    batch = data.batch_at(5)
+    _, _, jm = jstep(jp, js, {k: jnp.asarray(v) for k, v in batch.items()})
+    tstep = make_train_step(tcfg, learning_rate=LR, remat=True)
+    _, _, tm = tstep(got["params"], got["opt"], shard_batch(batch, "cpu"))
+    np.testing.assert_allclose(tm["loss"].item(), float(jm["loss"]),
+                               rtol=1e-5)
+
+
+def test_jax_restores_a_port_checkpoint(tmp_path):
+    jcfg, tcfg, _, jp, js, _ = _jax_state("float32")
+    tree = {"params": lm_params_from_numpy(_np_tree(jp), tcfg, device="cpu"),
+            "opt": adamw_state_from_numpy(_np_tree(js), tcfg, device="cpu")}
+    ckpt = TC.CheckpointManager(tmp_path, async_save=True)
+    ckpt.save(3, tree)
+    ckpt.wait()
+    got = JC.CheckpointManager(tmp_path).restore(3, {"params": jp, "opt": js})
+    jax.tree_util.tree_map(
+        lambda a, b: np.testing.assert_array_equal(np.asarray(a),
+                                                   np.asarray(b)),
+        got, {"params": jp, "opt": js})
+
+
+def test_checkpoint_gc_and_uncommitted(tmp_path):
+    ckpt = TC.CheckpointManager(tmp_path, keep_last_k=2, async_save=False)
+    tree = {"w": torch.ones(3), "n": {"i": torch.arange(4, dtype=torch.int32)}}
+    for s in (1, 2, 3, 4):
+        ckpt.save(s, tree)
+    assert ckpt.all_steps() == [3, 4]
+    out = ckpt.restore(4, tree)
+    assert torch.equal(out["n"]["i"], tree["n"]["i"])
+    (tmp_path / "step_00000004.COMMITTED").unlink()
+    assert ckpt.latest_step() == 3
+    with pytest.raises(FileNotFoundError):
+        ckpt.restore(4, tree)
+
+
+# --------------------------------------------------------- fault tolerance
+def test_step_timer_flags_stragglers():
+    t = StepTimer(ema_alpha=0.5, outlier_factor=2.0)
+    for i in range(5):
+        assert not t.record(i, 0.1)
+    assert t.record(5, 0.5)
+    assert t.outliers == [5]
+    assert t.summary()["outliers"] == 1
+
+
+def test_restartable_loop_retries_and_resumes(tmp_path):
+    ckpt = TC.CheckpointManager(tmp_path, async_save=False)
+    cfg = LoopConfig(total_steps=7, checkpoint_every=2, max_step_retries=2,
+                     log_every=0)
+    loop = RestartableLoop(ckpt, cfg, log=lambda s: None)
+    fails = {"n": 0}
+
+    def step_fn(state, step):
+        if step == 3 and fails["n"] < 1:
+            fails["n"] += 1
+            raise RuntimeError("transient")
+        return {"w": state["w"] + 1.0}
+
+    out = loop.run({"w": torch.zeros(2)}, step_fn)
+    assert float(out["w"][0]) == 7.0
+    assert fails["n"] == 1
+    loop2 = RestartableLoop(ckpt, cfg, log=lambda s: None)
+    assert loop2.resume_step() == 7
+    assert float(loop2.restore({"w": torch.zeros(2)})["w"][0]) == 7.0
+
+
+def test_restartable_loop_raises_after_retries(tmp_path):
+    ckpt = TC.CheckpointManager(tmp_path, async_save=False)
+    cfg = LoopConfig(total_steps=3, checkpoint_every=0, max_step_retries=1,
+                     log_every=0)
+    loop = RestartableLoop(ckpt, cfg, log=lambda s: None)
+
+    def bad(state, step):
+        raise RuntimeError("permanent")
+
+    with pytest.raises(RuntimeError):
+        loop.run({"w": torch.zeros(1)}, bad)
+
+
+def test_mesh_pieces_raise_naming_their_entry():
+    for fn in (compressed_mean, elastic_reshard):
+        with pytest.raises(NotImplementedError, match="entry 15"):
+            fn()
