@@ -60,6 +60,23 @@ drives these paths over the ``synth-web-lg`` stream:
   run's, sums within 1% L1); the bf16 PageRank session's summed push
   device time under ``autotune="off"`` and ``"full"``, full-graph and
   summary layouts apart;
+- the hot-path analysis gates (``repro_torch.analysis``): every program of
+  the catalog (push, push_coo, build_summary, the fused steps and serving
+  waves, the apply steps, the epoch counts, at 1,024 vertices and 16,384
+  edge slots) once under both the dispatch lint and CUDA's sync debug
+  mode (``"error"`` where the baseline lists no host read of the program
+  on the card) with its peak allocation, and held to the CPU run of the
+  same program; both canned engine loops untuned and under
+  ``autotune="full"`` from an empty tuner cache (the warm-up must time
+  the served key once), and the sync loop under ``"cached"`` from the
+  saved tile, each adding no kernel build, library load or tuning run
+  after warm-up; and the AST lint.  A finding
+  on the card that ``src/repro_torch/analysis/baseline.json`` does not
+  allow fails the run;
+- the kernels' convenience wrappers (``kernels/*/ops.py``) against their
+  refs and plain versions: ``pagerank_push``, ``semiring_push`` (sum,
+  min/max single and batched), ``flash_attention_op`` and
+  ``decode_attention_op``;
 
 and two LM paths:
 
@@ -3551,6 +3568,287 @@ def lm_train_path(dev) -> tuple:
     return rows, run_counts
 
 
+# analysis gates: program outputs on the card against the CPU run of the
+# same program (kernels against plain versions at the catalog's shapes;
+# sums over about eight edges a row)
+ANALYSIS_RTOL, ANALYSIS_ATOL = 1e-5, 1e-6
+
+
+def same_outputs(card, cpu, what: str) -> float:
+    """Hold a program's card result to its CPU result leaf by leaf:
+    integer and boolean leaves bitwise, float leaves within
+    ANALYSIS_RTOL/ATOL (NaN and infinities where the CPU has them).
+    Returns the largest share of the tolerance a float leaf used,
+    ``|card - cpu| / (atol + rtol |cpu|)`` over finite entries (a
+    summarized step whose overflow flag is set carries values its caller
+    discards, some past 1e30)."""
+    from repro_torch.analysis.dispatch_lint import output_leaves
+
+    got, want = dict(output_leaves(card)), dict(output_leaves(cpu))
+    if got.keys() != want.keys():
+        raise AssertionError(f"{what}: outputs {sorted(got)} on the card, "
+                             f"{sorted(want)} on the CPU")
+    worst = 0.0
+    for k, ref in want.items():
+        out = got[k].cpu()
+        if out.dtype != ref.dtype or out.shape != ref.shape:
+            raise AssertionError(f"{what}: {k} is {out.dtype}"
+                                 f"{tuple(out.shape)} on the card, "
+                                 f"{ref.dtype}{tuple(ref.shape)} on the CPU")
+        if ref.dtype.is_floating_point:
+            torch.testing.assert_close(out, ref, rtol=ANALYSIS_RTOL,
+                                       atol=ANALYSIS_ATOL, equal_nan=True,
+                                       msg=lambda m: f"{what}: {k}: {m}")
+            fin = torch.isfinite(ref)
+            if fin.any():
+                worst = max(worst, max_excess(out[fin], ref[fin],
+                                              ANALYSIS_ATOL,
+                                              ANALYSIS_RTOL)[1])
+        elif not torch.equal(out, ref):
+            raise AssertionError(f"{what}: {k} differs from the CPU run")
+    return worst
+
+
+def sync_debug_run(fn, args, mode: str) -> tuple:
+    """``fn(*args)`` under ``torch.cuda.set_sync_debug_mode(mode)``
+    (restored to ``"default"`` in a ``finally``), with the card's peak
+    allocation beyond what was live before; returns (result, the
+    file:line of each synchronizing call, peak bytes).  In ``"error"``
+    mode a synchronizing call raises."""
+    import warnings
+
+    from repro_torch.analysis.memory_audit import cuda_peak_bytes
+
+    def in_mode():
+        torch.cuda.set_sync_debug_mode(mode)
+        try:
+            return fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out, peak = cuda_peak_bytes(in_mode)
+    return out, [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                 if "called a synchronizing" in str(w.message)], peak
+
+
+def analysis_path(dev) -> tuple:
+    """The hot-path analysis gates on the card (``repro_torch.analysis``):
+    every program of the catalog (``GraphSpec()``: 1,024 vertices, 16,384
+    edge slots, B = 4) run once on the CPU (the dispatch lint's host-read
+    sites there) and once on the card, under both the dispatch recorder
+    (the DSP rules and the largest intermediate) and CUDA's sync debug
+    mode — ``"error"`` where the baseline lists no host read of the
+    program on the card, ``"warn"`` (warnings counted) where it does —
+    with the peak allocation (MEM-TEMP), and its result held to the CPU
+    run's.  Then the rebuild scenarios on the card (after warm-up: zero
+    builds, loads and tuning runs): both loops untuned, both under
+    ``autotune="full"`` from an empty tuner cache (the warm-up must time
+    the served key once), and the sync loop under ``"cached"`` from the
+    saved cache (the loaded tile, no timing); then the AST lint.  Any
+    finding on the card that the baseline does not allow (for ``cuda``)
+    fails the run.  Returns (rows, launches by kernel)."""
+    import tempfile
+
+    from repro_torch.analysis import BASELINE, ast_lint, memory_audit
+    from repro_torch.analysis import dispatch_lint as DL
+    from repro_torch.analysis import findings as F
+    from repro_torch.analysis import programs as PR
+    from repro_torch.kernels.spmv import autotune as AT
+
+    baseline = F.load_baseline(BASELINE)
+    spec = PR.GraphSpec()
+    cpu = {}
+    for prog in PR.catalog(spec, device="cpu"):
+        rec, out = DL.record_program(prog)
+        cpu[prog.name] = (sorted(rec.sync_sites), out)
+    rows, found = [], []
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    for prog in PR.catalog(spec, device=dev):
+        listed = [e.where for e in baseline
+                  if e.rule == "DSP-HOST-SYNC" and e.applies_to("cuda")
+                  and e.where.startswith(prog.name + ":")]
+        mode = "warn" if listed else "error"
+        (rec, out), synced, peak = sync_debug_run(
+            DL.record_program, (prog, prog.inputs()), mode)
+        found += rec.findings()
+        mem = memory_audit.audit_memory(
+            prog.budgets, program=prog.name,
+            largest_bytes=rec.largest_bytes, largest_at=rec.largest_at,
+            peak_bytes=peak)
+        found += mem
+        cpu_sites, cpu_out = cpu[prog.name]
+        err = same_outputs(out, cpu_out, prog.name)
+        rows.append({
+            "phase": "analysis", "program": prog.name,
+            "device_syncs": len(synced), "sites": len(cpu_sites),
+            "card_sites": len(rec.sync_sites),
+            "largest_intermediate_bytes": rec.largest_bytes,
+            "peak_bytes": peak, "sync_debug_mode": mode,
+            "baseline_sync_sites": len(listed),
+            "sync_calls": sorted(set(synced)), "ops": rec.ops,
+            "largest_at": rec.largest_at, "mem_temp_budget_bytes":
+                prog.budgets.temp_bytes_max,
+            "findings": len(rec.findings()) + len(mem),
+            "vs_cpu_share_of_tolerance": err})
+    catalog_s = time.perf_counter() - t0
+    counts = launch_counts()
+    for k in ("spmv_push", "spmv_reduce_push", "spmv_push_batched"):
+        if not counts[k]:
+            raise AssertionError(f"the catalog on the card launched no "
+                                 f"{k}")
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = Path(tmp) / "tiles.json"
+        try:
+            for run, mode in ((PR.run_rebuild_scenario, "off"),
+                              (PR.run_async_rebuild_scenario, "off"),
+                              (PR.run_rebuild_scenario, "full"),
+                              (PR.run_async_rebuild_scenario, "full"),
+                              (PR.run_rebuild_scenario, "cached")):
+                AT.clear_cache()
+                if mode == "cached":
+                    AT.load_cache(cache)
+                hits = AT.cache_hits()
+                report = {}
+                got = run(device=dev, report=report, autotune=mode)
+                found += got
+                what = f"{report['scenario']} (autotune={mode})"
+                if report["events_after_warm"]:
+                    raise AssertionError(f"{what}: builds, loads or tuning "
+                                         f"runs after warm-up: "
+                                         f"{report['events_after_warm']}")
+                searched = report["warm_events"].get("autotune-search", 0)
+                if searched != (mode == "full"):
+                    raise AssertionError(f"{what}: {searched} tile searches "
+                                         f"in warm-up")
+                if mode == "full" and run is PR.run_rebuild_scenario:
+                    AT.save_cache(cache)
+                    tuned = report["tiles"]
+                if mode == "cached" and (report["tiles"] != tuned
+                                         or AT.cache_hits() == hits):
+                    raise AssertionError(f"{what}: tiles {report['tiles']}, "
+                                         f"not the loaded {tuned}")
+                rows.append({"phase": "analysis-rebuild", **report,
+                             "findings": len(got)})
+        finally:
+            AT.clear_cache()
+    counts = launch_counts()
+    found += ast_lint.lint_files()
+    passes = ("dispatch", "memory", "rebuild", "ast")
+    new, matched, stale = F.check(found, baseline, passes_run=passes,
+                                  device="cuda")
+    rows.append({"phase": "analysis-gate", "programs": len(cpu),
+                 "omitted": list(PR.OMITTED), "catalog_s": catalog_s,
+                 "findings": len(found), "allowlisted": len(matched),
+                 "new": [str(f) for f in new],
+                 "stale": [e.key for e in stale]})
+    if new:
+        for row in rows:
+            emit(row)
+        raise AssertionError(f"{len(new)} analysis finding(s) on the card "
+                             f"that the baseline does not allow: "
+                             + "; ".join(map(str, new)))
+    return rows, counts
+
+
+def ops_path(dev) -> tuple:
+    """The kernels' convenience wrappers (``kernels/*/ops.py``) on the card
+    against their refs (``kernels/*/ref.py``) and plain versions:
+    ``pagerank_push`` and ``semiring_push`` (plus_times [N], min_plus [N]
+    and [B, N]) at the catalog's graph, ``flash_attention_op`` and
+    ``decode_attention_op`` in f32 at Qwen2-0.5B's heads.  Sums are held
+    to an f64 plain version at ANALYSIS_RTOL/ATOL, min/max bitwise to the
+    CPU's plain version, attention to its ref at ATTN_F32_TOL.  Returns
+    (rows, launches by kernel of the six op calls)."""
+    from repro_torch.analysis import programs as PR
+    from repro_torch.core.backend import build_layout
+    from repro_torch.kernels.decode_attention.ops import decode_attention_op
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention_op
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.spmv.kernel import spmv_push_plain
+    from repro_torch.kernels.spmv.ops import pagerank_push, semiring_push
+    from repro_torch.kernels.spmv.ref import spmv_push_ref
+
+    rng = np.random.default_rng(SEED)  # its own: later phases' draws stay
+    spec = PR.GraphSpec()
+    state = PR.build_graph(spec, device=dev)
+    cpu_state = PR.build_graph(spec, device="cpu")
+    n = spec.node_capacity
+    v = torch.from_numpy(rng.random(n).astype(np.float32))
+    vb = torch.from_numpy(rng.random((spec.batch, n)).astype(np.float32))
+    lay = build_layout(state)
+    reset_launch_counts()
+    outs = {
+        "pagerank_push": pagerank_push(state, v.to(dev), layout=lay),
+        "semiring_push[plus_times]": semiring_push(state, v.to(dev)),
+        "semiring_push[min_plus]": semiring_push(
+            state, v.to(dev), semiring="min_plus", weight="length"),
+        "semiring_push[min_plus,batched]": semiring_push(
+            state, vb.to(dev), semiring="min_plus", weight="length"),
+    }
+    b, s, h, kvh, hd = 2, 256, 14, 2, 64
+    gen = torch.Generator().manual_seed(SEED)
+    q, k, vv = (torch.randn(shape, generator=gen) for shape in (
+        (b, s, h, hd), (b, s, kvh, hd), (b, s, kvh, hd)))
+    qd = torch.randn((b, 1, h, hd), generator=gen)
+    cache_len = 200
+    outs["flash_attention_op"] = flash_attention_op(q.to(dev), k.to(dev),
+                                                    vv.to(dev))
+    outs["decode_attention_op"] = decode_attention_op(
+        qd.to(dev), k.to(dev), vv.to(dev), cache_len)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    rows = []
+    # sums: the f64 plain version of the same push, and for pagerank_push
+    # also the ref (an index_add in edge order over the sorted stream)
+    unit = build_layout(state, weight="unit")
+    for name, layout in (("pagerank_push", lay),
+                         ("semiring_push[plus_times]", unit)):
+        ref64 = spmv_push_plain(v.to(dev), layout.src, layout.weight,
+                                layout.row_offsets, dtype=torch.float64)
+        err, share = max_excess(outs[name], ref64, ANALYSIS_ATOL,
+                                ANALYSIS_RTOL)
+        if share > 1:
+            raise AssertionError(f"{name}: {err} from the f64 plain version")
+        rows.append({"phase": "ops", "op": name, "vs": "f64 plain version",
+                     "max_abs_err": err, "share_of_tolerance": share})
+    ref = spmv_push_ref(v.to(dev)[lay.src.long()] * lay.weight, lay.dst, n)
+    err, share = max_excess(outs["pagerank_push"], ref, ANALYSIS_ATOL,
+                            ANALYSIS_RTOL)
+    if share > 1:
+        raise AssertionError(f"pagerank_push: {err} from spmv_push_ref")
+    rows[0]["ref_max_abs_err"] = err
+    # min/max: bitwise the CPU's plain version
+    for name, vals in (("semiring_push[min_plus]", v),
+                       ("semiring_push[min_plus,batched]", vb)):
+        want = semiring_push(cpu_state, vals, semiring="min_plus",
+                             weight="length")
+        if not torch.equal(outs[name].cpu(), want):
+            raise AssertionError(f"{name} differs from the CPU's plain "
+                                 f"version")
+        rows.append({"phase": "ops", "op": name,
+                     "vs": "CPU plain version (bitwise)", "max_abs_err": 0.0})
+    for name, out, ref in (
+            ("flash_attention_op", outs["flash_attention_op"],
+             flash_attention_ref(q.to(dev), k.to(dev), vv.to(dev))),
+            ("decode_attention_op", outs["decode_attention_op"],
+             decode_attention_ref(qd.to(dev), k.to(dev), vv.to(dev),
+                                  cache_len))):
+        err, share = max_excess(out, ref, ATTN_F32_TOL)
+        if share > 1:
+            raise AssertionError(f"{name}: {err} from its ref")
+        rows.append({"phase": "ops", "op": name, "vs": "ref (f32 plain)",
+                     "max_abs_err": err, "share_of_tolerance": share})
+    for kname in ("spmv_push", "spmv_reduce_push", "spmv_reduce_push_batched",
+                  "flash_attention", "decode_attention"):
+        if not counts[kname]:
+            raise AssertionError(f"the ops launched no {kname}")
+    return rows, counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
@@ -3775,6 +4073,16 @@ def main() -> int:
     for row in rows:
         emit(row)
 
+    # ---- 6e. the analysis gates and the kernels' ops wrappers -------------
+    rows, by_path["analysis"] = analysis_path(dev)
+    for row in rows:
+        emit(row)
+    rows, ops_counts = ops_path(dev)
+    by_path["ops"] = ops_counts
+    for row in rows:
+        emit(row)
+    torch.cuda.empty_cache()
+
     for row in attention_bounds():
         emit(row)
     del stream, src, dst
@@ -3898,7 +4206,8 @@ def main() -> int:
         "name": row["kernel"], "route": "cuda", "source": source,
         "replaces": replaces, "launches": lm_counts[row["kernel"]],
         "launches_by_path": {"lm-serve": lm_counts[row["kernel"]],
-                             "lm-train": train_counts[row["kernel"]]},
+                             "lm-train": train_counts[row["kernel"]],
+                             "ops": ops_counts[row["kernel"]]},
         "check": "pass (f32 and bf16 vs the f64 plain version)",
         "max_abs_err": max(r["f32_max_abs_err_vs_f64"] for r in attn_rows
                            if r["kernel"] == row["kernel"]),

@@ -238,6 +238,7 @@ def build_summary(
     mask = state.edge_mask()
     inv_deg = inv_out_degree(state)
     w_dtype = s.torch_dtype
+    # analysis: allow(AST-HOST-SYNC): a numpy identity, no device read
     s_zero = s.zero.item()
     if weight == "length" and layout is not None and layout.order is not None:
         # the layout's baked lengths, mapped back to slot order, so E_K
@@ -299,6 +300,7 @@ def build_summary(
         ek_w = torch.where(ek_valid, per_edge, s_zero)
     else:
         ek_w = torch.where(
+            # analysis: allow(AST-HOST-SYNC): a numpy identity, no device read
             ek_valid, torch.tensor(s.one.item(), dtype=w_dtype, device=dev),
             torch.tensor(s_zero, dtype=w_dtype, device=dev))
     ek_src = torch.where(ek_valid, local_of[gsrc], 0)

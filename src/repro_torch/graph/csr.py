@@ -72,6 +72,7 @@ def gather_push(
     if weight is not None:
         contrib = s.combine(contrib, weight)
     keep = edges.valid if mask is None else (edges.valid & mask)
+    # analysis: allow(AST-HOST-SYNC): a numpy identity, no device read
     contrib = torch.where(keep, contrib, s.zero.item())
     # the padding sentinel (= node capacity) clamps into range; its
     # contribution is already the reduce identity

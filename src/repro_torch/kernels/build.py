@@ -11,10 +11,16 @@ as it is.  The
 compiler's output (``-Xptxas -v``: registers, shared memory, spills) is
 kept beside the library as ``.log``.  Libraries are loaded with ``ctypes``;
 nothing here runs when a module is imported.
+
+Every compile and every load ticks :data:`EVENTS` (as does each tuning
+search and timing of :mod:`repro_torch.kernels.spmv.autotune`), so that
+:class:`repro_torch.analysis.rebuild.RebuildMonitor` can show a warm loop
+adds none.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -28,6 +34,21 @@ import torch
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+#: compiles, loads and tuning runs of this process, by ``kind:name``
+EVENTS: collections.Counter = collections.Counter()
+
+
+def record_event(kind: str, name: str) -> None:
+    """Tick the count of one build-side event (``kind`` is ``build``,
+    ``load``, ``autotune-search`` or ``autotune-timing``)."""
+    EVENTS[f"{kind}:{name}"] += 1
+
+
+def _label(source: Path, defines: tuple) -> str:
+    """``spmv_push.cu[MERGE_ITEMS=7]``: a source and its defines."""
+    return source.name + (f"[{','.join(defines)}]" if defines else "")
 
 
 def _nvcc() -> str:
@@ -64,6 +85,7 @@ def build_library(source: Path, defines: tuple = ()) -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
+    record_event("build", _label(source, defines))
     tmp = out_dir / f"{lib.name}.{os.getpid()}.tmp"
     proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(source)],
                           capture_output=True, text=True)
@@ -91,6 +113,7 @@ def load_entry(source: Path, entry: str, argtypes: tuple,
     ``defines``, built and loaded once per process; it returns a CUDA error
     code (``int``, 0 on success)."""
     fn = getattr(ctypes.CDLL(str(build_library(source, defines))), entry)
+    record_event("load", f"{_label(source, defines)}:{entry}")
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn

@@ -58,6 +58,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from repro_torch.kernels.build import record_event
 from repro_torch.kernels.spmv.kernel import DEFAULT_TILE, THREADS, TILES
 
 #: the tiles the tuner chooses among (every built tile)
@@ -316,6 +317,12 @@ def _time_candidate(key: TuneKey, tile: int, *, sample,
     return start.elapsed_time(end) / iters * 1e-3
 
 
+def _timed(key: TuneKey, tile: int, sample) -> float:
+    """:func:`_time_candidate`, counted as one tuning timing."""
+    record_event("autotune-timing", f"{key.as_str()}@{tile}")
+    return _time_candidate(key, tile, sample=sample)
+
+
 def tune(key: TuneKey, mode: str = "cached", *,
          spec: Optional[DeviceSpec] = None, sample=None) -> int:
     """The merge tile for ``key``.
@@ -347,8 +354,8 @@ def tune(key: TuneKey, mode: str = "cached", *,
     cands = candidates(key, spec)
     if not cands:
         return DEFAULT_TILE
-    timed = sorted((_time_candidate(key, t, sample=sample), t)
-                   for t in cands)
+    record_event("autotune-search", key.as_str())
+    timed = sorted((_timed(key, t, sample), t) for t in cands)
     best = timed[0][1]
     _RUNS += 1
     _CACHE[key] = best
