@@ -78,7 +78,7 @@ drives these paths over the ``synth-web-lg`` stream:
   min/max single and batched), ``flash_attention_op`` and
   ``decode_attention_op``;
 
-and two LM paths:
+and the LM paths:
 
 - the two attention kernels against their plain versions at Qwen2-0.5B's
   widths (f32 against f64, bf16 against f64), timed in bf16 beside the
@@ -105,7 +105,24 @@ and two LM paths:
   ``RestartableLoop`` (the loss must fall; 48 flash forward launches, the
   24 of remat's recomputation included, all with lse, and 24 backward
   calls a step), a checkpoint saved at step 10 restored bitwise into
-  fresh tensors and steps 11 and 12 resumed from it.
+  fresh tensors and steps 11 and 12 resumed from it;
+- the attention kernels at the MoE family's shapes (head dim 128, 48
+  query heads over 8 KV heads): Mixtral-8x22B's prefill past its
+  4,096-token window (B = 1, S = 6144), DBRX-132B's served prefill (B = 4,
+  S = 2048) and decode over a full 4,096-slot ring (B = 4);
+- MoE serving at full width with the depth cut: Mixtral-8x22B (4 of 56
+  layers; 8 requests of 6,144 prompt and 32 new tokens on 4 slots, so the
+  prefill's window mask applies and every decode step wraps the ring) and
+  DBRX-132B (2 of 40 layers; 4 requests of 2,048 + 16), one flash launch
+  per layer and wave, one decode launch per layer and step, no plain
+  call; each layer's share of prefill assignments dropped by capacity;
+  wave 0 replayed through the plain attention versions with the served
+  expert ids forced (a bf16 rounding difference can flip a near-tied
+  route), the routes the unforced replay would flip reported;
+- SSM serving: Mamba2-2.7B at full width and depth (8 requests of 4,096 +
+  64 on 4 slots), no attention launch, and its chunked scan (a prefill of
+  S + 1 tokens) against the served recurrence (a prefill of S, then one
+  decode step) within the same logit tolerance.
 
 It prints one JSON line per phase.  The line before the last lists the
 kernels, with each one's launches on every graph path; the last is
@@ -2731,6 +2748,13 @@ ATTENTION_CHECKS = (
      (8, 4096, 14, 2, 64, 64, 2100)),
     ("Qwen2-0.5B decode, B=8, S=4096, cache_len=128", "decode",
      (8, 4096, 14, 2, 64, 64, 128)),
+    # the MoE family's shapes: head dim 128, 48 query heads over 8 (G = 6)
+    ("Mixtral-8x22B prefill past its window, B=1, S=6144, window 4096",
+     "flash", (1, 6144, 48, 8, 128, 128, True, 4096)),
+    ("DBRX-132B served prefill, B=4, S=2048", "flash",
+     (4, 2048, 48, 8, 128, 128, True, None)),
+    ("Mixtral-8x22B decode over a full 4096-slot ring, B=4, cache_len=6160",
+     "decode", (4, 4096, 48, 8, 128, 128, 6160)),
 )
 
 
@@ -2991,13 +3015,14 @@ def plain_attention_layers():
         L.flash_attention, L.decode_attention_kernel = saved
 
 
-def lm_serve_path(dev, rng) -> tuple:
-    """Serve LM_REQUESTS random prompts on Qwen2-0.5B at full width (seeded
-    weights, greedy) through ``repro_torch.serve.ServingEngine``, every
-    attention call a kernel launch (counts set to 0 just before, read just
-    after).  Returns (row, engine, prompts, counts); the engine keeps wave
-    0's logits and tokens for the replay."""
-    from repro_torch.configs import get_config
+def serve_path(phase, cfg, *, requests, slots, prompt_len, new_tokens,
+               max_len, dev, rng, run_ctx=None) -> tuple:
+    """Serve ``requests`` random prompts of ``prompt_len`` tokens on ``cfg``
+    (seeded weights, greedy) through ``repro_torch.serve.ServingEngine``,
+    every attention call a kernel launch (counts set to 0 just before,
+    read just after; an attention-free model launches none), inside
+    ``run_ctx`` if given.  Returns (row, engine, prompts, counts); the
+    engine keeps wave 0's logits and tokens for the replay."""
     from repro_torch.models.params import init_params, param_count_actual
     from repro_torch.serve.engine import Request, ServingEngine
 
@@ -3018,24 +3043,26 @@ def lm_serve_path(dev, rng) -> tuple:
                 self.record.append((logits.clone(), cur.clone()))
             return cur
 
-    cfg = get_config(LM_ARCH)
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
                          dev)
-    engine = RecordingEngine(cfg, params, batch_slots=LM_SLOTS,
-                             max_len=LM_MAX_LEN, device=dev)
+    engine = RecordingEngine(cfg, params, batch_slots=slots,
+                             max_len=max_len, device=dev)
     del params
     torch.cuda.synchronize()
+    setup_peak = torch.cuda.max_memory_allocated()
     torch.cuda.empty_cache()
     setup_s = time.perf_counter() - t0
-    prompts = rng.integers(0, cfg.vocab_size, (LM_REQUESTS, LM_PROMPT),
+    prompts = rng.integers(0, cfg.vocab_size, (requests, prompt_len),
                            dtype=np.int32)
-    reqs = [Request(prompt=prompts[i], max_new_tokens=LM_NEW, id=i)
-            for i in range(LM_REQUESTS)]
+    reqs = [Request(prompt=prompts[i], max_new_tokens=new_tokens, id=i)
+            for i in range(requests)]
     torch.cuda.reset_peak_memory_stats()
     plain_calls = []
     flash = wrapper("flash_attention")
-    with counting_plain_attention(plain_calls):
+    with counting_plain_attention(plain_calls), (
+            run_ctx or contextlib.nullcontext()):
         reset_launch_counts()
         flash.lse_launches = 0
         t0 = time.perf_counter()
@@ -3043,43 +3070,48 @@ def lm_serve_path(dev, rng) -> tuple:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
     if plain_calls:
-        raise AssertionError(f"LM serving called a plain version: "
+        raise AssertionError(f"{phase}: serving called a plain version: "
                              f"{sorted(set(plain_calls))}")
     if flash.lse_launches:
-        raise AssertionError(f"LM serving wrote the log-sum-exp in "
+        raise AssertionError(f"{phase}: serving wrote the log-sum-exp in "
                              f"{flash.lse_launches} flash launches")
-    waves = -(-LM_REQUESTS // LM_SLOTS)
+    waves = -(-requests // slots)
     want = dict.fromkeys(KERNEL_NAMES, 0)
-    want.update(flash_attention=cfg.num_layers * waves,
-                decode_attention=cfg.num_layers * stats.steps)
+    if not cfg.is_attention_free:
+        want.update(flash_attention=cfg.num_layers * waves,
+                    decode_attention=cfg.num_layers * stats.steps)
     if counts != want:
-        raise AssertionError(f"LM serving launched {counts}, expected {want} "
-                             f"(one flash launch per layer and prefill, one "
-                             f"decode launch per layer and step)")
+        raise AssertionError(f"{phase}: serving launched {counts}, expected "
+                             f"{want} (one flash launch per layer and "
+                             f"prefill, one decode launch per layer and "
+                             f"step; none without attention)")
     for r in reqs:
-        if len(r.output) != LM_NEW or not all(
+        if len(r.output) != new_tokens or not all(
                 0 <= t < cfg.vocab_size for t in r.output):
-            raise AssertionError(f"request {r.id}: output {r.output[:8]}...")
-    # one decode step of the served shape alone (cache_len ≈ wave 0's
+            raise AssertionError(f"{phase}: request {r.id}: output "
+                                 f"{r.output[:8]}...")
+    # one decode step of the served shape alone (the cache at wave 0's
     # midpoint): eager, and its device time from a replayed CUDA graph;
     # their ratio is the device's busy share of a step's model call
     from repro_torch.models.transformer import init_cache, lm_decode_step
-    cache = init_cache(cfg, LM_SLOTS, LM_MAX_LEN, device=dev)
-    token = torch.zeros((LM_SLOTS, 1), dtype=torch.int32, device=dev)
-    pos = torch.tensor(LM_PROMPT + LM_NEW // 2, dtype=torch.int32, device=dev)
+    cache = init_cache(cfg, slots, max_len, device=dev)
+    token = torch.zeros((slots, 1), dtype=torch.int32, device=dev)
+    pos = torch.tensor(prompt_len + new_tokens // 2, dtype=torch.int32,
+                       device=dev)
     step = lambda: lm_decode_step(engine.params, cfg, cache, token, pos)
     step_eager_ms = cuda_ms(step, reps=10)
     step_device_ms = graph_ms(step, reps=10)
     del cache
-    row = {"phase": "lm-serve", "model": cfg.name,
+    row = {"phase": phase, "model": cfg.name,
            "params": param_count_actual(cfg), "layers": cfg.num_layers,
            "d_model": cfg.d_model, "heads": cfg.num_heads,
            "kv_heads": cfg.num_kv_heads, "vocab": cfg.vocab_size,
-           "activation_dtype": cfg.activation_dtype, "requests": LM_REQUESTS,
-           "slots": LM_SLOTS, "prompt_len": LM_PROMPT, "new_tokens": LM_NEW,
-           "max_len": LM_MAX_LEN, "waves": waves, "setup_s": setup_s,
-           "wall_s": wall, "prefill_s": stats.prefill_s,
+           "activation_dtype": cfg.activation_dtype, "requests": requests,
+           "slots": slots, "prompt_len": prompt_len,
+           "new_tokens": new_tokens, "max_len": max_len, "waves": waves,
+           "setup_s": setup_s, "wall_s": wall, "prefill_s": stats.prefill_s,
            "decode_s": stats.decode_s, "steps": stats.steps,
            "tokens_out": stats.tokens_out,
            "tokens_per_s": stats.tokens_per_s,
@@ -3088,23 +3120,39 @@ def lm_serve_path(dev, rng) -> tuple:
            "decode_step_eager_ms": step_eager_ms,
            "decode_step_device_ms": step_device_ms,
            "decode_step_device_busy_share": step_device_ms / step_eager_ms,
-           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "peak_memory_gb": peak / 1e9,
+           "setup_peak_memory_gb": setup_peak / 1e9,
            "launches": counts, "plain_attention_calls": len(plain_calls),
            "flash_lse_launches": flash.lse_launches}
     return row, engine, prompts, counts
 
 
-def lm_teacher_forced(engine, prompts, dev) -> dict:
+def lm_serve_path(dev, rng) -> tuple:
+    """Serve LM_REQUESTS random prompts on Qwen2-0.5B at full width (see
+    :func:`serve_path`)."""
+    from repro_torch.configs import get_config
+
+    return serve_path("lm-serve", get_config(LM_ARCH), requests=LM_REQUESTS,
+                      slots=LM_SLOTS, prompt_len=LM_PROMPT,
+                      new_tokens=LM_NEW, max_len=LM_MAX_LEN, dev=dev,
+                      rng=rng)
+
+
+def lm_teacher_forced(engine, prompts, dev, *, routes=None) -> dict:
     """Replay wave 0 on the card through the plain attention versions: the
     prefill, then every decode step fed the kernel path's token.  Each
     step's logits must agree with the served ones within LM_LOGIT_TOL; the
     free-running greedy agreement of the plain path (its own tokens) is
-    reported, not asserted."""
+    reported, not asserted.  ``routes`` (an MoE model): the served wave's
+    expert ids of every ``moe_mlp`` call, which the teacher-forced replay
+    takes (:func:`forced_routes`); how many token routes its own top-k
+    would have changed is reported, not asserted."""
     from repro_torch.models.transformer import lm_decode_step, lm_prefill
 
-    cfg, rec = engine.cfg, engine.record
+    cfg, rec, slots = engine.cfg, engine.record, engine.slots
+    plen = prompts.shape[1]
     before = launch_counts()
-    errs, scales, forced_agree, free_agree = [], [], 0, []
+    errs, scales, forced_agree, free_agree, flips = [], [], 0, [], []
     t0 = time.perf_counter()
 
     def compare(logits, step):
@@ -3115,25 +3163,29 @@ def lm_teacher_forced(engine, prompts, dev) -> dict:
         scales.append(float(ref.float().abs().max()))
         return int((logits.argmax(-1).int() == rec[step][1]).sum())
 
+    forced = (forced_routes(routes, flips) if routes is not None
+              else contextlib.nullcontext())
     with plain_attention_layers():
-        toks = torch.from_numpy(prompts[:LM_SLOTS]).to(dev)
-        logits, cache = lm_prefill(engine.params, cfg, toks,
-                                   cache_len=engine.max_len)
-        last = logits[:, -1].clone()
-        del logits
-        free_cache = {"kv": {k: t.clone() for k, t in cache["kv"].items()}}
-        forced_agree += compare(last, 0)
-        for step in range(1, len(rec)):
-            pos = torch.tensor(LM_PROMPT + step - 1, dtype=torch.int32,
-                               device=dev)
-            lg, cache = lm_decode_step(engine.params, cfg, cache,
-                                       rec[step - 1][1][:, None], pos)
-            forced_agree += compare(lg[:, -1], step)
+        toks = torch.from_numpy(prompts[:slots]).to(dev)
+        with forced:
+            logits, cache = lm_prefill(engine.params, cfg, toks,
+                                       cache_len=engine.max_len)
+            last = logits[:, -1].clone()
+            del logits
+            free_cache = {"kv": {k: t.clone()
+                                 for k, t in cache["kv"].items()}}
+            forced_agree += compare(last, 0)
+            for step in range(1, len(rec)):
+                pos = torch.tensor(plen + step - 1, dtype=torch.int32,
+                                   device=dev)
+                lg, cache = lm_decode_step(engine.params, cfg, cache,
+                                           rec[step - 1][1][:, None], pos)
+                forced_agree += compare(lg[:, -1], step)
         del cache
         cur = last.argmax(-1).int()
         free_agree.append(cur == rec[0][1])
         for step in range(1, len(rec)):
-            pos = torch.tensor(LM_PROMPT + step - 1, dtype=torch.int32,
+            pos = torch.tensor(plen + step - 1, dtype=torch.int32,
                                device=dev)
             lg, free_cache = lm_decode_step(engine.params, cfg, free_cache,
                                             cur[:, None], pos)
@@ -3148,8 +3200,8 @@ def lm_teacher_forced(engine, prompts, dev) -> dict:
     first_diff = [int(same[:, i].logical_not().nonzero()[0])
                   if not bool(same[:, i].all()) else None
                   for i in range(same.shape[1])]
-    row = {"phase": "lm-teacher-forced", "wave": 0, "steps": len(rec),
-           "wall_s": time.perf_counter() - t0,
+    row = {"phase": "lm-teacher-forced", "model": cfg.name, "wave": 0,
+           "steps": len(rec), "wall_s": time.perf_counter() - t0,
            "prefill_last_max_abs_diff": errs[0],
            "prefill_last_max_abs_logit": scales[0],
            "decode_max_abs_diff": max(errs[1:]),
@@ -3158,13 +3210,187 @@ def lm_teacher_forced(engine, prompts, dev) -> dict:
                errs[worst] / limits[worst],
            "limit": f"{LM_LOGIT_TOL} * max(max|logit|, 1)",
            "teacher_forced_argmax_agreement": forced_agree / (
-               len(rec) * LM_SLOTS),
+               len(rec) * slots),
            "free_running_token_agreement": float(same.float().mean()),
            "free_running_first_divergence": first_diff}
+    if routes is not None:
+        if len(flips) != len(routes):
+            raise AssertionError(f"the replay made {len(flips)} moe_mlp "
+                                 f"calls, the served wave {len(routes)}")
+        flips = [int(f) for f in flips]
+        row.update(forced_routes=True, moe_calls=len(routes),
+                   token_routes=sum(int(r[..., 0].numel()) for r in routes),
+                   routes_the_unforced_replay_would_flip=sum(flips),
+                   flips_in_prefill_by_layer=flips[:cfg.num_layers],
+                   flips_in_decode=sum(flips[cfg.num_layers:]))
     if any(e > lim for e, lim in zip(errs, limits)):
         raise AssertionError(f"served logits disagree with the plain replay: "
                              f"{row}")
     return row
+
+
+# ---- the MoE and SSM families at full width ------------------------------
+# (phase, arch, layers kept of the published depth, requests, slots,
+# prompt tokens, new tokens, max_len); widths as published
+FAMILY_SERVING = (
+    ("lm-serve-moe", "mixtral_8x22b", 4, 8, 4, 6144, 32, 8192),
+    ("lm-serve-moe", "dbrx_132b", 2, 4, 4, 2048, 16, 4096),
+    ("lm-serve-ssm", "mamba2_2_7b", 64, 8, 4, 4096, 64, 4224),
+)
+
+
+@contextlib.contextmanager
+def recorded_routes(record: list):
+    """Append the top-k expert ids of every ``moe_mlp`` call (each layer of
+    each prefill and decode step, in order) to ``record`` while the block
+    runs; the routes themselves are the model's own."""
+    from repro_torch.models import moe
+
+    route = moe.route
+
+    def recording(probs, k):
+        w, i = route(probs, k)
+        record.append(i)
+        return w, i
+
+    moe.route = recording
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+@contextlib.contextmanager
+def forced_routes(record: list, flips: list):
+    """Within this block each ``moe_mlp`` call takes the next expert ids of
+    ``record``, with weights recomputed from the call's own probabilities
+    at those experts (renormalised, as ``moe.route``); ``flips`` gets, per
+    call, the count of tokens whose own top-k experts are another set."""
+    from repro_torch.models import moe
+
+    route, calls = moe.route, iter(record)
+
+    def forced(probs, k):
+        _, own = route(probs, k)
+        want = next(calls)
+        flips.append((own.sort(-1).values != want.sort(-1).values)
+                     .any(-1).sum())
+        w = probs.gather(-1, want)
+        return w / w.sum(-1, keepdim=True).clamp_min(1e-9), want
+
+    moe.route = forced
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+def family_config(arch: str, layers: int):
+    """The published config with its depth cut to ``layers``, and the cut
+    as the row's ``reduced``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    reduced = ({} if layers == cfg.num_layers else
+               {"num_layers": f"{cfg.num_layers} -> {layers}"})
+    return dataclasses.replace(cfg, num_layers=layers), reduced
+
+
+def lm_serve_moe_path(arch, layers, requests, slots, prompt_len, new_tokens,
+                      max_len, dev, rng) -> tuple:
+    """An MoE model at full width with its depth cut (:func:`serve_path`),
+    every route of the served run recorded; then the share of assignments
+    each layer's capacity dropped in each wave's prefill and in the decode
+    steps, and wave 0 replayed through the plain attention versions with
+    its routes forced (:func:`lm_teacher_forced`).  Returns (rows,
+    counts)."""
+    from repro_torch.models.moe import assign, capacity
+
+    cfg, reduced = family_config(arch, layers)
+    record = []
+    row, engine, prompts, counts = serve_path(
+        "lm-serve-moe", cfg, requests=requests, slots=slots,
+        prompt_len=prompt_len, new_tokens=new_tokens, max_len=max_len,
+        dev=dev, rng=rng, run_ctx=recorded_routes(record))
+    e, nl = cfg.moe.num_experts, cfg.num_layers
+    per_wave = nl * (1 + row["steps"] // row["waves"])
+    if row["steps"] % row["waves"] or len(record) != per_wave * row["waves"]:
+        raise AssertionError(f"{cfg.name}: {len(record)} moe_mlp calls for "
+                             f"{row['waves']} waves and {row['steps']} steps")
+
+    def dropped(ids):
+        return int((~assign(ids, e, capacity(cfg, ids.shape[1]))[1]).sum())
+
+    prefill_drop, decode_dropped = [], 0
+    for w in range(row["waves"]):
+        calls = record[w * per_wave:(w + 1) * per_wave]
+        prefill_drop.append([dropped(ids) / ids.numel()
+                             for ids in calls[:nl]])
+        decode_dropped += sum(dropped(ids) for ids in calls[nl:])
+    row.update(reduced=reduced, experts=e, top_k=cfg.moe.top_k,
+               d_ff=cfg.d_ff, window=cfg.sliding_window,
+               capacity_prefill=capacity(cfg, prompt_len),
+               capacity_decode=capacity(cfg, 1),
+               prefill_dropped_share_by_wave_and_layer=prefill_drop,
+               decode_assignments_dropped=decode_dropped,
+               moe_calls=len(record))
+    wave0 = record[:nl * len(engine.record)]
+    del record
+    replay = lm_teacher_forced(engine, prompts, dev, routes=wave0)
+    del engine, wave0
+    torch.cuda.empty_cache()
+    return [row, replay], counts
+
+
+def lm_serve_ssm_path(arch, layers, requests, slots, prompt_len, new_tokens,
+                      max_len, dev, rng) -> tuple:
+    """The SSM model (:func:`serve_path`: no attention launch), then its two
+    paths against each other at full width: the served wave 0's first
+    decode step (a prefill of S tokens, then one recurrent step on the
+    served token) against the last logits of a prefill of those S + 1
+    tokens (the chunked scan, its last chunk padded), within
+    LM_LOGIT_TOL.  Returns (rows, counts)."""
+    from repro_torch.models.transformer import lm_prefill
+
+    cfg, reduced = family_config(arch, layers)
+    row, engine, prompts, counts = serve_path(
+        "lm-serve-ssm", cfg, requests=requests, slots=slots,
+        prompt_len=prompt_len, new_tokens=new_tokens, max_len=max_len,
+        dev=dev, rng=rng)
+    s_cfg = cfg.ssm
+    row.update(reduced=reduced, d_state=s_cfg.d_state,
+               ssm_heads=s_cfg.num_heads(cfg.d_model),
+               ssm_head_dim=s_cfg.head_dim, chunk=s_cfg.chunk_size)
+    t0 = time.perf_counter()
+    before = launch_counts()
+    toks = torch.cat([torch.from_numpy(prompts[:slots]).to(dev),
+                      engine.record[0][1][:, None]], 1)
+    logits, _ = lm_prefill(engine.params, cfg, toks, cache_len=0)
+    last = logits[:, -1].float()
+    del logits
+    served = engine.record[1][0].float()
+    err = float((last - served).abs().max())
+    scale = float(served.abs().max())
+    torch.cuda.synchronize()
+    if launch_counts() != before:
+        raise AssertionError(f"{cfg.name}: the SSM prefill launched a kernel")
+    check = {"phase": "lm-ssm-scan-vs-recurrence", "model": cfg.name,
+             "prompt_len": prompt_len, "slots": slots,
+             "wall_s": time.perf_counter() - t0,
+             "max_abs_diff": err, "max_abs_logit": scale,
+             "share_of_limit": err / (LM_LOGIT_TOL * max(scale, 1.0)),
+             "same_argmax": float((last.argmax(-1) == served.argmax(-1))
+                                  .float().mean()),
+             "limit": f"{LM_LOGIT_TOL} * max(max|logit|, 1)"}
+    if not (bool(torch.isfinite(last).all())
+            and err <= LM_LOGIT_TOL * max(scale, 1.0)):
+        raise AssertionError(f"{cfg.name}: the chunked scan disagrees with "
+                             f"the recurrence: {check}")
+    del engine
+    torch.cuda.empty_cache()
+    return [row, check], counts
 
 
 # ---- training: the flash backward and Qwen2-0.5B steps ------------------
@@ -4123,6 +4349,19 @@ def main() -> int:
     for row in train_rows:
         emit(row)
     emit({"phase": "lm-train-total", "wall_s": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+
+    # ---- 9d. the MoE and SSM families at full width ------------------------
+    family_counts = {}
+    for phase, arch, *shape in FAMILY_SERVING:
+        t0 = time.perf_counter()
+        path = lm_serve_ssm_path if phase == "lm-serve-ssm" \
+            else lm_serve_moe_path
+        rows, family_counts[f"{phase}:{arch}"] = path(arch, *shape, dev, rng)
+        for row in rows:
+            emit(row)
+        emit({"phase": f"{phase}-total", "model": arch,
+              "wall_s": time.perf_counter() - t0})
 
     # ---- 10. summary --------------------------------------------------------
     main_check, reduce_main = checks[0], reduce_rows[0]
@@ -4204,8 +4443,12 @@ def main() -> int:
         "bound_ms": mins[0]["bound_ms"], "bound_by": mins[0]["bound_by"],
         "library_ms": mins[0]["library_ms"], "entries": entries(mins)}, *[{
         "name": row["kernel"], "route": "cuda", "source": source,
-        "replaces": replaces, "launches": lm_counts[row["kernel"]],
+        "replaces": replaces,
+        "launches": lm_counts[row["kernel"]] + sum(
+            c[row["kernel"]] for c in family_counts.values()),
         "launches_by_path": {"lm-serve": lm_counts[row["kernel"]],
+                             **{path: c[row["kernel"]]
+                                for path, c in family_counts.items()},
                              "lm-train": train_counts[row["kernel"]],
                              "ops": ops_counts[row["kernel"]]},
         "check": "pass (f32 and bf16 vs the f64 plain version)",
@@ -4213,7 +4456,14 @@ def main() -> int:
                            if r["kernel"] == row["kernel"]),
         "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-        "library_ms": row["library_ms"]} for row, source, replaces in (
+        "library_ms": row["library_ms"],
+        "shapes": [{"shape": r["shape"], "ms": r["kernel_ms"],
+                    "eager_ms": r["kernel_eager_ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"],
+                    "library_ms": r["library_ms"]}
+                   for r in attn_rows if r["kernel"] == row["kernel"]]}
+        for row, source, replaces in (
             (flash_main, "src/repro_torch/kernels/flash_attention/csrc/"
              "flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:85"),
@@ -4227,6 +4477,8 @@ def main() -> int:
         "launches": train_counts["flash_attention_bwd"],
         "launches_by_path": {
             "lm-serve": lm_counts["flash_attention_bwd"],
+            **{path: c["flash_attention_bwd"]
+               for path, c in family_counts.items()},
             "lm-train": train_counts["flash_attention_bwd"]},
         "check": "pass (dq, dk, dv and the forward's lse, f32 and bf16, vs "
                  "the f64 plain version)",

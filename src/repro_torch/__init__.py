@@ -6,8 +6,8 @@ many.  Entry points run on the CUDA device unless the caller passes
 ``device=``; the hand-written kernels behind every push (the SpMV push for
 the sum algorithms, the min/max push for the traversal workloads, and the
 batched form of each for serving waves) are built from
-``kernels/spmv/csrc`` at first use.  The LM substrate's dense models are
-served by :class:`repro_torch.serve.ServingEngine` (``models/``,
+``kernels/spmv/csrc`` at first use.  The LM substrate's dense GQA, MoE
+and SSM (Mamba2) models are served by :class:`repro_torch.serve.ServingEngine` (``models/``,
 ``launch/serve.py``), every attention call through the hand-written
 ``kernels/flash_attention`` and ``kernels/decode_attention``.
 """

@@ -3,7 +3,8 @@
 A copy of ``repro.configs`` (the config files are data), so that the port's
 CLI takes the same ``--arch`` names.  Smoke configs are reduced
 same-family models that run on the CPU; the port builds and serves the
-dense GQA family only, and the others raise when a model is built.
+dense GQA, MoE and SSM families, and the others raise when a model is
+built.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """Parameter definitions: one source of truth for shape, init and dtype.
 
-The port of ``repro.models.params`` for the dense GQA family.
+The port of ``repro.models.params`` for the dense GQA, MoE and SSM
+families.
 ``build_defs(cfg)`` returns a tree (nested dicts) of ``ParamDef`` leaves,
 and ``init_params`` materializes it.  Per-layer weights keep the
 reference's stacked ``[L, ...]`` leaves, so that
@@ -28,19 +29,23 @@ class ParamDef(NamedTuple):
     dtype: Optional[str] = None   # override cfg.param_dtype
 
 
-def require_dense(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a dense GQA decoder, the one family the port
-    builds; the others wait for their ROADMAP entry."""
+#: the model families the port builds
+PORTED_FAMILIES = ("dense", "moe", "ssm")
+
+
+def require_ported(cfg: ModelConfig) -> None:
+    """Raise unless ``cfg`` is a dense GQA, MoE or SSM (Mamba2) decoder,
+    the families the port builds; the others wait for their ROADMAP
+    entry."""
     missing = [name for name, present in (
-        ("MoE", cfg.moe is not None), ("MLA", cfg.mla is not None),
-        ("SSM", cfg.family == "ssm"), ("hybrid", cfg.family == "hybrid"),
+        ("MLA", cfg.mla is not None), ("hybrid", cfg.family == "hybrid"),
         ("encoder-decoder", cfg.encoder_layers > 0),
         ("modality frontend", cfg.frontend is not None)) if present]
-    if missing or cfg.family != "dense":
+    if missing or cfg.family not in PORTED_FAMILIES:
         what = ", ".join(missing) or f"family {cfg.family!r}"
         raise NotImplementedError(
             f"{cfg.name}: {what} is not ported yet ({NOT_PORTED_ENTRY}); "
-            f"the port builds dense GQA models only")
+            f"the port builds dense GQA, MoE and SSM models only")
 
 
 def _attn_defs(cfg: ModelConfig, layers: int) -> Dict[str, ParamDef]:
@@ -71,13 +76,42 @@ def _mlp_defs(cfg: ModelConfig, layers: int) -> Dict[str, ParamDef]:
     return defs
 
 
+def _moe_defs(cfg: ModelConfig, layers: int) -> Dict[str, ParamDef]:
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
+    return {
+        "router": ParamDef((layers, d, e)),
+        "w_gate": ParamDef((layers, e, d, ff)),
+        "w_up": ParamDef((layers, e, d, ff)),
+        "w_down": ParamDef((layers, e, ff, d)),
+    }
+
+
+def _ssm_defs(cfg: ModelConfig, layers: int) -> Dict[str, ParamDef]:
+    s = cfg.ssm
+    d = cfg.d_model
+    di = s.d_inner(d)
+    nh = s.num_heads(d)
+    gn = s.n_groups * s.d_state
+    cdim = s.conv_dim(d)
+    return {
+        "in_proj": ParamDef((layers, d, 2 * di + 2 * gn + nh)),  # z x B C dt
+        "conv_w": ParamDef((layers, s.conv_kernel, cdim), "small_normal"),
+        "conv_b": ParamDef((layers, cdim), "zeros"),
+        "a_log": ParamDef((layers, nh), "ones"),
+        "d_skip": ParamDef((layers, nh), "ones"),
+        "dt_bias": ParamDef((layers, nh), "zeros"),
+        "norm": ParamDef((layers, di), "ones"),
+        "out_proj": ParamDef((layers, di, d)),
+    }
+
+
 def _block_norms(layers: int, d: int, n: int = 2) -> Dict[str, ParamDef]:
     return {f"norm{i}": ParamDef((layers, d), "ones") for i in range(n)}
 
 
 def build_defs(cfg: ModelConfig) -> Dict[str, Any]:
-    """The parameter-definition tree of a dense GQA model."""
-    require_dense(cfg)
+    """The parameter-definition tree of a dense GQA, MoE or SSM model."""
+    require_ported(cfg)
     d, v, L = cfg.d_model, cfg.vocab_size, cfg.num_layers
     defs: Dict[str, Any] = {
         "embed": {"tok": ParamDef((v, d), "small_normal")},
@@ -85,8 +119,13 @@ def build_defs(cfg: ModelConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((d, v), "small_normal")
-    defs["blocks"] = {"attn": _attn_defs(cfg, L), "mlp": _mlp_defs(cfg, L),
-                      **_block_norms(L, d, 2)}
+    if cfg.family == "ssm":
+        defs["blocks"] = {"ssm": _ssm_defs(cfg, L), **_block_norms(L, d, 1)}
+    else:
+        defs["blocks"] = {"attn": _attn_defs(cfg, L),
+                          "mlp": (_moe_defs(cfg, L) if cfg.moe is not None
+                                  else _mlp_defs(cfg, L)),
+                          **_block_norms(L, d, 2)}
     return defs
 
 
@@ -146,18 +185,25 @@ def param_count_actual(cfg: ModelConfig) -> int:
     return sum(total)
 
 
+#: leaves that the reference reads in f32 whatever the activation dtype
+#: (the SSM's conv weights in its decode step, its dt bias, A and D), which
+#: ``cast_params`` leaves as they are
+F32_LEAVES = frozenset({"conv_w", "conv_b", "a_log", "d_skip", "dt_bias"})
+
+
 def cast_params(params: Dict[str, Any], dtype: torch.dtype,
                 device=None) -> Dict[str, Any]:
     """A copy of the tree with every floating leaf in ``dtype`` (on
-    ``device`` if given).  The reference casts each weight to the
-    activation dtype at every use; the cast is exact and deterministic, so
-    one copy made at load gives the same numbers without re-casting the
-    weights at every step."""
+    ``device`` if given), but the ``F32_LEAVES``.  The reference casts each
+    weight to the activation dtype at every use; the cast is exact and
+    deterministic, so one copy made at load gives the same numbers without
+    re-casting the weights at every step."""
     out = {}
     for k, v in params.items():
         if isinstance(v, dict):
             out[k] = cast_params(v, dtype, device)
         else:
             v = v.to(device) if device is not None else v
-            out[k] = v.to(dtype) if v.is_floating_point() else v
+            out[k] = (v.to(dtype) if v.is_floating_point()
+                      and k not in F32_LEAVES else v)
     return out

@@ -6,7 +6,10 @@ left-padded to the longest prompt (without an attention mask, as in the
 reference), prefilled together and decoded in lockstep; the next wave
 starts when the wave is done.  On the card every attention call of a wave
 is one hand-written kernel launch: ``flash_attention`` per layer of the
-prefill, ``decode_attention`` per layer of each decode step.
+prefill, ``decode_attention`` per layer of each decode step.  An SSM
+(Mamba2) wave carries its conv and state instead of a KV cache (its
+prefill ignores ``max_len``); left padding runs the pad tokens through
+that state, and through an MoE router, as in the reference.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.params import cast_params, require_dense
+from repro_torch.models.params import cast_params, require_ported
 from repro_torch.models.transformer import lm_decode_step, lm_prefill
 
 
@@ -47,7 +50,8 @@ class ServeStats:
 
 
 class ServingEngine:
-    """Serves :class:`Request` waves of a dense GQA model on ``device`` (the
+    """Serves :class:`Request` waves of a dense GQA, MoE or SSM model on
+    ``device`` (the
     card unless another device is named).  ``params`` is the tree of
     ``params.init_params`` (or ``convert.lm_params_from_numpy``); the engine
     holds one copy in the activation dtype on its device, made once here.
@@ -58,7 +62,7 @@ class ServingEngine:
     def __init__(self, cfg: ModelConfig, params: Any, *, batch_slots: int = 4,
                  max_len: int = 256, greedy: bool = True, seed: int = 0,
                  device=None):
-        require_dense(cfg)
+        require_ported(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = cast_params(params, getattr(torch, cfg.activation_dtype),

@@ -5,7 +5,8 @@ dense GQA family: the loss's gradient by autograd (every attention call
 through the flash kernels, forward and backward), clipped to a global
 norm, then AdamW.  Batches are dicts of tensors on the parameters' device:
 ``tokens`` and ``labels`` (B, S) int32, optionally ``loss_mask`` (B, S).
-The other families raise in ``lm_forward`` (ROADMAP queue 1 entry 17b).
+Training the MoE and SSM families is not ported yet, and raises; the other
+families raise in ``lm_forward`` (ROADMAP queue 1 entry 17b).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Any, Callable, Dict, Tuple, Union
 import torch
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import NOT_PORTED_ENTRY
 from repro_torch.models.transformer import (lm_decode_step, lm_forward,
                                             lm_prefill)
 from repro_torch.train.loss import cross_entropy
@@ -30,6 +32,10 @@ def loss_and_grads(params: Dict[str, Any], cfg: ModelConfig,
     """(loss, accuracy, grads): the loss of ``batch`` and its gradient
     with respect to every leaf of ``params`` (a tree like ``params``, in
     the leaves' dtypes)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"{cfg.name}: training the {cfg.family} "
+                                  f"family is not ported yet "
+                                  f"({NOT_PORTED_ENTRY})")
     live = tree_map(lambda p: p.detach().requires_grad_(True), params)
     logits = lm_forward(live, cfg, batch["tokens"], remat=remat)
     loss, acc = cross_entropy(logits, batch["labels"],

@@ -75,23 +75,24 @@ def _gap_tol(logits, dtype):
     return 2e-4 * top if dtype == "float32" else 0.05 * max(top, 1.0)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_greedy_serving_matches_a_jax_greedy_loop(dtype):
-    jcfg, jparams, tcfg, tparams, prompts = _setup(dtype)
-    engine = RecordingEngine(tcfg, tparams, batch_slots=SLOTS,
-                             max_len=MAX_LEN, device="cpu")
-    reqs = _requests(prompts)
-    stats = engine.run(reqs)
+def replay_waves_in_jax(engine, reqs, jcfg, jparams, dtype, slots,
+                        max_len):
+    """Replay each wave of ``engine.run(reqs)`` (a :class:`RecordingEngine`)
+    through a greedy JAX loop on the same left-padded prompts and the
+    port's own tokens.  At every step the port's token must equal JAX's
+    argmax or JAX's top-2 gap be under :func:`_gap_tol`, and each
+    request's output must equal the loop's.  Returns (tokens checked,
+    tokens equal to JAX's argmax)."""
     selected = iter(engine.selected)
     checked = agreed = 0
-    for w in range(0, len(reqs), SLOTS):
-        wave = reqs[w:w + SLOTS]
+    for w in range(0, len(reqs), slots):
+        wave = reqs[w:w + slots]
         plen = max(len(r.prompt) for r in wave)
         toks = np.zeros((len(wave), plen), np.int32)
         for i, r in enumerate(wave):
             toks[i, plen - len(r.prompt):] = r.prompt
         logits, cache = jprefill(jparams, jcfg, jnp.asarray(toks),
-                                 cache_len=MAX_LEN)
+                                 cache_len=max_len)
         logits = np.asarray(logits[:, -1], np.float32)
         outputs = [[] for _ in wave]
         pos = plen
@@ -108,7 +109,7 @@ def test_greedy_serving_matches_a_jax_greedy_loop(dtype):
                 if len(outputs[i]) < wave[i].max_new_tokens:
                     outputs[i].append(int(cur[i]))
             if all(len(o) >= r.max_new_tokens
-                   for o, r in zip(outputs, wave)) or pos >= MAX_LEN - 1:
+                   for o, r in zip(outputs, wave)) or pos >= max_len - 1:
                 break
             logits, cache = jdecode(jparams, jcfg, cache,
                                     jnp.asarray(cur[:, None]), jnp.int32(pos))
@@ -117,6 +118,18 @@ def test_greedy_serving_matches_a_jax_greedy_loop(dtype):
         assert [r.output for r in wave] == outputs
     assert next(selected, None) is None
     assert all(r.done for r in reqs)
+    return checked, agreed
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_greedy_serving_matches_a_jax_greedy_loop(dtype):
+    jcfg, jparams, tcfg, tparams, prompts = _setup(dtype)
+    engine = RecordingEngine(tcfg, tparams, batch_slots=SLOTS,
+                             max_len=MAX_LEN, device="cpu")
+    reqs = _requests(prompts)
+    stats = engine.run(reqs)
+    checked, agreed = replay_waves_in_jax(engine, reqs, jcfg, jparams, dtype,
+                                          SLOTS, MAX_LEN)
     if dtype == "float32":
         assert agreed == checked
     # waves (prompt len, steps): (14, 4) stopped by budgets 5 and 3;
@@ -178,4 +191,4 @@ def test_entry_points_need_a_device_without_a_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         lm_params_from_numpy({}, tcfg)
     with pytest.raises(NotImplementedError, match="entry 17b"):
-        ServingEngine(tget("mixtral_8x22b"), {}, device="cpu")
+        ServingEngine(tget("minicpm3_4b"), {}, device="cpu")
