@@ -122,7 +122,22 @@ and the LM paths:
 - SSM serving: Mamba2-2.7B at full width and depth (8 requests of 4,096 +
   64 on 4 slots), no attention launch, and its chunked scan (a prefill of
   S + 1 tokens) against the served recurrence (a prefill of S, then one
-  decode step) within the same logit tolerance.
+  decode step) within the same logit tolerance;
+- the attention kernels at the hybrid and MLA families' head dims: hd 112
+  (Zamba2-7B, 32/32 heads) and hd 96 with vd 64 (MiniCPM3-4B, 40/40),
+  causal prefill at B = 1, S = 4096 and decode over a full 4,160-slot
+  cache at B = 4, and MLA's smoke (24, 16) at a small shape;
+- hybrid and MLA serving at full width and depth: Zamba2-7B (81 layers,
+  the shared attention block applied 13 times) and MiniCPM3-4B (62
+  layers), each 8 requests of 4,096 prompt and 32 new tokens on 4 slots,
+  one flash launch per attention call and wave and one decode launch per
+  attention call and step, no plain call; wave 0 replayed through the
+  plain attention versions in bf16 (as every served model's wave 0:
+  within the logit tolerance, or within a stated multiple of a control's
+  drift, the plain versions at half the tiles on the same prompts, where
+  that is larger, as at the hybrid's 81 layers) and, teacher-forced in
+  f32 through the kernels' f32 entries against the plain versions, within
+  1% of the logit tolerance.
 
 It prints one JSON line per phase.  The line before the last lists the
 kernels, with each one's launches on every graph path; the last is
@@ -2722,6 +2737,20 @@ LM_SLOTS, LM_REQUESTS, LM_PROMPT, LM_NEW, LM_MAX_LEN = 8, 16, 2048, 64, 4096
 # max |diff| <= LM_LOGIT_TOL * max(max |logit|, 1), the bf16 tolerance of
 # tests/test_arch_smoke.py
 LM_LOGIT_TOL = 0.05
+# The bf16 replay's bound, as a share of LM_LOGIT_TOL: max(1,
+# LM_DRIFT_RATIO x the drift from the plain replay of a control, the plain
+# versions at half the tiles, on the same prompts).  Two correct paths
+# whose f32 sums differ in order only drift alike: kernels against plain
+# 0.88 of the limit on Zamba2-7B (81 layers), plain against plain 0.89;
+# MiniCPM3-4B 0.63 and 0.59 (tools/replay_drift.py, NVIDIA H100 80GB HBM3,
+# 700 W).  A fault that moves an attention output beyond its rounding
+# moves the logits by many times that.
+LM_DRIFT_RATIO = 1.5
+# The f32 replay (the kernels' f32 entries against the plain versions):
+# 1% of LM_LOGIT_TOL.  Its readings are 1.2e-4 and 2.6e-4 of LM_LOGIT_TOL
+# (Zamba2-7B, MiniCPM3-4B, same card); bf16 rounding inside a kernel would
+# drift the logits as the bf16 paths above do, 0.5 to 1 of it.
+LM_F32_LOGIT_TOL = 1e-2 * LM_LOGIT_TOL
 # the attention checks: (tag, kind, shape); flash (B, S, H, KV, hd, vd,
 # causal, window), decode (B, S, H, KV, hd, vd, cache_len)
 ATTN_F32_TOL = 1e-5         # kernel in f32 vs the f64 plain version
@@ -2755,6 +2784,22 @@ ATTENTION_CHECKS = (
      (4, 2048, 48, 8, 128, 128, True, None)),
     ("Mixtral-8x22B decode over a full 4096-slot ring, B=4, cache_len=6160",
      "decode", (4, 4096, 48, 8, 128, 128, 6160)),
+    # the hybrid family's shared attention (Zamba2-7B: hd 112, 32/32 heads,
+    # G = 1) and MLA's (MiniCPM3-4B: hd = qk_nope + qk_rope 96, vd 64,
+    # 40/40 heads), at their serving phases' shapes; MLA's smoke config's
+    # (24, 16), hd padded to 32 in the bf16 kernels, for correctness
+    ("Zamba2-7B causal prefill, B=1, S=4096, hd 112", "flash",
+     (1, 4096, 32, 32, 112, 112, True, None)),
+    ("MiniCPM3-4B causal prefill, B=1, S=4096, hd 96, vd 64", "flash",
+     (1, 4096, 40, 40, 96, 64, True, None)),
+    ("Zamba2-7B decode over a full 4160-slot cache, B=4, hd 112", "decode",
+     (4, 4160, 32, 32, 112, 112, 4160)),
+    ("MiniCPM3-4B decode over a full 4160-slot cache, B=4, hd 96, vd 64",
+     "decode", (4, 4160, 40, 40, 96, 64, 4160)),
+    ("MLA smoke config's heads, B=2, S=300, hd 24, vd 16", "flash",
+     (2, 300, 4, 4, 24, 16, True, None)),
+    ("MLA smoke config's heads, B=2, cache_len=257, hd 24, vd 16", "decode",
+     (2, 300, 4, 4, 24, 16, 257)),
 )
 
 
@@ -3024,6 +3069,7 @@ def serve_path(phase, cfg, *, requests, slots, prompt_len, new_tokens,
     ``run_ctx`` if given.  Returns (row, engine, prompts, counts); the
     engine keeps wave 0's logits and tokens for the replay."""
     from repro_torch.models.params import init_params, param_count_actual
+    from repro_torch.models.transformer import attention_calls
     from repro_torch.serve.engine import Request, ServingEngine
 
     class RecordingEngine(ServingEngine):
@@ -3079,14 +3125,14 @@ def serve_path(phase, cfg, *, requests, slots, prompt_len, new_tokens,
                              f"{flash.lse_launches} flash launches")
     waves = -(-requests // slots)
     want = dict.fromkeys(KERNEL_NAMES, 0)
-    if not cfg.is_attention_free:
-        want.update(flash_attention=cfg.num_layers * waves,
-                    decode_attention=cfg.num_layers * stats.steps)
+    calls = attention_calls(cfg)
+    want.update(flash_attention=calls * waves,
+                decode_attention=calls * stats.steps)
     if counts != want:
         raise AssertionError(f"{phase}: serving launched {counts}, expected "
-                             f"{want} (one flash launch per layer and "
-                             f"prefill, one decode launch per layer and "
-                             f"step; none without attention)")
+                             f"{want} (one flash launch per attention call "
+                             f"and prefill, one decode launch per attention "
+                             f"call and step; none without attention)")
     for r in reqs:
         if len(r.output) != new_tokens or not all(
                 0 <= t < cfg.vocab_size for t in r.output):
@@ -3106,6 +3152,7 @@ def serve_path(phase, cfg, *, requests, slots, prompt_len, new_tokens,
     del cache
     row = {"phase": phase, "model": cfg.name,
            "params": param_count_actual(cfg), "layers": cfg.num_layers,
+           "attention_calls_per_pass": calls,
            "d_model": cfg.d_model, "heads": cfg.num_heads,
            "kv_heads": cfg.num_kv_heads, "vocab": cfg.vocab_size,
            "activation_dtype": cfg.activation_dtype, "requests": requests,
@@ -3138,81 +3185,99 @@ def lm_serve_path(dev, rng) -> tuple:
                       rng=rng)
 
 
-def lm_teacher_forced(engine, prompts, dev, *, routes=None) -> dict:
-    """Replay wave 0 on the card through the plain attention versions: the
-    prefill, then every decode step fed the kernel path's token.  Each
-    step's logits must agree with the served ones within LM_LOGIT_TOL; the
-    free-running greedy agreement of the plain path (its own tokens) is
-    reported, not asserted.  ``routes`` (an MoE model): the served wave's
-    expert ids of every ``moe_mlp`` call, which the teacher-forced replay
-    takes (:func:`forced_routes`); how many token routes its own top-k
-    would have changed is reported, not asserted."""
+def replay_logits(params, cfg, prompts, tokens, max_len, dev, *, plain,
+                  cache=None) -> list:
+    """Logits (B, V), in f32, of wave 0 teacher-forced: the prefill's last
+    position, then each decode step fed the served ``tokens``, through the
+    plain attention versions (``plain``) or the kernels; ``cache`` starts
+    the decode steps from a copy of that cache instead of the replay's own
+    prefill."""
     from repro_torch.models.transformer import lm_decode_step, lm_prefill
 
-    cfg, rec, slots = engine.cfg, engine.record, engine.slots
-    plen = prompts.shape[1]
+    out = []
+    with (plain_attention_layers() if plain
+          else contextlib.nullcontext()):
+        logits, own = lm_prefill(params, cfg, prompts, cache_len=max_len)
+        out.append(logits[:, -1].float())
+        del logits
+        if cache is not None:
+            own = {key: {k: t.clone() for k, t in tree.items()}
+                   for key, tree in cache.items()}
+        plen = prompts.shape[1]
+        for step in range(1, len(tokens)):
+            pos = torch.tensor(plen + step - 1, dtype=torch.int32, device=dev)
+            lg, own = lm_decode_step(params, cfg, own,
+                                     tokens[step - 1][:, None], pos)
+            out.append(lg[:, -1].float())
+    return out
+
+
+def drift_shares(got, want, tol=LM_LOGIT_TOL) -> list:
+    """Per step: max |got - want| as a share of tol · max(max |want|, 1)."""
+    return [float((g - w).abs().max()) / (tol * max(float(w.abs().max()),
+                                                    1.0))
+            for g, w in zip(got, want)]
+
+
+def lm_teacher_forced(engine, prompts, dev, *, routes=None) -> dict:
+    """Replay wave 0 on the card through the plain attention versions,
+    teacher-forced (:func:`replay_logits`), twice: at the config's tiles,
+    and at half of them, the control, whose f32 sums differ from the first
+    replay's in order only, as the kernels' do.  A replay's drift is its
+    max over steps of :func:`drift_shares`.  The served logits' drift from
+    the plain replay must stay within max(1, LM_DRIFT_RATIO x the
+    control's): LM_LOGIT_TOL, or, where the model's depth drifts two
+    correct bf16 attention paths near it (Zamba2-7B), a stated multiple of
+    the drift between two such paths on the same prompts.  ``routes`` (an
+    MoE model): the served wave's expert ids of every ``moe_mlp`` call,
+    which both replays take (:func:`forced_routes`); how many token routes
+    the first replay's own top-k would have changed is reported, not
+    asserted."""
+    import dataclasses
+
+    cfg, rec = engine.cfg, engine.record
+    tokens = [tok for _, tok in rec]
+    served = [lg.float() for lg, _ in rec]
+    toks = torch.from_numpy(prompts[:engine.slots]).to(dev)
+    half = dataclasses.replace(cfg, q_block=cfg.q_block // 2,
+                               kv_block=cfg.kv_block // 2)
     before = launch_counts()
-    errs, scales, forced_agree, free_agree, flips = [], [], 0, [], []
     t0 = time.perf_counter()
-
-    def compare(logits, step):
-        ref = rec[step][0]
-        if not bool(torch.isfinite(logits).all()):
-            raise AssertionError(f"replay step {step}: logits not finite")
-        errs.append(float((logits.float() - ref.float()).abs().max()))
-        scales.append(float(ref.float().abs().max()))
-        return int((logits.argmax(-1).int() == rec[step][1]).sum())
-
-    forced = (forced_routes(routes, flips) if routes is not None
-              else contextlib.nullcontext())
-    with plain_attention_layers():
-        toks = torch.from_numpy(prompts[:slots]).to(dev)
-        with forced:
-            logits, cache = lm_prefill(engine.params, cfg, toks,
-                                       cache_len=engine.max_len)
-            last = logits[:, -1].clone()
-            del logits
-            free_cache = {"kv": {k: t.clone()
-                                 for k, t in cache["kv"].items()}}
-            forced_agree += compare(last, 0)
-            for step in range(1, len(rec)):
-                pos = torch.tensor(plen + step - 1, dtype=torch.int32,
-                                   device=dev)
-                lg, cache = lm_decode_step(engine.params, cfg, cache,
-                                           rec[step - 1][1][:, None], pos)
-                forced_agree += compare(lg[:, -1], step)
-        del cache
-        cur = last.argmax(-1).int()
-        free_agree.append(cur == rec[0][1])
-        for step in range(1, len(rec)):
-            pos = torch.tensor(plen + step - 1, dtype=torch.int32,
-                               device=dev)
-            lg, free_cache = lm_decode_step(engine.params, cfg, free_cache,
-                                            cur[:, None], pos)
-            cur = lg[:, -1].argmax(-1).int()
-            free_agree.append(cur == rec[step][1])
+    flips, runs = [], []
+    for c, f in ((cfg, flips), (half, [])):
+        with (forced_routes(routes, f) if routes is not None
+              else contextlib.nullcontext()):
+            runs.append(replay_logits(engine.params, c, toks, tokens,
+                                      engine.max_len, dev, plain=True))
     torch.cuda.synchronize()
     if launch_counts() != before:
         raise AssertionError("the plain replay launched a kernel")
-    limits = [LM_LOGIT_TOL * max(sc, 1.0) for sc in scales]
-    worst = max(range(len(errs)), key=lambda i: errs[i] / limits[i])
-    same = torch.stack(free_agree).cpu()          # (steps, B)
-    first_diff = [int(same[:, i].logical_not().nonzero()[0])
-                  if not bool(same[:, i].all()) else None
-                  for i in range(same.shape[1])]
+    plain, control = runs
+    if not all(bool(torch.isfinite(lg).all()) for lg in plain + control):
+        raise AssertionError(f"{cfg.name}: replay logits not finite")
+    shares = drift_shares(plain, served)
+    control_shares = drift_shares(control, plain)
+    bound = max(1.0, LM_DRIFT_RATIO * max(control_shares))
+    worst = int(np.argmax(shares))
+    errs = [float((p - s).abs().max()) for p, s in zip(plain, served)]
+    scales = [float(s.abs().max()) for s in served]
     row = {"phase": "lm-teacher-forced", "model": cfg.name, "wave": 0,
            "steps": len(rec), "wall_s": time.perf_counter() - t0,
            "prefill_last_max_abs_diff": errs[0],
            "prefill_last_max_abs_logit": scales[0],
            "decode_max_abs_diff": max(errs[1:]),
            "decode_max_abs_logit": max(scales[1:]),
-           "worst_step": worst, "worst_step_share_of_limit":
-               errs[worst] / limits[worst],
+           "worst_step": worst, "worst_step_share_of_limit": shares[worst],
            "limit": f"{LM_LOGIT_TOL} * max(max|logit|, 1)",
-           "teacher_forced_argmax_agreement": forced_agree / (
-               len(rec) * slots),
-           "free_running_token_agreement": float(same.float().mean()),
-           "free_running_first_divergence": first_diff}
+           "control_tiles": [half.q_block, half.kv_block],
+           "control_worst_step": int(np.argmax(control_shares)),
+           "control_worst_share_of_limit": max(control_shares),
+           "bound": f"max(1, {LM_DRIFT_RATIO} * control)",
+           "bound_share_of_limit": bound,
+           "share_by_step": shares, "control_share_by_step": control_shares,
+           "teacher_forced_argmax_agreement": float(np.mean([
+               float((p.argmax(-1).int() == t).float().mean())
+               for p, t in zip(plain, tokens)]))}
     if routes is not None:
         if len(flips) != len(routes):
             raise AssertionError(f"the replay made {len(flips)} moe_mlp "
@@ -3223,19 +3288,85 @@ def lm_teacher_forced(engine, prompts, dev, *, routes=None) -> dict:
                    routes_the_unforced_replay_would_flip=sum(flips),
                    flips_in_prefill_by_layer=flips[:cfg.num_layers],
                    flips_in_decode=sum(flips[cfg.num_layers:]))
-    if any(e > lim for e, lim in zip(errs, limits)):
+    if shares[worst] > bound:
         raise AssertionError(f"served logits disagree with the plain replay: "
                              f"{row}")
     return row
 
 
-# ---- the MoE and SSM families at full width ------------------------------
+def lm_f32_replay(engine, prompts, dev) -> dict:
+    """Wave 0 teacher-forced (the served tokens) with f32 activations on
+    the served weights widened to f32, twice: through the kernels' f32
+    entries and through the plain attention versions (the engine's bf16
+    weights are dropped).  Each step's logits must agree within
+    LM_F32_LOGIT_TOL, where a kernel that computed in bf16 would not."""
+    import dataclasses
+
+    from repro_torch.models.params import cast_params
+    from repro_torch.models.transformer import attention_calls
+
+    cfg = dataclasses.replace(engine.cfg, activation_dtype="float32")
+    params = cast_params(engine.params, torch.float32)
+    # the served bf16 copy is not used again: freeing it makes room for the
+    # f32 prefill (Zamba2-7B: 13.5 GB beside the f32 copy's 27)
+    engine.params = None
+    torch.cuda.empty_cache()
+    tokens = [tok for _, tok in engine.record]
+    toks = torch.from_numpy(prompts[:engine.slots]).to(dev)
+    t0 = time.perf_counter()
+    before = launch_counts()
+    kernel = replay_logits(params, cfg, toks, tokens, engine.max_len, dev,
+                           plain=False)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in launch_counts().items()}
+    calls = attention_calls(cfg)
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want.update(flash_attention=calls, decode_attention=calls * (
+        len(tokens) - 1))
+    if launched != want:
+        raise AssertionError(f"{cfg.name}: the f32 kernel replay launched "
+                             f"{launched}, expected {want}")
+    before = launch_counts()
+    plain = replay_logits(params, cfg, toks, tokens, engine.max_len, dev,
+                          plain=True)
+    torch.cuda.synchronize()
+    if launch_counts() != before:
+        raise AssertionError("the plain f32 replay launched a kernel")
+    del params
+    errs = [float((k - p).abs().max()) for k, p in zip(kernel, plain)]
+    scales = [float(p.abs().max()) for p in plain]
+    shares = drift_shares(kernel, plain, LM_F32_LOGIT_TOL)
+    finite = all(bool(torch.isfinite(k).all()) for k in kernel)
+    row = {"phase": "lm-f32-replay", "model": cfg.name, "wave": 0,
+           "steps": len(tokens), "wall_s": time.perf_counter() - t0,
+           "kernel_launches": launched,
+           "prefill_last_max_abs_diff": errs[0],
+           "prefill_last_max_abs_logit": scales[0],
+           "decode_max_abs_diff": max(errs[1:]),
+           "decode_max_abs_logit": max(scales[1:]),
+           "worst_step": int(np.argmax(shares)),
+           "worst_step_share_of_limit": max(shares),
+           "limit": f"{LM_F32_LOGIT_TOL} * max(max|logit|, 1)",
+           "argmax_agreement": float(np.mean([
+               float((k.argmax(-1) == p.argmax(-1)).float().mean())
+               for k, p in zip(kernel, plain)]))}
+    if not finite or max(shares) > 1:
+        raise AssertionError(f"f32 kernel replay disagrees with the plain "
+                             f"one: {row}")
+    return row
+
+
+# ---- the MoE, SSM, hybrid and MLA families at full width ----------------
 # (phase, arch, layers kept of the published depth, requests, slots,
-# prompt tokens, new tokens, max_len); widths as published
+# prompt tokens, new tokens, max_len); widths as published, and Zamba2-7B
+# (81 layers: 13 applications of the shared block) and MiniCPM3-4B (62)
+# whole
 FAMILY_SERVING = (
     ("lm-serve-moe", "mixtral_8x22b", 4, 8, 4, 6144, 32, 8192),
     ("lm-serve-moe", "dbrx_132b", 2, 4, 4, 2048, 16, 4096),
     ("lm-serve-ssm", "mamba2_2_7b", 64, 8, 4, 4096, 64, 4224),
+    ("lm-serve-hybrid", "zamba2_7b", 81, 8, 4, 4096, 32, 4160),
+    ("lm-serve-mla", "minicpm3_4b", 62, 8, 4, 4096, 32, 4160),
 )
 
 
@@ -3391,6 +3522,45 @@ def lm_serve_ssm_path(arch, layers, requests, slots, prompt_len, new_tokens,
     del engine
     torch.cuda.empty_cache()
     return [row, check], counts
+
+
+def lm_serve_attention_path(arch, layers, requests, slots, prompt_len,
+                            new_tokens, max_len, dev, rng) -> tuple:
+    """The hybrid (Zamba2-7B, ``lm-serve-hybrid``) or MLA (MiniCPM3-4B,
+    ``lm-serve-mla``) model at full width (:func:`serve_path`: one flash
+    launch per attention call and wave, one decode launch per attention
+    call and step, at the families' head dims), then wave 0 replayed
+    through the plain attention versions in bf16 (:func:`lm_teacher_forced`)
+    and, against its replay through the kernels, in f32
+    (:func:`lm_f32_replay`).  Returns (rows, counts)."""
+    cfg, reduced = family_config(arch, layers)
+    phase = "lm-serve-mla" if cfg.mla is not None else "lm-serve-hybrid"
+    row, engine, prompts, counts = serve_path(
+        phase, cfg, requests=requests, slots=slots, prompt_len=prompt_len,
+        new_tokens=new_tokens, max_len=max_len, dev=dev, rng=rng)
+    if cfg.mla is not None:
+        m = cfg.mla
+        row.update(mla={"q_lora_rank": m.q_lora_rank,
+                        "kv_lora_rank": m.kv_lora_rank},
+                   attention_head_dims=[m.qk_nope_head_dim
+                                        + m.qk_rope_head_dim, m.v_head_dim])
+    else:
+        s_cfg = cfg.ssm
+        row.update(hybrid_period=cfg.hybrid_period, d_state=s_cfg.d_state,
+                   ssm_heads=s_cfg.num_heads(cfg.d_model),
+                   attention_head_dims=[cfg.resolved_head_dim] * 2)
+    row.update(reduced=reduced, d_ff=cfg.d_ff)
+    replay = lm_teacher_forced(engine, prompts, dev)
+    replay32 = lm_f32_replay(engine, prompts, dev)
+    del engine
+    torch.cuda.empty_cache()
+    return [row, replay, replay32], counts
+
+
+FAMILY_PATHS = {"lm-serve-moe": lm_serve_moe_path,
+                "lm-serve-ssm": lm_serve_ssm_path,
+                "lm-serve-hybrid": lm_serve_attention_path,
+                "lm-serve-mla": lm_serve_attention_path}
 
 
 # ---- training: the flash backward and Qwen2-0.5B steps ------------------
@@ -4351,13 +4521,12 @@ def main() -> int:
     emit({"phase": "lm-train-total", "wall_s": time.perf_counter() - t0})
     torch.cuda.empty_cache()
 
-    # ---- 9d. the MoE and SSM families at full width ------------------------
+    # ---- 9d. the MoE, SSM, hybrid and MLA families at full width ----------
     family_counts = {}
     for phase, arch, *shape in FAMILY_SERVING:
         t0 = time.perf_counter()
-        path = lm_serve_ssm_path if phase == "lm-serve-ssm" \
-            else lm_serve_moe_path
-        rows, family_counts[f"{phase}:{arch}"] = path(arch, *shape, dev, rng)
+        rows, family_counts[f"{phase}:{arch}"] = FAMILY_PATHS[phase](
+            arch, *shape, dev, rng)
         for row in rows:
             emit(row)
         emit({"phase": f"{phase}-total", "model": arch,

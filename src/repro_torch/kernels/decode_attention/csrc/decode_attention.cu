@@ -55,9 +55,17 @@
 //   kernel and no atomics: every run gives the same bits.
 // - A group wider than 8 heads takes several row chunks, each reading the
 //   cache again (MQA with G = 16: twice); the Qwen2 group (G = 7) is one.
-// - Templated on the dtype and on hd, vd in {16, 32, 64, 128}; the warps
-//   per CTA follow the staged bytes (5 at the Qwen2 shape, down to 1 for
-//   f32 at hd = vd = 128).
+// - Templated on the dtype and on the (hd, vd) pairs of ATTN_FOR_EACH_DIMS
+//   (every pair of {16, 32, 64, 128}, and (24, 16), (96, 64), (112, 112));
+//   the warps per CTA follow the staged bytes (5 at the Qwen2 shape, down
+//   to 1 for f32 at hd = vd = 112 or 128).
+// - A row of hd or vd that is no power-of-two number of 16-byte pieces
+//   (hd 24, 96, 112) leaves some lanes of a staging round without a piece:
+//   they copy nothing.  The bf16 path's MMA contracts 16 columns a step, so
+//   there K and q are staged with hd rounded up to 16 (hd = 24: 32), the
+//   columns past hd zero-filled by the copies themselves.  In the f32
+//   path's P V a V row of 28 lanes (vd = 112) leaves one row group a warp
+//   step, and lanes 28..31 take no rows.
 
 #include <cooperative_groups.h>
 
@@ -94,7 +102,11 @@ static_assert(kRows == 8, "a lane scores 2 heads, 4 lanes cover the rows");
 template <typename T, int HD, int VD>
 struct Plan {
   static constexpr int kVec = 16 / sizeof(T);             // per 16 bytes
-  static constexpr int kStrideK = HD * sizeof(T) + kPad;  // staged row bytes
+  // q and K columns staged: hd, rounded up to the MMA's K step of 16 on the
+  // tensor cores (bf16), the columns past hd zero
+  static constexpr int kHdK =
+      std::is_same<T, float>::value ? HD : (HD + 15) / 16 * 16;
+  static constexpr int kStrideK = kHdK * sizeof(T) + kPad;  // staged bytes
   static constexpr int kStrideV = VD * sizeof(T) + kPad;
   static constexpr int kStage = kChunk * (kStrideK + kStrideV);
   static constexpr int kWarpBytes = kStages * kStage;
@@ -108,7 +120,10 @@ struct Plan {
   static constexpr int kSmem = kStaged + kCluster * kRows * VD * 4;
   static constexpr int kLanesPerRow = VD / kVec;  // lanes across a V row
   static constexpr int kGroups = 32 / kLanesPerRow;  // V rows per warp step
-  static constexpr int kPiecesK = HD * sizeof(T) / 16;
+  // 16-byte pieces of a staged K row (those past kDataK zero-filled) and of
+  // a V row
+  static constexpr int kPiecesK = kHdK * sizeof(T) / 16;
+  static constexpr int kDataK = HD * sizeof(T) / 16;
   static constexpr int kPiecesV = VD * sizeof(T) / 16;
 };
 
@@ -130,10 +145,13 @@ __device__ __forceinline__ void warp_chunks_simt(
     float* wl, float (*wacc)[VD]) {
   using P = Plan<T, HD, VD>;
   constexpr int kVec = P::kVec;
-  constexpr int kQStride = q_stride<HD>();
+  constexpr int kQStride = q_stride<P::kHdK>();
   const int pair = lane & 3;
   const int sg = lane >> 2;
+  // a lane past the last whole row group (vd = 112: lanes 28..31) takes
+  // no V rows
   const int grp = lane / P::kLanesPerRow;
+  const int first_row = grp < P::kGroups ? grp : kChunk;
   const int col = (lane % P::kLanesPerRow) * kVec;
   float m[2], l[2];  // the online softmax of rows 2 pair, 2 pair + 1
   float acc[kRows][kVec];
@@ -227,7 +245,7 @@ __device__ __forceinline__ void warp_chunks_simt(
       for (int e = 0; e < kVec; ++e) acc[i][e] *= c;
     }
     __syncwarp();
-    for (int j = grp; j < count; j += P::kGroups) {
+    for (int j = first_row; j < count; j += P::kGroups) {
       float vf[kVec];
       Elem<T>::load(reinterpret_cast<const T*>(vst + j * P::kStrideV) + col,
                     vf);
@@ -246,14 +264,20 @@ __device__ __forceinline__ void warp_chunks_simt(
   }
   cp_async_wait<0>();
 
-  // the lanes that share columns sum their slots' parts
+  // the lanes that share columns sum their slots' parts (a row of 28
+  // lanes, vd = 112, is a warp step's one group: nothing to sum)
+  static_assert(P::kGroups == 1 ||
+                    (P::kLanesPerRow & (P::kLanesPerRow - 1)) == 0,
+                "the butterfly takes a power-of-two row of lanes");
+  if constexpr (P::kGroups > 1) {
 #pragma unroll
-  for (int off = P::kLanesPerRow; off < 32; off <<= 1) {
+    for (int off = P::kLanesPerRow; off < 32; off <<= 1) {
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
+      for (int i = 0; i < kRows; ++i) {
 #pragma unroll
-      for (int e = 0; e < kVec; ++e)
-        acc[i][e] += __shfl_xor_sync(0xffffffffu, acc[i][e], off);
+        for (int e = 0; e < kVec; ++e)
+          acc[i][e] += __shfl_xor_sync(0xffffffffu, acc[i][e], off);
+      }
     }
   }
   if (sg == 0) {
@@ -326,14 +350,15 @@ __device__ __forceinline__ void warp_chunks_tc(
   using P = Plan<bf16, HD, VD>;
   constexpr int KS = P::kStrideK / 2;  // staged row strides, in elements
   constexpr int VS = P::kStrideV / 2;
-  constexpr int kQStride = q_stride<HD>();
+  constexpr int HK = P::kHdK;          // q . k columns, zero past HD
+  constexpr int kQStride = q_stride<HK>();
   const int g = lane >> 2;
   const int tq = lane & 3;
   // A fragments of q (row g; rows 8..15 zero): columns 2 tq (+1) and
   // 2 tq + 8 (+1) of each 16-wide step, rounded back to bf16 exactly
-  uint32_t qa[HD / 16][2];
+  uint32_t qa[HK / 16][2];
 #pragma unroll
-  for (int kc = 0; kc < HD / 16; ++kc) {
+  for (int kc = 0; kc < HK / 16; ++kc) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const float* x = qs + g * kQStride + kc * 16 + h * 8 + 2 * tq;
@@ -367,7 +392,7 @@ __device__ __forceinline__ void warp_chunks_tc(
       for (int e = 0; e < 4; ++e) sc[n][e] = 0.0f;
     }
 #pragma unroll
-    for (int kc = 0; kc < HD / 16; ++kc) {
+    for (int kc = 0; kc < HK / 16; ++kc) {
 #pragma unroll
       for (int n2 = 0; n2 < kChunk / 16; ++n2) {
         uint32_t kb[4];
@@ -453,7 +478,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int kWarps = P::kWarps;
   constexpr int kVec = P::kVec;
   extern __shared__ __align__(16) unsigned char stage[];
-  constexpr int kQStride = q_stride<HD>();
+  constexpr int kQStride = q_stride<P::kHdK>();
   // P of each warp's chunk (the f32 path's; the bf16 path keeps P in
   // registers)
   constexpr int kPsWarps = std::is_same<T, float>::value ? kWarps : 1;
@@ -508,14 +533,17 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     unsigned char* kd = my + (t % kStages) * P::kStage;
     unsigned char* vd = kd + kChunk * P::kStrideK;
     // lane l copies 16-byte piece l % pieces of every (32 / pieces)-th row
+    // (lanes past the last whole round of pieces copy nothing); the K
+    // pieces past hd are zero-filled
     {
       constexpr int kStep = 32 / P::kPiecesK;
       const int j0 = lane / P::kPiecesK;
       const int p = lane % P::kPiecesK;
-      const T* g = kbase + (c0 + j0) * row_k + p * kVec;
+      const bool data = p < P::kDataK;
+      const T* g = kbase + (c0 + j0) * row_k + (data ? p : 0) * kVec;
       unsigned char* d = kd + j0 * P::kStrideK + p * 16;
-      for (int j = j0; j < count; j += kStep) {
-        cp_async16(d, g);
+      for (int j = j0 < kStep ? j0 : kChunk; j < count; j += kStep) {
+        cp_async16(d, g, data);
         g += kStep * row_k;
         d += kStep * P::kStrideK;
       }
@@ -529,7 +557,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const T* first = vbase + c0 * row_v + p * kVec;
       const T* g = first + j0 * row_v;
       unsigned char* d = vd + j0 * P::kStrideV + p * 16;
-      for (int j = j0; j < kChunk; j += kStep) {
+      for (int j = j0 < kStep ? j0 : kChunk; j < kChunk; j += kStep) {
         cp_async16(d, j < count ? g : first, j < count);
         g += kStep * row_v;
         d += kStep * P::kStrideV;
@@ -542,12 +570,13 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cp_async_commit();
   }
 
-  // the group's query heads: widened, scaled, rounded to T, widened
-  for (int i = tid; i < kRows * (HD / kVec); i += blockDim.x) {
-    const int r = i / (HD / kVec);
-    const int d = (i % (HD / kVec)) * kVec;
+  // the group's query heads: widened, scaled, rounded to T, widened (zero
+  // past hd)
+  for (int i = tid; i < kRows * (P::kHdK / kVec); i += blockDim.x) {
+    const int r = i / (P::kHdK / kVec);
+    const int d = (i % (P::kHdK / kVec)) * kVec;
     float buf[kVec];
-    if (r < rows) {
+    if (r < rows && d < HD) {
       const int64_t h = static_cast<int64_t>(kvh) * groups + g0 + r;
       Elem<T>::load(q + (b * num_heads + h) * HD + d, buf);
     } else {

@@ -31,10 +31,10 @@ from typing import Optional, Tuple, Union
 import torch
 
 from repro_torch.kernels.build import current_stream, load_entry
+# the (hd, vd) pairs of ATTN_FOR_EACH_DIMS, which both sources build
+from repro_torch.kernels.flash_attention.kernel import HEAD_DIM_PAIRS
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
-#: head dims (hd and vd) the kernel is built for
-HEAD_DIMS = (16, 32, 64, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 NEG_INF = -1e30
 #: CTAs of one thread-block cluster (``kCluster`` in the source): they split
@@ -93,8 +93,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     to q's dtype before it is widened, as in the model's decode
     (``repro/models/layers.py::decode_attention``).  CUDA tensors launch the
     kernel on the current stream (counted in
-    ``decode_attention.launches``); it takes contiguous operands with hd
-    and vd in :data:`HEAD_DIMS` and raises on anything else.  CPU tensors
+    ``decode_attention.launches``); it takes contiguous operands with (hd,
+    vd) in ``HEAD_DIM_PAIRS`` and raises on anything else.  CPU tensors
     take :func:`decode_attention_plain`.
     """
     who = "decode_attention"
@@ -120,9 +120,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if q.dtype not in DTYPE_CODES:
         raise ValueError(f"{who}: no kernel for {q.dtype}; it takes "
                          f"{sorted(map(str, DTYPE_CODES))}")
-    if hd not in HEAD_DIMS or vd not in HEAD_DIMS:
+    if (hd, vd) not in HEAD_DIM_PAIRS:
         raise ValueError(f"{who}: no kernel for head dims hd={hd}, vd={vd}; "
-                         f"it is built for {HEAD_DIMS}")
+                         f"it is built for the (hd, vd) pairs "
+                         f"{HEAD_DIM_PAIRS}")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{who}: {name} must be contiguous and 16-byte "

@@ -35,7 +35,8 @@
 //   as it was: a masked tile after a valid key changes nothing, and the
 //   exp(0) terms a masked tile adds before the first valid key are washed
 //   out by exp(-1e30 - m) = 0.
-// - Templated on hd, vd in {16, 32, 64, 128}.
+// - Templated on the (hd, vd) pairs of ATTN_FOR_EACH_DIMS: every pair of
+//   {16, 32, 64, 128}, and (24, 16), (96, 64), (112, 112).
 //
 // bf16 (the served dtype): FlashAttention-2 on the tensor cores,
 // mma.sync.m16n8k16 bf16 -> f32.  4 warps, each of two 16-row MMA tiles at
@@ -47,6 +48,10 @@
 // - S = q . k from the raw bf16 inputs: the products are exact in the f32
 //   accumulator; `scale` is then applied to the f32 score (for hd = 64,
 //   0.125 is a power of two, so this equals the reference's (q scale) . k).
+//   The MMA contracts 16 columns a step, so a head dim that is no multiple
+//   of 16 (hd = 24) is staged rounded up (32), the q and K columns past hd
+//   zero-filled in shared memory by the copies themselves: they add 0 to
+//   every score, and the scale stays the caller's (hd^-0.5 of the true hd).
 // - The online softmax runs on the S fragment, with quad shuffles for the
 //   row max and sum; exp is ex2.approx with a denormal result flushed to
 //   0.  Only the tiles on the causal diagonal, a window's edge or past Skv
@@ -314,11 +319,18 @@ __host__ __device__ constexpr int rows_per_block() {
   return 16 * m_tiles<HD, VD>() * kWarps;
 }
 
+// q and K columns staged: hd rounded up to the MMA's K step of 16, the
+// columns past hd zero
+template <int HD>
+__host__ __device__ constexpr int hd_mma() {
+  return (HD + 15) / 16 * 16;
+}
+
 template <int HD, int VD>
 constexpr size_t smem_bytes() {
-  return sizeof(bf16) *
-         (rows_per_block<HD, VD>() * (HD + kPad) + 2 * kKeys * (HD + kPad) +
-          2 * kKeys * (VD + kPad));
+  return sizeof(bf16) * (rows_per_block<HD, VD>() * (hd_mma<HD>() + kPad) +
+                         2 * kKeys * (hd_mma<HD>() + kPad) +
+                         2 * kKeys * (VD + kPad));
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
@@ -385,7 +397,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       float* __restrict__ lse, int batch, int sq, int skv,
                       int num_heads, int num_kv, int groups, int q_tiles,
                       int causal, int window, float scale) {
-  constexpr int QS = HD + kPad;  // shared-memory row strides (elements)
+  constexpr int HK = hd_mma<HD>();  // q . k columns, zero past HD
+  constexpr int QS = HK + kPad;      // shared-memory row strides (elements)
   constexpr int VS = VD + kPad;
   constexpr int M = m_tiles<HD, VD>();
   constexpr int kRows = rows_per_block<HD, VD>();
@@ -411,25 +424,27 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int pos_lo = static_cast<int>(f0 / groups);
   const int pos_hi = static_cast<int>((f_end - 1) / groups);
 
-  // the block's query rows, as they are (bf16)
-  for (int i = tid; i < kRows * (HD / 8); i += kWarps * 32) {
-    const int r = i / (HD / 8);
-    const int c = (i % (HD / 8)) * 8;
+  // the block's query rows, as they are (bf16), zero past HD
+  for (int i = tid; i < kRows * (HK / 8); i += kWarps * 32) {
+    const int r = i / (HK / 8);
+    const int c = (i % (HK / 8)) * 8;
     const int64_t f = f0 + r < rows_total ? f0 + r : 0;
     const int64_t pos = f / groups;
     const int64_t h = static_cast<int64_t>(kvh) * groups + f % groups;
-    cp_async16(qs + r * QS + c, q + ((b * sq + pos) * num_heads + h) * HD + c,
-               f0 + r < rows_total);
+    cp_async16(qs + r * QS + c,
+               q + ((b * sq + pos) * num_heads + h) * HD + (c < HD ? c : 0),
+               f0 + r < rows_total && c < HD);
   }
   auto load_kv = [&](int t0, int buf) {
     bf16* kd = ks + buf * kKeys * QS;
     bf16* vd = vs + buf * kKeys * VS;
-    for (int i = tid; i < kKeys * (HD / 8); i += kWarps * 32) {
-      const int j = i / (HD / 8);
-      const int c = (i % (HD / 8)) * 8;
+    for (int i = tid; i < kKeys * (HK / 8); i += kWarps * 32) {
+      const int j = i / (HK / 8);
+      const int c = (i % (HK / 8)) * 8;
       const int64_t key = t0 + j < skv ? t0 + j : 0;
-      cp_async16(kd + j * QS + c, k + ((b * skv + key) * num_kv + kvh) * HD + c,
-                 t0 + j < skv);
+      cp_async16(kd + j * QS + c,
+                 k + ((b * skv + key) * num_kv + kvh) * HD + (c < HD ? c : 0),
+                 t0 + j < skv && c < HD);
     }
     for (int i = tid; i < kKeys * (VD / 8); i += kWarps * 32) {
       const int j = i / (VD / 8);
@@ -452,7 +467,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();
 
   // per 16-row tile mi: rows (warp M + mi) 16 + g (r = 0) and + 8 (r = 1)
-  uint32_t qf[M][HD / 16][4];
+  uint32_t qf[M][HK / 16][4];
   int row_pos[M][2];
   float o[M][VD / 8][4];
   float m[M][2], l[M][2];
@@ -460,7 +475,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int mi = 0; mi < M; ++mi) {
     const int row0 = (warp * M + mi) * 16;
 #pragma unroll
-    for (int kc = 0; kc < HD / 16; ++kc) {
+    for (int kc = 0; kc < HK / 16; ++kc) {
       ldmatrix_x4(qf[mi][kc], qs + (row0 + (lane & 15)) * QS + kc * 16 +
                                   (lane >> 4) * 8);
     }
@@ -500,7 +515,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
 #pragma unroll
-    for (int kc = 0; kc < HD / 16; ++kc) {
+    for (int kc = 0; kc < HK / 16; ++kc) {
 #pragma unroll
       for (int n2 = 0; n2 < kKeys / 16; ++n2) {
         uint32_t kb[4];

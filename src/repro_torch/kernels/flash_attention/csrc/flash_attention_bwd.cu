@@ -553,7 +553,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                          dk, dv, batch, sq, skv, num_heads,  \
                                          num_kv, causal, window, scale, s);  \
   }
-  ATTN_FOR_EACH_DIMS(ATTN_CASE)
+  ATTN_FOR_EACH_GRID_DIMS(ATTN_CASE)
 #undef ATTN_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,13 +1,16 @@
 """Serve batched requests from the command line: a smoke or full-size
 model with weights made from a seed, on the card unless ``--device`` names
 another device.  ``--arch`` takes the dense GQA models (``qwen2_0_5b``,
-``yi_9b``, ``granite_34b``), the MoE ones (``mixtral_8x22b``,
-``dbrx_132b``) and the SSM (``mamba2_2_7b``).
+``yi_9b``, ``granite_34b``), the MLA one (``minicpm3_4b``), the MoE ones
+(``mixtral_8x22b``, ``dbrx_132b``), the SSM (``mamba2_2_7b``) and the
+hybrid (``zamba2_7b``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b \\
       --smoke --device cpu --requests 8 --prompt-len 32 --new-tokens 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral_8x22b \\
       --smoke --device cpu --prompt-len 40 --max-len 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_7b \
+      --smoke --device cpu
 """
 
 from __future__ import annotations

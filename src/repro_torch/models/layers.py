@@ -137,8 +137,8 @@ def decode_attention(
     q is scaled by ``hd^-0.5`` in its own dtype before it is widened (the
     kernel does that as it loads q); on the card this is one launch of the
     decode kernel."""
-    return decode_attention_kernel(q.contiguous(), k_cache, v_cache,
-                                   cache_len)
+    return decode_attention_kernel(q.contiguous(), k_cache.contiguous(),
+                                   v_cache.contiguous(), cache_len)
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,13 @@
 """Parameter definitions: one source of truth for shape, init and dtype.
 
-The port of ``repro.models.params`` for the dense GQA, MoE and SSM
-families.
+The port of ``repro.models.params`` for the dense GQA, MLA, MoE, SSM and
+hybrid families.
 ``build_defs(cfg)`` returns a tree (nested dicts) of ``ParamDef`` leaves,
 and ``init_params`` materializes it.  Per-layer weights keep the
-reference's stacked ``[L, ...]`` leaves, so that
-``convert.lm_params_from_numpy`` maps the JAX tree one for one.  The
-reference's logical sharding names wait for the sharding slice (ROADMAP
-queue 1 entry 15).
+reference's stacked ``[L, ...]`` leaves (the hybrid's one shared block is
+unstacked), so that ``convert.lm_params_from_numpy`` maps the JAX tree one
+for one.  The reference's logical sharding names wait for the sharding
+slice (ROADMAP queue 1 entry 15).
 """
 
 from __future__ import annotations
@@ -29,50 +29,74 @@ class ParamDef(NamedTuple):
     dtype: Optional[str] = None   # override cfg.param_dtype
 
 
-#: the model families the port builds
-PORTED_FAMILIES = ("dense", "moe", "ssm")
+#: the model families the port builds (MLA is a dense model with
+#: ``cfg.mla`` set)
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def require_ported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a dense GQA, MoE or SSM (Mamba2) decoder,
-    the families the port builds; the others wait for their ROADMAP
-    entry."""
+    """Raise unless ``cfg`` is a decoder of a family the port builds:
+    dense GQA or MLA, MoE, SSM (Mamba2) or hybrid (Zamba2); the others
+    wait for their ROADMAP entry."""
     missing = [name for name, present in (
-        ("MLA", cfg.mla is not None), ("hybrid", cfg.family == "hybrid"),
         ("encoder-decoder", cfg.encoder_layers > 0),
         ("modality frontend", cfg.frontend is not None)) if present]
     if missing or cfg.family not in PORTED_FAMILIES:
         what = ", ".join(missing) or f"family {cfg.family!r}"
         raise NotImplementedError(
             f"{cfg.name}: {what} is not ported yet ({NOT_PORTED_ENTRY}); "
-            f"the port builds dense GQA, MoE and SSM models only")
+            f"the port builds dense GQA, MLA, MoE, SSM and hybrid models "
+            f"only")
 
 
-def _attn_defs(cfg: ModelConfig, layers: int) -> Dict[str, ParamDef]:
-    """GQA attention projections, stacked over ``layers``."""
+def _attn_defs(cfg: ModelConfig,
+               layers: Optional[int]) -> Dict[str, ParamDef]:
+    """GQA attention projections, stacked over ``layers`` (``None``: the
+    hybrid's unstacked shared block)."""
     d, h, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     hd = cfg.resolved_head_dim
+    lead = () if layers is None else (layers,)
     defs = {
-        "wq": ParamDef((layers, d, h * hd)),
-        "wk": ParamDef((layers, d, kv * hd)),
-        "wv": ParamDef((layers, d, kv * hd)),
-        "wo": ParamDef((layers, h * hd, d)),
+        "wq": ParamDef(lead + (d, h * hd)),
+        "wk": ParamDef(lead + (d, kv * hd)),
+        "wv": ParamDef(lead + (d, kv * hd)),
+        "wo": ParamDef(lead + (h * hd, d)),
     }
     if cfg.qkv_bias:
-        defs["bq"] = ParamDef((layers, h * hd), "zeros")
-        defs["bk"] = ParamDef((layers, kv * hd), "zeros")
-        defs["bv"] = ParamDef((layers, kv * hd), "zeros")
+        defs["bq"] = ParamDef(lead + (h * hd,), "zeros")
+        defs["bk"] = ParamDef(lead + (kv * hd,), "zeros")
+        defs["bv"] = ParamDef(lead + (kv * hd,), "zeros")
     return defs
 
 
-def _mlp_defs(cfg: ModelConfig, layers: int) -> Dict[str, ParamDef]:
+def _mla_defs(cfg: ModelConfig, layers: int) -> Dict[str, ParamDef]:
+    """Multi-head latent attention: the q and kv low-rank projections with
+    their norms, the expansions to ``cfg.sharded_heads`` heads, the output
+    projection."""
+    m, d, h = cfg.mla, cfg.d_model, cfg.sharded_heads
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "q_a": ParamDef((layers, d, m.q_lora_rank)),
+        "q_norm": ParamDef((layers, m.q_lora_rank), "ones"),
+        "q_b": ParamDef((layers, m.q_lora_rank, h * qk_dim)),
+        "kv_a": ParamDef((layers, d, m.kv_lora_rank + m.qk_rope_head_dim)),
+        "kv_norm": ParamDef((layers, m.kv_lora_rank), "ones"),
+        "kv_b": ParamDef((layers, m.kv_lora_rank,
+                          h * (m.qk_nope_head_dim + m.v_head_dim))),
+        "wo": ParamDef((layers, h * m.v_head_dim, d)),
+    }
+
+
+def _mlp_defs(cfg: ModelConfig,
+              layers: Optional[int]) -> Dict[str, ParamDef]:
     d, ff = cfg.d_model, cfg.d_ff
+    lead = () if layers is None else (layers,)
     defs = {
-        "w_up": ParamDef((layers, d, ff)),
-        "w_down": ParamDef((layers, ff, d)),
+        "w_up": ParamDef(lead + (d, ff)),
+        "w_down": ParamDef(lead + (ff, d)),
     }
     if cfg.mlp_gated:
-        defs["w_gate"] = ParamDef((layers, d, ff))
+        defs["w_gate"] = ParamDef(lead + (d, ff))
     return defs
 
 
@@ -110,7 +134,8 @@ def _block_norms(layers: int, d: int, n: int = 2) -> Dict[str, ParamDef]:
 
 
 def build_defs(cfg: ModelConfig) -> Dict[str, Any]:
-    """The parameter-definition tree of a dense GQA, MoE or SSM model."""
+    """The parameter-definition tree of a dense GQA or MLA, MoE, SSM or
+    hybrid model."""
     require_ported(cfg)
     d, v, L = cfg.d_model, cfg.vocab_size, cfg.num_layers
     defs: Dict[str, Any] = {
@@ -119,13 +144,21 @@ def build_defs(cfg: ModelConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((d, v), "small_normal")
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         defs["blocks"] = {"ssm": _ssm_defs(cfg, L), **_block_norms(L, d, 1)}
     else:
-        defs["blocks"] = {"attn": _attn_defs(cfg, L),
+        defs["blocks"] = {"attn": (_mla_defs(cfg, L) if cfg.mla is not None
+                                   else _attn_defs(cfg, L)),
                           "mlp": (_moe_defs(cfg, L) if cfg.moe is not None
                                   else _mlp_defs(cfg, L)),
                           **_block_norms(L, d, 2)}
+    if cfg.family == "hybrid":
+        # one shared attention + MLP block, applied every hybrid_period
+        # layers
+        defs["shared"] = {"attn": _attn_defs(cfg, None),
+                          "mlp": _mlp_defs(cfg, None),
+                          "norm0": ParamDef((d,), "ones"),
+                          "norm1": ParamDef((d,), "ones")}
     return defs
 
 

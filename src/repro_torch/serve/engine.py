@@ -6,10 +6,13 @@ left-padded to the longest prompt (without an attention mask, as in the
 reference), prefilled together and decoded in lockstep; the next wave
 starts when the wave is done.  On the card every attention call of a wave
 is one hand-written kernel launch: ``flash_attention`` per layer of the
-prefill, ``decode_attention`` per layer of each decode step.  An SSM
-(Mamba2) wave carries its conv and state instead of a KV cache (its
-prefill ignores ``max_len``); left padding runs the pad tokens through
-that state, and through an MoE router, as in the reference.
+prefill, ``decode_attention`` per layer of each decode step (a hybrid
+model's: per application of its shared attention block).  The wave's
+cache tree is the family's, passed through as ``lm_prefill`` makes it: an
+SSM (Mamba2) wave carries its conv and state instead of a KV cache (its
+prefill ignores ``max_len``), a hybrid wave both, an MLA wave its bf16
+latent and rope key; left padding runs the pad tokens through that state,
+and through an MoE router, as in the reference.
 """
 
 from __future__ import annotations
@@ -50,9 +53,9 @@ class ServeStats:
 
 
 class ServingEngine:
-    """Serves :class:`Request` waves of a dense GQA, MoE or SSM model on
-    ``device`` (the
-    card unless another device is named).  ``params`` is the tree of
+    """Serves :class:`Request` waves of a dense GQA or MLA, MoE, SSM or
+    hybrid model on ``device`` (the card unless another device is
+    named).  ``params`` is the tree of
     ``params.init_params`` (or ``convert.lm_params_from_numpy``); the engine
     holds one copy in the activation dtype on its device, made once here.
     Greedy selection takes the argmax of the last position's logits;

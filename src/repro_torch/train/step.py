@@ -5,8 +5,10 @@ dense GQA family: the loss's gradient by autograd (every attention call
 through the flash kernels, forward and backward), clipped to a global
 norm, then AdamW.  Batches are dicts of tensors on the parameters' device:
 ``tokens`` and ``labels`` (B, S) int32, optionally ``loss_mask`` (B, S).
-Training the MoE and SSM families is not ported yet, and raises; the other
-families raise in ``lm_forward`` (ROADMAP queue 1 entry 17b).
+Training the MLA, MoE, SSM and hybrid families is not ported yet (the
+flash backward is not built at MLA's and the hybrid's head dims), and
+raises; the other families raise in ``lm_forward`` (ROADMAP queue 1 entry
+17b).
 """
 
 from __future__ import annotations
@@ -32,8 +34,9 @@ def loss_and_grads(params: Dict[str, Any], cfg: ModelConfig,
     """(loss, accuracy, grads): the loss of ``batch`` and its gradient
     with respect to every leaf of ``params`` (a tree like ``params``, in
     the leaves' dtypes)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name}: training the {cfg.family} "
+    if cfg.family != "dense" or cfg.mla is not None:
+        what = "MLA" if cfg.mla is not None else cfg.family
+        raise NotImplementedError(f"{cfg.name}: training the {what} "
                                   f"family is not ported yet "
                                   f"({NOT_PORTED_ENTRY})")
     live = tree_map(lambda p: p.detach().requires_grad_(True), params)

@@ -88,6 +88,37 @@ def test_flash_attention_matches_pallas_and_model_path(b, s, h, kv, hd, vd,
     np.testing.assert_allclose(_np(other), _np(out), **_tol(dtype))
 
 
+#: the hybrid's and MLA's (hd, vd): Zamba2-7B, MiniCPM3-4B, its smoke config
+MODEL_HEAD_DIMS = [(112, 112), (96, 64), (24, 16)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,vd", MODEL_HEAD_DIMS)
+def test_model_head_dims_match_the_model_path(hd, vd, dtype):
+    """Both plain versions at the model families' head dims against the
+    reference's ``blocked_attention`` (with MLA's explicit scale) and
+    ``decode_attention``, at G = 1 as both families have it."""
+    b, s, h, clen = 2, 96, 4, 70
+    rng = np.random.default_rng(hd + vd)
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _pair(_normal(rng, shape), dtype)
+        for shape in ((b, s, h, hd), (b, s, h, hd), (b, s, h, vd)))
+    scale = hd ** -0.5
+    model = JL.blocked_attention(jq, jk, jv, causal=True,
+                                 softmax_scale=scale, q_block=32,
+                                 kv_block=64)
+    out = TL.blocked_attention(tq, tk, tv, causal=True, softmax_scale=scale,
+                               q_block=32, kv_block=64)
+    assert out.dtype == tq.dtype and out.shape == (b, s, h, vd)
+    np.testing.assert_allclose(_np(out), _np(model), **_tol(dtype))
+    jq1, tq1 = jq[:, -1:], tq[:, -1:].contiguous()
+    model = JL.decode_attention(jq1, jk, jv, cache_len=jnp.int32(clen))
+    out = TL.decode_attention(tq1, tk, tv, cache_len=torch.tensor(
+        clen, dtype=torch.int32))
+    assert out.dtype == tq.dtype and out.shape == (b, 1, h, vd)
+    np.testing.assert_allclose(_np(out), _np(model), **_tol(dtype))
+
+
 def test_flash_attention_exact_softmax_oracle():
     """Against an unblocked full softmax in f64."""
     b, s, h, kv, hd = 1, 96, 4, 2, 32

@@ -29,7 +29,7 @@ import torch
 from repro_torch.kernels.decode_attention.kernel import (
     decode_attention, decode_attention_plain)
 from repro_torch.kernels.flash_attention.kernel import (
-    HEAD_DIMS, flash_attention, flash_attention_bwd,
+    BWD_HEAD_DIM_PAIRS, HEAD_DIM_PAIRS, flash_attention, flash_attention_bwd,
     flash_attention_bwd_plain, flash_attention_plain)
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -47,14 +47,21 @@ FLASH_SHAPES = {
     "qwen2-padded": (2, 1000, 14, 2, 64, 64, True, None),
     "qwen2-window": (1, 777, 14, 2, 64, 64, True, 100),
     "window-not-causal": (1, 300, 6, 3, 32, 64, False, 50),
+    # the hybrid (Zamba2-7B) and MLA (MiniCPM3-4B, its smoke config) shapes
+    "zamba2-hd112": (1, 300, 4, 4, 112, 112, True, None),
+    "minicpm3-hd96-vd64": (2, 257, 5, 5, 96, 64, True, None),
+    "mla-smoke-hd24-vd16": (2, 70, 4, 4, 24, 16, True, None),
 }
 
 #: cases of the bf16 (tensor-core) flash kernel: B, Sq, H, KV, hd, vd,
 #: causal, window, scale (None: hd^-0.5)
 FLASH_BF16_CASES = {
     **{f"hd{hd}-vd{vd}": (1, 130, 4, 2, hd, vd, True, None, None)
-       for hd in HEAD_DIMS for vd in HEAD_DIMS},
+       for hd, vd in HEAD_DIM_PAIRS},
     "g1": (2, 257, 4, 4, 64, 64, True, None, None),
+    "hd112-g1-window": (1, 700, 4, 4, 112, 112, True, 256, None),
+    "hd96-vd64-not-causal": (1, 333, 6, 6, 96, 64, False, None, None),
+    "hd24-vd16-scale-0.3": (2, 99, 4, 4, 24, 16, True, None, 0.3),
     "g7": (1, 300, 14, 2, 64, 64, True, None, None),
     "g16": (1, 200, 16, 1, 64, 64, True, None, None),
     "not-causal": (2, 333, 14, 2, 64, 64, False, None, None),
@@ -73,13 +80,17 @@ DECODE_CASES = {
     "g7": (3, 600, 14, 2, 64, 64, 600),
     "g16": (2, 600, 16, 1, 64, 64, 333),
     **{f"hd{hd}-vd{vd}": (2, 300, 4, 2, hd, vd, 257)
-       for hd in HEAD_DIMS for vd in HEAD_DIMS},
+       for hd, vd in HEAD_DIM_PAIRS},
+    # the hybrid and MLA decode shapes at G = 1, past several chunks
+    "zamba2-hd112-g1": (4, 700, 8, 8, 112, 112, 650),
+    "minicpm3-hd96-vd64-g1": (4, 700, 8, 8, 96, 64, 333),
+    "mla-smoke-hd24-vd16-g1": (2, 300, 4, 4, 24, 16, 129),
 }
 
 #: cases of the flash backward kernel: B, S, H, KV, hd, vd, causal, window
 FLASH_BWD_CASES = {
     **{f"hd{hd}-vd{vd}": (1, 130, 4, 2, hd, vd, True, None)
-       for hd in HEAD_DIMS for vd in HEAD_DIMS},
+       for hd, vd in BWD_HEAD_DIM_PAIRS},
     "g1": (2, 257, 4, 4, 64, 64, True, None),
     "g7": (1, 300, 14, 2, 64, 64, True, None),
     "g16": (1, 200, 16, 1, 64, 64, True, None),
@@ -98,6 +109,9 @@ DECODE_SHAPES = {
     "vd-ne-hd": (2, 300, 8, 2, 128, 16, 299),
     "one-slot": (3, 256, 6, 2, 16, 32, 1),
     "past-s": (2, 200, 6, 2, 32, 32, 5000),
+    "zamba2-hd112": (4, 520, 4, 4, 112, 112, 517),
+    "minicpm3-hd96-vd64": (4, 520, 5, 5, 96, 64, 260),
+    "mla-smoke-hd24-vd16": (2, 64, 4, 4, 24, 16, 33),
 }
 
 
@@ -389,6 +403,14 @@ def test_flash_bwd_wrapper_rejects_what_it_cannot_take(cuda_device):
     for args in bad:
         with pytest.raises(ValueError):
             flash_attention_bwd(*args)
+    # the forward's model pairs have no backward yet
+    for hd, vd in sorted(set(HEAD_DIM_PAIRS) - set(BWD_HEAD_DIM_PAIRS)):
+        q, k, v = (t.to(cuda_device)
+                   for t in _inputs((1, 64, 2, 2, hd, vd), 15))
+        out, lse = flash_attention(q, k, v, return_lse=True)
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue 1 entry 17b"):
+            flash_attention_bwd(q, k, v, out, lse, torch.ones_like(out))
 
 
 @pytest.mark.gpu

@@ -34,6 +34,7 @@ from repro_torch.models import layers as TL
 from repro_torch.models import params as TP
 from repro_torch.models.transformer import (lm_decode_step, lm_forward,
                                             lm_prefill)
+from repro_torch.train.step import loss_and_grads
 
 B, S, CACHE = 2, 24, 40
 CASES = {
@@ -201,7 +202,6 @@ def test_params_tree_and_init():
 
 
 @pytest.mark.parametrize("arch,entry", [
-    ("minicpm3_4b", "MLA"), ("zamba2_7b", "hybrid"),
     ("seamless_m4t_large_v2", "encoder-decoder"),
     ("internvl2_2b", "modality frontend"),
 ])
@@ -211,6 +211,20 @@ def test_other_families_raise(arch, entry):
         TP.build_defs(cfg)
     with pytest.raises(NotImplementedError, match="entry 17b"):
         lm_forward({}, cfg, torch.zeros(1, 4, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("arch,family", [
+    ("minicpm3_4b", "MLA"), ("zamba2_7b", "hybrid"),
+])
+def test_training_mla_and_hybrid_raises(arch, family):
+    """Both families are built and served; training them (the flash
+    backward at their head dims) waits in entry 17b."""
+    cfg = tget(arch)
+    assert TP.param_count_actual(cfg) > 0
+    with pytest.raises(NotImplementedError,
+                       match=f"training the {family} family.*entry 17b"):
+        loss_and_grads({}, cfg, {"tokens": torch.zeros(1, 4,
+                                                       dtype=torch.int32)})
 
 
 def test_lm_params_from_numpy_checks_the_tree():

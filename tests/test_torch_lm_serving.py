@@ -191,4 +191,4 @@ def test_entry_points_need_a_device_without_a_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         lm_params_from_numpy({}, tcfg)
     with pytest.raises(NotImplementedError, match="entry 17b"):
-        ServingEngine(tget("minicpm3_4b"), {}, device="cpu")
+        ServingEngine(tget("seamless_m4t_large_v2"), {}, device="cpu")

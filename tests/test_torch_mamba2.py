@@ -151,6 +151,19 @@ def test_final_state_and_decode_match_jax(dtype):
             _close(tst[name], jst[name], dtype, f"decode step {i} {name}")
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_final_state_holds_no_view_of_the_sequence(dtype):
+    """The cached conv tail is a copy: a view would keep each layer's whole
+    (B, S, conv_dim) input alive until the prefill stacks its caches."""
+    _, tcfg = _configs(dtype)
+    _, tparams = _params(*_configs(dtype), seed=4)
+    tp = {k: v[0] for k, v in tparams["blocks"]["ssm"].items()}
+    _, tx = _x(np.random.default_rng(5), 45, tcfg.d_model, dtype)
+    for name, t in _mamba_final_state(tp, tx, tcfg).items():
+        assert t.dtype == torch.float32, name
+        assert t.untyped_storage().nbytes() == t.numel() * 4, name
+
+
 def test_decode_continues_the_chunked_scan():
     """The port alone: prefill of S tokens and one decode step give the
     last logits of a prefill of S + 1 (the check ``chip_smoke.py`` makes
