@@ -94,14 +94,17 @@ and the LM paths:
   against their f64 plain versions at the training shape (B = 4, S = 2048,
   14 heads, 2 KV heads, bf16), a ragged length with a window, G = 1 and
   the f32 entry, each gradient bitwise across two launches; at the
-  training shape the backward's device time beside the forward's (with
-  and without lse), the plain backward, ``scaled_dot_product_attention``
-  forward + backward and the bound;
+  training shapes (Qwen2-0.5B's; Zamba2-7B's hd 112, 32/32 heads;
+  MiniCPM3-4B's hd 96 with vd 64, 40/40; and the MLA smoke dims) the
+  backward's device time beside the forward's (with and without lse), the
+  plain backward, ``scaled_dot_product_attention`` forward + backward and
+  the bound;
 - LM training on Qwen2-0.5B at full width and depth (f32 params, bf16
   activations, ``SyntheticLMData(lag=1)`` over 4,096 ids, B = 4, S =
   2048): one step's gradients through the kernels against the same step
   through the plain attention (loss, grad norm, every leaf's relative
-  L2), then 30 AdamW steps with remat and the cosine schedule through
+  L2, beside a control: the plain step at half the tiles), then 30
+  donated AdamW steps with remat and the cosine schedule through
   ``RestartableLoop`` (the loss must fall; 48 flash forward launches, the
   24 of remat's recomputation included, all with lse, and 24 backward
   calls a step), a checkpoint saved at step 10 restored bitwise into
@@ -137,7 +140,23 @@ and the LM paths:
   drift, the plain versions at half the tiles on the same prompts, where
   that is larger, as at the hybrid's 81 layers) and, teacher-forced in
   f32 through the kernels' f32 entries against the plain versions, within
-  1% of the logit tolerance.
+  1% of the logit tolerance;
+- training the MoE, SSM, hybrid and MLA families at full width with the
+  depth cut so that the donated step fits, each at B = 4: Mixtral-8x22B
+  (1 layer, S = 6,144, past its window), Mamba2-2.7B (64 layers),
+  Zamba2-7B (36 layers, 6 applications of the shared block) and
+  MiniCPM3-4B (40 layers), each at S = 2,048 but Mixtral: one step's
+  gradients through the kernels against the plain attention, in bf16
+  within the dense phase's limits (Mixtral on one sequence, its routes
+  forced; Zamba2 at 12 layers, where its own drift, a control's, stays
+  under 2/3 of them) and in an f32 model of 2 layers (Zamba2 6) at 1% of
+  them, each step exactly 2 flash launches with lse and 1 backward call
+  per attention call; then ten donated steps at the dense phase's rate
+  on the cosine schedule with warm-up, whose last loss must be below the
+  untrained model's on that batch by more than the batches' spread; each
+  step's time, tokens/s, peak memory (under the card's and the
+  backward's own peak plus the moments and the update's temporaries) and
+  backward device time a call.
 
 It prints one JSON line per phase.  The line before the last lists the
 kernels, with each one's launches on every graph path; the last is
@@ -3565,15 +3584,25 @@ FAMILY_PATHS = {"lm-serve-moe": lm_serve_moe_path,
 
 # ---- training: the flash backward and Qwen2-0.5B steps ------------------
 # the flash backward's checks: (tag, (B, S, H, KV, hd, vd, causal, window),
-# dtype); the first is the training shape, the one that is timed
+# dtype, timed); the first is Qwen2-0.5B's training shape, the kernels
+# line's main row; the hybrid's and MLA's training shapes (Zamba2-7B's
+# shared attention, hd 112, 32/32 heads; MiniCPM3-4B's hd 96 with vd 64,
+# 40/40) and MLA's smoke dims are timed too
 FLASH_BWD_CHECKS = (
     ("training shape, B=4, S=2048, G=7", (4, 2048, 14, 2, 64, 64, True, None),
-     "bfloat16"),
+     "bfloat16", True),
     ("S=1999 (no tile multiple), window 256", (1, 1999, 14, 2, 64, 64, True,
-                                               256), "bfloat16"),
-    ("G=1, B=2, S=1024", (2, 1024, 4, 4, 64, 64, True, None), "bfloat16"),
+                                               256), "bfloat16", False),
+    ("G=1, B=2, S=1024", (2, 1024, 4, 4, 64, 64, True, None), "bfloat16",
+     False),
     ("G=7, f32 entry, B=1, S=1000", (1, 1000, 14, 2, 64, 64, True, None),
-     "float32"),
+     "float32", False),
+    ("Zamba2-7B training shape, B=4, S=2048, hd 112, G=1",
+     (4, 2048, 32, 32, 112, 112, True, None), "bfloat16", True),
+    ("MiniCPM3-4B training shape, B=4, S=2048, hd 96, vd 64, G=1",
+     (4, 2048, 40, 40, 96, 64, True, None), "bfloat16", True),
+    ("MLA smoke config's heads, B=2, S=300, hd 24, vd 16",
+     (2, 300, 4, 4, 24, 16, True, None), "bfloat16", True),
 )
 # Tolerances against the f64 plain versions on the same inputs (|err| <=
 # atol + rtol |ref|).  lse: 1e-5 (a sum of exps in f32, log of it; the bf16
@@ -3768,7 +3797,8 @@ def flat_tree(tree, prefix="") -> dict:
 def lm_train_path(dev) -> tuple:
     """Train Qwen2-0.5B at full width and depth on the card
     (``SyntheticLMData(lag=1)`` over TRAIN_DATA_VOCAB ids, B = 4, S = 2048,
-    AdamW, remat, the cosine schedule) through ``make_train_step``, ``RestartableLoop`` and
+    AdamW, remat, the cosine schedule) through the donated
+    ``make_train_step``, ``RestartableLoop`` and
     ``CheckpointManager``: one step's gradients with the kernels against
     the same step through the plain attention, TRAIN_STEPS steps whose
     loss must fall, and a resume from the step-10 checkpoint.  Returns
@@ -3783,9 +3813,8 @@ def lm_train_path(dev) -> tuple:
     from repro_torch.models.params import init_params, param_count_actual
     from repro_torch.train.checkpoint import CheckpointManager
     from repro_torch.train.fault_tolerance import LoopConfig, RestartableLoop
-    from repro_torch.train.optimizer import (adamw_init, cosine_schedule,
-                                             global_norm)
-    from repro_torch.train.step import loss_and_grads, make_train_step
+    from repro_torch.train.optimizer import adamw_init, cosine_schedule
+    from repro_torch.train.step import make_train_step
 
     cfg = get_config(LM_ARCH)
     layers = cfg.num_layers
@@ -3799,51 +3828,14 @@ def lm_train_path(dev) -> tuple:
     rows = []
 
     # -- one step's gradients: kernels against the plain attention --------
-    batch = shard_batch(data.batch_at(0), dev)
-    reset_launch_counts()
-    FA.flash_attention.lse_launches = 0
-    loss_k, _, grads_k = loss_and_grads(params, cfg, batch, remat=True)
-    torch.cuda.synchronize()
-    counts = launch_counts()
-    want = dict.fromkeys(KERNEL_NAMES, 0)
-    want.update(flash_attention=2 * layers, flash_attention_bwd=layers)
-    if counts != want or FA.flash_attention.lse_launches != 2 * layers:
-        raise AssertionError(f"a training step launched {counts} (lse "
-                             f"{FA.flash_attention.lse_launches}), expected "
-                             f"{want}")
-    with plain_training_attention():
-        loss_p, _, grads_p = loss_and_grads(params, cfg, batch, remat=True)
-    torch.cuda.synchronize()
-    if launch_counts() != counts:
-        raise AssertionError("the plain training step launched a kernel")
-    gn_k, gn_p = float(global_norm(grads_k)), float(global_norm(grads_p))
-    plain_leaves = flat_tree(grads_p)
-    rel = {k: float((g.float() - plain_leaves[k].float()).norm()
-                    / plain_leaves[k].float().norm().clamp_min(1e-30))
-           for k, g in flat_tree(grads_k).items()}
-    worst = max(rel, key=rel.get)
-    cmp_row = {"phase": "lm-train-vs-plain", "model": cfg.name,
-               "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
-               "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
-               "loss_rel_diff": abs(float(loss_k) - float(loss_p))
-               / abs(float(loss_p)),
-               "grad_norm_kernel": gn_k, "grad_norm_plain": gn_p,
-               "grad_norm_rel_diff": abs(gn_k - gn_p) / gn_p,
-               "grad_rel_l2": rel, "worst_leaf": worst,
-               "tolerance": {"loss": TRAIN_LOSS_RTOL,
-                             "grad_norm": TRAIN_GNORM_RTOL,
-                             "grad_rel_l2": TRAIN_GRAD_RTOL},
-               "launches_kernel_step": counts}
+    cmp_row, _ = train_grads_vs_plain("lm-train-vs-plain", params, cfg,
+                                      shard_batch(data.batch_at(0), dev))
     rows.append(cmp_row)
-    del grads_k, grads_p, plain_leaves, batch
     torch.cuda.empty_cache()
-    if (cmp_row["loss_rel_diff"] > TRAIN_LOSS_RTOL
-            or cmp_row["grad_norm_rel_diff"] > TRAIN_GNORM_RTOL
-            or rel[worst] > TRAIN_GRAD_RTOL):
-        raise AssertionError(f"kernel step disagrees with the plain step: "
-                             f"{cmp_row}")
 
     # -- TRAIN_STEPS steps with checkpoints ---------------------------------
+    # each step writes into the state it is given (the checkpoint's host
+    # copy is taken before the next step)
     step_fn = make_train_step(cfg, learning_rate=cosine_schedule(
         TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS), remat=True)
     losses, snap = {}, {}
@@ -3864,8 +3856,7 @@ def lm_train_path(dev) -> tuple:
         loop = RestartableLoop(ckpt, LoopConfig(
             total_steps=TRAIN_STEPS, checkpoint_every=TRAIN_CKPT_EVERY,
             log_every=0), log=lambda s: None)
-        # the loop gets the only reference to the first state, so that it
-        # is freed once the first step has made the next one
+        # the loop holds the only reference to the state
         held = [{"params": params, "opt": adamw_init(params)}]
         del params
         torch.cuda.synchronize()
@@ -3962,6 +3953,369 @@ def lm_train_path(dev) -> tuple:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     return rows, run_counts
+
+
+def train_grads_vs_plain(phase, params, cfg, batch, *,
+                         share: float = 1.0) -> tuple:
+    """One step's loss and gradients (``loss_and_grads``, remat) through
+    the attention kernels against the same step through the plain
+    attention (:func:`plain_training_attention`): loss, grad norm, and
+    the worst leaf's gradient in relative L2, each within ``share`` times
+    TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL or TRAIN_GRAD_RTOL.  A control, the
+    plain step again at half the tiles (its f32 sums in another order),
+    is reported beside them: the model's own drift on the same batch,
+    which a depth fit for the comparison keeps well under the limits.
+    The kernel step
+    must launch exactly 2 flash forwards with lse per attention call
+    (remat recomputes each) and 1 backward call, the plain steps none.
+    An MoE model's plain steps take the kernel step's routes
+    (:func:`forced_routes`, queue 3 item 9); the row counts the tokens
+    whose own routes differ but asserts on the gradients.  The kernel
+    step's gradients wait on the host while the plain steps run.  Returns
+    (row, the kernel step's launch counts)."""
+    import dataclasses
+
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.models.transformer import attention_calls
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.step import loss_and_grads
+
+    calls = attention_calls(cfg)
+    record = []
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    FA.flash_attention.lse_launches = 0
+    with recorded_routes(record):
+        loss_k, _, grads_k = loss_and_grads(params, cfg, batch, remat=True)
+    gn_k = float(global_norm(grads_k))
+    counts = launch_counts()
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want.update(flash_attention=2 * calls, flash_attention_bwd=calls)
+    if counts != want or FA.flash_attention.lse_launches != 2 * calls:
+        raise AssertionError(f"{cfg.name}: a training step launched {counts} "
+                             f"(lse {FA.flash_attention.lse_launches}), "
+                             f"expected {want}")
+    kernel_leaves = {k: g.cpu() for k, g in flat_tree(grads_k).items()}
+    del grads_k
+
+    def plain_step(c, flips):
+        routes = (forced_routes(record, flips) if cfg.moe is not None
+                  else contextlib.nullcontext())
+        with plain_training_attention(), routes:
+            loss, _, grads = loss_and_grads(params, c, batch, remat=True)
+        return float(loss), float(global_norm(grads)), flat_tree(grads)
+
+    flips = []
+    loss_p, gn_p, plain = plain_step(cfg, flips)
+    rel = {k: float((kernel_leaves.pop(k).to(g.device).float() - g.float())
+                    .norm() / g.float().norm().clamp_min(1e-30))
+           for k, g in plain.items()}
+    half = dataclasses.replace(cfg, q_block=cfg.q_block // 2,
+                               kv_block=cfg.kv_block // 2)
+    loss_c, gn_c, control = plain_step(half, [])
+    rel_c = {k: float((control.pop(k).float() - g.float()).norm()
+                      / g.float().norm().clamp_min(1e-30))
+             for k, g in plain.items()}
+    del plain, control, record
+    torch.cuda.synchronize()
+    if launch_counts() != counts:
+        raise AssertionError(f"{cfg.name}: a plain training step launched "
+                             f"a kernel")
+    diff = lambda a, b: abs(a - b) / abs(b)
+    readings = {"loss": diff(float(loss_k), loss_p),
+                "grad_norm": diff(gn_k, gn_p)}
+    controls = {"loss": diff(loss_c, loss_p), "grad_norm": diff(gn_c, gn_p)}
+    limits = {"loss": share * TRAIN_LOSS_RTOL,
+              "grad_norm": share * TRAIN_GNORM_RTOL,
+              "grad_rel_l2": share * TRAIN_GRAD_RTOL}
+    # the gradients' reading is the worst leaf's, as the control's
+    worst, worst_c = max(rel, key=rel.get), max(rel_c, key=rel_c.get)
+    readings["grad_rel_l2"] = rel[worst]
+    controls["grad_rel_l2"] = rel_c[worst_c]
+    row = {"phase": phase, "model": cfg.name, "layers": cfg.num_layers,
+           "activation_dtype": cfg.activation_dtype,
+           "batch": batch["tokens"].shape[0],
+           "seq": batch["tokens"].shape[1],
+           "loss_kernel": float(loss_k), "loss_plain": loss_p,
+           "loss_control": loss_c, "loss_rel_diff": readings["loss"],
+           "grad_norm_kernel": gn_k, "grad_norm_plain": gn_p,
+           "grad_norm_control": gn_c,
+           "grad_norm_rel_diff": readings["grad_norm"],
+           "control_rel_diff": controls, "grad_rel_l2": rel,
+           "grad_rel_l2_control": rel_c, "worst_leaf": worst,
+           "worst_leaf_control": worst_c, "tolerance": limits,
+           "share_of_tolerance": {k: readings[k] / limits[k]
+                                  for k in readings},
+           "control_share_of_tolerance": {k: controls[k] / limits[k]
+                                          for k in controls},
+           "launches_kernel_step": counts,
+           "wall_s": time.perf_counter() - t0}
+    if cfg.moe is not None:
+        row.update(forced_route_calls=len(flips),
+                   routes_the_plain_step_would_flip=int(sum(flips)),
+                   token_routes=int(len(flips) * batch["tokens"].numel()))
+    if any(readings[k] > limits[k] for k in readings):
+        raise AssertionError(f"{cfg.name}: the kernel step disagrees with "
+                             f"the plain step: {row}")
+    return row, counts
+
+
+# ---- training the MoE, SSM, hybrid and MLA families at full width -------
+# (phase, arch, layers kept of the published depth, batch, seq); widths as
+# published, the depth cut so that the donated step (about 16 bytes a
+# parameter, and the activations) fits the card's 80 GB; Mixtral's 6,144
+# positions run past its 4,096-token window, as its serving phase's
+# prompts, four sequences a step: at one, its loss spiked under every
+# rate that moved it
+FAMILY_TRAINING = (
+    ("lm-train-moe", "mixtral_8x22b", 1, 4, 6144),
+    ("lm-train-ssm", "mamba2_2_7b", 64, 4, 2048),
+    ("lm-train-hybrid", "zamba2_7b", 36, 4, 2048),
+    ("lm-train-mla", "minicpm3_4b", 40, 4, 2048),
+)
+# every family trains at the dense phase's TRAIN_LR on launch/train.py's
+# schedule: FAMILY_WARMUP steps of linear warm-up from 0, then half a
+# cosine down to 0 at FAMILY_TRAIN_STEPS
+FAMILY_TRAIN_STEPS, FAMILY_WARMUP = 10, 3
+# the hybrid's bf16 comparison runs at FAMILY_CMP_HYBRID_LAYERS (of them
+# every sixth the shared block's application), where the model's own
+# drift (the control) stays under 2/3 of the limits; at the 36 layers it
+# trains at, two correct bf16 paths differ by about 5% in every gradient
+FAMILY_CMP_HYBRID_LAYERS = 12
+# the bf16 comparison takes the first FAMILY_CMP_TOKENS // seq rows of the
+# batch (at least one): the plain step keeps every tile's scores for its
+# backward, B·S² of them
+FAMILY_CMP_TOKENS = 8192
+# the f32 comparison of each family: 2 layers (the hybrid 6, one
+# application of its shared block), B = 1, S = 1,024, through the kernels'
+# f32 entries, at 1% of the bf16 limits, as lm-f32-replay holds the served
+# families
+FAMILY_F32_LAYERS, FAMILY_F32_BATCH, FAMILY_F32_SEQ = 2, 1, 1024
+FAMILY_F32_HYBRID_LAYERS, FAMILY_F32_SHARE = 6, 0.01
+# bytes a parameter the AdamW step holds at its update, f32 parameters:
+# donated p, g, m, v; functional also the new p, m and v
+DONATED_BYTES, FUNCTIONAL_BYTES = 16, 28
+# the donated step's peak may pass the backward's own peak (measured
+# before the moments exist) plus the moments' 8 bytes a parameter by the
+# update's temporaries: ten f32 slices of DONATE_SLICE_ELEMENTS
+DONATE_UPDATE_TEMPS = 10
+
+
+@contextlib.contextmanager
+def timed_flash_backward(events: list):
+    """Within this block each ``FlashAttention`` backward (the dO cast and
+    the kernel's two passes) records a pair of CUDA events around itself
+    on the current stream and appends it to ``events``."""
+    from repro_torch.kernels.flash_attention.kernel import FlashAttention
+
+    backward = FlashAttention.backward
+
+    def timed(ctx, dout):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        out = backward(ctx, dout)
+        end.record()
+        events.append((start, end))
+        return out
+
+    FlashAttention.backward = staticmethod(timed)
+    try:
+        yield
+    finally:
+        FlashAttention.backward = staticmethod(backward)
+
+
+def lm_train_family_path(phase, arch, layers, batch, seq, dev) -> tuple:
+    """Train an MoE, SSM, hybrid or MLA model at full width with its depth
+    cut (f32 parameters, bf16 activations, ``SyntheticLMData(lag=1)`` over
+    TRAIN_DATA_VOCAB ids, remat) through ``make_train_step``: one step's
+    gradients with the kernels against the plain attention before any
+    optimizer state exists (at most FAMILY_CMP_TOKENS of the batch, the
+    hybrid at FAMILY_CMP_HYBRID_LAYERS); the
+    same in an f32 model at FAMILY_F32_*; then :func:`train_family_steps`.
+    Returns (rows, launch counts of the donated steps)."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import (DataConfig, SyntheticLMData,
+                                           shard_batch)
+    from repro_torch.models.params import init_params
+
+    t_phase = time.perf_counter()
+    seed = lambda: torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+
+    # -- one step's gradients: kernels against the plain attention --------
+    cfg, reduced = family_config(arch, layers)
+    cmp_cfg, cmp_reduced = (family_config(arch, FAMILY_CMP_HYBRID_LAYERS)
+                            if cfg.family == "hybrid" else (cfg, reduced))
+    data = SyntheticLMData(DataConfig(TRAIN_DATA_VOCAB, seq, batch,
+                                      seed=SEED, lag=1), host_batch=batch)
+    params = init_params(cmp_cfg, seed(), dev)
+    rows_cmp = max(1, FAMILY_CMP_TOKENS // seq)
+    row, _ = train_grads_vs_plain(f"{phase}-vs-plain", params, cmp_cfg,
+                                  shard_batch({k: v[:rows_cmp] for k, v in
+                                               data.batch_at(0).items()},
+                                              dev))
+    row["reduced"] = cmp_reduced
+    rows.append(row)
+    del params
+    torch.cuda.empty_cache()
+
+    # -- the same in an f32 model through the kernels' f32 entries ---------
+    f32_layers = (FAMILY_F32_HYBRID_LAYERS if cfg.family == "hybrid"
+                  else FAMILY_F32_LAYERS)
+    cfg32 = dataclasses.replace(family_config(arch, f32_layers)[0],
+                                activation_dtype="float32")
+    data32 = SyntheticLMData(DataConfig(
+        TRAIN_DATA_VOCAB, FAMILY_F32_SEQ, FAMILY_F32_BATCH, seed=SEED,
+        lag=1), host_batch=FAMILY_F32_BATCH)
+    params = init_params(cfg32, seed(), dev)
+    row, _ = train_grads_vs_plain(f"{phase}-f32-vs-plain", params, cfg32,
+                                  shard_batch(data32.batch_at(0), dev),
+                                  share=FAMILY_F32_SHARE)
+    rows.append(row)
+    del params
+    torch.cuda.empty_cache()
+
+    row, counts = train_family_steps(phase, cfg, reduced, data, dev)
+    row["wall_s"] = time.perf_counter() - t_phase
+    rows.append(row)
+    return rows, counts
+
+
+def train_family_steps(phase, cfg, reduced, data, dev) -> tuple:
+    """FAMILY_TRAIN_STEPS donated steps of ``make_train_step`` from a
+    model made from SEED, at TRAIN_LR on ``cosine_schedule`` with
+    FAMILY_WARMUP steps of warm-up.  Before them, the untrained model's
+    loss on each of the run's batches, and the peak memory of one step's
+    ``loss_and_grads`` before the moments exist (the backward's own:
+    parameters, gradients, activations).
+
+    Checks: the launches are exact; the loss falls, the last step's below
+    the untrained model's on the same batch by more than the untrained
+    losses' spread over the batches (max - min); each step's peak stays
+    under the card's memory and under the backward's own peak plus the
+    moments (8 bytes a parameter) plus the update's temporaries
+    (DONATE_UPDATE_TEMPS f32 slices), which a functional update (28 bytes
+    a parameter) would pass by about 12 bytes a parameter.  Reports
+    each step's time, tokens/s, peak and backward device time a call.
+    Returns (row, launch counts of the steps)."""
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.models.params import init_params, param_count_actual
+    from repro_torch.models.transformer import attention_calls
+    from repro_torch.train import optimizer as TO
+    from repro_torch.train.step import (loss_and_grads, make_eval_step,
+                                        make_train_step)
+
+    calls = attention_calls(cfg)
+    batch, seq = data.cfg.global_batch, data.cfg.seq_len
+    lr, steps, warmup = TRAIN_LR, FAMILY_TRAIN_STEPS, FAMILY_WARMUP
+    held_before_gb = torch.cuda.memory_allocated() / 1e9
+    n_params = param_count_actual(cfg)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    evaluate = make_eval_step(cfg)
+    untrained = [float(evaluate(params, shard_batch(data.batch_at(step),
+                                                    dev))["loss"])
+                 for step in range(steps)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    grads = loss_and_grads(params, cfg, shard_batch(data.batch_at(0), dev),
+                           remat=True)
+    torch.cuda.synchronize()
+    backward_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del grads
+    state = TO.adamw_init(params)
+    state_gb = sum(t.numel() * t.element_size() for t in TO.tree_leaves(
+        [params, state.mu, state.nu])) / 1e9
+    moments_gb = 2 * 4 * n_params / 1e9
+    temps_gb = DONATE_UPDATE_TEMPS * 4 * TO.DONATE_SLICE_ELEMENTS / 1e9
+    peak_bound_gb = backward_peak_gb + moments_gb + temps_gb
+    step_fn = make_train_step(cfg, learning_rate=TO.cosine_schedule(
+        lr, warmup, steps), remat=True)
+    reset_launch_counts()
+    FA.flash_attention.lse_launches = 0
+    losses, lrs, gnorms, step_s, peaks, bwd_ms = [], [], [], [], [], []
+    for step in range(steps):
+        b = shard_batch(data.batch_at(step), dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        events = []
+        t0 = time.perf_counter()
+        with timed_flash_backward(events):
+            params, state, metrics = step_fn(params, state, b)
+            losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        lrs.append(float(metrics["lr"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        bwd_ms.append(float(np.mean([s.elapsed_time(e) for s, e in events]))
+                      if events else None)
+        if len(events) != calls:
+            raise AssertionError(f"{cfg.name}: step {step} made "
+                                 f"{len(events)} backward calls, expected "
+                                 f"{calls}")
+    counts = launch_counts()
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want.update(flash_attention=2 * calls * steps,
+                flash_attention_bwd=calls * steps)
+    lse = FA.flash_attention.lse_launches
+    card_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    step_median = float(np.median(step_s[1:]))
+    spread = max(untrained) - min(untrained)
+    row = {"phase": phase, "model": cfg.name, "reduced": reduced,
+           "params": n_params, "layers": cfg.num_layers,
+           "attention_calls": calls, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "param_dtype": cfg.param_dtype,
+           "activation_dtype": cfg.activation_dtype, "batch": batch,
+           "seq": seq, "data_vocab": TRAIN_DATA_VOCAB, "steps": steps,
+           "remat": True, "donate": True, "lr": lr, "warmup": warmup,
+           "lr_by_step": lrs, "losses": losses, "grad_norm_by_step": gnorms,
+           "untrained_losses": untrained, "untrained_spread": spread,
+           "fall_below_untrained": untrained[-1] - losses[-1],
+           "step_s": step_s, "step_s_median": step_median,
+           "tokens_per_s": batch * seq / step_median,
+           "tokens_per_s_by_step": [batch * seq / t for t in step_s],
+           "peak_memory_gb_by_step": peaks, "peak_memory_gb": max(peaks),
+           "card_memory_gb": card_gb,
+           "held_by_earlier_phases_gb": held_before_gb,
+           "params_moments_gb": state_gb,
+           "backward_peak_gb": backward_peak_gb,
+           "activations_gb": backward_peak_gb - held_before_gb
+           - 2 * 4 * n_params / 1e9,
+           "peak_bound_gb": peak_bound_gb,
+           "donated_estimate_gb": DONATED_BYTES * n_params / 1e9,
+           "functional_estimate_gb": FUNCTIONAL_BYTES * n_params / 1e9,
+           "bwd_device_ms_per_call_by_step": bwd_ms,
+           "launches": counts, "launches_per_step": {
+               "flash_attention": counts["flash_attention"] / steps,
+               "flash_attention_lse": lse / steps,
+               "flash_attention_bwd": counts["flash_attention_bwd"] / steps},
+           "timing": "host clock around each step, which ends in a read of "
+                     "the loss (a sync); the median leaves out step 0; "
+                     "the backward's device time between CUDA events "
+                     "around each FlashAttention backward (the dO cast "
+                     "and the kernel's two passes)"}
+    del params, state, metrics
+    torch.cuda.empty_cache()
+    if counts != want or lse != want["flash_attention"]:
+        raise AssertionError(f"{cfg.name}: {steps} steps launched {counts} "
+                             f"(lse {lse}), expected {want}")
+    peak = max(peaks)
+    if not (losses[-1] < losses[0]
+            and untrained[-1] - losses[-1] > spread):
+        raise AssertionError(f"{cfg.name}: loss did not fall by more than "
+                             f"the batches' spread {spread:.4f}: {losses}, "
+                             f"untrained {untrained}, grad norms {gnorms}")
+    if not peak < min(card_gb, peak_bound_gb):
+        raise AssertionError(f"{cfg.name}: peak {peak:.2f} GB is not under "
+                             f"the card's {card_gb:.2f} GB and the "
+                             f"backward's {backward_peak_gb:.2f} GB plus the "
+                             f"moments and the update's temporaries "
+                             f"({peak_bound_gb:.2f} GB)")
+    return row, counts
 
 
 # analysis gates: program outputs on the card against the CPU run of the
@@ -4507,9 +4861,9 @@ def main() -> int:
 
     # ---- 9b. the flash backward against its plain version -----------------
     bwd_rows = []
-    for i, (tag, shape, dtype) in enumerate(FLASH_BWD_CHECKS):
+    for tag, shape, dtype, timed in FLASH_BWD_CHECKS:
         bwd_rows.append(check_flash_backward(tag, shape, dtype, rng, dev,
-                                             timed=i == 0))
+                                             timed))
         emit(bwd_rows[-1])
     torch.cuda.empty_cache()
 
@@ -4527,6 +4881,16 @@ def main() -> int:
         t0 = time.perf_counter()
         rows, family_counts[f"{phase}:{arch}"] = FAMILY_PATHS[phase](
             arch, *shape, dev, rng)
+        for row in rows:
+            emit(row)
+        emit({"phase": f"{phase}-total", "model": arch,
+              "wall_s": time.perf_counter() - t0})
+
+    # ---- 9e. training the MoE, SSM, hybrid and MLA families ---------------
+    for phase, arch, *shape in FAMILY_TRAINING:
+        t0 = time.perf_counter()
+        rows, family_counts[f"{phase}:{arch}"] = lm_train_family_path(
+            phase, arch, *shape, dev)
         for row in rows:
             emit(row)
         emit({"phase": f"{phase}-total", "model": arch,
@@ -4613,12 +4977,13 @@ def main() -> int:
         "library_ms": mins[0]["library_ms"], "entries": entries(mins)}, *[{
         "name": row["kernel"], "route": "cuda", "source": source,
         "replaces": replaces,
-        "launches": lm_counts[row["kernel"]] + sum(
+        "launches": lm_counts[row["kernel"]]
+        + train_counts[row["kernel"]] + sum(
             c[row["kernel"]] for c in family_counts.values()),
         "launches_by_path": {"lm-serve": lm_counts[row["kernel"]],
+                             "lm-train": train_counts[row["kernel"]],
                              **{path: c[row["kernel"]]
                                 for path, c in family_counts.items()},
-                             "lm-train": train_counts[row["kernel"]],
                              "ops": ops_counts[row["kernel"]]},
         "check": "pass (f32 and bf16 vs the f64 plain version)",
         "max_abs_err": max(r["f32_max_abs_err_vs_f64"] for r in attn_rows
@@ -4643,12 +5008,13 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention_bwd.cu",
         "replaces": "src/repro/models/layers.py:174",
-        "launches": train_counts["flash_attention_bwd"],
+        "launches": train_counts["flash_attention_bwd"] + sum(
+            c["flash_attention_bwd"] for c in family_counts.values()),
         "launches_by_path": {
             "lm-serve": lm_counts["flash_attention_bwd"],
+            "lm-train": train_counts["flash_attention_bwd"],
             **{path: c["flash_attention_bwd"]
-               for path, c in family_counts.items()},
-            "lm-train": train_counts["flash_attention_bwd"]},
+               for path, c in family_counts.items()}},
         "check": "pass (dq, dk, dv and the forward's lse, f32 and bf16, vs "
                  "the f64 plain version)",
         "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
@@ -4658,7 +5024,14 @@ def main() -> int:
         "library_ms": bwd_rows[0]["library_ms"],
         "library": bwd_rows[0]["library"],
         "fwd_lse_ms": bwd_rows[0]["fwd_lse_ms"],
-        "fwd_ms": bwd_rows[0]["fwd_ms"]}]})
+        "fwd_ms": bwd_rows[0]["fwd_ms"],
+        "shapes": [{"shape": r["shape"], "ms": r["kernel_ms"],
+                    "eager_ms": r["kernel_eager_ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"],
+                    "library_ms": r["library_ms"],
+                    "fwd_lse_ms": r["fwd_lse_ms"]}
+                   for r in bwd_rows if "kernel_ms" in r]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -107,17 +107,15 @@ __device__ __forceinline__ float log_sum_exp(float m, float l) {
 
 }  // namespace attn
 
-// Every (head dim, value head dim) pair of {16, 32, 64, 128}: the pairs
-// the flash backward is built for
-#define ATTN_FOR_EACH_GRID_DIMS(X) \
+// The (head dim, value head dim) pairs the attention kernels (flash
+// forward and backward, decode) are built for: every pair of {16, 32, 64,
+// 128}, and the model families' own (hybrid: Zamba2-7B's 112, 112; MLA:
+// qk_nope + qk_rope and v_head, MiniCPM3-4B's 96, 64 and its smoke
+// config's 24, 16).  A list of pairs, not their cross product, keeps the
+// builds short.
+#define ATTN_FOR_EACH_DIMS(X) \
   X(16, 16) X(16, 32) X(16, 64) X(16, 128) \
   X(32, 16) X(32, 32) X(32, 64) X(32, 128) \
   X(64, 16) X(64, 32) X(64, 64) X(64, 128) \
-  X(128, 16) X(128, 32) X(128, 64) X(128, 128)
-
-// The pairs of the forward and decode kernels: those, and the model
-// families' own (hybrid: Zamba2-7B's 112, 112; MLA: qk_nope + qk_rope and
-// v_head, MiniCPM3-4B's 96, 64 and its smoke config's 24, 16).  A list of
-// pairs, not their cross product, keeps the builds short.
-#define ATTN_FOR_EACH_DIMS(X) \
-  ATTN_FOR_EACH_GRID_DIMS(X) X(24, 16) X(96, 64) X(112, 112)
+  X(128, 16) X(128, 32) X(128, 64) X(128, 128) \
+  X(24, 16) X(96, 64) X(112, 112)

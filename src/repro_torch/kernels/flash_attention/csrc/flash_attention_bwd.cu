@@ -48,7 +48,13 @@
 // its warp's rows or keys as broadcasts.  Tensor cores (mma.sync, then
 // wgmma with TMA) are the later redesign.
 //
-// hd and vd in {16, 32, 64, 128}, templated.
+// hd and vd are template parameters: the pairs of ATTN_FOR_EACH_DIMS, each
+// a multiple of 4 (the float4 reads of staged rows).  A lane owns columns
+// lane, lane + 32, ... of dq, dk and dv, (dim + 31) / 32 of them, each loop
+// bounded by the dim: at hd 112 four columns (the last for lanes 0-15), at
+// hd 24 or vd 16 one, some lanes idle.  Shared memory at (112, 112): 95 KB
+// for the dq pass, 65 KB for the dk/dv pass, both above the 48 KB default
+// and opted in at launch.
 
 #include "../../attention_common.cuh"
 
@@ -553,7 +559,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                          dk, dv, batch, sq, skv, num_heads,  \
                                          num_kv, causal, window, scale, s);  \
   }
-  ATTN_FOR_EACH_GRID_DIMS(ATTN_CASE)
+  ATTN_FOR_EACH_DIMS(ATTN_CASE)
 #undef ATTN_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

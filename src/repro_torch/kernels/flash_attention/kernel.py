@@ -43,12 +43,11 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 #: head dims whose every (hd, vd) pair the kernels are built for
 HEAD_DIMS = (16, 32, 64, 128)
-#: the (hd, vd) pairs of the backward kernel (``ATTN_FOR_EACH_GRID_DIMS``)
-BWD_HEAD_DIM_PAIRS = tuple((hd, vd) for hd in HEAD_DIMS for vd in HEAD_DIMS)
-#: the (hd, vd) pairs of the forward and decode kernels
+#: the (hd, vd) pairs of the forward, backward and decode kernels
 #: (``ATTN_FOR_EACH_DIMS``): those, and the hybrid family's (112, 112) and
 #: MLA's (96, 64) and (24, 16)
-HEAD_DIM_PAIRS = BWD_HEAD_DIM_PAIRS + ((24, 16), (96, 64), (112, 112))
+HEAD_DIM_PAIRS = (tuple((hd, vd) for hd in HEAD_DIMS for vd in HEAD_DIMS)
+                  + ((24, 16), (96, 64), (112, 112)))
 #: dtype -> the code the CUDA entry takes
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the reference's mask value (finite: see the CUDA source)
@@ -98,21 +97,16 @@ def _check_cuda_operands(who: str, named, dtype: torch.dtype) -> None:
                              f"aligned")
 
 
-def _check_kernel_shape(who: str, q, b, sq, h, hd, skv, kvh, vd,
-                        pairs=HEAD_DIM_PAIRS) -> None:
+def _check_kernel_shape(who: str, q, b, sq, h, hd, skv, kvh, vd) -> None:
     """Raise unless the kernel is built for this dtype, these head dims
-    (one of ``pairs``) and this grid."""
+    (one of :data:`HEAD_DIM_PAIRS`) and this grid."""
     if q.dtype not in DTYPE_CODES:
         raise ValueError(f"{who}: no kernel for {q.dtype}; it takes "
                          f"{sorted(map(str, DTYPE_CODES))}")
-    if (hd, vd) not in pairs:
-        if (hd, vd) in HEAD_DIM_PAIRS:
-            raise NotImplementedError(
-                f"{who}: no kernel for head dims hd={hd}, vd={vd} yet: "
-                f"training at the hybrid and MLA families' head dims waits "
-                f"in ROADMAP queue 1 entry 17b")
+    if (hd, vd) not in HEAD_DIM_PAIRS:
         raise ValueError(f"{who}: no kernel for head dims hd={hd}, vd={vd}; "
-                         f"it is built for the (hd, vd) pairs {pairs}")
+                         f"it is built for the (hd, vd) pairs "
+                         f"{HEAD_DIM_PAIRS}")
     if skv == 0:
         raise ValueError(f"{who}: no keys (Skv = 0)")
     if b > 65535 or kvh > 65535 or sq * (h // kvh) >= 2**31 - 64:
@@ -289,9 +283,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA tensors launch the backward kernel's two passes on the current
     stream (one call counted in ``flash_attention_bwd.launches``); the
     masks, scale and head dims are the forward's, and anything the kernel
-    does not take raises: (hd, vd) must be in :data:`BWD_HEAD_DIM_PAIRS`
-    (the forward's own model pairs raise ``NotImplementedError``, citing
-    their ROADMAP entry).  CPU tensors take
+    does not take raises: (hd, vd) must be in :data:`HEAD_DIM_PAIRS`, as
+    for the forward.  CPU tensors take
     :func:`flash_attention_bwd_plain` over ``q_block`` by ``kv_block``
     tiles.
     """
@@ -311,8 +304,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.device != q.device:
         raise ValueError(f"{who}: residuals on {out.device}, q on "
                          f"{q.device}")
-    _check_kernel_shape(who, q, b, sq, h, hd, skv, kvh, vd,
-                        BWD_HEAD_DIM_PAIRS)
+    _check_kernel_shape(who, q, b, sq, h, hd, skv, kvh, vd)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()

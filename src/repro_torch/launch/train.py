@@ -1,6 +1,7 @@
-"""Train from the command line: a smoke or full-size dense model with
-weights made from a seed, AdamW with remat, async checkpoints and resume,
-on the card unless ``--device`` names another device.
+"""Train from the command line: a smoke or full-size model of the dense,
+MLA, MoE, SSM or hybrid family with weights made from a seed, the donated
+AdamW step with remat, async checkpoints and resume, on the card unless
+``--device`` names another device.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_0_5b \\
       --smoke --device cpu --steps 50 --batch 8 --seq 128
@@ -57,6 +58,8 @@ def main(argv=None):
         args.seed), device)
     opt = adamw_init(params)
     sched = cosine_schedule(args.lr, args.warmup, args.steps)
+    # the step writes the new parameters and moments into the state it is
+    # given, as the reference's jit donates them
     step_fn = make_train_step(cfg, learning_rate=sched, remat=True,
                               weight_decay=args.weight_decay)
     # lag=1: the target mostly repeats the current input token, a strong
@@ -87,9 +90,8 @@ def main(argv=None):
                   f"gnorm {float(metrics['grad_norm']):.2f}")
         return {"params": p, "opt": o}
 
-    # the loop gets the only reference to the first state, so that it is
-    # freed once the first step has made the next one (the reference's jit
-    # donates the buffers instead)
+    # the loop holds the only reference to the state, which each donated
+    # step updates in place
     held = [state]
     del state
     loop.run(held.pop(), one_step, start_step=loop.resume_step())

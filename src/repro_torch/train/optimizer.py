@@ -2,19 +2,27 @@
 the port of ``repro.train.optimizer``.
 
 A parameter tree is a nested dict of tensors (``models.params``); the
-moments mirror it in f32.  The functions are pure, as the reference's:
-``adamw_update`` returns new parameters and a new state and leaves its
-arguments as they were.  Leaves are visited in sorted key order, the
-order ``jax.tree_util`` gives a dict, so that sums over leaves (the global
-norm) add in the reference's order.
+moments mirror it in f32.  ``adamw_update`` is pure, as the reference's:
+it returns new parameters and a new state and leaves its arguments as
+they were.  ``adamw_update_`` is the same step with the arguments donated,
+as the reference's launcher jits it (``donate_argnums``): it writes the
+new values into the tensors it was given, a slice at a time.  Leaves are
+visited in sorted key order, the order ``jax.tree_util`` gives a dict, so
+that sums over leaves (the global norm) add in the reference's order.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, List, NamedTuple, Tuple, Union
+from typing import (Any, Callable, Iterator, List, NamedTuple, Optional,
+                    Tuple, Union)
 
 import torch
+
+#: ``adamw_update_`` updates a leaf of more elements one slice of its
+#: leading axes at a time (an expert, a layer, a run of rows), so that its
+#: temporaries stay a few times a slice: 64M elements, 256 MB in f32
+DONATE_SLICE_ELEMENTS = 1 << 26
 
 
 class AdamWState(NamedTuple):
@@ -24,9 +32,12 @@ class AdamWState(NamedTuple):
 
 
 def tree_leaves(tree: Any) -> List[torch.Tensor]:
-    """The tensors of a nested dict, in sorted key order."""
+    """The tensors of a nested dict, in sorted key order (of a list of
+    leaves, the list)."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [leaf for x in tree for leaf in tree_leaves(x)]
     return [tree]
 
 
@@ -56,11 +67,34 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """``min(1, max_norm / max(norm, 1e-9))``: the factor that clips
+    gradients of global norm ``norm`` to ``max_norm``."""
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
 def clip_by_global_norm(tree: Any, max_norm: float) -> Tuple[Any, torch.Tensor]:
-    """``(tree · min(1, max_norm / max(norm, 1e-9)), norm)``."""
+    """``(tree · clip_scale(norm, max_norm), norm)``."""
     norm = global_norm(tree)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    scale = clip_scale(norm, max_norm)
     return tree_map(lambda g: g * scale, tree), norm
+
+
+def _bias_corrections(step: torch.Tensor, b1: float, b2: float):
+    t = step.float()
+    return 1.0 - torch.pow(b1, t), 1.0 - torch.pow(b2, t)
+
+
+def _upd(g, m, v, p, lr, c1, c2, b1, b2, eps, weight_decay):
+    """The reference's AdamW arithmetic for one leaf (or a slice of one):
+    ``(new p, new m, new v)``, new tensors."""
+    g = g.float()
+    m = b1 * m + (1 - b1) * g
+    v = b2 * v + (1 - b2) * g.square()
+    mhat = m / c1
+    vhat = v / c2
+    delta = mhat / (torch.sqrt(vhat) + eps) + weight_decay * p.float()
+    return (p.float() - lr * delta).to(p.dtype), m, v
 
 
 def adamw_update(grads: Any, state: AdamWState, params: Any,
@@ -71,22 +105,93 @@ def adamw_update(grads: Any, state: AdamWState, params: Any,
     moments, decoupled weight decay on the parameter, the new parameter
     cast back to its dtype.  Returns ``(new_params, new_state)``."""
     step = state.step + 1
-    t = step.float()
-    c1 = 1.0 - torch.pow(b1, t)
-    c2 = 1.0 - torch.pow(b2, t)
-
-    def upd(g, m, v, p):
-        g = g.float()
-        m = b1 * m + (1 - b1) * g
-        v = b2 * v + (1 - b2) * g.square()
-        mhat = m / c1
-        vhat = v / c2
-        delta = mhat / (torch.sqrt(vhat) + eps) + weight_decay * p.float()
-        return (p.float() - lr * delta).to(p.dtype), m, v
-
-    out = tree_map(upd, grads, state.mu, state.nu, params)
+    c1, c2 = _bias_corrections(step, b1, b2)
+    out = tree_map(lambda g, m, v, p: _upd(g, m, v, p, lr, c1, c2, b1, b2,
+                                           eps, weight_decay),
+                   grads, state.mu, state.nu, params)
     return _pick(out, 0), AdamWState(step=step, mu=_pick(out, 1),
                                      nu=_pick(out, 2))
+
+
+class DonatedStateError(RuntimeError):
+    """A train step was given parameters and moments that a donated step
+    had half written when it failed: the reference's donated buffers are
+    deleted at that point, and these hold neither step's values."""
+
+
+def check_not_donated(state: AdamWState) -> None:
+    """Raise :class:`DonatedStateError` if a failed ``adamw_update_`` had
+    written into ``state`` (its ``step`` tensor carries the mark)."""
+    if getattr(state.step, "donated", False):
+        raise DonatedStateError(
+            "this optimizer state (and its parameters) was donated to a "
+            "train step that failed after its first write; restore a "
+            "checkpoint instead of retrying")
+
+
+def _chunks(shape: Tuple[int, ...], limit: int) -> Iterator[tuple]:
+    """Index tuples whose views cover a tensor of ``shape`` once, each of
+    at most ``limit`` elements where a run of its leading axis allows:
+    the whole tensor, runs of rows, or (a row above ``limit``) each row's
+    own chunks."""
+    numel = math.prod(shape)
+    if numel <= limit or not shape:
+        yield ()
+        return
+    row = numel // shape[0]
+    if row > limit:
+        for i in range(shape[0]):
+            for rest in _chunks(shape[1:], limit):
+                yield (i,) + rest
+        return
+    n = limit // row
+    for i in range(0, shape[0], n):
+        yield (slice(i, i + n),)
+
+
+def adamw_update_(grads: List[Optional[torch.Tensor]], state: AdamWState,
+                  params: Any, lr: Union[torch.Tensor, float], *,
+                  grad_scale: Union[torch.Tensor, float] = 1.0,
+                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+                  weight_decay: float = 0.1) -> AdamWState:
+    """:func:`adamw_update` of the gradients times ``grad_scale`` (the
+    clip), with ``params`` and ``state`` donated: each leaf's new
+    parameter, ``mu`` and ``nu`` are written into the tensors given, leaf
+    by leaf in sorted key order and a leaf of more than
+    :data:`DONATE_SLICE_ELEMENTS` one slice at a time, computed by the same
+    arithmetic (bitwise the functional step's).  ``grads`` holds the
+    gradient leaves in that order; each entry is set to None once its
+    leaf is written, so the step holds about 16 bytes a parameter (p, g,
+    m, v in f32) where the functional one holds 28.  ``state.step`` is
+    advanced in place last.  Returns ``state``.
+
+    A failure after the first write marks ``state`` donated
+    (:func:`check_not_donated` then raises); one before it leaves
+    everything as it was."""
+    check_not_donated(state)
+    step = state.step + 1
+    c1, c2 = _bias_corrections(step, b1, b2)
+    leaves = zip(tree_leaves(params), tree_leaves(state.mu),
+                 tree_leaves(state.nu))
+    written = False
+    try:
+        for i, (p, m, v) in enumerate(leaves):
+            g, grads[i] = grads[i], None
+            for idx in _chunks(tuple(p.shape), DONATE_SLICE_ELEMENTS):
+                new_p, new_m, new_v = _upd(g[idx] * grad_scale, m[idx],
+                                           v[idx], p[idx], lr, c1, c2, b1,
+                                           b2, eps, weight_decay)
+                written = True
+                p[idx].copy_(new_p)
+                m[idx].copy_(new_m)
+                v[idx].copy_(new_v)
+            del g
+        state.step.copy_(step)
+    except BaseException:
+        if written:
+            state.step.donated = True
+        raise
+    return state
 
 
 def _pick(tree: Any, i: int) -> Any:

@@ -1,30 +1,45 @@
 """Train, eval, prefill and serve steps: the port of ``repro.train.step``.
 
 ``make_train_step(cfg)`` returns ``step(params, opt_state, batch)`` for the
-dense GQA family: the loss's gradient by autograd (every attention call
-through the flash kernels, forward and backward), clipped to a global
-norm, then AdamW.  Batches are dicts of tensors on the parameters' device:
+dense GQA, MLA, MoE, SSM and hybrid families: the loss's gradient by
+autograd (every attention call through the flash kernels, forward and
+backward), clipped to a global norm, then AdamW written into the
+parameters and moments it was given, as the reference's launcher donates
+them.  Batches are dicts of tensors on the parameters' device:
 ``tokens`` and ``labels`` (B, S) int32, optionally ``loss_mask`` (B, S).
-Training the MLA, MoE, SSM and hybrid families is not ported yet (the
-flash backward is not built at MLA's and the hybrid's head dims), and
-raises; the other families raise in ``lm_forward`` (ROADMAP queue 1 entry
-17b).
+The encoder-decoder and modality-frontend families raise in
+``lm_forward`` (ROADMAP queue 1 entry 17b).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple, Union
+from typing import Any, Callable, Dict, List, Tuple, Union
 
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.params import NOT_PORTED_ENTRY
 from repro_torch.models.transformer import (lm_decode_step, lm_forward,
                                             lm_prefill)
 from repro_torch.train.loss import cross_entropy
-from repro_torch.train.optimizer import (AdamWState, adamw_update,
-                                         clip_by_global_norm, tree_leaves,
-                                         tree_map)
+from repro_torch.train.optimizer import (AdamWState, adamw_update_,
+                                         check_not_donated, clip_scale,
+                                         global_norm, tree_leaves, tree_map)
+
+
+def _loss_and_grad_leaves(params: Dict[str, Any], cfg: ModelConfig,
+                          batch: Dict[str, torch.Tensor], remat: bool,
+                          z_loss: float
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     List[torch.Tensor]]:
+    """(loss, accuracy, the gradient of every leaf of ``params`` in
+    ``tree_leaves`` order)."""
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    logits = lm_forward(live, cfg, batch["tokens"], remat=remat)
+    loss, acc = cross_entropy(logits, batch["labels"],
+                              batch.get("loss_mask"), z_loss=z_loss)
+    del logits
+    return (loss.detach(), acc,
+            list(torch.autograd.grad(loss, tree_leaves(live))))
 
 
 def loss_and_grads(params: Dict[str, Any], cfg: ModelConfig,
@@ -34,20 +49,10 @@ def loss_and_grads(params: Dict[str, Any], cfg: ModelConfig,
     """(loss, accuracy, grads): the loss of ``batch`` and its gradient
     with respect to every leaf of ``params`` (a tree like ``params``, in
     the leaves' dtypes)."""
-    if cfg.family != "dense" or cfg.mla is not None:
-        what = "MLA" if cfg.mla is not None else cfg.family
-        raise NotImplementedError(f"{cfg.name}: training the {what} "
-                                  f"family is not ported yet "
-                                  f"({NOT_PORTED_ENTRY})")
-    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    logits = lm_forward(live, cfg, batch["tokens"], remat=remat)
-    loss, acc = cross_entropy(logits, batch["labels"],
-                              batch.get("loss_mask"), z_loss=z_loss)
-    del logits
-    leaves = tree_leaves(live)
-    grads = iter(torch.autograd.grad(loss, leaves))
-    return (loss.detach(), acc,
-            tree_map(lambda _: next(grads), live))
+    loss, acc, grads = _loss_and_grad_leaves(params, cfg, batch, remat,
+                                             z_loss)
+    grads = iter(grads)
+    return loss, acc, tree_map(lambda _: next(grads), params)
 
 
 def make_train_step(cfg: ModelConfig, *,
@@ -59,20 +64,33 @@ def make_train_step(cfg: ModelConfig, *,
     opt_state, metrics)``; ``learning_rate`` is a float or a schedule of
     the optimizer's step (``optimizer.cosine_schedule``).  ``metrics``
     holds 0-d tensors ``loss``, ``accuracy``, ``grad_norm`` (before
-    clipping) and ``lr``."""
+    clipping) and ``lr``.
+
+    The step's arguments are donated, as the reference's launcher jits
+    it with ``donate_argnums=(0, 1)``: it writes the new parameters and
+    moments into the tensors it was given (``optimizer.adamw_update_``,
+    bitwise ``clip_by_global_norm`` then ``adamw_update``) and returns
+    them, so it holds about 16 bytes a parameter at the update where a
+    functional step holds 28.  The caller keeps no other use for the old
+    values (clone them first).  A step that failed after its first write
+    leaves the state marked, and a retry on it raises
+    ``optimizer.DonatedStateError``; one that failed before (in the
+    forward or backward) can be retried."""
 
     def step(params, opt_state: AdamWState, batch):
-        loss, acc, grads = loss_and_grads(params, cfg, batch, remat=remat,
-                                          z_loss=z_loss)
-        grads, gnorm = clip_by_global_norm(grads, grad_clip)
+        check_not_donated(opt_state)
         lr = (learning_rate(opt_state.step) if callable(learning_rate)
               else torch.tensor(learning_rate, dtype=torch.float32,
                                 device=opt_state.step.device))
-        new_params, new_state = adamw_update(grads, opt_state, params, lr,
-                                             weight_decay=weight_decay)
+        loss, acc, grads = _loss_and_grad_leaves(params, cfg, batch, remat,
+                                                 z_loss)
+        gnorm = global_norm(grads)
+        adamw_update_(grads, opt_state, params, lr,
+                      grad_scale=clip_scale(gnorm, grad_clip),
+                      weight_decay=weight_decay)
         metrics = {"loss": loss, "accuracy": acc, "grad_norm": gnorm,
                    "lr": lr}
-        return new_params, new_state, metrics
+        return params, opt_state, metrics
 
     return step
 

@@ -28,8 +28,9 @@ import torch
 
 from repro_torch.kernels.decode_attention.kernel import (
     decode_attention, decode_attention_plain)
+from repro_torch.kernels.flash_attention import kernel as FA
 from repro_torch.kernels.flash_attention.kernel import (
-    BWD_HEAD_DIM_PAIRS, HEAD_DIM_PAIRS, flash_attention, flash_attention_bwd,
+    HEAD_DIM_PAIRS, flash_attention, flash_attention_bwd,
     flash_attention_bwd_plain, flash_attention_plain)
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -90,8 +91,12 @@ DECODE_CASES = {
 #: cases of the flash backward kernel: B, S, H, KV, hd, vd, causal, window
 FLASH_BWD_CASES = {
     **{f"hd{hd}-vd{vd}": (1, 130, 4, 2, hd, vd, True, None)
-       for hd, vd in BWD_HEAD_DIM_PAIRS},
+       for hd, vd in HEAD_DIM_PAIRS},
     "g1": (2, 257, 4, 4, 64, 64, True, None),
+    # the hybrid and MLA families' training heads (G = 1)
+    "zamba2-hd112-g1-window": (2, 300, 4, 4, 112, 112, True, 64),
+    "minicpm3-hd96-vd64-g1": (2, 257, 5, 5, 96, 64, True, None),
+    "mla-smoke-hd24-vd16-window": (2, 70, 4, 4, 24, 16, True, 9),
     "g7": (1, 300, 14, 2, 64, 64, True, None),
     "g16": (1, 200, 16, 1, 64, 64, True, None),
     "not-causal": (2, 333, 14, 2, 64, 64, False, None),
@@ -389,7 +394,8 @@ def test_flash_bwd_kernel_matches_plain_version(cuda_device, name, dtype):
 
 
 @pytest.mark.gpu
-def test_flash_bwd_wrapper_rejects_what_it_cannot_take(cuda_device):
+def test_flash_bwd_wrapper_rejects_what_it_cannot_take(cuda_device,
+                                                     monkeypatch):
     q, k, v = (t.to(cuda_device) for t in _inputs(FLASH_SHAPES["gqa"], 13))
     out, lse = flash_attention(q, k, v, return_lse=True)
     dout = torch.ones_like(out)
@@ -403,14 +409,19 @@ def test_flash_bwd_wrapper_rejects_what_it_cannot_take(cuda_device):
     for args in bad:
         with pytest.raises(ValueError):
             flash_attention_bwd(*args)
-    # the forward's model pairs have no backward yet
-    for hd, vd in sorted(set(HEAD_DIM_PAIRS) - set(BWD_HEAD_DIM_PAIRS)):
-        q, k, v = (t.to(cuda_device)
-                   for t in _inputs((1, 64, 2, 2, hd, vd), 15))
-        out, lse = flash_attention(q, k, v, return_lse=True)
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 entry 17b"):
-            flash_attention_bwd(q, k, v, out, lse, torch.ones_like(out))
+    # a pair the kernels are not built for raises, without a plain call
+    hd = vd = 48
+    assert (hd, vd) not in HEAD_DIM_PAIRS
+    q, k, v = (t.to(cuda_device) for t in _inputs((1, 64, 2, 2, hd, vd), 15))
+    out = torch.zeros((1, 64, 2, vd), device=cuda_device)
+    lse = torch.zeros((1, 2, 64), device=cuda_device)
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("a CUDA tensor took the plain backward")
+
+    monkeypatch.setattr(FA, "flash_attention_bwd_plain", no_plain)
+    with pytest.raises(ValueError, match="hd=48, vd=48"):
+        flash_attention_bwd(q, k, v, out, lse, torch.ones_like(out))
 
 
 @pytest.mark.gpu

@@ -36,6 +36,11 @@ CASES = {
     "ragged-window-g1": (1, 45, 2, 2, 32, 16, True, 9, 16, 16),
     "not-causal-g3": (1, 40, 3, 1, 32, 16, False, None, 16, 32),
     "ragged-window-g3-hd16": (2, 29, 3, 1, 16, 16, True, 7, 8, 16),
+    # the hybrid's (Zamba2-7B) and MLA's (MiniCPM3-4B, its smoke config)
+    # head dims
+    "hybrid-hd112-g1": (1, 40, 2, 2, 112, 112, True, None, 16, 32),
+    "mla-hd96-vd64-g1-window": (2, 37, 2, 2, 96, 64, True, 11, 16, 16),
+    "mla-smoke-hd24-vd16": (2, 45, 4, 2, 24, 16, True, None, 16, 16),
 }
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = 0.05

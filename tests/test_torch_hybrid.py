@@ -37,12 +37,14 @@ from repro_torch.configs import get_config as tfull
 from repro_torch.configs import get_smoke_config as tget
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models import attention as TA
 from repro_torch.models import params as TP
 from repro_torch.models import transformer as TT
 from repro_torch.serve import Request
-from repro_torch.train.step import loss_and_grads
 from test_torch_lm_serving import RecordingEngine, replay_waves_in_jax
+from test_torch_train import (remat_grads_are_bitwise,
+                              three_train_steps_match_jax)
 
 ARCH = "zamba2_7b"
 B, S, CACHE, STEPS = 2, 40, 64, 4
@@ -248,13 +250,46 @@ def test_hybrid_param_defs_match_jax(which):
         assert TP.param_count_actual(tcfg) == 6_751_130_832
 
 
-def test_launch_serve_runs_the_hybrid_and_training_raises(capsys):
+def test_launch_serve_runs_the_hybrid_and_training_raises(capsys, tmp_path):
+    """The serving CLI serves the smoke hybrid; the training CLI trains it
+    (training raised before its port)."""
     stats = launch_serve.main(["--arch", "zamba2-7b", "--smoke",
                                "--device", "cpu", "--requests", "3",
                                "--prompt-len", "20", "--new-tokens", "3",
                                "--slots", "2", "--max-len", "32"])
     assert stats.tokens_out == 9
     assert "done: 3/3 requests, 9 tokens" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="hybrid family.*entry 17b"):
-        loss_and_grads({}, tget(ARCH),
-                       {"tokens": torch.zeros(1, 4, dtype=torch.int32)})
+    losses = launch_train.main(["--arch", "zamba2-7b", "--smoke", "--device",
+                                "cpu", "--steps", "2", "--batch", "2",
+                                "--seq", "24", "--ckpt-dir", str(tmp_path),
+                                "--log-every", "0"])
+    assert len(losses) == 2 and np.isfinite(losses).all()
+
+
+# ------------------------------------------------------------- training
+def _tree(jcfg, tcfg, seed):
+    return jax.tree_util.tree_map(np.asarray, _params(jcfg, tcfg, seed)[0])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hybrid_train_steps_match_jax(dtype):
+    """Three train steps against JAX's jitted step, at the tolerances of
+    ``tests/test_torch_train.py``: autograd through the SSM stack and the
+    shared block's two applications (its gradient the sum over both),
+    each under remat, over 40 positions (two SSM chunks of 32, the second
+    padded)."""
+    jcfg, tcfg = _configs(dtype)
+    three_train_steps_match_jax(jcfg, tcfg, dtype, tree=_tree(jcfg, tcfg, 7),
+                                seed=7, seq=40)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hybrid_remat_gradients_are_bitwise(dtype, monkeypatch):
+    """Remat and no remat give the same gradients, bit for bit; the shared
+    block runs once per application forward and once more per application
+    in remat's recompute."""
+    jcfg, tcfg = _configs(dtype)
+    shared = _Counted(monkeypatch, TT, "_shared_block_full")
+    remat_grads_are_bitwise(tcfg, _params(jcfg, tcfg, seed=8)[1], seq=40)
+    # remat: 2 applications + 2 recomputed; then 2 without remat
+    assert shared.calls == 6

@@ -34,6 +34,7 @@ from repro_torch.models import layers as TL
 from repro_torch.models import params as TP
 from repro_torch.models.transformer import (lm_decode_step, lm_forward,
                                             lm_prefill)
+from repro_torch.train.optimizer import tree_leaves
 from repro_torch.train.step import loss_and_grads
 
 B, S, CACHE = 2, 24, 40
@@ -217,14 +218,22 @@ def test_other_families_raise(arch, entry):
     ("minicpm3_4b", "MLA"), ("zamba2_7b", "hybrid"),
 ])
 def test_training_mla_and_hybrid_raises(arch, family):
-    """Both families are built and served; training them (the flash
-    backward at their head dims) waits in entry 17b."""
+    """Both families are built, served and trained (training raised until
+    the flash backward was built at their head dims): ``loss_and_grads``
+    gives a finite loss and a finite, nonzero gradient for every leaf."""
     cfg = tget(arch)
     assert TP.param_count_actual(cfg) > 0
-    with pytest.raises(NotImplementedError,
-                       match=f"training the {family} family.*entry 17b"):
-        loss_and_grads({}, cfg, {"tokens": torch.zeros(1, 4,
-                                                       dtype=torch.int32)})
+    params = TP.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 12),
+                           generator=torch.Generator().manual_seed(1),
+                           dtype=torch.int32)
+    loss, _, grads = loss_and_grads(params, cfg, {"tokens": tokens,
+                                                  "labels": tokens})
+    assert bool(torch.isfinite(loss))
+    for g, p in zip(tree_leaves(grads), tree_leaves(params), strict=True):
+        assert g.shape == p.shape, family
+        assert bool(torch.isfinite(g).all()) and bool(g.abs().sum() > 0), (
+            family, g.shape)
 
 
 def test_lm_params_from_numpy_checks_the_tree():

@@ -38,13 +38,15 @@ from repro.models.transformer import (_mamba_final_state as jfinal,
 from repro_torch.configs import get_smoke_config as tget
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models import mamba2 as TM2
 from repro_torch.models.transformer import (_mamba_final_state, init_cache,
                                             lm_decode_step, lm_forward,
                                             lm_prefill)
 from repro_torch.serve import Request
-from repro_torch.train.step import loss_and_grads
 from test_torch_lm_serving import RecordingEngine, replay_waves_in_jax
+from test_torch_train import (remat_grads_are_bitwise,
+                              three_train_steps_match_jax)
 
 ARCH = "mamba2_2_7b"
 B = 2
@@ -242,13 +244,35 @@ def test_ssm_serving_matches_a_jax_greedy_loop(dtype):
     assert stats.tokens_out == sum(m for _, m in REQUESTS)
 
 
-def test_launch_serve_runs_the_ssm_and_training_raises(capsys):
+def test_launch_serve_runs_the_ssm_and_training_raises(capsys, tmp_path):
+    """The serving CLI serves the smoke SSM; the training CLI trains it
+    (training raised before its port)."""
     stats = launch_serve.main(["--arch", "mamba2-2.7b", "--smoke",
                                "--device", "cpu", "--requests", "3",
                                "--prompt-len", "40", "--new-tokens", "3",
                                "--slots", "2", "--max-len", "48"])
     assert stats.tokens_out == 9
     assert "done: 3/3 requests, 9 tokens" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ssm family.*entry 17b"):
-        loss_and_grads({}, tget(ARCH),
-                       {"tokens": torch.zeros(1, 4, dtype=torch.int32)})
+    losses = launch_train.main(["--arch", "mamba2-2.7b", "--smoke",
+                                "--device", "cpu", "--steps", "2",
+                                "--batch", "2", "--seq", "40", "--ckpt-dir",
+                                str(tmp_path), "--log-every", "0"])
+    assert len(losses) == 2 and np.isfinite(losses).all()
+
+
+# ------------------------------------------------------------- training
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_train_steps_match_jax(dtype):
+    """Three train steps against JAX's jitted step, at the tolerances of
+    ``tests/test_torch_train.py``: autograd through the chunked scan
+    (``_segsum``'s -inf mask, the conv, the gated output) over 40
+    positions, two chunks of 32 with the second padded."""
+    jcfg, tcfg = _configs(dtype)
+    three_train_steps_match_jax(jcfg, tcfg, dtype, tree=_tree(jcfg, 3),
+                                seed=3, seq=40)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_remat_gradients_are_bitwise(dtype):
+    jcfg, tcfg = _configs(dtype)
+    remat_grads_are_bitwise(tcfg, _params(jcfg, tcfg, seed=4)[1], seq=40)

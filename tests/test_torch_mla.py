@@ -45,13 +45,15 @@ from repro_torch.configs import get_config as tfull
 from repro_torch.configs import get_smoke_config as tget
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models import attention as TA
 from repro_torch.models import params as TP
 from repro_torch.models.transformer import (init_cache, lm_decode_step,
                                             lm_forward, lm_prefill)
 from repro_torch.serve import Request
-from repro_torch.train.step import loss_and_grads
 from test_torch_lm_serving import RecordingEngine, replay_waves_in_jax
+from test_torch_train import (remat_grads_are_bitwise,
+                              three_train_steps_match_jax)
 
 ARCH = "minicpm3_4b"
 B, S, CACHE, STEPS = 2, 24, 40, 3
@@ -264,13 +266,35 @@ def test_mla_param_defs_match_jax(which):
             62, 768, 40 * (m.qk_nope_head_dim + m.qk_rope_head_dim))
 
 
-def test_launch_serve_runs_mla_and_training_raises(capsys):
+def test_launch_serve_runs_mla_and_training_raises(capsys, tmp_path):
+    """The serving CLI serves the smoke MLA model; the training CLI trains
+    it (training raised before its port)."""
     stats = launch_serve.main(["--arch", "minicpm3-4b", "--smoke",
                                "--device", "cpu", "--requests", "3",
                                "--prompt-len", "12", "--new-tokens", "3",
                                "--slots", "2", "--max-len", "24"])
     assert stats.tokens_out == 9
     assert "done: 3/3 requests, 9 tokens" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="MLA family.*entry 17b"):
-        loss_and_grads({}, tget(ARCH),
-                       {"tokens": torch.zeros(1, 4, dtype=torch.int32)})
+    losses = launch_train.main(["--arch", "minicpm3-4b", "--smoke",
+                                "--device", "cpu", "--steps", "2",
+                                "--batch", "2", "--seq", "24", "--ckpt-dir",
+                                str(tmp_path), "--log-every", "0"])
+    assert len(losses) == 2 and np.isfinite(losses).all()
+
+
+# ------------------------------------------------------------- training
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mla_train_steps_match_jax(dtype):
+    """Three train steps against JAX's jitted step, at the tolerances of
+    ``tests/test_torch_train.py``: autograd through ``mla_full`` (the
+    latent, the rope key broadcast to every head) and the flash
+    attention's plain forward and backward at hd 24, vd 16."""
+    jcfg, tcfg = _configs(dtype)
+    tree = jax.tree_util.tree_map(np.asarray, _params(jcfg, tcfg, 9)[0])
+    three_train_steps_match_jax(jcfg, tcfg, dtype, tree=tree, seed=9)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mla_remat_gradients_are_bitwise(dtype):
+    jcfg, tcfg = _configs(dtype)
+    remat_grads_are_bitwise(tcfg, _params(jcfg, tcfg, seed=10)[1])

@@ -48,14 +48,16 @@ from repro_torch.configs import get_config as tfull
 from repro_torch.configs import get_smoke_config as tget
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models import moe as TM
 from repro_torch.models import params as TP
 from repro_torch.models.config import MoEConfig
 from repro_torch.models.transformer import (lm_decode_step, lm_forward,
                                             lm_prefill)
 from repro_torch.serve import Request
-from repro_torch.train.step import loss_and_grads
 from test_torch_lm_serving import RecordingEngine, replay_waves_in_jax
+from test_torch_train import (remat_grads_are_bitwise,
+                              three_train_steps_match_jax)
 
 ARCHS = ("mixtral_8x22b", "dbrx_132b")
 B, S, CACHE, STEPS = 2, 40, 48, 3
@@ -355,14 +357,95 @@ def test_moe_serving_matches_a_jax_greedy_loop(arch):
     assert stats.tokens_out == sum(m for _, m in REQUESTS)
 
 
-def test_launch_serve_runs_moe_and_training_raises(capsys):
+def test_launch_serve_runs_moe_and_training_raises(capsys, tmp_path):
+    """The serving CLI serves the smoke MoE; the training CLI trains it
+    (training raised before its port)."""
     stats = launch_serve.main(["--arch", "mixtral-8x22b", "--smoke",
                                "--device", "cpu", "--requests", "3",
                                "--prompt-len", "36", "--new-tokens", "3",
                                "--slots", "2", "--max-len", "48"])
     assert stats.tokens_out == 9
     assert "done: 3/3 requests, 9 tokens" in capsys.readouterr().out
-    tcfg = tget("dbrx_132b")
-    with pytest.raises(NotImplementedError, match="moe family.*entry 17b"):
-        loss_and_grads({}, tcfg,
-                       {"tokens": torch.zeros(1, 4, dtype=torch.int32)})
+    losses = launch_train.main(["--arch", "dbrx-132b", "--smoke", "--device",
+                                "cpu", "--steps", "2", "--batch", "2",
+                                "--seq", "16", "--ckpt-dir", str(tmp_path),
+                                "--log-every", "0"])
+    assert len(losses) == 2 and np.isfinite(losses).all()
+
+
+# ------------------------------------------------------------- training
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_moe_train_steps_match_jax(arch, dtype):
+    """Three train steps against JAX's jitted step, at the tolerances of
+    ``tests/test_torch_train.py`` (Mixtral's 40 positions past its
+    32-token window).  Each step calls the router once per layer forward
+    and once per layer in remat's recompute, in reverse, in both packages;
+    every port call is held to JAX's routes: bitwise in f32, forced in
+    bf16 (the weights from the port's own probabilities).  In f32 at
+    most 1 in 10^5 elements of a leaf may sit past 1e-3 of the summed
+    learning rates, within 1e-2: Mixtral's ``w_gate[0, 0, 30, 73]``, whose
+    gradient is 6.5e-7 of its leaf's largest (3.12e-8 in JAX, 2.95e-8 in
+    the port: the leaf's f32 noise), lands 1.08e-3 of them apart."""
+    jcfg, tcfg = _configs(arch, dtype)
+    force = dtype == "bfloat16"
+    record = []
+
+    @contextlib.contextmanager
+    def port():
+        # JAX's first step (from init) has no port counterpart
+        with port_routes(record[2 * tcfg.num_layers:], force) as flips:
+            yield
+        assert len(flips) == 3 * 2 * tcfg.num_layers
+        if not force:
+            assert flips == [0] * len(flips)
+
+    three_train_steps_match_jax(jcfg, tcfg, dtype, seed=len(arch), seq=S,
+                                jax_ctx=lambda: jax_routes(record),
+                                port_ctx=port, outliers=1e-5)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_moe_remat_gradients_are_bitwise(arch):
+    jcfg, tcfg = _configs(arch, "bfloat16")
+    remat_grads_are_bitwise(tcfg, _params(jcfg, tcfg, seed=2)[2], seq=S)
+
+
+def test_moe_gradients_with_drops_match_jax():
+    """f32 gradients of ``moe_mlp`` with respect to x and every weight,
+    under the overflowing router of
+    ``test_forced_router_overflows_and_drops_the_same_assignments``,
+    against ``jax.vjp`` of the reference's, to rtol 1e-5 and atol 1e-5 of
+    each gradient's largest element.  ``dispatch`` writes every
+    dropped assignment into the one sink slot; ``experts`` never reads
+    it and ``combine`` weights it by 0, so the sink's output and its
+    gradient are zero and a dropped assignment sends its token no
+    gradient."""
+    e, k = 4, 2
+    jcfg, tcfg, w, x = _moe_case(np.random.default_rng(1), e, k, shift=1.0)
+    w["router"][:, 0] = 4.0 / np.sqrt(w["router"].shape[0])
+    jw, jx, tw, tx = _pair(w, x, "float32")
+    g = np.random.default_rng(2).standard_normal(x.shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda p, x: JM.moe_mlp(p, x, jcfg), jw, jx)
+    jgw, jgx = vjp(jnp.asarray(g))
+    tw = {n: t.requires_grad_() for n, t in tw.items()}
+    tx.requires_grad_()
+    cap = TM.capacity(tcfg, S)
+    top_w, top_i = TM.route(TM.router_probs(tw, tx), k)
+    slot, ok = TM.assign(top_i, e, cap)
+    assert (~ok).any() and (slot[~ok] == e * cap).all()
+    buf = TM.dispatch(tx, slot, k, e * cap)
+    buf.retain_grad()
+    y = TM.experts(tw, buf, e, cap)
+    assert (y[-1] == 0).all()
+    out = TM.combine(y, slot, top_w, ok, k)
+    out.backward(torch.from_numpy(g))
+    assert (buf.grad[-1] == 0).all()
+    # sums over up to B·cap products in another order: atol 1e-5 of the
+    # gradient's largest element
+    for what, got, ref in [("dx", tx.grad, jgx)] + [
+            (f"d{n}", tw[n].grad, jgw[n]) for n in w]:
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5,
+                                   atol=1e-5 * np.abs(ref).max(),
+                                   err_msg=what)

@@ -22,6 +22,7 @@ the default bf16 activations, the loss and grad norm at 0.05 relative (the
 bf16 tolerance of ``tests/test_torch_lm.py``).
 """
 
+import contextlib
 import dataclasses
 
 import jax
@@ -42,11 +43,14 @@ from repro_torch.configs import get_smoke_config as tget
 from repro_torch.convert import adamw_state_from_numpy, lm_params_from_numpy
 from repro_torch.data.pipeline import (DataConfig, Prefetcher,
                                        SyntheticLMData, shard_batch)
+from repro_torch.launch import train as launch_train
+from repro_torch.models import params as TP
 from repro_torch.train import checkpoint as TC
 from repro_torch.train import optimizer as TO
 from repro_torch.train.compression import compressed_mean
 from repro_torch.train.fault_tolerance import (LoopConfig, RestartableLoop,
                                                StepTimer, elastic_reshard)
+from repro_torch.train import step as TS
 from repro_torch.train.loss import cross_entropy
 from repro_torch.train.step import (loss_and_grads, make_eval_step,
                                     make_train_step)
@@ -189,54 +193,102 @@ def _configs(dtype):
             dataclasses.replace(tget(ARCH), **over))
 
 
-def _start(jcfg, jstep, seed=0):
-    """JAX's params and AdamW state after one JAX step from its init."""
-    params = jinit(jax.random.PRNGKey(seed), jcfg)
+def _start(jcfg, jstep, seed=0, tree=None, seq=S):
+    """JAX's params and AdamW state after one JAX step from its init (or
+    from the numpy tree ``tree``), and the data (B sequences of ``seq``)."""
+    params = (jinit(jax.random.PRNGKey(seed), jcfg) if tree is None
+              else jax.tree_util.tree_map(jnp.asarray, tree))
     state = JO.adamw_init(params)
-    data = JData(JDataConfig(jcfg.vocab_size, S, B, seed=seed, lag=1))
+    data = JData(JDataConfig(jcfg.vocab_size, seq, B, seed=seed, lag=1))
     batch = {k: jnp.asarray(v) for k, v in data.batch_at(0).items()}
     params, state, _ = jstep(params, state, batch)
     return params, state, data
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_three_train_steps_match_jax(dtype):
-    jcfg, tcfg = _configs(dtype)
+def three_train_steps_match_jax(jcfg, tcfg, dtype, *, tree=None, seed=0,
+                                seq=S, jax_ctx=contextlib.nullcontext,
+                                port_ctx=contextlib.nullcontext,
+                                outliers=0.0):
+    """Three ``make_train_step`` steps (remat on, the cosine schedule)
+    against JAX's jitted step, from JAX's params and AdamW state after one
+    JAX step from its init (or from the numpy tree ``tree``), carried
+    across with ``convert``: lr to 1e-6; in f32 the loss and grad norm to
+    rtol 1e-5, the accuracy to 1e-6 and every parameter within 1e-3 of the
+    summed learning rates; in bf16 the loss and grad norm to 0.05
+    relative.  JAX's four steps run inside ``jax_ctx()``, then the port's
+    three inside ``port_ctx()`` (an MoE test records JAX's routes and
+    checks or forces the port's).
+
+    ``outliers``: the share of a leaf's elements that may lie past 1e-3 of
+    the summed learning rates, if within 1e-2 of them.  An element whose
+    gradient is near zero (an expert weight few tokens reach) agrees only
+    to f32 noise relative to its leaf's largest, and AdamW's normalised
+    step magnifies that to a fraction of lr."""
     sched = dict(base_lr=LR, warmup=WARMUP, total=TOTAL)
     jstep = jax.jit(jmake_train_step(
         jcfg, learning_rate=JO.cosine_schedule(**sched), remat=True))
     tstep = make_train_step(tcfg, learning_rate=TO.cosine_schedule(**sched),
                             remat=True)
-    jp, js, data = _start(jcfg, jstep)
-    tp = lm_params_from_numpy(_np_tree(jp), tcfg, device="cpu")
-    ts = adamw_state_from_numpy(_np_tree(js), tcfg, device="cpu")
+    with jax_ctx():
+        jp, js, data = _start(jcfg, jstep, seed, tree, seq)
+        tp = lm_params_from_numpy(_np_tree(jp), tcfg, device="cpu")
+        ts = adamw_state_from_numpy(_np_tree(js), tcfg, device="cpu")
+        jms = []
+        for step in (1, 2, 3):
+            jp, js, jm = jstep(jp, js, {k: jnp.asarray(v) for k, v in
+                                        data.batch_at(step).items()})
+            jms.append(jm)
     moved = []
-    for step in (1, 2, 3):
-        batch = data.batch_at(step)
-        jp, js, jm = jstep(jp, js, {k: jnp.asarray(v)
-                                    for k, v in batch.items()})
-        tp, ts, tm = tstep(tp, ts, shard_batch(batch, "cpu"))
-        lr = float(jm["lr"])
-        assert tm["lr"].item() == pytest.approx(lr, rel=1e-6)
-        if dtype == "float32":
-            np.testing.assert_allclose(tm["loss"].item(), float(jm["loss"]),
-                                       rtol=1e-5)
-            np.testing.assert_allclose(tm["grad_norm"].item(),
-                                       float(jm["grad_norm"]), rtol=1e-5)
-            np.testing.assert_allclose(tm["accuracy"].item(),
-                                       float(jm["accuracy"]), atol=1e-6)
-        else:
-            for name in ("loss", "grad_norm"):
-                assert tm[name].item() == pytest.approx(float(jm[name]),
-                                                        rel=0.05), name
-        moved.append(lr)
+    with port_ctx():
+        for step, jm in zip((1, 2, 3), jms):
+            tp, ts, tm = tstep(tp, ts, shard_batch(data.batch_at(step),
+                                                   "cpu"))
+            lr = float(jm["lr"])
+            assert tm["lr"].item() == pytest.approx(lr, rel=1e-6)
+            if dtype == "float32":
+                np.testing.assert_allclose(tm["loss"].item(),
+                                           float(jm["loss"]), rtol=1e-5)
+                np.testing.assert_allclose(tm["grad_norm"].item(),
+                                           float(jm["grad_norm"]),
+                                           rtol=1e-5)
+                np.testing.assert_allclose(tm["accuracy"].item(),
+                                           float(jm["accuracy"]), atol=1e-6)
+            else:
+                for name in ("loss", "grad_norm"):
+                    assert tm[name].item() == pytest.approx(
+                        float(jm[name]), rel=0.05), name
+            moved.append(lr)
     assert int(ts.step) == int(js.step) == 4
     if dtype != "float32":
         return
     want = _flat(_np_tree(jp))
     for k, v in _flat(tp).items():
-        np.testing.assert_allclose(v, want[k], rtol=0, atol=1e-3 * sum(moved),
+        err = np.abs(v - want[k])
+        past = int((err > 1e-3 * sum(moved)).sum())
+        assert past <= outliers * v.size, (k, past, float(err.max()))
+        np.testing.assert_allclose(v, want[k], rtol=0,
+                                   atol=(1e-2 if past else 1e-3) * sum(moved),
                                    err_msg=k)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_three_train_steps_match_jax(dtype):
+    three_train_steps_match_jax(*_configs(dtype), dtype)
+
+
+def remat_grads_are_bitwise(tcfg, params, seq=16):
+    """``loss_and_grads`` with remat and without: the same loss and
+    gradients, bit for bit; returns the loss."""
+    batch = shard_batch(SyntheticLMData(DataConfig(
+        tcfg.vocab_size, seq, 2, lag=1)).batch_at(3), "cpu")
+    l1, _, g1 = loss_and_grads(params, tcfg, batch, remat=True)
+    l0, _, g0 = loss_and_grads(params, tcfg, batch, remat=False)
+    assert torch.equal(l1, l0)
+    flat0 = _flat(g0)
+    assert sorted(flat0) == sorted(_flat(g1))
+    for k, v in _flat(g1).items():
+        np.testing.assert_array_equal(v, flat0[k], err_msg=k)
+    return l0, batch
 
 
 def test_loss_and_grads_without_remat_match_remat():
@@ -247,15 +299,169 @@ def test_loss_and_grads_without_remat_match_remat():
                                                      activation_dtype=
                                                      "float32"))),
                                   tcfg, device="cpu")
-    batch = shard_batch(SyntheticLMData(DataConfig(
-        tcfg.vocab_size, 16, 2, lag=1)).batch_at(3), "cpu")
-    l1, _, g1 = loss_and_grads(params, tcfg, batch, remat=True)
-    l0, _, g0 = loss_and_grads(params, tcfg, batch, remat=False)
-    assert torch.equal(l1, l0)
-    for k, v in _flat(g1).items():
-        np.testing.assert_array_equal(v, _flat(g0)[k])
+    l0, batch = remat_grads_are_bitwise(tcfg, params)
     ev = make_eval_step(tcfg)(params, batch)
     assert ev["loss"].item() == pytest.approx(l0.item(), rel=1e-6)
+
+
+# ------------------------------------------------------- donated step
+def _port_start(arch, seed=0):
+    """A smoke config's port params (f32) and AdamW state after one
+    step, and its data."""
+    cfg = tget(arch)
+    params = TP.init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    data = SyntheticLMData(DataConfig(cfg.vocab_size, S, B, seed=seed,
+                                      lag=1))
+    step = make_train_step(cfg, learning_rate=LR)
+    params, state, _ = step(params, TO.adamw_init(params),
+                            shard_batch(data.batch_at(0), "cpu"))
+    return cfg, params, state, data
+
+
+def _copy(params, state):
+    clone = lambda t: t.clone()
+    return (TO.tree_map(clone, params),
+            TO.AdamWState(clone(state.step), TO.tree_map(clone, state.mu),
+                          TO.tree_map(clone, state.nu)))
+
+
+def _bitwise(a, b):
+    fa, fb = _flat(a), _flat(b)
+    assert sorted(fa) == sorted(fb)
+    for k, v in fa.items():
+        np.testing.assert_array_equal(v, fb[k], err_msg=k)
+
+
+@pytest.mark.parametrize("arch", [ARCH, "mixtral_8x22b"])
+def test_donated_step_is_bitwise_the_functional_one(arch, monkeypatch):
+    """A step of ``make_train_step`` against the functional step from the
+    same state (moments nonzero, after one step): ``loss_and_grads``,
+    ``clip_by_global_norm`` and ``adamw_update`` on clones.  The same
+    metrics, parameters and moments, bit for bit, written into the
+    tensors given (same storage).  The slice threshold is set below one
+    expert's weights, so that each expert leaf is updated in runs of its
+    rows."""
+    cfg, params, state, data = _port_start(arch)
+    limit = 12000
+    monkeypatch.setattr(TO, "DONATE_SLICE_ELEMENTS", limit)
+    if cfg.moe is not None:
+        w_gate = params["blocks"]["mlp"]["w_gate"]      # (L, E, d, f)
+        chunks = list(TO._chunks(tuple(w_gate.shape), limit))
+        assert w_gate[0, 0].numel() > limit
+        assert all(len(c) == 3 for c in chunks) and len(chunks) > (
+            w_gate.shape[0] * w_gate.shape[1])
+    fp, fs = _copy(params, state)
+    leaves = lambda: [params, state.mu, state.nu, state.step]
+    ptrs = [t.data_ptr() for t in TO.tree_leaves(leaves())]
+    batch = shard_batch(data.batch_at(1), "cpu")
+    loss, acc, grads = loss_and_grads(fp, cfg, batch, remat=True)
+    grads, gnorm = TO.clip_by_global_norm(grads, 1.0)
+    lr = torch.tensor(LR, dtype=torch.float32)
+    fp, fs = TO.adamw_update(grads, fs, fp, lr, weight_decay=0.1)
+    fm = {"loss": loss, "accuracy": acc, "grad_norm": gnorm, "lr": lr}
+    dp, ds, dm = make_train_step(cfg, learning_rate=LR)(params, state,
+                                                        batch)
+    assert dp is params and ds.mu is state.mu and ds.nu is state.nu
+    assert ds.step is state.step and int(state.step) == int(fs.step) == 2
+    assert sorted(dm) == sorted(fm)
+    for name in fm:
+        assert torch.equal(dm[name], fm[name]), name
+    _bitwise(params, fp)
+    _bitwise(state.mu, fs.mu)
+    _bitwise(state.nu, fs.nu)
+    assert [t.data_ptr() for t in TO.tree_leaves(leaves())] == ptrs
+
+
+def _failing_upd(monkeypatch, fail_on_call):
+    """Make the update's per-slice arithmetic raise once, on its
+    ``fail_on_call``-th call (1-based)."""
+    upd, calls = TO._upd, []
+
+    def failing(*args):
+        calls.append(1)
+        if len(calls) == fail_on_call:
+            raise RuntimeError("injected failure")
+        return upd(*args)
+
+    monkeypatch.setattr(TO, "_upd", failing)
+    return calls
+
+
+def _loop(tmp_path, steps):
+    ckpt = TC.CheckpointManager(tmp_path, async_save=False)
+    return RestartableLoop(ckpt, LoopConfig(
+        total_steps=steps, checkpoint_every=0, max_step_retries=2,
+        log_every=0), log=lambda s: None)
+
+
+def test_donated_step_half_written_is_not_retried(tmp_path, monkeypatch):
+    """A failure after the step's first write marks the state: the
+    loop's retries on it raise ``DonatedStateError``, and so does any
+    later step on it."""
+    cfg, params, state, data = _port_start(ARCH)
+    donated = make_train_step(cfg, learning_rate=LR)
+
+    def one_step(st, step):
+        p, o, _ = donated(st["params"], st["opt"],
+                          shard_batch(data.batch_at(step), "cpu"))
+        return {"params": p, "opt": o}
+
+    _failing_upd(monkeypatch, fail_on_call=2)
+    with pytest.raises(TO.DonatedStateError, match="donated"):
+        _loop(tmp_path, 2).run({"params": params, "opt": state}, one_step,
+                               start_step=1)
+    with pytest.raises(TO.DonatedStateError):
+        donated(params, state, shard_batch(data.batch_at(1), "cpu"))
+
+
+@pytest.mark.parametrize("where", ["update", "forward"])
+def test_donated_step_failing_before_its_first_write_retries(
+        where, tmp_path, monkeypatch):
+    """A failure before the first write (in the forward, or the first
+    slice's arithmetic) leaves the state as it was: the loop's retry
+    gives the values of a run that never failed, bit for bit."""
+    cfg, params, state, data = _port_start(ARCH)
+    clean_p, clean_s = _copy(params, state)
+    donated = make_train_step(cfg, learning_rate=LR)
+
+    def one_step(st, step):
+        p, o, _ = donated(st["params"], st["opt"],
+                          shard_batch(data.batch_at(step), "cpu"))
+        return {"params": p, "opt": o}
+
+    clean = _loop(tmp_path / "clean", 2).run(
+        {"params": clean_p, "opt": clean_s}, one_step, start_step=1)
+    if where == "update":
+        calls = _failing_upd(monkeypatch, fail_on_call=1)
+    else:
+        forward, calls = TS.lm_forward, []
+
+        def failing(*args, **kwargs):
+            calls.append(1)
+            if len(calls) == 1:
+                raise RuntimeError("injected failure")
+            return forward(*args, **kwargs)
+
+        monkeypatch.setattr(TS, "lm_forward", failing)
+    out = _loop(tmp_path / "retried", 2).run(
+        {"params": params, "opt": state}, one_step, start_step=1)
+    assert len(calls) > 1
+    assert not getattr(out["opt"].step, "donated", False)
+    assert int(out["opt"].step) == int(clean["opt"].step) == 2
+    _bitwise(out["params"], clean["params"])
+    _bitwise(out["opt"].mu, clean["opt"].mu)
+
+
+def test_launch_train_smoke_loss_falls(tmp_path, capsys):
+    """``launch/train.py --smoke`` (the donated step in the restartable
+    loop) trains the dense smoke config: the loss falls."""
+    losses = launch_train.main([
+        "--arch", ARCH, "--smoke", "--device", "cpu", "--steps", "8",
+        "--batch", "4", "--seq", "32", "--lr", "3e-3", "--warmup", "2",
+        "--ckpt-dir", str(tmp_path), "--log-every", "0"])
+    assert len(losses) == 8 and losses[-1] < losses[0]
+    assert "final loss" in capsys.readouterr().out
+    assert TC.CheckpointManager(tmp_path).latest_step() == 7
 
 
 # ------------------------------------------------------------- checkpoint
@@ -305,6 +511,22 @@ def test_jax_restores_a_port_checkpoint(tmp_path):
         lambda a, b: np.testing.assert_array_equal(np.asarray(a),
                                                    np.asarray(b)),
         got, {"params": jp, "opt": js})
+
+
+def test_checkpoint_save_is_a_snapshot_a_donated_step_cannot_reach(
+        tmp_path):
+    """``save`` copies every leaf to the host before it returns, so a
+    donated step may write into the saved tensors while the write runs."""
+    tree = {"w": torch.arange(6, dtype=torch.float32),
+            "n": {"i": torch.arange(4, dtype=torch.int32)}}
+    ckpt = TC.CheckpointManager(tmp_path, async_save=True)
+    ckpt.save(1, tree)
+    tree["w"].mul_(-1)
+    tree["n"]["i"].add_(7)
+    ckpt.wait()
+    out = ckpt.restore(1, tree)
+    assert torch.equal(out["w"], torch.arange(6, dtype=torch.float32))
+    assert torch.equal(out["n"]["i"], torch.arange(4, dtype=torch.int32))
 
 
 def test_checkpoint_gc_and_uncommitted(tmp_path):
