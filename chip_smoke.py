@@ -3583,11 +3583,14 @@ FAMILY_PATHS = {"lm-serve-moe": lm_serve_moe_path,
 
 
 # ---- training: the flash backward and Qwen2-0.5B steps ------------------
+# Mixtral-8x22B's training attention (lm-train-moe: B = 4, S = 6,144 past
+# its 4,096 window, 48/8 heads of 128)
+MIXTRAL_BWD_SHAPE = (4, 6144, 48, 8, 128, 128, True, 4096)
 # the flash backward's checks: (tag, (B, S, H, KV, hd, vd, causal, window),
 # dtype, timed); the first is Qwen2-0.5B's training shape, the kernels
 # line's main row; the hybrid's and MLA's training shapes (Zamba2-7B's
 # shared attention, hd 112, 32/32 heads; MiniCPM3-4B's hd 96 with vd 64,
-# 40/40) and MLA's smoke dims are timed too
+# 40/40), MLA's smoke dims and Mixtral's training shape are timed too
 FLASH_BWD_CHECKS = (
     ("training shape, B=4, S=2048, G=7", (4, 2048, 14, 2, 64, 64, True, None),
      "bfloat16", True),
@@ -3603,6 +3606,8 @@ FLASH_BWD_CHECKS = (
      (4, 2048, 40, 40, 96, 64, True, None), "bfloat16", True),
     ("MLA smoke config's heads, B=2, S=300, hd 24, vd 16",
      (2, 300, 4, 4, 24, 16, True, None), "bfloat16", True),
+    ("Mixtral-8x22B training shape, B=4, S=6144, hd 128, G=6, window 4096",
+     MIXTRAL_BWD_SHAPE, "bfloat16", True),
 )
 # Tolerances against the f64 plain versions on the same inputs (|err| <=
 # atol + rtol |ref|).  lse: 1e-5 (a sum of exps in f32, log of it; the bf16
@@ -3655,7 +3660,8 @@ def flash_bwd_bound(b, s, h, kv, hd, vd, causal, window, elt) -> dict:
 
 def sdpa_fwd_bwd(q, k, v, dout, causal, window):
     """``scaled_dot_product_attention`` forward and backward (enable_gqa)
-    on the same inputs, as one callable: the library yardstick."""
+    on the same inputs, as one callable: the library yardstick.  A window
+    goes in as an explicit boolean mask."""
     import torch.nn.functional as F
 
     s = q.shape[1]
@@ -3675,11 +3681,14 @@ def sdpa_fwd_bwd(q, k, v, dout, causal, window):
     return call
 
 
-def check_flash_backward(tag, shape, dtype, rng, dev, timed) -> dict:
+def check_flash_backward(tag, shape, dtype, rng, dev, timed,
+                         strict=True) -> dict:
     """The forward with lse and the backward kernel against their plain
     versions in f64 on the card; on the training shape also their device
     times beside the plain backward, SDPA forward+backward and the
-    bound."""
+    bound.  ``strict=False`` reports the shares of the limits and the
+    bitwise checks in the row instead of raising on them (the mutation
+    check of ``tools/attention_mutants.py``)."""
     from repro_torch.kernels.flash_attention import kernel as FA
 
     b, s, h, kv, hd, vd, causal, window = shape
@@ -3716,8 +3725,10 @@ def check_flash_backward(tag, shape, dtype, rng, dev, timed) -> dict:
                                        BWD_GRAD_RTOL[dtype])
         row[f"{name}_max_abs_err"], row[f"{name}_max_abs_ref"] = err, scale
         if g.dtype != dt or not bool(torch.isfinite(g).all()):
-            raise AssertionError(f"flash backward, {tag}: {name} is "
-                                 f"{g.dtype} or not finite")
+            if strict:
+                raise AssertionError(f"flash backward, {tag}: {name} is "
+                                     f"{g.dtype} or not finite")
+            shares[name] = float("inf")
     del refs
     again = FA.flash_attention_bwd(q, k, v, out, lse, dout, **opts)
     row["bitwise_second_launch"] = all(
@@ -3727,8 +3738,10 @@ def check_flash_backward(tag, shape, dtype, rng, dev, timed) -> dict:
         "lse": BWD_LSE_TOL, "out_f32": BWD_OUT_TOL[dtype],
         "grads": {"atol": f"{BWD_GRAD_ATOL} * max|ref|",
                   "rtol": BWD_GRAD_RTOL[dtype]}}
-    if max(shares.values()) > 1 or not row["bitwise_second_launch"] \
-            or not row["out_bitwise_vs_no_lse_launch"]:
+    row["passes"] = (max(shares.values()) <= 1
+                     and row["bitwise_second_launch"]
+                     and row["out_bitwise_vs_no_lse_launch"])
+    if strict and not row["passes"]:
         raise AssertionError(f"flash backward, {tag}: {row}")
     row["max_abs_err"] = max(row[f"{n}_max_abs_err"]
                              for n in ("dq", "dk", "dv"))
@@ -4862,7 +4875,11 @@ def main() -> int:
     # ---- 9b. the flash backward against its plain version -----------------
     bwd_rows = []
     for tag, shape, dtype, timed in FLASH_BWD_CHECKS:
-        bwd_rows.append(check_flash_backward(tag, shape, dtype, rng, dev,
+        # Mixtral's row draws from a generator of its own, so that the
+        # phases after it see the stream they saw before it was added
+        row_rng = (np.random.default_rng(SEED) if shape == MIXTRAL_BWD_SHAPE
+                   else rng)
+        bwd_rows.append(check_flash_backward(tag, shape, dtype, row_rng, dev,
                                              timed))
         emit(bwd_rows[-1])
     torch.cuda.empty_cache()
@@ -5030,6 +5047,7 @@ def main() -> int:
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"],
+                    "roofline_share": r["roofline_share"],
                     "fwd_lse_ms": r["fwd_lse_ms"]}
                    for r in bwd_rows if "kernel_ms" in r]}]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,8 @@
 // Helpers shared by the attention kernels (flash_attention/csrc and
 // decode_attention/csrc): 16-byte loads widened to f32, the cast back with
 // round-to-nearest-even, warp reductions, cp.async copies into shared
-// memory, and the reference's finite mask value.
+// memory, the tensor-core pieces (ldmatrix, mma.sync, the split of an f32
+// pair into bf16 terms), exp2 and the reference's finite mask value.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -87,9 +88,76 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
+// 4 bytes global -> shared with cp.async, zero-filled where !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid = true) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// ---- tensor cores: mma.sync.m16n8k16, bf16 operands, f32 accumulators ----
+// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 g + t holds rows g
+// and g + 8 of A and of the accumulators, columns 2 t and 2 t + 1 of each
+// 8-wide accumulator tile.
+
+// four 8 x 8 b16 matrices from shared memory, each lane giving one row
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// the same, each matrix transposed
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d += a b: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col), d 16 x 8 f32
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The bf16 pair nearest (x, y), as the bits of a __nv_bfloat162; (x, y)
+// keep what it leaves, exact in f32
+__device__ __forceinline__ uint32_t take_bf16x2(float& x, float& y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  x -= hf.x;
+  y -= hf.y;
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// (x, y) as two bf16 pairs: hi = bf16(x, y), lo = bf16((x, y) - hi), so
+// hi + lo keeps about 16 bits of each
+__device__ __forceinline__ void split(float x, float y, uint32_t& hi,
+                                      uint32_t& lo) {
+  hi = take_bf16x2(x, y);
+  lo = take_bf16x2(x, y);
+}
+
+// 2^x, a result below the smallest normal flushed to 0 (a p or corr that
+// small adds nothing an f32 sum of at least one term 1 keeps)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // The reference's finish: acc / max(l, 1e-30) where some key was seen,

@@ -82,6 +82,9 @@ using attn::cp_async_commit;
 using attn::cp_async_wait;
 using attn::Elem;
 using attn::kNegInf;
+using attn::ldmatrix_x4;
+using attn::ldmatrix_x4_trans;
+using attn::split;
 
 constexpr int kCluster = 8;     // CTAs per (b, KV head, row chunk)
 constexpr int kRows = 8;        // query heads of a group per CTA
@@ -296,22 +299,6 @@ __device__ __forceinline__ void warp_chunks_simt(
   }
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(attn::smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(attn::smem_addr(p)));
-}
-
 // d += a b: a 16 x 16 bf16 (row) whose rows 8..15 are zero (a1 = a3 = 0),
 // b 16 x 8 bf16 (col), d 16 x 8 f32
 __device__ __forceinline__ void mma_top(float (&d)[4], uint32_t a0,
@@ -322,16 +309,6 @@ __device__ __forceinline__ void mma_top(float (&d)[4], uint32_t a0,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
-}
-
-// (x, y) as two bf16 pairs: hi = bf16(x, y), lo = bf16((x, y) - hi)
-__device__ __forceinline__ void split(float x, float y, uint32_t& hi,
-                                      uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 r = __floats2bfloat162_rn(x - hf.x, y - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&r);
 }
 
 // bf16 on the tensor cores (mma.m16n8k16, f32 accumulators).  The group's

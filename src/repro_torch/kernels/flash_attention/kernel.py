@@ -20,7 +20,9 @@ Training: ``flash_attention(..., return_lse=True)`` also returns each
 row's log-sum-exp and the output in f32 (the residuals the reference's
 custom_vjp saves), :func:`flash_attention_bwd` launches the hand-written
 backward (``csrc/flash_attention_bwd.cu``: dq, dk, dv, in two passes
-without atomics) and :class:`FlashAttention` ties the two into autograd.
+without atomics; bf16 on the tensor cores, with dS and dO entering their
+products as three bf16 terms each and P as two, f32 on the CUDA cores)
+and :class:`FlashAttention` ties the two into autograd.
 :func:`flash_attention_bwd_plain` ports the reference's ``flash_bwd``.
 
 On a CUDA tensor each wrapper launches its kernel or raises; only a tensor
@@ -55,7 +57,7 @@ NEG_INF = -1e30
 
 _ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 9
              + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
-_BWD_ARGTYPES = ((ctypes.c_void_p,) * 10 + (ctypes.c_int,) * 9
+_BWD_ARGTYPES = ((ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 9
                  + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
 
 
@@ -284,7 +286,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream (one call counted in ``flash_attention_bwd.launches``); the
     masks, scale and head dims are the forward's, and anything the kernel
     does not take raises: (hd, vd) must be in :data:`HEAD_DIM_PAIRS`, as
-    for the forward.  CPU tensors take
+    for the forward.  Besides ``delta`` ``(B, H, Sq)`` f32, a bf16 call
+    allocates a scratch of dO's three bf16 terms ``(3, B, Sq, H, vd)``,
+    1.5 times the bytes of ``dout``, which the first pass writes and the
+    second reads.  CPU tensors take
     :func:`flash_attention_bwd_plain` over ``q_block`` by ``kv_block``
     tiles.
     """
@@ -309,10 +314,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    dout_split = (torch.empty((3, b, sq, h, vd), dtype=torch.bfloat16,
+                              device=q.device)
+                  if q.dtype == torch.bfloat16 else None)
     fn = load_entry(BWD_SOURCE, "flash_attention_bwd", _BWD_ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 None if dout_split is None else dout_split.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                  b, sq, skv, h, kvh, hd, vd, int(causal),
                  0 if window is None else int(window), float(scale),

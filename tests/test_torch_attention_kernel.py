@@ -4,10 +4,11 @@ The plain versions' semantics are pinned on the CPU against a per-row
 numpy softmax in f64; each CUDA kernel is held against its plain version
 in f64 on the card (the flash kernel's and the decode kernel's f32 entries
 compute on the CUDA cores, their bf16 entries on the tensor cores, with P
-in two bf16 terms).  The flash backward kernel (both entries in f32 on
-the CUDA cores) is held against its plain version in f64 on the forward's
-own residuals: gradients at rtol 1e-5 in f32 and 5e-3 in bf16 (each
-gradient rounded once), atol 1e-5 of each gradient's largest element (f32
+in two bf16 terms).  The flash backward kernel (f32 on the CUDA cores,
+bf16 on the tensor cores with dS and dO in three bf16 terms, P in two)
+is held against its plain version in f64 on the forward's own residuals:
+gradients at rtol 1e-5 in f32 and 5e-3 in bf16 (each gradient rounded
+once), atol 1e-5 of each gradient's largest element (f32
 sums over up to thousands of rows); the forward's log-sum-exp at 1e-5 and
 its f32 output at the f32 tolerance (2e-5 from the bf16 entry, whose P
 enters P.V as two bf16 terms).
@@ -89,6 +90,7 @@ DECODE_CASES = {
 }
 
 #: cases of the flash backward kernel: B, S, H, KV, hd, vd, causal, window
+#: and, where the keys are not the queries, Skv
 FLASH_BWD_CASES = {
     **{f"hd{hd}-vd{vd}": (1, 130, 4, 2, hd, vd, True, None)
        for hd, vd in HEAD_DIM_PAIRS},
@@ -103,6 +105,18 @@ FLASH_BWD_CASES = {
     "window-100": (1, 777, 14, 2, 64, 64, True, 100),
     "window-not-causal": (1, 300, 6, 3, 32, 64, False, 50),
     "s-1999": (1, 1999, 14, 2, 64, 64, True, None),
+    # the edges of the tensor-core passes' tiles (64 rows or keys a block,
+    # 16 a warp): Mixtral's heads with a window shorter than a tile,
+    # lengths no multiple of 16 (one query: over 77 keys, not causal, as a
+    # causal row over one key has dq = dk = 0, which no limit relative to
+    # max |ref| holds), 63 rows in one 64-row tile, and keys that are not
+    # the queries (encoder-decoder attention)
+    "mixtral-hd128-g6-window-40": (1, 300, 12, 2, 128, 128, True, 40),
+    "sq-1-skv-77-not-causal": (2, 1, 14, 2, 64, 64, False, None, 77),
+    "s-17-hd96-vd64": (2, 17, 5, 5, 96, 64, True, None),
+    "s-65-hd112": (1, 65, 12, 2, 112, 112, True, None),
+    "g7-s9": (1, 9, 14, 2, 64, 64, True, None),
+    "not-causal-skv-211-sq-100": (1, 100, 6, 2, 64, 32, False, None, 211),
 }
 
 DECODE_SHAPES = {
@@ -120,14 +134,15 @@ DECODE_SHAPES = {
 }
 
 
-def _inputs(shape, seed, *, decode=False):
+def _inputs(shape, seed, *, decode=False, skv=None):
     rng = np.random.default_rng(seed)
     if decode:
         b, s, h, kv, hd, vd, _ = shape
         dims = ((b, 1, h, hd), (b, s, kv, hd), (b, s, kv, vd))
     else:
         b, s, h, kv, hd, vd = shape[:6]
-        dims = ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, vd))
+        skv = s if skv is None else skv
+        dims = ((b, s, h, hd), (b, skv, kv, hd), (b, skv, kv, vd))
     return [torch.from_numpy(rng.standard_normal(d).astype(np.float32))
             for d in dims]
 
@@ -360,10 +375,11 @@ def _check_grads(got, want, rtol):
 def test_flash_bwd_kernel_matches_plain_version(cuda_device, name, dtype):
     """The forward's residuals (lse, f32 output) and the backward's dq, dk,
     dv against their f64 plain versions, bitwise across two launches."""
-    b, s, h, kv, hd, vd, causal, window = FLASH_BWD_CASES[name]
+    b, s, h, kv, hd, vd, causal, window, *skv = FLASH_BWD_CASES[name]
     dt = getattr(torch, dtype)
     q, k, v = (t.to(cuda_device, dt)
-               for t in _inputs(FLASH_BWD_CASES[name], 11))
+               for t in _inputs(FLASH_BWD_CASES[name], 11,
+                                skv=skv[0] if skv else None))
     dout = torch.from_numpy(np.random.default_rng(12).standard_normal(
         (b, s, h, vd)).astype(np.float32)).to(cuda_device)
     opts = dict(causal=causal, window=window)
