@@ -156,7 +156,28 @@ and the LM paths:
   untrained model's on that batch by more than the batches' spread; each
   step's time, tokens/s, peak memory (under the card's and the
   backward's own peak plus the moments and the update's temporaries) and
-  backward device time a call.
+  backward device time a call;
+- the attention kernels at the encoder-decoder's and the vision
+  frontend's shapes: SeamlessM4T-large-v2's encoder unmasked over 1,500
+  frames and its cross attention unmasked from 512 and 1,024 decoder
+  positions over them (Sq ≠ Skv), its decode step's cross attention over
+  the whole 1,500-slot cross cache, and InternVL2-2B's causal prefill over
+  256 patches + 512 tokens (hd 128, G = 2); the flash backward at both
+  families' training shapes;
+- the encoder-decoder and the vision frontend served whole at full width
+  (SeamlessM4T-large-v2, 24 + 24 layers; InternVL2-2B, 24), each 8
+  requests of 512 prompt and 64 new tokens on 4 slots, each request with
+  its 1,500 encoder frames or 256 patch embeddings, through
+  ``make_prefill_step`` and ``make_serve_step`` in lockstep (the serving
+  engine passes no frontend inputs, as the reference's): one flash launch
+  per encoder, self and cross call and wave, one decode launch per self
+  and cross call and step; wave 0 replayed through the plain attention
+  versions, the served cross cache against the replay's;
+- both trained whole at full width as the families above (B = 4;
+  Seamless 1,024 decoder tokens over 1,500 frames, InternVL2 256 patches
+  + 1,792 tokens, its loss over the text positions), the encoder's
+  gradients, which reach it only through cross attention, among the
+  checked leaves.
 
 It prints one JSON line per phase.  The line before the last lists the
 kernels, with each one's launches on every graph path; the last is
@@ -2771,7 +2792,8 @@ LM_DRIFT_RATIO = 1.5
 # drift the logits as the bf16 paths above do, 0.5 to 1 of it.
 LM_F32_LOGIT_TOL = 1e-2 * LM_LOGIT_TOL
 # the attention checks: (tag, kind, shape); flash (B, S, H, KV, hd, vd,
-# causal, window), decode (B, S, H, KV, hd, vd, cache_len)
+# causal, window[, Skv]: S queries over Skv keys, S by default), decode
+# (B, S, H, KV, hd, vd, cache_len)
 ATTN_F32_TOL = 1e-5         # kernel in f32 vs the f64 plain version
 # kernel in bf16 vs the f64 plain version on the same bf16 inputs: both
 # widen the inputs exactly, so the only bf16 error is the output's
@@ -2819,6 +2841,29 @@ ATTENTION_CHECKS = (
      (2, 300, 4, 4, 24, 16, True, None)),
     ("MLA smoke config's heads, B=2, cache_len=257, hd 24, vd 16", "decode",
      (2, 300, 4, 4, 24, 16, 257)),
+)
+
+# the encoder-decoder's and the vision frontend's shapes (SeamlessM4T-
+# large-v2: 16/16 heads of 64, G = 1; InternVL2-2B: 16/8 heads of 128,
+# G = 2) as their serving phases give them: the encoder unmasked over its
+# FRONTEND_ENC_LEN frames, cross attention unmasked from 512 and from
+# 1,024 decoder positions over them, the vision prefill causal over 256
+# patches + 512 tokens, and a decode step's cross attention over the whole
+# cross cache; 1,500 is no multiple of a key tile.  They draw from a
+# generator of their own (FRONTEND_SEED), so that the phases after them
+# see the stream they saw before the rows were added
+FRONTEND_SEED = SEED + 27
+FRONTEND_ATTENTION_CHECKS = (
+    ("SeamlessM4T encoder, B=4, S=1500, not causal", "flash",
+     (4, 1500, 16, 16, 64, 64, False, None)),
+    ("SeamlessM4T cross attention, B=4, Sq=512 over Skv=1500", "flash",
+     (4, 512, 16, 16, 64, 64, False, None, 1500)),
+    ("SeamlessM4T cross attention, B=4, Sq=1024 over Skv=1500", "flash",
+     (4, 1024, 16, 16, 64, 64, False, None, 1500)),
+    ("InternVL2-2B causal prefill, B=4, S=768 (256 patches + 512), hd 128, "
+     "G=2", "flash", (4, 768, 16, 8, 128, 128, True, None)),
+    ("SeamlessM4T cross decode over 1500 slots, B=4, cache_len=1500",
+     "decode", (4, 1500, 16, 16, 64, 64, 1500)),
 )
 
 
@@ -2902,6 +2947,23 @@ def max_excess(out, ref, atol, rtol=None) -> tuple:
     return float(err.max()), float(share.max())
 
 
+def flash_dims(shape) -> tuple:
+    """(Sq, Skv, causal, window) of a flash check's shape (B, S, H, KV, hd,
+    vd, causal, window[, Skv]): Skv is S unless given (cross attention)."""
+    s, causal, window = shape[1], shape[6], shape[7]
+    return s, (shape[8] if len(shape) > 8 else s), causal, window
+
+
+def window_mask(sq, skv, window, dev):
+    """The causal window as a boolean (Sq, Skv) mask for
+    ``scaled_dot_product_attention``, or None without a window."""
+    if window is None:
+        return None
+    i = torch.arange(sq, device=dev)[:, None]
+    j = torch.arange(skv, device=dev)[None, :]
+    return (j <= i) & (j > i - window)
+
+
 def attention_case(kind, shape, dev) -> tuple:
     """(dims, run, plain, pairs, bound, library) of one attention check:
     the q, k, v shapes, the kernel call and its plain version as the model
@@ -2917,8 +2979,8 @@ def attention_case(kind, shape, dev) -> tuple:
 
     b, s, h, kv, hd, vd = shape[:6]
     if kind == "flash":
-        causal, window = shape[6:]
-        dims = ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, vd))
+        s, skv, causal, window = flash_dims(shape)
+        dims = ((b, s, h, hd), (b, skv, kv, hd), (b, skv, kv, vd))
         # the plain version's tiles are the model config's
         tiles = dict(causal=causal, window=window, q_block=512,
                      kv_block=1024)
@@ -2926,19 +2988,16 @@ def attention_case(kind, shape, dev) -> tuple:
                                               window=window)
         plain = lambda q, k, v, dtype=None: flash_attention_plain(
             q, k, v, dtype=dtype, **tiles)
-        pairs = allowed_pairs(s, s, causal, window)
-        bound = attention_bound(b=b, sq=s, skv=s, h=h, kv=kv, hd=hd, vd=vd,
-                                pairs=pairs)
-        mask = None
-        if window is not None:
-            i = torch.arange(s, device=dev)
-            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
-                                                 - window)
+        pairs = allowed_pairs(s, skv, causal, window)
+        bound = attention_bound(b=b, sq=s, skv=skv, h=h, kv=kv, hd=hd,
+                                vd=vd, pairs=pairs)
+        mask = window_mask(s, skv, window, dev)
 
         def library(q, k, v):
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             return (lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                qt, kt, vt, attn_mask=mask,
+                is_causal=mask is None and causal,
                 enable_gqa=True)), lambda o: o.transpose(1, 2)
     else:
         clen = shape[6]
@@ -3205,24 +3264,32 @@ def lm_serve_path(dev, rng) -> tuple:
 
 
 def replay_logits(params, cfg, prompts, tokens, max_len, dev, *, plain,
-                  cache=None) -> list:
+                  cache=None, inputs=None, crosses=None) -> list:
     """Logits (B, V), in f32, of wave 0 teacher-forced: the prefill's last
     position, then each decode step fed the served ``tokens``, through the
     plain attention versions (``plain``) or the kernels; ``cache`` starts
     the decode steps from a copy of that cache instead of the replay's own
-    prefill."""
-    from repro_torch.models.transformer import lm_decode_step, lm_prefill
+    prefill.  ``inputs``: the prefill batch's frontend inputs (``frames``
+    or ``patch_embeds``; the decode positions start after the patches);
+    ``crosses``, a list: the prefill's cross cache is appended to it."""
+    from repro_torch.models.transformer import lm_decode_step
+    from repro_torch.train.step import make_prefill_step
 
+    inputs = inputs or {}
     out = []
     with (plain_attention_layers() if plain
           else contextlib.nullcontext()):
-        logits, own = lm_prefill(params, cfg, prompts, cache_len=max_len)
-        out.append(logits[:, -1].float())
-        del logits
+        last, own = make_prefill_step(cfg, cache_len=max_len)(
+            params, {"tokens": prompts, **inputs})
+        out.append(last.float())
+        del last
+        if crosses is not None:
+            crosses.append(own["cross"])
         if cache is not None:
             own = {key: {k: t.clone() for k, t in tree.items()}
                    for key, tree in cache.items()}
-        plen = prompts.shape[1]
+        plen = prompts.shape[1] + (inputs["patch_embeds"].shape[1]
+                                   if "patch_embeds" in inputs else 0)
         for step in range(1, len(tokens)):
             pos = torch.tensor(plen + step - 1, dtype=torch.int32, device=dev)
             lg, own = lm_decode_step(params, cfg, own,
@@ -3238,7 +3305,16 @@ def drift_shares(got, want, tol=LM_LOGIT_TOL) -> list:
             for g, w in zip(got, want)]
 
 
-def lm_teacher_forced(engine, prompts, dev, *, routes=None) -> dict:
+def cross_drift(got, want) -> float:
+    """Max over the cross cache's k and v of max |got - want| as a share
+    of LM_LOGIT_TOL · max(max |want|, 1)."""
+    return max(float((got[n].float() - want[n].float()).abs().max())
+               / (LM_LOGIT_TOL * max(float(want[n].float().abs().max()),
+                                     1.0)) for n in ("k", "v"))
+
+
+def lm_teacher_forced(engine, prompts, dev, *, routes=None, inputs=None,
+                      served_cross=None) -> dict:
     """Replay wave 0 on the card through the plain attention versions,
     teacher-forced (:func:`replay_logits`), twice: at the config's tiles,
     and at half of them, the control, whose f32 sums differ from the first
@@ -3251,7 +3327,12 @@ def lm_teacher_forced(engine, prompts, dev, *, routes=None) -> dict:
     MoE model): the served wave's expert ids of every ``moe_mlp`` call,
     which both replays take (:func:`forced_routes`); how many token routes
     the first replay's own top-k would have changed is reported, not
-    asserted."""
+    asserted.  ``inputs``: wave 0's frontend inputs (a batch's
+    ``frames`` or ``patch_embeds``).  ``served_cross``: an encoder-decoder's served cross
+    cache of wave 0, whose bytes are compared with the replays' (bitwise
+    share), and whose drift from the plain replay's must stay within
+    max(1, LM_DRIFT_RATIO x the control's) of LM_LOGIT_TOL times its
+    largest value."""
     import dataclasses
 
     cfg, rec = engine.cfg, engine.record
@@ -3262,12 +3343,14 @@ def lm_teacher_forced(engine, prompts, dev, *, routes=None) -> dict:
                                kv_block=cfg.kv_block // 2)
     before = launch_counts()
     t0 = time.perf_counter()
-    flips, runs = [], []
+    flips, runs, crosses = [], [], []
     for c, f in ((cfg, flips), (half, [])):
         with (forced_routes(routes, f) if routes is not None
               else contextlib.nullcontext()):
-            runs.append(replay_logits(engine.params, c, toks, tokens,
-                                      engine.max_len, dev, plain=True))
+            runs.append(replay_logits(
+                engine.params, c, toks, tokens, engine.max_len, dev,
+                plain=True, inputs=inputs,
+                crosses=crosses if served_cross is not None else None))
     torch.cuda.synchronize()
     if launch_counts() != before:
         raise AssertionError("the plain replay launched a kernel")
@@ -3307,6 +3390,25 @@ def lm_teacher_forced(engine, prompts, dev, *, routes=None) -> dict:
                    routes_the_unforced_replay_would_flip=sum(flips),
                    flips_in_prefill_by_layer=flips[:cfg.num_layers],
                    flips_in_decode=sum(flips[cfg.num_layers:]))
+    if served_cross is not None:
+        share_c = cross_drift(served_cross, crosses[0])
+        control_c = cross_drift(crosses[1], crosses[0])
+        bound_c = max(1.0, LM_DRIFT_RATIO * control_c)
+        row.update(cross_cache={
+            "share_of_limit": share_c, "control_share_of_limit": control_c,
+            "bound_share_of_limit": bound_c,
+            "max_abs_diff": max(float((served_cross[n].float()
+                                       - crosses[0][n].float()).abs().max())
+                                for n in ("k", "v")),
+            "bitwise_share": float(np.mean([
+                float((served_cross[n] == crosses[0][n]).float().mean())
+                for n in ("k", "v")])),
+            "dtype": str(served_cross["k"].dtype).replace("torch.", ""),
+            "shape": list(served_cross["k"].shape)})
+        if not share_c <= bound_c:
+            raise AssertionError(f"the served cross cache disagrees with the "
+                                 f"plain replay's: {row['cross_cache']}")
+    del crosses
     if shares[worst] > bound:
         raise AssertionError(f"served logits disagree with the plain replay: "
                              f"{row}")
@@ -3436,16 +3538,20 @@ def forced_routes(record: list, flips: list):
 
 
 def family_config(arch: str, layers: int):
-    """The published config with its depth cut to ``layers``, and the cut
-    as the row's ``reduced``."""
+    """The published config with its depth cut to ``layers`` (an
+    encoder-decoder's encoder too), and the cut as the row's
+    ``reduced``."""
     import dataclasses
 
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
-    reduced = ({} if layers == cfg.num_layers else
-               {"num_layers": f"{cfg.num_layers} -> {layers}"})
-    return dataclasses.replace(cfg, num_layers=layers), reduced
+    cut = {"num_layers": layers}
+    if cfg.encoder_layers:
+        cut["encoder_layers"] = layers
+    reduced = {k: f"{getattr(cfg, k)} -> {n}" for k, n in cut.items()
+               if getattr(cfg, k) != n}
+    return dataclasses.replace(cfg, **cut), reduced
 
 
 def lm_serve_moe_path(arch, layers, requests, slots, prompt_len, new_tokens,
@@ -3582,12 +3688,228 @@ FAMILY_PATHS = {"lm-serve-moe": lm_serve_moe_path,
                 "lm-serve-mla": lm_serve_attention_path}
 
 
+# ---- the encoder-decoder and vision families at full width --------------
+# (phase, arch, requests, slots, prompt tokens, new tokens); both models
+# whole at their published widths.  Each SeamlessM4T-large-v2 request
+# brings FRONTEND_ENC_LEN encoder frames, each InternVL2-2B request its
+# frontend_len (256) patch embeddings, both 0.02 N(0, 1) from the seed, as
+# tests/test_arch_smoke.py makes them
+FRONTEND_SERVING = (
+    ("lm-serve-encdec", "seamless_m4t_large_v2", 8, 4, 512, 64),
+    ("lm-serve-vlm", "internvl2_2b", 8, 4, 512, 64),
+)
+FRONTEND_ENC_LEN = 1500
+# (phase, arch, layers, batch, text tokens): Seamless's 1,024 decoder
+# tokens over its 1,500 frames, InternVL2's 256 patches + 1,792 tokens
+FRONTEND_TRAINING = (
+    ("lm-train-encdec", "seamless_m4t_large_v2", 24, 4, 1024),
+    ("lm-train-vlm", "internvl2_2b", 24, 4, 1792),
+)
+
+
+def frontend_positions(cfg) -> tuple:
+    """(the batch key, positions a sequence) of the frontend stub's
+    inputs: an encoder-decoder's FRONTEND_ENC_LEN ``frames``, a vision
+    model's frontend_len ``patch_embeds``; (None, 0) for the others."""
+    if cfg.encoder_layers > 0:
+        return "frames", FRONTEND_ENC_LEN
+    if cfg.frontend == "vision":
+        return "patch_embeds", cfg.frontend_len
+    return None, 0
+
+
+def frontend_inputs(cfg, batch: int, rng) -> dict:
+    """The frontend stub's inputs of ``batch`` sequences
+    (:func:`frontend_positions`), numpy f32 (B, n, d) drawn 0.02 N(0, 1)
+    from ``rng``; none for the families without a frontend."""
+    name, n = frontend_positions(cfg)
+    if name is None:
+        return {}
+    return {name: (0.02 * rng.standard_normal((batch, n, cfg.d_model))
+                   ).astype(np.float32)}
+
+
+class FrontendData:
+    """Batches of ``data`` (a ``SyntheticLMData``) with the frontend
+    inputs of ``cfg`` (:func:`frontend_inputs`) drawn for each step from
+    (SEED, step); ``extra_positions`` of them come with each sequence."""
+
+    def __init__(self, cfg, data):
+        self.model_cfg, self.data, self.cfg = cfg, data, data.cfg
+        self.extra_positions = frontend_positions(cfg)[1]
+
+    def batch_at(self, step: int) -> dict:
+        batch = self.data.batch_at(step)
+        batch.update(frontend_inputs(self.model_cfg, batch["tokens"].shape[0],
+                                     np.random.default_rng((SEED, step))))
+        return batch
+
+
+def lm_serve_frontend_path(phase, arch, requests, slots, prompt_len,
+                           new_tokens, dev, rng) -> tuple:
+    """Serve an encoder-decoder (SeamlessM4T-large-v2, ``lm-serve-encdec``)
+    or a vision model (InternVL2-2B, ``lm-serve-vlm``) whole at full width
+    (seeded weights held in bf16, greedy): ``requests`` prompts of
+    ``prompt_len`` tokens, each with its frontend inputs
+    (:func:`frontend_inputs`), in waves of ``slots`` through
+    ``make_prefill_step``, then ``make_serve_step`` in lockstep at pos = P
+    + prompt_len + i (P the patches; ``ServingEngine`` passes no frontend
+    inputs, as the reference's).  Every attention call is a kernel launch
+    (counts set to 0 just before, read just after): per wave, per encoder
+    layer one unmasked flash launch over the frames and per decoder layer
+    a causal one and a cross one (Sq = prompt_len over Skv = the frames);
+    per decode step per decoder layer a decode launch over the self cache
+    and one over the whole cross cache; no plain call, no log-sum-exp.  A
+    decode step alone is timed eager and from a replayed CUDA graph.  Then
+    wave 0 is replayed through the plain attention versions
+    (:func:`lm_teacher_forced`, with the served cross cache against the
+    replay's).  Returns (rows, counts)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import (cast_params, init_params,
+                                           param_count_actual)
+    from repro_torch.models.transformer import (attention_calls, init_cache,
+                                                lm_decode_step)
+    from repro_torch.train.step import make_prefill_step, make_serve_step
+
+    cfg = get_config(arch)
+    prefix = cfg.frontend_len if cfg.frontend == "vision" else 0
+    max_len = prefix + prompt_len + new_tokens
+    waves = requests // slots
+    if waves * slots != requests:
+        raise ValueError(f"{phase}: {requests} requests do not fill waves of "
+                         f"{slots}")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    served = cast_params(params, torch.bfloat16)
+    del params
+    torch.cuda.synchronize()
+    setup_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t0
+    prompts = rng.integers(0, cfg.vocab_size, (requests, prompt_len),
+                           dtype=np.int32)
+    inputs = [{k: torch.from_numpy(a).to(dev) for k, a in
+               frontend_inputs(cfg, slots, rng).items()}
+              for _ in range(waves)]
+    prefill = make_prefill_step(cfg, cache_len=max_len)
+    serve = make_serve_step(cfg)
+    record, outputs, plain_calls = [], [], []
+    prefill_s = decode_s = 0.0
+    steps = 0
+    cross0 = None
+    flash = wrapper("flash_attention")
+    torch.cuda.reset_peak_memory_stats()
+    with counting_plain_attention(plain_calls):
+        reset_launch_counts()
+        flash.lse_launches = 0
+        t_wall = time.perf_counter()
+        for w in range(waves):
+            batch = {"tokens": torch.from_numpy(
+                prompts[w * slots:(w + 1) * slots]).to(dev), **inputs[w]}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill(served, batch)
+            # a view of the prompt's (B, S, V) logits, which the copy frees
+            logits = logits.clone()
+            cur = logits.argmax(-1).to(torch.int32)
+            torch.cuda.synchronize()
+            prefill_s += time.perf_counter() - t0
+            if w == 0:
+                record.append((logits, cur))
+                cross0 = cache.get("cross")
+            toks = [cur]
+            t0 = time.perf_counter()
+            pos = torch.tensor(prefix + prompt_len, dtype=torch.int32,
+                               device=dev)
+            for _ in range(new_tokens - 1):
+                logits, cache = serve(served, cache, cur[:, None], pos)
+                cur = logits.argmax(-1).to(torch.int32)
+                if w == 0:
+                    record.append((logits, cur))
+                toks.append(cur)
+                pos = pos + 1
+                steps += 1
+            torch.cuda.synchronize()
+            decode_s += time.perf_counter() - t0
+            outputs.append(torch.stack(toks, 1).cpu())
+            del cache, logits
+        wall = time.perf_counter() - t_wall
+        counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if plain_calls:
+        raise AssertionError(f"{phase}: serving called a plain version: "
+                             f"{sorted(set(plain_calls))}")
+    if flash.lse_launches:
+        raise AssertionError(f"{phase}: serving wrote the log-sum-exp in "
+                             f"{flash.lse_launches} flash launches")
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want.update(flash_attention=attention_calls(cfg) * waves,
+                decode_attention=attention_calls(cfg, decode=True) * steps)
+    if counts != want:
+        raise AssertionError(f"{phase}: serving launched {counts}, expected "
+                             f"{want}")
+    out = torch.cat(outputs)
+    if tuple(out.shape) != (requests, new_tokens) or not bool(
+            ((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError(f"{phase}: outputs {tuple(out.shape)}, "
+                             f"{out[0, :8].tolist()}...")
+    cache = init_cache(cfg, slots, max_len, enc_len=FRONTEND_ENC_LEN,
+                       device=dev)
+    token = torch.zeros((slots, 1), dtype=torch.int32, device=dev)
+    pos = torch.tensor(prefix + prompt_len + new_tokens // 2,
+                       dtype=torch.int32, device=dev)
+    step = lambda: lm_decode_step(served, cfg, cache, token, pos)
+    step_eager_ms = cuda_ms(step, reps=10)
+    step_device_ms = graph_ms(step, reps=10)
+    del cache
+    row = {"phase": phase, "model": cfg.name,
+           "params": param_count_actual(cfg), "layers": cfg.num_layers,
+           "encoder_layers": cfg.encoder_layers,
+           "attention_calls_per_prefill": attention_calls(cfg),
+           "attention_calls_per_decode_step": attention_calls(cfg,
+                                                              decode=True),
+           "d_model": cfg.d_model, "heads": cfg.num_heads,
+           "kv_heads": cfg.num_kv_heads,
+           "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "activation_dtype": cfg.activation_dtype,
+           "frontend_inputs": {k: list(v.shape)
+                               for k, v in inputs[0].items()},
+           "requests": requests, "slots": slots, "prompt_len": prompt_len,
+           "new_tokens": new_tokens, "max_len": max_len, "waves": waves,
+           "drive": "make_prefill_step, then make_serve_step in lockstep",
+           "setup_s": setup_s, "wall_s": wall, "prefill_s": prefill_s,
+           "decode_s": decode_s, "steps": steps,
+           "tokens_out": int(out.numel()),
+           "tokens_per_s": steps * slots / decode_s,
+           "ms_per_decode_step": decode_s / steps * 1e3,
+           "prefill_s_per_wave": prefill_s / waves,
+           "decode_step_eager_ms": step_eager_ms,
+           "decode_step_device_ms": step_device_ms,
+           "decode_step_device_busy_share": step_device_ms / step_eager_ms,
+           "peak_memory_gb": peak / 1e9,
+           "setup_peak_memory_gb": setup_peak / 1e9,
+           "launches": counts, "plain_attention_calls": len(plain_calls),
+           "flash_lse_launches": flash.lse_launches,
+           "timing": "host clock around each wave's prefill and its decode "
+                     "loop, each ending in a sync; tokens_per_s counts the "
+                     "decode steps' tokens over the decode time"}
+    holder = SimpleNamespace(cfg=cfg, params=served, record=record,
+                             slots=slots, max_len=max_len)
+    replay = lm_teacher_forced(holder, prompts, dev, inputs=inputs[0],
+                               served_cross=cross0)
+    del holder, served, record, inputs, cross0
+    torch.cuda.empty_cache()
+    return [row, replay], counts
+
+
 # ---- training: the flash backward and Qwen2-0.5B steps ------------------
 # Mixtral-8x22B's training attention (lm-train-moe: B = 4, S = 6,144 past
 # its 4,096 window, 48/8 heads of 128)
 MIXTRAL_BWD_SHAPE = (4, 6144, 48, 8, 128, 128, True, 4096)
-# the flash backward's checks: (tag, (B, S, H, KV, hd, vd, causal, window),
-# dtype, timed); the first is Qwen2-0.5B's training shape, the kernels
+# the flash backward's checks: (tag, (B, S, H, KV, hd, vd, causal,
+# window[, Skv]), dtype, timed); the first is Qwen2-0.5B's training shape, the kernels
 # line's main row; the hybrid's and MLA's training shapes (Zamba2-7B's
 # shared attention, hd 112, 32/32 heads; MiniCPM3-4B's hd 96 with vd 64,
 # 40/40), MLA's smoke dims and Mixtral's training shape are timed too
@@ -3608,6 +3930,18 @@ FLASH_BWD_CHECKS = (
      (2, 300, 4, 4, 24, 16, True, None), "bfloat16", True),
     ("Mixtral-8x22B training shape, B=4, S=6144, hd 128, G=6, window 4096",
      MIXTRAL_BWD_SHAPE, "bfloat16", True),
+)
+# the backward at the new families' training shapes (lm-train-encdec's
+# encoder, unmasked, and its cross attention, Sq 1,024 over Skv 1,500;
+# lm-train-vlm's causal 256 + 1,792 positions), timed, drawn from the
+# FRONTEND_SEED generator after FRONTEND_ATTENTION_CHECKS
+FRONTEND_BWD_CHECKS = (
+    ("SeamlessM4T encoder training shape, B=4, S=1500, not causal",
+     (4, 1500, 16, 16, 64, 64, False, None), "bfloat16", True),
+    ("SeamlessM4T cross training shape, B=4, Sq=1024 over Skv=1500",
+     (4, 1024, 16, 16, 64, 64, False, None, 1500), "bfloat16", True),
+    ("InternVL2-2B training shape, B=4, S=2048, hd 128, G=2",
+     (4, 2048, 16, 8, 128, 128, True, None), "bfloat16", True),
 )
 # Tolerances against the f64 plain versions on the same inputs (|err| <=
 # atol + rtol |ref|).  lse: 1e-5 (a sum of exps in f32, log of it; the bf16
@@ -3643,17 +3977,35 @@ TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_GRAD_RTOL = 1e-3, 1e-2, 0.05
 TRAIN_RESUME_RTOL = 1e-4
 
 
-def flash_bwd_bound(b, s, h, kv, hd, vd, causal, window, elt) -> dict:
-    """The least device time of one backward call: 2 (3 hd + 2 vd)
-    operations per allowed (query, key) pair and head over the bf16
-    tensor-core peak, or its bytes (q, k, v, dq, dk, dv at ``elt`` bytes;
-    O, dO and lse in f32, each once) over HBM's rate."""
-    pairs = allowed_pairs(s, s, causal, window)
+def flash_bwd_bound(b, s, h, kv, hd, vd, causal, window, elt,
+                    skv=None) -> dict:
+    """The least device time of one backward call (Sq = ``s`` queries over
+    ``skv`` keys, ``s`` by default): 2 (3 hd + 2 vd) operations per allowed
+    (query, key) pair and head over the bf16 tensor-core peak, or its
+    bytes (q, k, v, dq, dk, dv at ``elt`` bytes; O, dO and lse in f32,
+    each once) over HBM's rate."""
+    skv = s if skv is None else skv
+    pairs = allowed_pairs(s, skv, causal, window)
     ops = 2 * (3 * hd + 2 * vd) * h * b * pairs
-    nbytes = (2 * elt * (b * s * h * hd + b * s * kv * (hd + vd))
+    nbytes = (2 * elt * (b * s * h * hd + b * skv * kv * (hd + vd))
               + 4 * (2 * b * s * h * vd + b * h * s))
     byte_s, op_s = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS
     return {"pairs": pairs, "operations": ops, "bytes": nbytes,
+            "bound_ms": max(byte_s, op_s) * 1e3,
+            "bound_by": "bytes" if byte_s >= op_s else "operations"}
+
+
+def flash_fwd_lse_bound(b, s, skv, h, kv, hd, vd, causal, window,
+                        elt) -> dict:
+    """The least device time of the training forward (``return_lse``):
+    :func:`attention_bound`'s operations, and its bytes with the output
+    written in f32 and the lse (f32) beside it."""
+    pairs = allowed_pairs(s, skv, causal, window)
+    ops = 2 * (hd + vd) * h * b * pairs
+    nbytes = (elt * (b * s * h * hd + b * skv * kv * (hd + vd))
+              + 4 * (b * s * h * vd + b * h * s))
+    byte_s, op_s = nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS
+    return {"bytes": nbytes, "operations": ops,
             "bound_ms": max(byte_s, op_s) * 1e3,
             "bound_by": "bytes" if byte_s >= op_s else "operations"}
 
@@ -3664,11 +4016,7 @@ def sdpa_fwd_bwd(q, k, v, dout, causal, window):
     goes in as an explicit boolean mask."""
     import torch.nn.functional as F
 
-    s = q.shape[1]
-    mask = None
-    if window is not None:
-        i = torch.arange(s, device=q.device)
-        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    mask = window_mask(q.shape[1], k.shape[1], window, q.device)
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
     gt = dout.to(q.dtype).transpose(1, 2).contiguous()
@@ -3691,11 +4039,12 @@ def check_flash_backward(tag, shape, dtype, rng, dev, timed,
     check of ``tools/attention_mutants.py``)."""
     from repro_torch.kernels.flash_attention import kernel as FA
 
-    b, s, h, kv, hd, vd, causal, window = shape
+    b, _, h, kv, hd, vd = shape[:6]
+    s, skv, causal, window = flash_dims(shape)
     dt = getattr(torch, dtype)
     q, k, v = (torch.from_numpy(rng.standard_normal(d).astype(np.float32))
-               .to(dev, dt) for d in ((b, s, h, hd), (b, s, kv, hd),
-                                      (b, s, kv, vd)))
+               .to(dev, dt) for d in ((b, s, h, hd), (b, skv, kv, hd),
+                                      (b, skv, kv, vd)))
     dout = torch.from_numpy(rng.standard_normal((b, s, h, vd)).astype(
         np.float32)).to(dev)
     opts = dict(causal=causal, window=window)
@@ -3746,8 +4095,16 @@ def check_flash_backward(tag, shape, dtype, rng, dev, timed,
     row["max_abs_err"] = max(row[f"{n}_max_abs_err"]
                              for n in ("dq", "dk", "dv"))
     if timed:
+        import torch.nn.functional as F
+
         del again
         bwd = lambda: FA.flash_attention_bwd(q, k, v, out, lse, dout, **opts)
+        # the training forward's yardstick: SDPA's forward alone
+        mask = window_mask(s, skv, window, dev)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        sdpa_fwd = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=mask is None and causal,
+            enable_gqa=True)
         nodes = graph_kernel_nodes(bwd)
         if nodes != 2:
             raise AssertionError(f"flash backward, {tag}: one call captured "
@@ -3760,6 +4117,10 @@ def check_flash_backward(tag, shape, dtype, rng, dev, timed,
             fwd_lse_ms=graph_ms(lambda: FA.flash_attention(
                 q, k, v, return_lse=True, **opts)),
             fwd_ms=graph_ms(lambda: FA.flash_attention(q, k, v, **opts)),
+            library_fwd_ms=graph_ms(sdpa_fwd),
+            fwd_lse_bound=flash_fwd_lse_bound(b, s, skv, h, kv, hd, vd,
+                                              causal, window,
+                                              q.element_size()),
             plain_ms=graph_ms(lambda: FA.flash_attention_bwd_plain(
                 q, k, v, out, lse, dout, q_block=512, kv_block=1024,
                 **opts), reps=3),
@@ -3771,7 +4132,7 @@ def check_flash_backward(tag, shape, dtype, rng, dev, timed,
                    "CUDA graph; kernel_eager_ms and library_ms: eager calls "
                    "back to back between two events",
             **flash_bwd_bound(b, s, h, kv, hd, vd, causal, window,
-                              q.element_size()))
+                              q.element_size(), skv))
         row["kernel_fwd_lse_plus_bwd_ms"] = row["fwd_lse_ms"] + row[
             "kernel_ms"]
         row["roofline_share"] = row["bound_ms"] / row["kernel_ms"]
@@ -4010,6 +4371,13 @@ def train_grads_vs_plain(phase, params, cfg, batch, *,
                              f"expected {want}")
     kernel_leaves = {k: g.cpu() for k, g in flat_tree(grads_k).items()}
     del grads_k
+    # an encoder's gradients arrive only through cross attention's dk, dv
+    encoder_norms = {k: float(g.float().norm())
+                     for k, g in kernel_leaves.items()
+                     if k.startswith("/encoder/")}
+    if not all(np.isfinite(n) and n > 0 for n in encoder_norms.values()):
+        raise AssertionError(f"{cfg.name}: an encoder leaf's gradient is "
+                             f"zero or not finite: {encoder_norms}")
 
     def plain_step(c, flips):
         routes = (forced_routes(record, flips) if cfg.moe is not None
@@ -4063,6 +4431,9 @@ def train_grads_vs_plain(phase, params, cfg, batch, *,
                                           for k in controls},
            "launches_kernel_step": counts,
            "wall_s": time.perf_counter() - t0}
+    if encoder_norms:
+        row.update(encoder_grad_norm_kernel=encoder_norms,
+                   encoder_grad_rel_l2={k: rel[k] for k in encoder_norms})
     if cfg.moe is not None:
         row.update(forced_route_calls=len(flips),
                    routes_the_plain_step_would_flip=int(sum(flips)),
@@ -4139,12 +4510,14 @@ def timed_flash_backward(events: list):
 
 
 def lm_train_family_path(phase, arch, layers, batch, seq, dev) -> tuple:
-    """Train an MoE, SSM, hybrid or MLA model at full width with its depth
-    cut (f32 parameters, bf16 activations, ``SyntheticLMData(lag=1)`` over
-    TRAIN_DATA_VOCAB ids, remat) through ``make_train_step``: one step's
-    gradients with the kernels against the plain attention before any
-    optimizer state exists (at most FAMILY_CMP_TOKENS of the batch, the
-    hybrid at FAMILY_CMP_HYBRID_LAYERS); the
+    """Train an MoE, SSM, hybrid, MLA, encoder-decoder or vision model at
+    full width with its depth cut (f32 parameters, bf16 activations,
+    ``SyntheticLMData(lag=1)`` over TRAIN_DATA_VOCAB ids, with a
+    frontend's inputs (:class:`FrontendData`), remat) through
+    ``make_train_step``: one step's gradients with the kernels against the
+    plain attention before any optimizer state exists (the rows of the
+    batch that hold at most FAMILY_CMP_TOKENS positions, frames and
+    patches counted, the hybrid at FAMILY_CMP_HYBRID_LAYERS); the
     same in an f32 model at FAMILY_F32_*; then :func:`train_family_steps`.
     Returns (rows, launch counts of the donated steps)."""
     import dataclasses
@@ -4161,10 +4534,10 @@ def lm_train_family_path(phase, arch, layers, batch, seq, dev) -> tuple:
     cfg, reduced = family_config(arch, layers)
     cmp_cfg, cmp_reduced = (family_config(arch, FAMILY_CMP_HYBRID_LAYERS)
                             if cfg.family == "hybrid" else (cfg, reduced))
-    data = SyntheticLMData(DataConfig(TRAIN_DATA_VOCAB, seq, batch,
-                                      seed=SEED, lag=1), host_batch=batch)
+    data = FrontendData(cfg, SyntheticLMData(DataConfig(
+        TRAIN_DATA_VOCAB, seq, batch, seed=SEED, lag=1), host_batch=batch))
     params = init_params(cmp_cfg, seed(), dev)
-    rows_cmp = max(1, FAMILY_CMP_TOKENS // seq)
+    rows_cmp = max(1, FAMILY_CMP_TOKENS // (seq + data.extra_positions))
     row, _ = train_grads_vs_plain(f"{phase}-vs-plain", params, cmp_cfg,
                                   shard_batch({k: v[:rows_cmp] for k, v in
                                                data.batch_at(0).items()},
@@ -4179,9 +4552,9 @@ def lm_train_family_path(phase, arch, layers, batch, seq, dev) -> tuple:
                   else FAMILY_F32_LAYERS)
     cfg32 = dataclasses.replace(family_config(arch, f32_layers)[0],
                                 activation_dtype="float32")
-    data32 = SyntheticLMData(DataConfig(
+    data32 = FrontendData(cfg32, SyntheticLMData(DataConfig(
         TRAIN_DATA_VOCAB, FAMILY_F32_SEQ, FAMILY_F32_BATCH, seed=SEED,
-        lag=1), host_batch=FAMILY_F32_BATCH)
+        lag=1), host_batch=FAMILY_F32_BATCH))
     params = init_params(cfg32, seed(), dev)
     row, _ = train_grads_vs_plain(f"{phase}-f32-vs-plain", params, cfg32,
                                   shard_batch(data32.batch_at(0), dev),
@@ -4291,6 +4664,9 @@ def train_family_steps(phase, cfg, reduced, data, dev) -> tuple:
            "step_s": step_s, "step_s_median": step_median,
            "tokens_per_s": batch * seq / step_median,
            "tokens_per_s_by_step": [batch * seq / t for t in step_s],
+           "frontend_positions": data.extra_positions,
+           "positions_per_s": batch * (seq + data.extra_positions)
+           / step_median,
            "peak_memory_gb_by_step": peaks, "peak_memory_gb": max(peaks),
            "card_memory_gb": card_gb,
            "held_by_earlier_phases_gb": held_before_gb,
@@ -4860,6 +5236,11 @@ def main() -> int:
         attn_rows.append(check_attention_kernel(tag, family, shape, rng, dev))
         emit(attn_rows[-1])
     flash_main, decode_main = attn_rows[0], attn_rows[4]
+    frontend_rng = np.random.default_rng(FRONTEND_SEED)
+    for tag, family, shape in FRONTEND_ATTENTION_CHECKS:
+        attn_rows.append(check_attention_kernel(tag, family, shape,
+                                                frontend_rng, dev))
+        emit(attn_rows[-1])
 
     # ---- 8. LM serving: Qwen2-0.5B at full width ---------------------------
     t0 = time.perf_counter()
@@ -4882,6 +5263,10 @@ def main() -> int:
         bwd_rows.append(check_flash_backward(tag, shape, dtype, row_rng, dev,
                                              timed))
         emit(bwd_rows[-1])
+    for tag, shape, dtype, timed in FRONTEND_BWD_CHECKS:
+        bwd_rows.append(check_flash_backward(tag, shape, dtype, frontend_rng,
+                                             dev, timed))
+        emit(bwd_rows[-1])
     torch.cuda.empty_cache()
 
     # ---- 9c. LM training: Qwen2-0.5B at full width -------------------------
@@ -4903,8 +5288,19 @@ def main() -> int:
         emit({"phase": f"{phase}-total", "model": arch,
               "wall_s": time.perf_counter() - t0})
 
-    # ---- 9e. training the MoE, SSM, hybrid and MLA families ---------------
-    for phase, arch, *shape in FAMILY_TRAINING:
+    # ---- 9d'. the encoder-decoder and vision families, serving -----------
+    for phase, arch, *shape in FRONTEND_SERVING:
+        t0 = time.perf_counter()
+        rows, family_counts[f"{phase}:{arch}"] = lm_serve_frontend_path(
+            phase, arch, *shape, dev, rng)
+        for row in rows:
+            emit(row)
+        emit({"phase": f"{phase}-total", "model": arch,
+              "wall_s": time.perf_counter() - t0})
+
+    # ---- 9e. training the MoE, SSM, hybrid, MLA, encoder-decoder and vision
+    # families -------------------------------------------------------------
+    for phase, arch, *shape in FAMILY_TRAINING + FRONTEND_TRAINING:
         t0 = time.perf_counter()
         rows, family_counts[f"{phase}:{arch}"] = lm_train_family_path(
             phase, arch, *shape, dev)
@@ -5048,7 +5444,9 @@ def main() -> int:
                     "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"],
                     "roofline_share": r["roofline_share"],
-                    "fwd_lse_ms": r["fwd_lse_ms"]}
+                    "fwd_lse_ms": r["fwd_lse_ms"],
+                    "fwd_lse_bound_ms": r["fwd_lse_bound"]["bound_ms"],
+                    "library_fwd_ms": r["library_fwd_ms"]}
                    for r in bwd_rows if "kernel_ms" in r]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,13 @@
 """Parameter definitions: one source of truth for shape, init and dtype.
 
-The port of ``repro.models.params`` for the dense GQA, MLA, MoE, SSM and
-hybrid families.
+The port of ``repro.models.params`` for every family: dense GQA and MLA
+(the vision frontend's text backbone among them), MoE, SSM, hybrid and
+encoder-decoder.
 ``build_defs(cfg)`` returns a tree (nested dicts) of ``ParamDef`` leaves,
 and ``init_params`` materializes it.  Per-layer weights keep the
 reference's stacked ``[L, ...]`` leaves (the hybrid's one shared block is
-unstacked), so that ``convert.lm_params_from_numpy`` maps the JAX tree one
+unstacked; an encoder-decoder's encoder is stacked over its own
+``encoder_layers``), so that ``convert.lm_params_from_numpy`` maps the JAX tree one
 for one.  The reference's logical sharding names wait for the sharding
 slice (ROADMAP queue 1 entry 15).
 """
@@ -19,7 +21,8 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 
-#: the ROADMAP entry that holds the model families the port does not have
+#: the ROADMAP entry that holds what of the model path the port does not
+#: have
 NOT_PORTED_ENTRY = "ROADMAP queue 1 entry 17b"
 
 
@@ -30,29 +33,23 @@ class ParamDef(NamedTuple):
 
 
 #: the model families the port builds (MLA is a dense model with
-#: ``cfg.mla`` set)
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+#: ``cfg.mla`` set, the vision frontend a dense model with
+#: ``cfg.frontend == "vision"``)
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
 
 
 def require_ported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a decoder of a family the port builds:
-    dense GQA or MLA, MoE, SSM (Mamba2) or hybrid (Zamba2); the others
-    wait for their ROADMAP entry."""
-    missing = [name for name, present in (
-        ("encoder-decoder", cfg.encoder_layers > 0),
-        ("modality frontend", cfg.frontend is not None)) if present]
-    if missing or cfg.family not in PORTED_FAMILIES:
-        what = ", ".join(missing) or f"family {cfg.family!r}"
+    """Raise unless ``cfg`` is of a family the port builds."""
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: {what} is not ported yet ({NOT_PORTED_ENTRY}); "
-            f"the port builds dense GQA, MLA, MoE, SSM and hybrid models "
-            f"only")
+            f"{cfg.name}: family {cfg.family!r} is not ported "
+            f"({NOT_PORTED_ENTRY}); the port builds {PORTED_FAMILIES}")
 
 
-def _attn_defs(cfg: ModelConfig,
-               layers: Optional[int]) -> Dict[str, ParamDef]:
+def _attn_defs(cfg: ModelConfig, layers: Optional[int],
+               cross: bool = False) -> Dict[str, ParamDef]:
     """GQA attention projections, stacked over ``layers`` (``None``: the
-    hybrid's unstacked shared block)."""
+    hybrid's unstacked shared block); cross attention has no QKV bias."""
     d, h, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     hd = cfg.resolved_head_dim
     lead = () if layers is None else (layers,)
@@ -62,7 +59,7 @@ def _attn_defs(cfg: ModelConfig,
         "wv": ParamDef(lead + (d, kv * hd)),
         "wo": ParamDef(lead + (h * hd, d)),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         defs["bq"] = ParamDef(lead + (h * hd,), "zeros")
         defs["bk"] = ParamDef(lead + (kv * hd,), "zeros")
         defs["bv"] = ParamDef(lead + (kv * hd,), "zeros")
@@ -134,8 +131,8 @@ def _block_norms(layers: int, d: int, n: int = 2) -> Dict[str, ParamDef]:
 
 
 def build_defs(cfg: ModelConfig) -> Dict[str, Any]:
-    """The parameter-definition tree of a dense GQA or MLA, MoE, SSM or
-    hybrid model."""
+    """The parameter-definition tree of a dense GQA or MLA, MoE, SSM,
+    hybrid or encoder-decoder model."""
     require_ported(cfg)
     d, v, L = cfg.d_model, cfg.vocab_size, cfg.num_layers
     defs: Dict[str, Any] = {
@@ -146,6 +143,18 @@ def build_defs(cfg: ModelConfig) -> Dict[str, Any]:
         defs["lm_head"] = ParamDef((d, v), "small_normal")
     if cfg.family in ("ssm", "hybrid"):
         defs["blocks"] = {"ssm": _ssm_defs(cfg, L), **_block_norms(L, d, 1)}
+    elif cfg.encoder_layers > 0:
+        # the encoder's bidirectional blocks, then decoder blocks with self
+        # attention, cross attention over the encoder's output and 3 norms
+        eL = cfg.encoder_layers
+        defs["encoder"] = {"attn": _attn_defs(cfg, eL),
+                           "mlp": _mlp_defs(cfg, eL),
+                           **_block_norms(eL, d, 2)}
+        defs["enc_final_norm"] = ParamDef((d,), "ones")
+        defs["blocks"] = {"attn": _attn_defs(cfg, L),
+                          "cross": _attn_defs(cfg, L, cross=True),
+                          "mlp": _mlp_defs(cfg, L),
+                          **_block_norms(L, d, 3)}
     else:
         defs["blocks"] = {"attn": (_mla_defs(cfg, L) if cfg.mla is not None
                                    else _attn_defs(cfg, L)),

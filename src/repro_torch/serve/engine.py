@@ -12,7 +12,11 @@ cache tree is the family's, passed through as ``lm_prefill`` makes it: an
 SSM (Mamba2) wave carries its conv and state instead of a KV cache (its
 prefill ignores ``max_len``), a hybrid wave both, an MLA wave its bf16
 latent and rope key; left padding runs the pad tokens through that state,
-and through an MoE router, as in the reference.
+and through an MoE router, as in the reference.  As the reference's
+engine, it passes no frontend inputs to the prefill: it serves a vision
+model as a text-only one, and refuses an encoder-decoder, whose encoder
+needs its frames (serve one through ``train.step.make_prefill_step`` and
+``make_serve_step``).
 """
 
 from __future__ import annotations
@@ -54,7 +58,7 @@ class ServeStats:
 
 class ServingEngine:
     """Serves :class:`Request` waves of a dense GQA or MLA, MoE, SSM or
-    hybrid model on ``device`` (the card unless another device is
+    hybrid model, or a vision model's text backbone, on ``device`` (the card unless another device is
     named).  ``params`` is the tree of
     ``params.init_params`` (or ``convert.lm_params_from_numpy``); the engine
     holds one copy in the activation dtype on its device, made once here.
@@ -66,6 +70,12 @@ class ServingEngine:
                  max_len: int = 256, greedy: bool = True, seed: int = 0,
                  device=None):
         require_ported(cfg)
+        if cfg.encoder_layers > 0:
+            raise ValueError(
+                f"{cfg.name}: ServingEngine passes no encoder frames to the "
+                f"prefill, as the reference's; serve an encoder-decoder "
+                f"through train.step.make_prefill_step (its batch's "
+                f"'frames') and make_serve_step")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = cast_params(params, getattr(torch, cfg.activation_dtype),

@@ -1,14 +1,15 @@
 """Train, eval, prefill and serve steps: the port of ``repro.train.step``.
 
-``make_train_step(cfg)`` returns ``step(params, opt_state, batch)`` for the
-dense GQA, MLA, MoE, SSM and hybrid families: the loss's gradient by
-autograd (every attention call through the flash kernels, forward and
-backward), clipped to a global norm, then AdamW written into the
-parameters and moments it was given, as the reference's launcher donates
-them.  Batches are dicts of tensors on the parameters' device:
-``tokens`` and ``labels`` (B, S) int32, optionally ``loss_mask`` (B, S).
-The encoder-decoder and modality-frontend families raise in
-``lm_forward`` (ROADMAP queue 1 entry 17b).
+``make_train_step(cfg)`` returns ``step(params, opt_state, batch)`` for
+every family: the loss's gradient by autograd (every attention call
+through the flash kernels, forward and backward), clipped to a global
+norm, then AdamW written into the parameters and moments it was given, as
+the reference's launcher donates them.  Batches are dicts of tensors on
+the parameters' device: ``tokens`` and ``labels`` (B, S) int32,
+optionally ``loss_mask`` (B, S); a vision model's also ``patch_embeds``
+(B, P, d), put before the tokens, with the loss over the S text positions
+only; an encoder-decoder's also ``frames`` (B, S_enc, d), its encoder's
+input.  The prefill step passes both on as well.
 """
 
 from __future__ import annotations
@@ -26,6 +27,27 @@ from repro_torch.train.optimizer import (AdamWState, adamw_update_,
                                          global_norm, tree_leaves, tree_map)
 
 
+def _model_inputs(cfg: ModelConfig,
+                  batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The frontend stubs' inputs of ``batch`` as ``lm_forward``'s and
+    ``lm_prefill``'s keyword arguments."""
+    kw: Dict[str, Any] = {}
+    if cfg.frontend == "vision":
+        kw["prefix_embeds"] = batch["patch_embeds"]
+    if cfg.encoder_layers > 0:
+        kw["encoder_embeds"] = batch["frames"]
+    return kw
+
+
+def _text_logits(cfg: ModelConfig, logits: torch.Tensor,
+                 batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The logits the loss covers: a vision model's text positions only
+    (its patch embeddings are inputs)."""
+    if cfg.frontend == "vision":
+        return logits[:, batch["patch_embeds"].shape[1]:]
+    return logits
+
+
 def _loss_and_grad_leaves(params: Dict[str, Any], cfg: ModelConfig,
                           batch: Dict[str, torch.Tensor], remat: bool,
                           z_loss: float
@@ -34,8 +56,10 @@ def _loss_and_grad_leaves(params: Dict[str, Any], cfg: ModelConfig,
     """(loss, accuracy, the gradient of every leaf of ``params`` in
     ``tree_leaves`` order)."""
     live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    logits = lm_forward(live, cfg, batch["tokens"], remat=remat)
-    loss, acc = cross_entropy(logits, batch["labels"],
+    logits = lm_forward(live, cfg, batch["tokens"], remat=remat,
+                        **_model_inputs(cfg, batch))
+    loss, acc = cross_entropy(_text_logits(cfg, logits, batch),
+                              batch["labels"],
                               batch.get("loss_mask"), z_loss=z_loss)
     del logits
     return (loss.detach(), acc,
@@ -100,9 +124,10 @@ def make_eval_step(cfg: ModelConfig) -> Callable:
 
     @torch.no_grad()
     def step(params, batch):
-        logits = lm_forward(params, cfg, batch["tokens"])
-        loss, acc = cross_entropy(logits, batch["labels"],
-                                  batch.get("loss_mask"))
+        logits = lm_forward(params, cfg, batch["tokens"],
+                            **_model_inputs(cfg, batch))
+        loss, acc = cross_entropy(_text_logits(cfg, logits, batch),
+                                  batch["labels"], batch.get("loss_mask"))
         return {"loss": loss, "accuracy": acc}
 
     return step
@@ -110,12 +135,14 @@ def make_eval_step(cfg: ModelConfig) -> Callable:
 
 def make_prefill_step(cfg: ModelConfig, *, cache_len: int) -> Callable:
     """Prompt processing: ``step(params, batch) -> (next-token logits (B,
-    V), caches)``."""
+    V), caches)``; ``batch`` holds the ``tokens`` and a frontend's inputs
+    (``patch_embeds``, an encoder-decoder's ``frames``)."""
 
     @torch.no_grad()
     def step(params, batch):
         logits, cache = lm_prefill(params, cfg, batch["tokens"],
-                                   cache_len=cache_len)
+                                   cache_len=cache_len,
+                                   **_model_inputs(cfg, batch))
         return logits[:, -1], cache
 
     return step

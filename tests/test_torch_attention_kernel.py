@@ -55,6 +55,18 @@ FLASH_SHAPES = {
     "mla-smoke-hd24-vd16": (2, 70, 4, 4, 24, 16, True, None),
 }
 
+#: flash cases whose keys are not the queries (an encoder-decoder's cross
+#: attention): B, Sq, H, KV, hd, vd, causal, window, Skv; more keys than
+#: queries and fewer, one query, Seamless's 1,500 frames (no tile
+#: multiple), and a causal mask over keys past the last query
+FLASH_CROSS_CASES = {
+    "sq-100-skv-211": (1, 100, 6, 2, 64, 32, False, None, 211),
+    "sq-1-skv-77": (2, 1, 14, 2, 64, 64, False, None, 77),
+    "seamless-sq-64-skv-1500": (2, 64, 16, 16, 64, 64, False, None, 1500),
+    "sq-300-skv-130-hd112": (1, 300, 4, 4, 112, 112, False, None, 130),
+    "causal-sq-70-skv-200": (1, 70, 8, 4, 128, 128, True, None, 200),
+}
+
 #: cases of the bf16 (tensor-core) flash kernel: B, Sq, H, KV, hd, vd,
 #: causal, window, scale (None: hd^-0.5)
 FLASH_BF16_CASES = {
@@ -117,6 +129,8 @@ FLASH_BWD_CASES = {
     "s-65-hd112": (1, 65, 12, 2, 112, 112, True, None),
     "g7-s9": (1, 9, 14, 2, 64, 64, True, None),
     "not-causal-skv-211-sq-100": (1, 100, 6, 2, 64, 32, False, None, 211),
+    "seamless-cross-g1-sq-64-skv-1500": (1, 64, 16, 16, 64, 64, False, None,
+                                         1500),
 }
 
 DECODE_SHAPES = {
@@ -240,6 +254,29 @@ def test_flash_kernel_matches_plain_version(cuda_device, name, dtype):
     np.testing.assert_allclose(out.double().cpu().numpy(),
                                ref.cpu().numpy(), **tol)
     # no atomics: a second launch gives the same bits
+    assert torch.equal(out, flash_attention(q, k, v, causal=causal,
+                                            window=window))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(FLASH_CROSS_CASES))
+def test_flash_kernel_with_keys_that_are_not_the_queries(cuda_device, name,
+                                                         dtype):
+    """Sq queries over Skv keys, as cross attention calls the kernel: in
+    f32 and bf16 against the f64 plain version, bitwise across two
+    launches."""
+    b, s, h, kv, hd, vd, causal, window, skv = FLASH_CROSS_CASES[name]
+    dt = getattr(torch, dtype)
+    q, k, v = (t.to(cuda_device, dt)
+               for t in _inputs(FLASH_CROSS_CASES[name], 13, skv=skv))
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    assert out.dtype == dt and out.shape == (b, s, h, vd)
+    ref = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                dtype=torch.float64)
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    np.testing.assert_allclose(out.double().cpu().numpy(),
+                               ref.cpu().numpy(), **tol)
     assert torch.equal(out, flash_attention(q, k, v, causal=causal,
                                             window=window))
 

@@ -194,24 +194,13 @@ def test_params_tree_and_init():
     from repro.configs import get_config as jfull
     from repro.models.params import param_count_actual as jcount
     from repro_torch.configs import get_config as tfull
-    for arch in ("qwen2_0_5b", "yi_9b", "granite_34b"):
+    for arch in ("qwen2_0_5b", "yi_9b", "granite_34b",
+                 "seamless_m4t_large_v2", "internvl2_2b"):
         assert TP.param_count_actual(tfull(arch)) == jcount(jfull(arch))
     # the same seed gives the same weights
     again = TP.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
     assert torch.equal(again["blocks"]["mlp"]["w_up"],
                        params["blocks"]["mlp"]["w_up"])
-
-
-@pytest.mark.parametrize("arch,entry", [
-    ("seamless_m4t_large_v2", "encoder-decoder"),
-    ("internvl2_2b", "modality frontend"),
-])
-def test_other_families_raise(arch, entry):
-    cfg = tget(arch)
-    with pytest.raises(NotImplementedError, match=entry + ".*entry 17b"):
-        TP.build_defs(cfg)
-    with pytest.raises(NotImplementedError, match="entry 17b"):
-        lm_forward({}, cfg, torch.zeros(1, 4, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("arch,family", [

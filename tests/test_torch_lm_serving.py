@@ -190,5 +190,5 @@ def test_entry_points_need_a_device_without_a_gpu(monkeypatch):
         launch_serve.main(["--arch", "qwen2_0_5b", "--smoke"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         lm_params_from_numpy({}, tcfg)
-    with pytest.raises(NotImplementedError, match="entry 17b"):
+    with pytest.raises(ValueError, match="passes no encoder frames"):
         ServingEngine(tget("seamless_m4t_large_v2"), {}, device="cpu")

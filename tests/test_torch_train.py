@@ -193,13 +193,30 @@ def _configs(dtype):
             dataclasses.replace(tget(ARCH), **over))
 
 
-def _start(jcfg, jstep, seed=0, tree=None, seq=S):
+class WithExtras:
+    """A data source whose ``batch_at(step)`` adds ``extras(step)`` (a dict
+    of numpy arrays: a frontend's ``patch_embeds`` or ``frames``) to the
+    batch of ``data``."""
+
+    def __init__(self, data, extras):
+        self.data, self.extras = data, extras
+
+    def batch_at(self, step):
+        batch = self.data.batch_at(step)
+        if self.extras is not None:
+            batch.update(self.extras(step))
+        return batch
+
+
+def _start(jcfg, jstep, seed=0, tree=None, seq=S, extras=None):
     """JAX's params and AdamW state after one JAX step from its init (or
-    from the numpy tree ``tree``), and the data (B sequences of ``seq``)."""
+    from the numpy tree ``tree``), and the data (B sequences of ``seq``,
+    with ``extras(step)`` added to each batch)."""
     params = (jinit(jax.random.PRNGKey(seed), jcfg) if tree is None
               else jax.tree_util.tree_map(jnp.asarray, tree))
     state = JO.adamw_init(params)
-    data = JData(JDataConfig(jcfg.vocab_size, seq, B, seed=seed, lag=1))
+    data = WithExtras(JData(JDataConfig(jcfg.vocab_size, seq, B, seed=seed,
+                                        lag=1)), extras)
     batch = {k: jnp.asarray(v) for k, v in data.batch_at(0).items()}
     params, state, _ = jstep(params, state, batch)
     return params, state, data
@@ -208,7 +225,7 @@ def _start(jcfg, jstep, seed=0, tree=None, seq=S):
 def three_train_steps_match_jax(jcfg, tcfg, dtype, *, tree=None, seed=0,
                                 seq=S, jax_ctx=contextlib.nullcontext,
                                 port_ctx=contextlib.nullcontext,
-                                outliers=0.0):
+                                outliers=0.0, extras=None):
     """Three ``make_train_step`` steps (remat on, the cosine schedule)
     against JAX's jitted step, from JAX's params and AdamW state after one
     JAX step from its init (or from the numpy tree ``tree``), carried
@@ -217,7 +234,8 @@ def three_train_steps_match_jax(jcfg, tcfg, dtype, *, tree=None, seed=0,
     summed learning rates; in bf16 the loss and grad norm to 0.05
     relative.  JAX's four steps run inside ``jax_ctx()``, then the port's
     three inside ``port_ctx()`` (an MoE test records JAX's routes and
-    checks or forces the port's).
+    checks or forces the port's).  ``extras(step)`` adds a frontend's
+    inputs to each batch (:class:`WithExtras`).
 
     ``outliers``: the share of a leaf's elements that may lie past 1e-3 of
     the summed learning rates, if within 1e-2 of them.  An element whose
@@ -230,7 +248,7 @@ def three_train_steps_match_jax(jcfg, tcfg, dtype, *, tree=None, seed=0,
     tstep = make_train_step(tcfg, learning_rate=TO.cosine_schedule(**sched),
                             remat=True)
     with jax_ctx():
-        jp, js, data = _start(jcfg, jstep, seed, tree, seq)
+        jp, js, data = _start(jcfg, jstep, seed, tree, seq, extras)
         tp = lm_params_from_numpy(_np_tree(jp), tcfg, device="cpu")
         ts = adamw_state_from_numpy(_np_tree(js), tcfg, device="cpu")
         jms = []
@@ -276,11 +294,12 @@ def test_three_train_steps_match_jax(dtype):
     three_train_steps_match_jax(*_configs(dtype), dtype)
 
 
-def remat_grads_are_bitwise(tcfg, params, seq=16):
+def remat_grads_are_bitwise(tcfg, params, seq=16, extras=None):
     """``loss_and_grads`` with remat and without: the same loss and
-    gradients, bit for bit; returns the loss."""
-    batch = shard_batch(SyntheticLMData(DataConfig(
-        tcfg.vocab_size, seq, 2, lag=1)).batch_at(3), "cpu")
+    gradients, bit for bit; returns the loss.  ``extras(step)`` adds a
+    frontend's inputs to the batch (:class:`WithExtras`)."""
+    batch = shard_batch(WithExtras(SyntheticLMData(DataConfig(
+        tcfg.vocab_size, seq, 2, lag=1)), extras).batch_at(3), "cpu")
     l1, _, g1 = loss_and_grads(params, tcfg, batch, remat=True)
     l0, _, g0 = loss_and_grads(params, tcfg, batch, remat=False)
     assert torch.equal(l1, l0)
