@@ -60,6 +60,17 @@ drives these paths over the ``synth-web-lg`` stream:
   run's, sums within 1% L1); the bf16 PageRank session's summed push
   device time under ``autotune="off"`` and ``"full"``, full-graph and
   summary layouts apart;
+- the sharded engine on a 1-rank NCCL mesh (an in-process store, no
+  network) at 8 edge shards: PageRank over the main path's 12 queries, SSSP
+  and CC at the traversal settings, a forced-imbalance SSSP stream (edge
+  capacity twice the edges, so every live slot starts in the head shards:
+  exactly one recut, to live counts within 1) and one ``serve_session``
+  wave (2 PPR and 2 SSSP tickets), each against an unsharded session on
+  the card (SSSP and CC bitwise; PageRank within rtol 1e-5, atol 1e-6
+  where both sessions pick the same hot set and E_K, else both at RBO@4000
+  ≥ 0.95 against an f64 exact replay); every push of these runs is 8
+  launches, one a shard.  Then the push's time through 8 shards beside
+  one layout's, and the four SpMV kernels on a shard's stream;
 - the hot-path analysis gates (``repro_torch.analysis``): every program of
   the catalog (push, push_coo, build_summary, the fused steps and serving
   waves, the apply steps, the epoch counts, at 1,024 vertices and 16,384
@@ -2770,6 +2781,390 @@ def async_serving_path(stream, plan, dev) -> tuple:
                     "tickets_bitwise_vs_sync_one_wave_later": True}], counts
 
 
+# ---- the sharded engine: S edge shards on a 1-rank mesh ------------------
+SHARDS = 8                  # edge shards of the sharded phase
+SHARDED_SEED = SEED + 28    # its own draws, so later phases keep theirs
+SHARD_TOL = dict(rtol=1e-5, atol=1e-6)  # f32 sums: summation order only
+
+
+def one_rank_mesh(dev):
+    """A 1-rank NCCL process group from an in-process store (no network)
+    and its 1-D mesh; the caller destroys the group."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    return init_device_mesh("cuda", (1,), mesh_dim_names=("shards",))
+
+
+def drive_sharded(stream, name, kw, queries, every, dev, **overrides):
+    """One session through its front door (``overrides`` go to it, the
+    mesh knobs among them) with ``periodic_exact(every)``: for the initial
+    exact query and each of ``queries`` after it, its stats, its pushes
+    (sharded pushes and the single pushes of their shards), its kernel
+    launches and the allocator's peak over its start.  Returns (session,
+    rows, host results)."""
+    import repro_torch
+    from repro_torch.core import backend as B
+    from repro_torch.core.policies import periodic_exact
+
+    def counters():
+        return (launch_counts(), B.trace_count("push"),
+                B.trace_count("push[sharded]"),
+                torch.cuda.memory_allocated())
+
+    rows, results = [], []
+    before = counters()
+    torch.cuda.reset_peak_memory_stats()
+    sess = repro_torch.session(stream, name, device=dev,
+                               on_query=periodic_exact(every), **kw,
+                               **overrides)
+    plays = sess.play()
+    for q in range(-1, queries):
+        if q >= 0:
+            before = counters()
+            torch.cuda.reset_peak_memory_stats()
+            res = next(plays)
+            st, scores = res.stats, res.scores
+        else:
+            st, scores = sess.stats_log[0], sess.scores
+        c0, p0, s0, base = before
+        c1 = launch_counts()
+        rows.append({
+            "query": st.query_id, "action": st.action,
+            "num_hot": st.num_hot, "num_ek": st.num_ek, "num_eb": st.num_eb,
+            "iterations": st.iterations, "overflow": st.overflow_fallback,
+            "rebalanced": st.rebalanced,
+            "last_imbalance": sess.engine.last_imbalance,
+            "wall_ms": st.wall_time_s * 1e3,
+            "sharded_pushes": B.trace_count("push[sharded]") - s0,
+            "shard_pushes": B.trace_count("push") - p0,
+            "launches": sum(c1[k] - c0[k] for k in KERNEL_NAMES),
+            "peak_over_start_bytes": torch.cuda.max_memory_allocated()
+            - base})
+        results.append(scores)
+    return sess, rows, results
+
+
+def check_sharded_pushes(tag, rows, per_iter=1) -> int:
+    """Every query of a sharded session: its sweeps' pushes (iterations,
+    plus the ``b_in`` pass of an approximate query, ``per_iter`` of each)
+    all sharded, each ``SHARDS`` shard pushes and as many launches.
+    Returns the sharded pushes."""
+    total = 0
+    for r in rows:
+        want = per_iter * (r["iterations"]
+                           + (r["action"] == "compute-approximate"))
+        if (r["sharded_pushes"], r["shard_pushes"], r["launches"]) != (
+                want, SHARDS * want, SHARDS * want):
+            raise AssertionError(f"{tag} query {r['query']}: "
+                                 f"{r['sharded_pushes']} sharded pushes, "
+                                 f"{r['shard_pushes']} shard pushes, "
+                                 f"{r['launches']} launches; {want} sharded "
+                                 f"pushes wanted, {SHARDS} launches each")
+        total += want
+    return total
+
+
+def sharded_push_times(sess, flat_sess, dev, rng) -> dict:
+    """One full-graph PageRank push through the sharded layout (``SHARDS``
+    launches and ⊕ merges; eager with the all-reduce, and its kernels and
+    merges from a CUDA graph) beside the unsharded layout's one launch,
+    with both bounds."""
+    from repro_torch.core import backend as B
+
+    lay = sess.engine.edge_layouts()[0]
+    flat = flat_sess.engine.edge_layouts()[0]
+    n = flat.num_segments
+    v = torch.from_numpy(rng.random(n).astype(np.float32)).to(dev)
+    views = [B._shard_view(lay, i) for i in range(lay.num_shards)]
+
+    def kernels_and_merges():
+        part = B.push(v, views[0])
+        for view in views[1:]:
+            part = part + B.push(v, view)
+        return part
+
+    torch.testing.assert_close(B.push(v, lay), B.push(v, flat), **SHARD_TOL)
+    sharded_bound = sum(max(push_bound(
+        int(view.row_offsets[-1]), n, n, 1, False, view.weight)[1:])
+        for view in views)
+    flat_bound = max(push_bound(int(flat.row_offsets[-1]), n, n, 1, False,
+                                flat.weight)[1:])
+    return {"phase": "sharded-push-time", "shards": lay.num_shards,
+            "launches_per_push": len(views),
+            "shard_edges": [int(x.row_offsets[-1]) for x in views],
+            "sharded_eager_ms": cuda_ms(lambda: B.push(v, lay)),
+            "sharded_device_ms": graph_ms(kernels_and_merges),
+            "sharded_bound_ms": sharded_bound,
+            "unsharded_eager_ms": cuda_ms(lambda: B.push(v, flat)),
+            "unsharded_device_ms": graph_ms(lambda: B.push(v, flat)),
+            "unsharded_bound_ms": flat_bound,
+            "timing": "eager: 20 calls back to back with their host cost "
+                      "(the sharded one with its NCCL all-reduce); device: "
+                      "20 calls replayed from one CUDA graph (the sharded "
+                      "one's shard launches and merges, no all-reduce)",
+            "bound": "sum over the shards of each launch's bound: every "
+                     "shard reads the whole row_offsets and writes every "
+                     "row"}
+
+
+def shard_kernel_checks(sess, sssp_sess, dev, rng) -> tuple:
+    """The four SpMV kernels against their plain versions on shard 0 of
+    the sharded layouts the phase pushes through (PageRank's inv_out and
+    SSSP's min_plus, 1/S of the edges over every row)."""
+    from repro_torch.core import backend as B
+
+    view = B._shard_view(sess.engine.edge_layouts()[0], 0)
+    rview = B._shard_view(sssp_sess.engine.edge_layouts()[0], 0)
+    n = view.num_segments
+    v = torch.from_numpy(rng.random(n).astype(np.float32)).to(dev)
+    vb = torch.from_numpy(rng.random((BATCH, n)).astype(np.float32)).to(dev)
+    d = (10 * rng.random((BATCH, n))).astype(np.float32)
+    d[rng.random((BATCH, n)) < 0.1] = np.inf
+    d = torch.from_numpy(d).to(dev)
+    tag = f"synth-web-lg shard 0 of {SHARDS}"
+    return ([check_kernel(f"{tag}, inv_out", v, view)],
+            [check_reduce_kernel(f"{tag}, min_plus", d[0].contiguous(),
+                                 rview)],
+            [check_batched_kernel(f"{tag}, inv_out", vb, view),
+             check_batched_reduce_kernel(f"{tag}, min_plus", d, rview)])
+
+
+def exact_replays(stream, dev):
+    """``at(q)``: the f64 exact PageRank (``exact_reference``) of the graph
+    query q of the stream is served on, and its active mask, from a
+    session that repeats its answers and so only applies the chunks;
+    built at the first call, stepped forward only."""
+    import repro_torch
+
+    box = {}
+
+    def at(q):
+        if "plays" not in box:
+            box["sess"] = repro_torch.session(
+                stream, "pagerank", device=dev,
+                on_query=lambda qid, view: repro_torch.Action.REPEAT_LAST)
+            box["plays"], box["q"] = box["sess"].play(), -1
+        while box["q"] < q:
+            next(box["plays"])
+            box["q"] += 1
+        st = box["sess"].engine.state
+        return (exact_reference(st).cpu().numpy(),
+                st.node_active.cpu().numpy())
+    return at
+
+
+def compare_pagerank(flat_rows, flat_res, rows, res, exact_at) -> list:
+    """Per query of the two PageRank sessions: the hot set and E_K sizes
+    of both; ranks within ``SHARD_TOL`` where they agree (the exact query
+    too), and where they differ both answers' RBO@4000 against an f64
+    exact replay (``exact_at``) at ``RBO_FLOOR`` or above."""
+    from repro_torch.metrics import rbo_from_scores
+
+    out = []
+    for a, b, x, y in zip(flat_rows, rows, flat_res, res):
+        same = (a["num_hot"], a["num_ek"]) == (b["num_hot"], b["num_ek"])
+        row = {"query": b["query"], "action": b["action"],
+               "num_hot": [a["num_hot"], b["num_hot"]],
+               "num_ek": [a["num_ek"], b["num_ek"]],
+               "sizes_agree": same,
+               "max_rel_diff": float(np.max(np.abs(y - x)
+                                            / np.maximum(np.abs(x), 1e-30)))}
+        if b["action"] != "compute-approximate":
+            # the f64 replay of an exact sweep (30 iterations from ones)
+            exact = exact_at(b["query"])
+            row["max_rel_vs_f64"] = [max_rel(torch.from_numpy(z),
+                                             torch.from_numpy(exact[0]))
+                                     for z in (x, y)]
+        if same or b["action"] != "compute-approximate":
+            np.testing.assert_allclose(y, x, err_msg=f"query {b['query']}",
+                                       **SHARD_TOL)
+        else:
+            exact = exact_at(b["query"])
+            row["rbo_vs_exact"] = [rbo_from_scores(
+                z.astype(np.float64), exact[0], depth=RBO_DEPTH,
+                active=exact[1]) for z in (x, y)]
+            if min(row["rbo_vs_exact"]) < RBO_FLOOR:
+                raise AssertionError(f"sharded PageRank query {b['query']}: "
+                                     f"RBO {row['rbo_vs_exact']} under "
+                                     f"{RBO_FLOOR}")
+        out.append(row)
+    return out
+
+
+def sharded_path(stream, plan, dev, rng) -> tuple:
+    """The sharded engine on a 1-rank NCCL mesh at ``SHARDS`` shards: the
+    main path's PageRank stream, SSSP and CC (the traversal settings), a
+    forced-imbalance SSSP stream and one serving wave, each against an
+    unsharded session on the same card (min/max bitwise, sums at
+    ``SHARD_TOL``), then the push's device time sharded and not, and the
+    kernels on a shard.  The unsharded runs come first; the launch counts
+    are set to 0 before the sharded ones.  Returns (rows, launch counts,
+    (sum, reduce, batched) kernel-check rows)."""
+    import repro_torch
+    import torch.distributed as dist
+
+    from repro_torch.core import backend as B
+    from repro_torch.graph.partition import shard_live_counts
+
+    t0 = time.perf_counter()
+    sssp_kw = dict(TRAVERSAL)["sssp"]
+    wave_plan = ([p for p in plan if p[0] == "personalized-pagerank"][:2]
+                 + [p for p in plan if p[0] == "sssp"][:2])
+    # the unsharded runs on the card
+    flat, flat_rows, flat_res = drive_sharded(stream, "pagerank", {},
+                                              QUERIES, QUERIES - 1, dev)
+    trav = {}
+    for name in ("sssp", "connected-components"):
+        trav[name] = drive_sharded(stream, name, dict(TRAVERSAL)[name],
+                                   TRAVERSAL_QUERIES, TRAVERSAL_EXACT_EVERY,
+                                   dev, r=TRAVERSAL_R)[1:]
+    with repro_torch.serve_session(stream, slots=BATCH, device=dev) as srv:
+        for name, kw in wave_plan:
+            srv.submit(name, **kw)
+        srv.step()
+        flat_wave = ({lane.template.name: {k: v.clone() for k, v
+                                           in lane.bank.items()}
+                      for lane in srv._lanes.values()}, list(srv.wave_log))
+    torch.cuda.empty_cache()
+
+    # the f64 replay's session makes its exact sweep before the counts are
+    # reset; its later steps only apply chunks
+    exact_at = exact_replays(stream, dev)
+    exact_at(-1)
+    mesh = one_rank_mesh(dev)
+    out = []
+    try:
+        reset_launch_counts()
+        B.reset_trace_counts()
+        t1 = time.perf_counter()
+        shard = dict(mesh=mesh, num_shards=SHARDS)
+        # ---- PageRank: the main path's stream ---------------------------
+        sess, rows, res = drive_sharded(stream, "pagerank", {}, QUERIES,
+                                        QUERIES - 1, dev, **shard)
+        pushes = check_sharded_pushes("PageRank", rows)
+        c0 = launch_counts()
+        cmp = compare_pagerank(flat_rows, flat_res, rows, res, exact_at)
+        replay = {k: launch_counts()[k] - c0[k] for k in KERNEL_NAMES}
+        out.append({"phase": "sharded", "algorithm": "pagerank",
+                    "queries": rows, "against_unsharded": cmp,
+                    "sizes_differ": sum(not r["sizes_agree"] for r in cmp),
+                    "sharded_pushes": pushes,
+                    "rebalances": sess.engine.rebalances,
+                    "summary_peak_over_start_bytes": max(
+                        r["peak_over_start_bytes"] for r in rows
+                        if r["action"] == "compute-approximate")})
+        # ---- SSSP and CC, bitwise ----------------------------------------
+        sessions = {"pagerank": sess}
+        for name, per_iter in (("sssp", 1), ("connected-components", 2)):
+            s, rows, res = drive_sharded(stream, name, dict(TRAVERSAL)[name],
+                                         TRAVERSAL_QUERIES,
+                                         TRAVERSAL_EXACT_EVERY, dev,
+                                         r=TRAVERSAL_R, **shard)
+            want_rows, want_res = trav[name]
+            for a, b, x, y in zip(want_rows, rows, want_res, res):
+                if (a["num_hot"], a["num_ek"], a["iterations"]) != (
+                        b["num_hot"], b["num_ek"], b["iterations"]) or \
+                        not np.array_equal(x.view(np.uint8), y.view(np.uint8)):
+                    raise AssertionError(f"sharded {name} query {b['query']}"
+                                         f" differs from the unsharded one")
+            out.append({"phase": "sharded", "algorithm": name,
+                        "queries": rows, "bitwise_vs_unsharded": True,
+                        "sharded_pushes": check_sharded_pushes(
+                            name, rows, per_iter),
+                        "rebalances": s.engine.rebalances})
+            sessions[name] = s
+        # ---- forced imbalance: every live slot in the head shards --------
+        edges = stream.init_src.shape[0] + sum(c[0].shape[0]
+                                               for c in stream)
+        s, rows, res = drive_sharded(stream, "sssp", sssp_kw,
+                                     TRAVERSAL_QUERIES, TRAVERSAL_EXACT_EVERY,
+                                     dev, r=TRAVERSAL_R,
+                                     edge_capacity=2 * edges, **shard)
+        want_rows, want_res = trav["sssp"]
+        for x, y in zip(want_res, res):
+            if not np.array_equal(x.view(np.uint8), y.view(np.uint8)):
+                raise AssertionError("forced-imbalance SSSP differs from the "
+                                     "unsharded session")
+        counts = shard_live_counts(s.engine.state,
+                                   s.engine._shard_slots).cpu().numpy()
+        # the first applied chunk (query 0, after the initial exact row)
+        if s.engine.rebalances != 1 or [r["rebalanced"] for r in rows] != [
+                False, True] + [False] * (len(rows) - 2):
+            raise AssertionError(f"forced imbalance: {s.engine.rebalances} "
+                                 f"rebalances, {[r['rebalanced'] for r in rows]}")
+        if counts.max() - counts.min() > 1:
+            raise AssertionError(f"rebalanced live counts {counts.tolist()}")
+        out.append({"phase": "sharded-rebalance", "algorithm": "sssp",
+                    "edge_capacity": 2 * edges, "queries": rows,
+                    "rebalances": s.engine.rebalances,
+                    "live_counts_after": counts.tolist(),
+                    "bitwise_vs_unsharded": True,
+                    "sharded_pushes": check_sharded_pushes("rebalance", rows)})
+        del s
+        # ---- one serving wave on the mesh engine -------------------------
+        with repro_torch.serve_session(stream, slots=BATCH, device=dev,
+                                       **shard) as srv:
+            for name, kw in wave_plan:
+                srv.submit(name, **kw)
+            c0, b0 = launch_counts(), B.trace_count("push[sharded]")
+            srv.step()
+            made = {k: launch_counts()[k] - c0[k] for k in KERNEL_NAMES}
+            waves = list(srv.wave_log)
+            banks = {lane.template.name: lane.bank
+                     for lane in srv._lanes.values()}
+        sharded_wave_pushes = B.trace_count("push[sharded]") - b0
+        want_banks, want_log = flat_wave
+        for a, b in zip(want_log, waves):
+            if (a.algorithm, a.num_hot, a.num_ek, a.iterations) != (
+                    b.algorithm, b.num_hot, b.num_ek, b.iterations):
+                raise AssertionError(f"serving wave lane {b.algorithm}: "
+                                     f"{b} against {a}")
+        for name, bank in banks.items():
+            for k, t in bank.items():
+                if name == "sssp":
+                    if not same_bits(t, want_banks[name][k]):
+                        raise AssertionError(f"serving wave {name}.{k} "
+                                             f"differs")
+                else:
+                    torch.testing.assert_close(t, want_banks[name][k],
+                                               **SHARD_TOL)
+        batched = made["spmv_push_batched"] + made["spmv_reduce_push_batched"]
+        if batched != SHARDS * sharded_wave_pushes or any(
+                made[k] for k in ("spmv_push", "spmv_reduce_push")):
+            raise AssertionError(f"serving wave: {made} launches for "
+                                 f"{sharded_wave_pushes} sharded pushes")
+        out.append({"phase": "sharded-serving-wave",
+                    "lanes": [{"lane": w.algorithm, "num_hot": w.num_hot,
+                               "num_ek": w.num_ek,
+                               "iterations": w.iterations} for w in waves],
+                    "sharded_pushes": sharded_wave_pushes, "launches": made,
+                    "ppr_within_tol_sssp_bitwise": True})
+        # the phase's launches, less any of the replay's: S a sharded push
+        counts = {k: launch_counts()[k] - replay[k] for k in KERNEL_NAMES}
+        phase_pushes = B.trace_count("push[sharded]")
+        if sum(counts.values()) != SHARDS * phase_pushes:
+            raise AssertionError(f"sharded phase: {counts} launches for "
+                                 f"{phase_pushes} sharded pushes")
+        drive_s = time.perf_counter() - t1
+        # ---- the push's time and the kernels on a shard ------------------
+        out.append(sharded_push_times(sess, flat, dev, rng))
+        checks = shard_kernel_checks(sess, sessions["sssp"], dev, rng)
+        out.append({"phase": "sharded-total", "shards": SHARDS,
+                    "mesh": "1-rank NCCL", "launches": counts,
+                    "sharded_pushes": phase_pushes,
+                    "replay_launches_left_out": replay,
+                    "sharded_runs_s": drive_s,
+                    "wall_s": time.perf_counter() - t0})
+    finally:
+        dist.destroy_process_group()
+    del sess, sessions, flat
+    torch.cuda.empty_cache()
+    return out, counts, checks
+
 # ---- the LM serving path (Qwen2-0.5B) -----------------------------------
 LM_ARCH = "qwen2_0_5b"
 LM_SLOTS, LM_REQUESTS, LM_PROMPT, LM_NEW, LM_MAX_LEN = 8, 16, 2048, 64, 4096
@@ -4895,12 +5290,13 @@ def analysis_path(dev) -> tuple:
 def ops_path(dev) -> tuple:
     """The kernels' convenience wrappers (``kernels/*/ops.py``) on the card
     against their refs (``kernels/*/ref.py``) and plain versions:
-    ``pagerank_push`` and ``semiring_push`` (plus_times [N], min_plus [N]
-    and [B, N]) at the catalog's graph, ``flash_attention_op`` and
+    ``pagerank_push``, ``semiring_push`` (plus_times [N], min_plus [N]
+    and [B, N]) and ``sharded_semiring_push`` (min_plus over the catalog's
+    shards, meshless) at the catalog's graph, ``flash_attention_op`` and
     ``decode_attention_op`` in f32 at Qwen2-0.5B's heads.  Sums are held
     to an f64 plain version at ANALYSIS_RTOL/ATOL, min/max bitwise to the
     CPU's plain version, attention to its ref at ATTN_F32_TOL.  Returns
-    (rows, launches by kernel of the six op calls)."""
+    (rows, launches by kernel of the seven op calls)."""
     from repro_torch.analysis import programs as PR
     from repro_torch.core.backend import build_layout
     from repro_torch.kernels.decode_attention.ops import decode_attention_op
@@ -4908,7 +5304,8 @@ def ops_path(dev) -> tuple:
     from repro_torch.kernels.flash_attention.ops import flash_attention_op
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.spmv.kernel import spmv_push_plain
-    from repro_torch.kernels.spmv.ops import pagerank_push, semiring_push
+    from repro_torch.kernels.spmv.ops import (pagerank_push, semiring_push,
+                                              sharded_semiring_push)
     from repro_torch.kernels.spmv.ref import spmv_push_ref
 
     rng = np.random.default_rng(SEED)  # its own: later phases' draws stay
@@ -4927,6 +5324,9 @@ def ops_path(dev) -> tuple:
             state, v.to(dev), semiring="min_plus", weight="length"),
         "semiring_push[min_plus,batched]": semiring_push(
             state, vb.to(dev), semiring="min_plus", weight="length"),
+        "sharded_semiring_push[min_plus]": sharded_semiring_push(
+            state, v.to(dev), num_shards=spec.num_shards,
+            semiring="min_plus", weight="length"),
     }
     b, s, h, kvh, hd = 2, 256, 14, 2, 64
     gen = torch.Generator().manual_seed(SEED)
@@ -4960,9 +5360,11 @@ def ops_path(dev) -> tuple:
     if share > 1:
         raise AssertionError(f"pagerank_push: {err} from spmv_push_ref")
     rows[0]["ref_max_abs_err"] = err
-    # min/max: bitwise the CPU's plain version
+    # min/max: bitwise the CPU's plain version (of the unsharded push for
+    # the sharded one)
     for name, vals in (("semiring_push[min_plus]", v),
-                       ("semiring_push[min_plus,batched]", vb)):
+                       ("semiring_push[min_plus,batched]", vb),
+                       ("sharded_semiring_push[min_plus]", v)):
         want = semiring_push(cpu_state, vals, semiring="min_plus",
                              weight="length")
         if not torch.equal(outs[name].cpu(), want):
@@ -5212,7 +5614,16 @@ def main() -> int:
     for row in rows:
         emit(row)
 
-    # ---- 6e. the analysis gates and the kernels' ops wrappers -------------
+    # ---- 6e. the sharded engine on a 1-rank mesh ---------------------------
+    rows, by_path["sharded"], (sums, reduces, batched) = sharded_path(
+        stream, plan, dev, np.random.default_rng(SHARDED_SEED))
+    for row in rows + sums + reduces + batched:
+        emit(row)
+    checks += sums
+    reduce_rows += reduces
+    batched_rows += batched
+
+    # ---- 6f. the analysis gates and the kernels' ops wrappers -------------
     rows, by_path["analysis"] = analysis_path(dev)
     for row in rows:
         emit(row)

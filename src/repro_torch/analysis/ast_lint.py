@@ -83,6 +83,7 @@ HOT_MODULES: tuple = (
     "src/repro_torch/core/semiring.py",
     "src/repro_torch/core/traversal.py",
     "src/repro_torch/graph/csr.py",
+    "src/repro_torch/graph/partition.py",
     "src/repro_torch/kernels/spmv/kernel.py",
     "src/repro_torch/kernels/spmv/ops.py",
 )

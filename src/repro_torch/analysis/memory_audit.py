@@ -10,8 +10,8 @@ budget derived from the graph spec (the one-device part of
   ``temp_bytes_max``.
 
 The collective budgets of the reference (all-gather, all-to-all,
-all-reduce, reduce-scatter, permute) belong to the sharded programs and
-wait for ROADMAP queue 1 entry 15.
+all-reduce, reduce-scatter, permute) belong to the programs on a mesh of
+two or more devices and wait for ROADMAP queue 1 entry 16.
 """
 
 from __future__ import annotations

@@ -19,9 +19,11 @@ nothing, so there is no ``trace``/``compile`` as in the reference.  The
 port dispatches a push by the device of its values, not by a backend name,
 so the reference's ``push[segment_sum,*]`` and ``push[pallas,*]`` are one
 program each here (``push[plus_times]``: the SpMV kernel on the card, its
-plain version on the CPU).  The sharded programs (:data:`OMITTED`) wait
-for ROADMAP queue 1 entry 15; the catalog leaves them out, as the
-reference does on one device, and ``tools/analyze_torch.py`` reports it.
+plain version on the CPU).  The meshless sharded programs run the
+reference's shard loop (``push_sharded[loop]``, ``build_summary[sharded]``,
+``fused_query_step[pagerank,sharded]``, at ``spec.num_shards`` shards); the
+mesh ones (:data:`OMITTED`) wait for ROADMAP queue 1 entry 16, and
+``tools/analyze_torch.py`` reports them.
 
 :func:`run_rebuild_scenario` and :func:`run_async_rebuild_scenario` are
 the rebuild pass's canned engine loops (the reference's retrace
@@ -49,12 +51,11 @@ from repro_torch.core.pagerank import build_summary
 from repro_torch.device import resolve_device
 from repro_torch.graph import generators
 from repro_torch.graph.graph import GraphState, add_edges, clone, from_edges
+from repro_torch.graph.partition import build_sharded_layout
 
-#: the reference's programs that need a sharded layout or a mesh (ROADMAP
-#: queue 1 entry 15)
-OMITTED = ("push_sharded[segment_sum,loop]", "push_sharded[segment_sum,mesh]",
-           "push_sharded[pallas,mesh]", "build_summary[sharded]",
-           "fused_query_step[pagerank,sharded]")
+#: the reference's programs that need a mesh of two or more devices (ROADMAP
+#: queue 1 entry 16); the port runs their meshless forms
+OMITTED = ("push_sharded[segment_sum,mesh]", "push_sharded[pallas,mesh]")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,9 +180,20 @@ def catalog(spec: Optional[GraphSpec] = None, *,
             v, s, d, spec.node_capacity, weight=w, semiring="plus_times"),
         (ranks, state.src, state.dst, w), spec))
 
+    # --- sharded push: the meshless shard loop -----------------------------
+    sh_loop = build_sharded_layout(state, num_shards=spec.num_shards,
+                                   weight="inv_out", semiring="plus_times")
+    progs.append(Program(
+        "push_sharded[loop]", functools.partial(B.push, semiring="plus_times"),
+        (ranks, sh_loop), spec))
+
     # --- summary construction + fused queries ------------------------------
     progs.append(Program(
         "build_summary", functools.partial(build_summary, **caps),
+        (state, ranks, state.node_active), spec))
+    progs.append(Program(
+        "build_summary[sharded]",
+        functools.partial(build_summary, layout=sh_loop, **caps),
         (state, ranks, state.node_active), spec))
 
     pagerank = make_algorithm("pagerank")
@@ -191,6 +203,11 @@ def catalog(spec: Optional[GraphSpec] = None, *,
             f"fused_query_step[{label}]",
             functools.partial(fused_query_step, algo=algo, **caps),
             _query_args(state, algo), spec))
+    progs.append(Program(
+        "fused_query_step[pagerank,sharded]",
+        functools.partial(fused_query_step, algo=pagerank, layouts=(sh_loop,),
+                          **caps),
+        _query_args(state, pagerank), spec))
 
     # the closed-loop variant: the drift estimate computed in the step
     probes = default_probe_ids(spec.node_capacity, 64, device=dev)

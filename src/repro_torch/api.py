@@ -214,6 +214,20 @@ def session(
     merge-path tile (:mod:`repro_torch.kernels.spmv.autotune`) and
     ``weight_dtype="bfloat16"``/``"float16"`` stores the f32 semirings'
     edge weights narrow (the kernels accumulate in f32).
+
+    ``mesh=`` (a 1-D ``torch.distributed.device_mesh.DeviceMesh`` on the
+    session's device type, its dimension named by ``mesh_axes=``) runs
+    the engine sharded: every full-graph layout is cut into
+    ``num_shards=`` edge shards (default one a rank; a multiple of the
+    mesh's size loops the surplus on each rank, so one card runs S-way
+    partitioning on a 1-rank mesh), every sweep pushes per shard and the
+    partials meet in the semiring's all-reduce, and summaries are built by
+    a bucket exchange across the shards (``shard_hot_edge_capacity=``
+    caps its per-bucket slots).  ``rebalance_threshold=`` (default 1.0;
+    ``None`` keeps the contiguous cut) recuts the partition when
+    streaming skews the shards' live edges: ``engine.rebalances``,
+    ``QueryStats.rebalanced``.  Every rank of the mesh runs the same
+    session on the same stream.
     """
     init_src, init_dst, stream, node_hint, edge_hint = _resolve_source(
         graph_source)
@@ -291,7 +305,8 @@ def serve_session(
     :func:`session` (``device``, capacities, hot-set knobs,
     ``quality_target`` with the same knob precedence, ``async_rebuild``,
     ``autotune`` and ``weight_dtype``, the lanes' tiles tuned for
-    ``slots`` batch rows);
+    ``slots`` batch rows, and the mesh knobs, under which every batched
+    push of a wave runs per shard);
     ``algorithm`` only sets the workload of the initial exact compute, since
     each served query carries its own.  Under ``quality_target`` each lane
     runs its own controller; under ``async_rebuild`` every wave serves one

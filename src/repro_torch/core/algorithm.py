@@ -136,17 +136,23 @@ class StreamingAlgorithm(abc.ABC):
         hot_node_capacity: int,
         hot_edge_capacity: int,
         layouts=None,
+        shard_bucket_capacity: Optional[int] = None,
     ) -> Tuple[SummaryBuffers, ...]:
         """The paper's single forward big-vertex summary over the declared
         :attr:`semiring` and :attr:`summary_weight`, frozen from
-        :meth:`result_view`."""
+        :meth:`result_view`.  ``shard_bucket_capacity`` tightens the
+        sharded construction's per-(shard, bucket) slots (see
+        :func:`repro_torch.core.pagerank.build_summary`); the engine passes
+        it only when set, so an override without the keyword still
+        works."""
         return (
             _build_summary(
                 graph, self.result_view(state), hot_mask,
                 hot_node_capacity=hot_node_capacity,
                 hot_edge_capacity=hot_edge_capacity,
                 weight=self.summary_weight, semiring=self.semiring,
-                layout=layouts[0] if layouts else None),
+                layout=layouts[0] if layouts else None,
+                shard_bucket_capacity=shard_bucket_capacity),
         )
 
     @abc.abstractmethod
@@ -502,11 +508,13 @@ class HITSAlgorithm(StreamingAlgorithm):
         return {"auth": auth, "hub": hub, "sigma": sigma}, iters
 
     def build_summaries(self, state, graph, hot_mask, *, hot_node_capacity,
-                        hot_edge_capacity, layouts=None):
+                        hot_edge_capacity, layouts=None,
+                        shard_bucket_capacity=None):
         """A forward unit summary frozen from the hubs and a reverse one
         frozen from the authorities, over one hot mask."""
         common = dict(hot_node_capacity=hot_node_capacity,
-                      hot_edge_capacity=hot_edge_capacity, weight="unit")
+                      hot_edge_capacity=hot_edge_capacity, weight="unit",
+                      shard_bucket_capacity=shard_bucket_capacity)
         fwd = _build_summary(graph, state["hub"], hot_mask,
                              layout=layouts[0] if layouts else None, **common)
         rev = _build_summary(graph, state["auth"], hot_mask, reverse=True,
@@ -668,12 +676,14 @@ class ConnectedComponentsAlgorithm(StreamingAlgorithm):
         return self._with_churn(labels, state), iters
 
     def build_summaries(self, state, graph, hot_mask, *, hot_node_capacity,
-                        hot_edge_capacity, layouts=None):
+                        hot_edge_capacity, layouts=None,
+                        shard_bucket_capacity=None):
         """A forward and a reverse unit ``min_min`` summary of one hot
         mask, frozen from the labels."""
         common = dict(hot_node_capacity=hot_node_capacity,
                       hot_edge_capacity=hot_edge_capacity, weight="unit",
-                      semiring="min_min")
+                      semiring="min_min",
+                      shard_bucket_capacity=shard_bucket_capacity)
         fwd = _build_summary(graph, state["labels"], hot_mask,
                              layout=layouts[0] if layouts else None,
                              **common)

@@ -32,14 +32,22 @@ A CUDA tensor launches the kernel and a CPU tensor takes its plain
 version.  The semirings the reference's Pallas path refuses too (sums
 outside f32, min/max outside f32 and i32) take the plain segment reduce on
 the CPU and raise ``NotImplementedError`` on the card.
-The sharded layout and its collective push are not ported yet.
+
+A :class:`ShardedEdgeLayout` (built by :func:`repro_torch.graph.partition.
+build_sharded_layout`) holds one locally destination-sorted stream per
+edge shard.  Its push is one push of the kernel above per shard, the
+partials merged by the semiring's ⊕ (:meth:`~repro_torch.core.semiring.
+Semiring.merge`) and, on a layout that carries a device mesh, completed by
+the semiring's all-reduce over the mesh's process group
+(:meth:`~repro_torch.core.semiring.Semiring.all_reduce`): each rank pushes
+only its own shards.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -98,6 +106,81 @@ class EdgeLayout:
         return self.row_offsets.shape[0] - 1
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardedEdgeLayout:
+    """Edge-partitioned sibling of :class:`EdgeLayout`: one locally
+    destination-sorted stream per shard, stacked along a leading shard axis.
+
+    Every row keeps the invariants of an :class:`EdgeLayout`: the baked
+    ⊗-operand, the ⊕-identity and the sentinel in its padding, at least
+    one chunk of slack, and ``row_offsets`` over the whole
+    ``num_segments`` receiver space, so that each shard's push is the
+    ordinary single-stream kernel.  ``order`` maps each (shard, position)
+    to its edge slot (sentinel ``edge_capacity``): the partition
+    certificate, every live slot in exactly one shard.  ``merge_tile`` is
+    the merge-path tile every shard's push takes.
+
+    ``mesh`` (a 1-D ``torch.distributed.device_mesh.DeviceMesh``) and
+    ``axes`` (its dimension's name) say where the shard axis lives:
+    ``mesh=None`` runs every shard here and merges the partials on this
+    device.  With a mesh of R ranks each rank pushes ``num_shards / R`` of
+    them and the partials meet in the semiring's all-reduce.
+    ``total_shards`` is set on a layout that holds only this rank's rows
+    (``repro_torch.graph.partition.place_sharded_layout``); ``None`` means
+    the rows held are all of them.  A push or a summary takes a mesh
+    layout only once it is placed.
+    """
+
+    src: torch.Tensor          # int32[S, E_pad]
+    dst: torch.Tensor          # int32[S, E_pad] (sentinel = num_segments)
+    weight: torch.Tensor       # dtype[S, E_pad] (⊕-identity where invalid)
+    valid: torch.Tensor        # bool[S, E_pad]
+    row_offsets: torch.Tensor  # int32[S, num_segments + 1]
+    order: Optional[torch.Tensor] = None
+    rank: Optional[torch.Tensor] = None
+    weight_mode: str = "inv_out"
+    reverse: bool = False
+    pad_chunk: int = CHUNK
+    semiring: str = "plus_times"
+    merge_tile: Optional[int] = None
+    mesh: Optional[object] = None
+    axes: Tuple[str, ...] = ()
+    total_shards: Optional[int] = None
+
+    @property
+    def num_shards(self) -> int:
+        """Edge shards over the whole mesh (all of them without one)."""
+        return (self.row_offsets.shape[0] if self.total_shards is None
+                else self.total_shards)
+
+    @property
+    def num_segments(self) -> int:
+        """Size of the receiver space, shared by every shard."""
+        return self.row_offsets.shape[1] - 1
+
+
+#: the layouts :func:`push` accepts
+AnyEdgeLayout = Union[EdgeLayout, ShardedEdgeLayout]
+
+
+def mesh_rank_and_size(mesh) -> Tuple[int, int]:
+    """``(this rank's coordinate, ranks)`` on a 1-D device mesh; ``(0, 1)``
+    without one."""
+    if mesh is None:
+        return 0, 1
+    return mesh.get_local_rank(), mesh.size()
+
+
+def require_placed(layout: ShardedEdgeLayout, who: str) -> None:
+    """A mesh layout must hold this rank's rows only (placed once per
+    build by ``repro_torch.graph.partition.place_sharded_layout``)."""
+    if layout.mesh is not None and layout.total_shards is None:
+        raise ValueError(
+            f"{who} over a mesh layout that holds every rank's rows; "
+            f"place it with repro_torch.graph.partition."
+            f"place_sharded_layout first")
+
+
 def padded_length(e: int, chunk: int) -> int:
     """Stream length after padding: the next chunk multiple plus one spare
     chunk, as in the JAX package."""
@@ -146,10 +229,12 @@ def bake_weights(s: Semiring, weight: str, valid: torch.Tensor,
 def stream_rank(dst: torch.Tensor, valid: torch.Tensor,
                 row_offsets: torch.Tensor) -> torch.Tensor:
     """Per-edge rank within its destination run (``i - row_offsets[dst_i]``
-    over the sorted stream; 0 in invalid and padding slots)."""
-    num_segments = row_offsets.shape[0] - 1
-    idx = torch.arange(dst.shape[0], dtype=torch.int32, device=dst.device)
-    start = row_offsets[dst.clamp(max=num_segments).long()]
+    over the sorted stream; 0 in invalid and padding slots).  Stacked
+    ``[S, E_pad]`` streams with ``[S, N + 1]`` offsets give one rank per
+    row."""
+    num_segments = row_offsets.shape[-1] - 1
+    idx = torch.arange(dst.shape[-1], dtype=torch.int32, device=dst.device)
+    start = row_offsets.gather(-1, dst.clamp(max=num_segments).long())
     return torch.where(valid, idx - start, 0)
 
 
@@ -237,28 +322,43 @@ def build_layout(
 
 
 def summary_layout(summary, *, chunk: int = CHUNK,
-                   semiring: str = "plus_times") -> EdgeLayout:
+                   semiring: str = "plus_times") -> AnyEdgeLayout:
     """Propagation layout over a summary's compacted, pre-sorted E_K
     buffer (valid edges first, padding at the ``K_cap`` sentinel), at
-    the kernels' default merge tile."""
+    the kernels' default merge tile.  A sharded summary (stacked
+    ``[S, H_s]`` E_K shards) gives a :class:`ShardedEdgeLayout` with the
+    summary's mesh, so every summarized sweep runs per shard."""
     record_trace("summary_layout")
     s = resolve_semiring(semiring)
     if summary.semiring != s.name:
         raise ValueError(
             f"summary_layout(semiring={s.name!r}) over a summary baked for "
             f"{summary.semiring!r}; rebuild the summary for this semiring")
-    if summary.ek_src.dim() != 1:
-        raise NotImplementedError(
-            "sharded summaries are not ported yet (ROADMAP queue 1 entry 15)")
     k_cap = summary.hot_ids.shape[0]
+    # analysis: allow(AST-HOST-SYNC): a numpy identity, no device read
+    zero = s.zero.item()
+    if summary.ek_src.dim() == 2:
+        # the stacked per-shard E_K (a summary built through a sharded
+        # layout): padding is marked by the K_cap sentinel destination
+        h_s = summary.ek_src.shape[1]
+        extra = padded_length(h_s, chunk) - h_s
+        pad2 = lambda x, v: torch.nn.functional.pad(x, (0, extra), value=v)
+        dst = pad2(summary.ek_dst, k_cap)
+        valid = pad2(summary.ek_dst < k_cap, False)
+        rank = (stream_rank(dst, valid, summary.ek_row_offsets)
+                if s.add != "sum" else None)
+        return ShardedEdgeLayout(
+            pad2(summary.ek_src, 0), dst, pad2(summary.ek_w, zero), valid,
+            summary.ek_row_offsets, None, rank, weight_mode="summary",
+            pad_chunk=chunk, semiring=s.name, mesh=summary.mesh,
+            axes=summary.axes, total_shards=summary.total_shards)
     h_cap = summary.ek_src.shape[0]
     valid = (torch.arange(h_cap, dtype=torch.int32,
                           device=summary.ek_src.device)
              < summary.num_ek.clamp(max=h_cap))
     src, dst, w, valid = _pad_stream(
         summary.ek_src, summary.ek_dst, summary.ek_w, valid,
-        # analysis: allow(AST-HOST-SYNC): a numpy identity, no device read
-        sentinel=k_cap, chunk=chunk, zero=s.zero.item())
+        sentinel=k_cap, chunk=chunk, zero=zero)
     rank = (stream_rank(dst, valid, summary.ek_row_offsets)
             if s.add != "sum" else None)
     return EdgeLayout(src, dst, w, valid, summary.ek_row_offsets, None, rank,
@@ -266,11 +366,11 @@ def summary_layout(summary, *, chunk: int = CHUNK,
                       semiring=s.name)
 
 
-def require_layout(layout: Optional[EdgeLayout], *, weight: str,
+def require_layout(layout: Optional[AnyEdgeLayout], *, weight: str,
                    reverse: bool, who: str,
                    semiring: str = "plus_times") -> None:
-    """A cached layout must match the weighting, orientation and semiring
-    the sweep was built for; ``None`` passes."""
+    """A cached layout, single or sharded, must match the weighting,
+    orientation and semiring the sweep was built for; ``None`` passes."""
     want_s = resolve_semiring(semiring).name
     if layout is not None and (layout.weight_mode != weight
                                or layout.reverse != reverse
@@ -295,7 +395,7 @@ def normalize_layout_spec(spec) -> tuple:
 
 def push(
     values: torch.Tensor,
-    layout: EdgeLayout,
+    layout: AnyEdgeLayout,
     *,
     semiring: Union[str, Semiring] = "plus_times",
     mask: Optional[torch.Tensor] = None,
@@ -311,11 +411,18 @@ def push(
     launches the semiring's kernel, single or batched (see the module
     docstring), at the layout's merge tile, one launch per call; what has
     no kernel raises ``NotImplementedError`` there.
+
+    A :class:`ShardedEdgeLayout` runs one such push per shard this rank
+    holds (one launch each on the card), ⊕-merges the partials and, when
+    the layout carries a mesh, all-reduces them over it; its ``mask`` is
+    ``[S, E_pad]``, one row per shard held (a mesh layout is placed
+    first, so it holds this rank's rows).  min/max results are bitwise those
+    of the single layout's push, f32 sums differ by summation order.
     """
     s = resolve_semiring(semiring)
-    if not isinstance(layout, EdgeLayout):
-        raise NotImplementedError(
-            "sharded layouts are not ported yet (ROADMAP queue 1 entry 15)")
+    if isinstance(layout, ShardedEdgeLayout):
+        record_trace("push[sharded]")
+        return _push_sharded(values, layout, s=s, mask=mask)
     if layout.semiring != s.name:
         raise ValueError(
             f"push(semiring={s.name!r}) over a layout built for "
@@ -348,6 +455,45 @@ def push(
             f"bf16/f16")
     return gather_push(layout, values, layout.num_segments,
                        weight=layout.weight, mask=mask, semiring=s)
+
+
+def _shard_view(layout: ShardedEdgeLayout, i: int) -> EdgeLayout:
+    """Shard ``i`` of the stacked rows as a plain :class:`EdgeLayout`
+    (contiguous row views, the same metadata and merge tile)."""
+    return EdgeLayout(
+        layout.src[i], layout.dst[i], layout.weight[i], layout.valid[i],
+        layout.row_offsets[i], None,
+        None if layout.rank is None else layout.rank[i],
+        weight_mode=layout.weight_mode, reverse=layout.reverse,
+        pad_chunk=layout.pad_chunk, semiring=layout.semiring,
+        merge_tile=layout.merge_tile)
+
+
+def _push_sharded(values: torch.Tensor, layout: ShardedEdgeLayout, *,
+                  s: Semiring, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Per-shard partial pushes merged by ⊕, then the mesh's all-reduce.
+
+    Each shard's stream is sorted on its own, so its reduce is the single
+    layout's push (the kernel on the card); the partials are dense
+    ``[..., num_segments]`` vectors.  ⊕ = min/max is exact under any
+    regrouping, so those results are bitwise the unsharded push's."""
+    if layout.semiring != s.name:
+        raise ValueError(
+            f"push(semiring={s.name!r}) over a sharded layout built for "
+            f"{layout.semiring!r}; rebuild the layout for this semiring")
+    if mask is not None and mask.shape != layout.dst.shape:
+        raise ValueError(
+            f"sharded push mask must cover the sharded sorted stream "
+            f"{tuple(layout.dst.shape)}; got {tuple(mask.shape)}")
+    require_placed(layout, "push")
+    part = None
+    for i in range(layout.row_offsets.shape[0]):
+        one = push(values, _shard_view(layout, i), semiring=s,
+                   mask=None if mask is None else mask[i])
+        part = one if part is None else s.merge(part, one)
+    if layout.mesh is not None:
+        part = s.all_reduce(part, layout.mesh)
+    return part
 
 
 def push_coo(

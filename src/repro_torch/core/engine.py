@@ -20,8 +20,12 @@ sorts run on a side CUDA stream.  ``autotune`` picks each layout's
 merge-path tile (:mod:`repro_torch.kernels.spmv.autotune`) and
 ``weight_dtype`` stores the f32 semirings' full-graph edge weights as
 bfloat16/float16; both are resolved at layout-build time, so every sweep
-through a layout inherits them.  Sharding is not ported yet: its knobs
-raise.
+through a layout inherits them.  ``mesh`` (a 1-D ``DeviceMesh``) cuts
+every full-graph layout into ``num_shards`` locally sorted edge shards, so
+each O(E) sweep and each summary construction runs per shard and meets in
+the semiring's all-reduce over the mesh (:mod:`repro_torch.graph.
+partition`); ``rebalance_threshold`` recuts the partition when streaming
+skews the shards' live edges.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.core import backend as B
 from repro_torch.core.algorithm import (Action, AlgoState, PageRankAlgorithm,
@@ -46,6 +51,13 @@ from repro_torch.core.hotset import select_hot_set
 from repro_torch.core.semiring import resolve_semiring
 from repro_torch.device import resolve_device
 from repro_torch.graph import graph as G
+from repro_torch.graph.partition import (balanced_shard_slots,
+                                         build_sharded_layout,
+                                         mesh_shard_count,
+                                         place_sharded_layout,
+                                         rebalance_decision,
+                                         rebalance_sharded_layout,
+                                         shard_slots)
 from repro_torch.kernels.spmv import autotune as AT
 
 
@@ -91,11 +103,27 @@ class EngineConfig:
     # dtype) or "bfloat16"/"float16" (f32 semirings only; integer algebras
     # keep theirs).  Accumulation stays f32; summary weights stay f32.
     weight_dtype: Optional[str] = None
-    # not ported yet (ROADMAP queue 1 entry 15): must keep these defaults
+    # a 1-D torch.distributed DeviceMesh for sharded execution: every
+    # full-graph layout is cut into num_shards locally sorted edge shards,
+    # each rank pushes its num_shards / mesh.size() of them in a loop and
+    # the partials meet in the semiring's all-reduce over the mesh's
+    # process group (graph/partition.py).  Its device type must be the
+    # engine's.  mesh_axes names the mesh's dimension.  None = one layout.
     mesh: Optional[object] = None
     mesh_axes: Optional[Tuple[str, ...]] = None
+    # edge shards of a mesh engine: None = one per rank; a multiple of the
+    # mesh's size runs the surplus shards as a loop on each rank (how one
+    # card runs S-way partitioning and rebalancing on a 1-rank mesh)
     num_shards: Optional[int] = None
+    # hot-edge slots per (shard, bucket) of the sharded summary: None =
+    # ceil(hot_edge_capacity / S); a tighter cap shrinks the exchanged E_K
+    # to S * this per shard and relies on the overflow flag (exact
+    # fallback) for a skewed batch.  Needs a mesh.
     shard_hot_edge_capacity: Optional[int] = None
+    # mesh engines: after each applied update batch, recut the edge
+    # partition when the shards' live-edge imbalance ((max - min) / mean)
+    # exceeds this; None keeps the contiguous cut.  Counted in
+    # engine.rebalances.
     rebalance_threshold: Optional[float] = 1.0
     # closed-loop quality control (core/control.py): an accuracy target in
     # (0, 1), e.g. 0.95.  The approximate step also computes the drift
@@ -115,20 +143,35 @@ class EngineConfig:
     async_rebuild: bool = False
 
 
-#: knobs whose slice has not landed: field -> (value that is accepted,
-#: ROADMAP queue 1 entry that ports it)
-_NOT_PORTED = {
-    "mesh": (None, 15), "num_shards": (None, 15),
-    "shard_hot_edge_capacity": (None, 15),
-}
+def _check_mesh(config: EngineConfig, device: torch.device) -> None:
+    """The mesh knobs: a 1-D ``DeviceMesh`` on the engine's device type
+    (a mesh of more dimensions raises, ROADMAP queue 1 entry 16), and
+    ``num_shards``/``shard_hot_edge_capacity`` only with one."""
+    mesh = config.mesh
+    if mesh is None:
+        for name in ("num_shards", "shard_hot_edge_capacity"):
+            if getattr(config, name) is not None:
+                # only the mesh layouts read it: accepted without a mesh
+                # it would silently run unsharded
+                raise ValueError(
+                    f"EngineConfig.{name} requires mesh= (sharding and "
+                    f"rebalancing are mesh-engine features; one device can "
+                    f"pass a 1-rank mesh with num_shards=S)")
+        return
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"EngineConfig.mesh must be a torch.distributed "
+                        f"DeviceMesh; got {type(mesh).__name__}")
+    size = mesh_shard_count(mesh, config.mesh_axes)
+    if mesh.device_type != device.type:
+        raise ValueError(f"EngineConfig.mesh is a {mesh.device_type!r} mesh; "
+                         f"the engine runs on {device}")
+    if config.num_shards is not None and (config.num_shards < 1
+                                          or config.num_shards % size):
+        raise ValueError(f"EngineConfig.num_shards={config.num_shards} must "
+                         f"be a positive multiple of the mesh's {size} ranks")
 
 
 def _check_config(config: EngineConfig) -> None:
-    for name, (ok, entry) in _NOT_PORTED.items():
-        if getattr(config, name) != ok:
-            raise NotImplementedError(
-                f"EngineConfig.{name}={getattr(config, name)!r} is not "
-                f"ported to PyTorch yet (ROADMAP queue 1 entry {entry})")
     if config.autotune not in AT.MODES:
         raise ValueError(f"EngineConfig.autotune={config.autotune!r}; "
                          f"expected one of {AT.MODES}")
@@ -145,7 +188,7 @@ class QueryStats:
     """One row of engine observability per served query: the action, wall
     time, graph / hot-set / summary sizes (``vertex_ratio``/``edge_ratio``
     are the paper's Figs. 4/8 axes), update accounting and the overflow
-    flag."""
+    and rebalance flags."""
 
     query_id: int
     action: str
@@ -164,6 +207,9 @@ class QueryStats:
     pending_applied: int = 0
     removals_requested: int = 0
     removals_resolved: int = 0
+    # mesh engines: this query's applied updates pushed the shards' live
+    # edges past rebalance_threshold and the partition was recut
+    rebalanced: bool = False
     algorithm: str = "pagerank"
     # quality_target engines: the drift this query observed, the
     # controller's quality estimate, the knobs it ran with, and whether it
@@ -220,6 +266,7 @@ class VeilGraphEngine:
         _check_config(config)
         self.config = config
         self.device = resolve_device(config.device)
+        _check_mesh(config, self.device)
         if algorithm is None:
             algorithm = PageRankAlgorithm(
                 beta=config.beta, num_iters=config.num_iters, tol=config.tol)
@@ -244,6 +291,12 @@ class VeilGraphEngine:
         # build of a spec, on the current stream
         self._tiles: Dict[Tuple[str, int], int] = {}
         self._in_build = False
+        # mesh engines: the slot→shard assignment (None = the contiguous
+        # cut), the recuts so far and the last measured imbalance
+        self._shard_slots: Optional[torch.Tensor] = None
+        self._contiguous_slots: Optional[torch.Tensor] = None
+        self.rebalances = 0
+        self.last_imbalance = 0.0
         self.deg_prev = torch.zeros(config.node_capacity, dtype=torch.int32,
                                     device=self.device)
         self.active_prev = torch.zeros(config.node_capacity, dtype=torch.bool,
@@ -409,9 +462,10 @@ class VeilGraphEngine:
         return self._pending_count
 
     # ---- internals ---------------------------------------------------------
-    def edge_layouts(self) -> Tuple[B.EdgeLayout, ...]:
+    def edge_layouts(self) -> Tuple[B.AnyEdgeLayout, ...]:
         """Sorted edge layouts per ``algorithm.layout_specs``, built at most
-        once per applied update batch."""
+        once per applied update batch: on a mesh engine, sharded ones, each
+        shard sorted on its own."""
         if self._edge_layouts is None:
             self._edge_layouts = tuple(
                 self._build_spec_layout(self.state, spec)
@@ -421,21 +475,31 @@ class VeilGraphEngine:
         return self._edge_layouts
 
     def _build_spec_layout(self, state: G.GraphState,
-                           spec: Tuple) -> B.EdgeLayout:
+                           spec: Tuple) -> B.AnyEdgeLayout:
         """The sorted layout of one normalized ``(weight, reverse,
         semiring)`` spec over ``state``: the one layout constructor of the
         engine's cache, of the serving engine's spec-keyed cache and of the
         epoch snapshots' builds.  It stamps the tuned merge tile and stores
-        the weights in the configured ``weight_dtype``."""
+        the weights in the configured ``weight_dtype``.  A mesh engine gets
+        a sharded layout cut at the current slot assignment, holding this
+        rank's shards."""
         w, rev, s = spec
-        layout = B.build_layout(state, weight=w, reverse=rev, semiring=s,
-                                weight_dtype=self._weight_dtype_for(s))
+        cfg = self.config
+        if cfg.mesh is None:
+            layout = B.build_layout(state, weight=w, reverse=rev, semiring=s,
+                                    weight_dtype=self._weight_dtype_for(s))
+        else:
+            layout = place_sharded_layout(build_sharded_layout(
+                state, mesh=cfg.mesh, axes=cfg.mesh_axes,
+                num_shards=self._num_shards(), weight=w, reverse=rev,
+                semiring=s, slots=self._shard_slots,
+                weight_dtype=self._weight_dtype_for(s)))
         tile = self._tuned_geometry(s, layout)
         return (layout if tile is None
                 else dataclasses.replace(layout, merge_tile=tile))
 
     def _tuned_geometry(self, semiring,
-                        layout: B.EdgeLayout) -> Optional[int]:
+                        layout: B.AnyEdgeLayout) -> Optional[int]:
         """The merge tile of one layout spec's semiring, resolved at its
         first layout build and kept for the engine's life, so every push
         through its full-graph layouts (exact sweeps, ``b_in``, batched)
@@ -443,7 +507,9 @@ class VeilGraphEngine:
         Summaries' E_K layouts keep the default tile.  A ``"full"`` tuning
         times the candidates on ``layout``, the first one built, and on
         the current stream, so it must never first run inside an async
-        build (:meth:`_resolve_tiles` runs it before one)."""
+        build (:meth:`_resolve_tiles` runs it before one).  A sharded
+        layout is tuned at the per-shard stream length, on its first
+        shard."""
         cfg = self.config
         if cfg.autotune == "off":
             return None
@@ -456,13 +522,16 @@ class VeilGraphEngine:
                     f"merge tile of {s.name!r} at batch "
                     f"{self.autotune_batch_hint} not resolved before an "
                     f"async build")
+            e_cap, sample = cfg.edge_capacity, layout
+            if isinstance(layout, B.ShardedEdgeLayout):
+                e_cap = -(-e_cap // layout.num_shards)
+                sample = B._shard_view(layout, 0)
             tile = self._tiles[key] = AT.tune_for_push(
-                edge_capacity=cfg.edge_capacity,
-                num_segments=cfg.node_capacity,
+                edge_capacity=e_cap, num_segments=cfg.node_capacity,
                 batch=self.autotune_batch_hint, dtype=s.dtype, reduce=s.add,
                 weight_dtype=self._weight_dtype_for(s), mode=cfg.autotune,
                 device=self.device,
-                sample=(layout.src, layout.weight, layout.row_offsets))
+                sample=(sample.src, sample.weight, sample.row_offsets))
         return tile
 
     def _resolve_tiles(self) -> None:
@@ -488,6 +557,52 @@ class VeilGraphEngine:
         if resolve_semiring(semiring).dtype != "float32":
             return None
         return wd
+
+    def _num_shards(self) -> int:
+        """A mesh engine's edge shards: ``num_shards``, else one a rank."""
+        cfg = self.config
+        return (cfg.num_shards if cfg.num_shards is not None
+                else mesh_shard_count(cfg.mesh, cfg.mesh_axes))
+
+    def _measures_balance(self) -> bool:
+        """Whether this engine measures its shards' balance: a mesh engine
+        with a ``rebalance_threshold``."""
+        cfg = self.config
+        return cfg.mesh is not None and cfg.rebalance_threshold is not None
+
+    def _current_slots(self) -> torch.Tensor:
+        """The slot assignment the layouts are cut by: the last recut's,
+        else the contiguous cut (uploaded once)."""
+        if self._shard_slots is not None:
+            return self._shard_slots
+        if self._contiguous_slots is None:
+            self._contiguous_slots = self._to_device(shard_slots(
+                self.state.edge_capacity, self._num_shards()))
+        return self._contiguous_slots
+
+    def _recut(self, slots: torch.Tensor) -> None:
+        """Adopt a rebalanced assignment: the cached layouts go, so the
+        next build gathers every stream by it."""
+        self._shard_slots = slots
+        self.rebalances += 1
+        self._edge_layouts = None
+
+    def _maybe_rebalance(self) -> bool:
+        """Recut the edge partition when streaming has skewed the shards'
+        live edges past ``config.rebalance_threshold``: once per applied
+        update batch of the synchronous path, on mesh engines only, by
+        :func:`~repro_torch.graph.partition.rebalance_sharded_layout` (its
+        one read of the verdict).  ``rebalances`` counts the recuts and
+        ``last_imbalance`` keeps the latest measurement."""
+        if not self._measures_balance():
+            return False
+        slots, recut, self.last_imbalance = rebalance_sharded_layout(
+            self.state, num_shards=self._num_shards(),
+            slots=self._current_slots(),
+            threshold=self.config.rebalance_threshold)
+        if recut:
+            self._recut(slots)
+        return recut
 
     @property
     def autotune_runs(self) -> int:
@@ -700,23 +815,42 @@ class VeilGraphEngine:
 
     def _dispatch_rebalance_probe(self):
         """The shard-rebalance verdict of the state being snapshotted, left
-        on the device until promotion.  The port has no mesh yet (ROADMAP
-        queue 1 entry 15), so there is none."""
-        return None
+        on the device until promotion (:meth:`_finalize_promotion` reads
+        it): the async path's replacement for :meth:`_maybe_rebalance`.
+        None on an engine that does not rebalance."""
+        if not self._measures_balance():
+            return None
+        return rebalance_decision(self.state, self._current_slots(),
+                                  self.config.rebalance_threshold)
 
-    def _finalize_promotion(self, snap: EpochSnapshot) -> None:
+    def _finalize_promotion(self, snap: EpochSnapshot) -> bool:
         """Host bookkeeping of a snapshot about to be served: the current
         stream waits for its build, takes over its tensors (so that the
         allocator reuses none of them while this stream may still read
         them), and its counts are read (the one read per epoch that
         replaces the synchronous path's per-query count read; it waits for
-        the build, which the query needs anyway)."""
+        the build, which the query needs anyway).  On a mesh engine the
+        snapshot's rebalance verdict rides that read; a recut applies to
+        the next epoch's layouts, never to this sorted snapshot.  Returns
+        True on a recut."""
         if snap.events is not None:
             main = torch.cuda.current_stream(self.device)
             main.wait_event(snap.events[1])
             for t in _snapshot_tensors(snap):
                 t.record_stream(main)
-        snap.num_nodes, snap.num_edges = snap.counts.tolist()
+        probe, snap.rebalance_probe = snap.rebalance_probe, None
+        if probe is None:
+            snap.num_nodes, snap.num_edges = snap.counts.tolist()
+            return False
+        # the verdict rides the counts' read: the imbalance as its f32 bits
+        vals = torch.cat([snap.counts, probe[0].to(torch.int32)[None],
+                          probe[1].view(torch.int32)[None]]).tolist()
+        snap.num_nodes, snap.num_edges = vals[0], vals[1]
+        self.last_imbalance = float(np.int32(vals[3]).view(np.float32))
+        if vals[2]:
+            self._recut(balanced_shard_slots(self.state,
+                                             num_shards=self._num_shards()))
+        return bool(vals[2])
 
     def _async_integrate(self) -> Tuple[int, int, int]:
         """ApplyUpdates of the async path, after the query's answer is
@@ -782,8 +916,8 @@ class VeilGraphEngine:
 
         # (1) the boundary: flip in the finished build, if any
         promoted = pipe.promote()
-        if promoted is not None:
-            self._finalize_promotion(promoted)
+        rebalanced = (promoted is not None
+                      and self._finalize_promotion(promoted))
         snap = pipe.current
         applied = promoted.applied if promoted is not None else 0
         view = {
@@ -807,7 +941,8 @@ class VeilGraphEngine:
                                 if promoted is not None else 0),
             removals_resolved=(promoted.removals_resolved
                                if promoted is not None else 0),
-            algorithm=self.algorithm.name, epoch=snap.epoch)
+            rebalanced=rebalanced, algorithm=self.algorithm.name,
+            epoch=snap.epoch)
 
         # (2) this query's compute on the served snapshot
         new_state = qs = None
@@ -822,6 +957,7 @@ class VeilGraphEngine:
                 delta_hop_cap=cfg.delta_hop_cap, degree_mode=cfg.degree_mode,
                 expand_both=cfg.expand_both,
                 layouts=self._snapshot_layouts(snap),
+                shard_bucket_capacity=cfg.shard_hot_edge_capacity,
                 with_drift=self.controller is not None)
         elif action == Action.EXACT:
             self._run_exact_on(snap, st)
@@ -874,10 +1010,13 @@ class VeilGraphEngine:
         cfg = self.config
 
         applied = removals_requested = removals_resolved = 0
+        rebalanced = False
         view = self._stats_view(self._pending_count, 0)
         if self._before_updates(self._pending_count, view):
             applied, removals_requested, removals_resolved = \
                 self._apply_pending()
+            if applied:
+                rebalanced = self._maybe_rebalance()
             # the OnQuery policy sees the post-update graph
             view = self._stats_view(self._pending_count, applied)
 
@@ -887,7 +1026,7 @@ class VeilGraphEngine:
             query_id=qid, action=action.value, wall_time_s=0.0,
             num_nodes=view["num_nodes"], num_edges=view["num_edges"],
             pending_applied=applied, removals_requested=removals_requested,
-            removals_resolved=removals_resolved,
+            removals_resolved=removals_resolved, rebalanced=rebalanced,
             algorithm=self.algorithm.name)
 
         if action == Action.REPEAT_LAST:
@@ -908,6 +1047,7 @@ class VeilGraphEngine:
                 hot_edge_capacity=cfg.hot_edge_capacity, n=cfg.n,
                 delta_hop_cap=cfg.delta_hop_cap, degree_mode=cfg.degree_mode,
                 expand_both=cfg.expand_both, layouts=self.edge_layouts(),
+                shard_bucket_capacity=cfg.shard_hot_edge_capacity,
                 with_drift=self.controller is not None)
             drift = self._take_stats(st, qs)
             if st.overflow_fallback:
@@ -930,11 +1070,14 @@ class VeilGraphEngine:
                 delta_hop_cap=cfg.delta_hop_cap, degree_mode=cfg.degree_mode,
                 expand_both=cfg.expand_both,
                 normalize_scores=self.algorithm.normalize_selection_scores)
+            from repro_torch.core.fused import summary_kwargs
+
             summaries = self.algorithm.build_summaries(
                 self.algo_state, self.state, hot,
                 hot_node_capacity=cfg.hot_node_capacity,
                 hot_edge_capacity=cfg.hot_edge_capacity,
-                layouts=self.edge_layouts())
+                layouts=self.edge_layouts(),
+                **summary_kwargs(cfg.shard_hot_edge_capacity))
             st.num_hot = int(hstats.num_hot)
             st.num_kr = int(hstats.num_kr)
             st.num_kn = int(hstats.num_kn)

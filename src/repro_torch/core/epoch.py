@@ -64,8 +64,11 @@ class EpochSnapshot:
     batch this epoch integrated over its parent: they are charged to the
     query that promotes it.  ``events`` are the CUDA events recorded on the
     build stream before and after the build (None for a build that ran on
-    the current stream).  ``rebalance_probe`` holds a sharded engine's
-    rebalance verdict (none yet: the port has no mesh).
+    the current stream).  ``rebalance_probe`` holds a mesh engine's
+    rebalance verdict for this epoch's state, the ``(bool, f32)`` pair of
+    :func:`repro_torch.graph.partition.rebalance_decision` left on the
+    device at build time; it is read with ``counts`` at promotion, and a
+    recut applies to the next epoch's layouts.
     """
 
     epoch: int

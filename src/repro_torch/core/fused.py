@@ -9,8 +9,10 @@ the caller discards it when ``used_fallback`` is set.
 :func:`fused_query_step_batched` is the serving engine's wave: B queries of
 one algorithm over one shared hot set and summary.  Under
 ``with_drift=True`` both also compute the quality controller's drift
-estimate (:mod:`repro_torch.core.control`) on the step's device.  The mesh
-path is not ported yet.
+estimate (:mod:`repro_torch.core.control`) on the step's device.  Handed
+sharded layouts (a mesh engine's), every push of the step runs per shard
+and the summaries are built sharded; ``mesh``/``mesh_axes`` build them here
+for a caller with no cached layouts.
 
 Under ``EngineConfig.async_rebuild`` every input here is epoch-bound: the
 graph, the layouts and the ``deg_prev``/``active_prev`` baselines all come
@@ -26,9 +28,12 @@ import torch
 
 from repro_torch.core.algorithm import (PageRankAlgorithm, _finite_churn,
                                         summaries_overflow)
+from repro_torch.core.backend import normalize_layout_spec
 from repro_torch.core.control import drift_signals
 from repro_torch.core.hotset import _frontier_sweep, select_hot_set
 from repro_torch.graph.graph import GraphState
+from repro_torch.graph.partition import (build_sharded_layout,
+                                         place_sharded_layout)
 
 
 class QueryStepStats(NamedTuple):
@@ -63,6 +68,25 @@ def _drift_from_state(algo, new_state, old_state, graph, hot, probe_ids, *,
                          normalize=algo.drift_normalize)
 
 
+def _mesh_layouts(state: GraphState, algo, layouts, mesh, mesh_axes):
+    """``layouts``, or, when there are none and a mesh is given, the
+    algorithm's sharded layouts built and placed here (one per spec)."""
+    if layouts is not None or mesh is None:
+        return layouts
+    return tuple(
+        place_sharded_layout(build_sharded_layout(
+            state, mesh=mesh, axes=mesh_axes, weight=w, reverse=rev,
+            semiring=sr))
+        for w, rev, sr in map(normalize_layout_spec, algo.layout_specs))
+
+
+def summary_kwargs(shard_bucket_capacity: Optional[int]) -> dict:
+    """``shard_bucket_capacity`` for ``build_summaries``, only when set,
+    so that an override without the keyword still works."""
+    return ({} if shard_bucket_capacity is None
+            else {"shard_bucket_capacity": shard_bucket_capacity})
+
+
 def _wave_stats(hstats, summaries, iters, num_hot=None) -> QueryStepStats:
     num_eb = summaries[0].num_eb
     for s in summaries[1:]:
@@ -92,17 +116,24 @@ def fused_query_step(
     degree_mode: str = "out",
     expand_both: bool = False,
     layouts=None,
+    mesh=None,
+    mesh_axes=None,
+    shard_bucket_capacity: Optional[int] = None,
     with_drift: bool = False,
 ):
     """One summarized query for any :class:`StreamingAlgorithm`.
 
-    ``layouts`` is the cached layout tuple matching ``algo.layout_specs``.
-    Returns ``(new_algo_state, QueryStepStats)``; the caller discards the
-    new state and recomputes exactly when ``used_fallback`` is set.
-    ``with_drift=True`` also fills the stats' ``drift_probe`` and
+    ``layouts`` is the cached layout tuple matching ``algo.layout_specs``,
+    single or (a mesh engine's) sharded.  With ``layouts=None`` and a
+    ``mesh`` (a 1-D ``DeviceMesh``, over ``mesh_axes``) the sharded
+    layouts are built here; ``shard_bucket_capacity`` goes to the sharded
+    summaries.  Returns ``(new_algo_state, QueryStepStats)``; the caller
+    discards the new state and recomputes exactly when ``used_fallback``
+    is set.  ``with_drift=True`` also fills the stats' ``drift_probe`` and
     ``drift_cold`` (probed on ``probe_ids``), on the device: they reach the
     host in the caller's one stats read.
     """
+    layouts = _mesh_layouts(state, algo, layouts, mesh, mesh_axes)
     hot, hstats = select_hot_set(
         state, deg_prev, algo.selection_view(algo_state), r, delta,
         active_prev=active_prev, n=n, delta_hop_cap=delta_hop_cap,
@@ -110,7 +141,8 @@ def fused_query_step(
         normalize_scores=algo.normalize_selection_scores)
     summaries = algo.build_summaries(
         algo_state, state, hot, hot_node_capacity=hot_node_capacity,
-        hot_edge_capacity=hot_edge_capacity, layouts=layouts)
+        hot_edge_capacity=hot_edge_capacity, layouts=layouts,
+        **summary_kwargs(shard_bucket_capacity))
     new_state, iters = algo.summarized(algo_state, state, summaries)
     stats = _wave_stats(hstats, summaries, iters)
     if with_drift:
@@ -160,6 +192,9 @@ def fused_query_step_batched(
     degree_mode: str = "out",
     expand_both: bool = False,
     layouts=None,
+    mesh=None,
+    mesh_axes=None,
+    shard_bucket_capacity: Optional[int] = None,
     with_drift: bool = False,
 ):
     """One summarized wave for B concurrent queries of one algorithm.
@@ -188,8 +223,11 @@ def fused_query_step_batched(
     ``used_fallback`` is set.  ``with_drift=True`` adds a fourth value,
     ``row_drift f32[B, 2]`` (each slot's drift_probe and drift_cold, zero on
     vacant rows), for the caller to read with ``row_delta``; the stats then
-    carry the maximum over the live rows.
+    carry the maximum over the live rows.  ``mesh``, ``mesh_axes`` and
+    ``shard_bucket_capacity`` are as for :func:`fused_query_step`: with
+    sharded layouts each batched push runs per shard.
     """
+    layouts = _mesh_layouts(state, algo, layouts, mesh, mesh_axes)
     scores = algo.batched_selection_scores(batch_state, row_mask)
     hot, hstats = select_hot_set(
         state, deg_prev, scores, r, delta, active_prev=active_prev, n=n,
@@ -205,7 +243,8 @@ def fused_query_step_batched(
         num_hot = hot.sum(dtype=torch.int32)
     summaries = algo.build_summaries(
         batch_state, state, hot, hot_node_capacity=hot_node_capacity,
-        hot_edge_capacity=hot_edge_capacity, layouts=layouts)
+        hot_edge_capacity=hot_edge_capacity, layouts=layouts,
+        **summary_kwargs(shard_bucket_capacity))
     new_state, iters, row_delta = algo.summarized_batched(
         batch_state, state, summaries, row_mask=row_mask)
     stats = _wave_stats(hstats, summaries, iters, num_hot)

@@ -1,5 +1,5 @@
 """PageRank power method, exact and summarized (PyTorch port of
-``repro.core.pagerank``, single-device part).
+``repro.core.pagerank``).
 
 Gelly-style normalization as in the paper (§2, §3.1): a vertex v sets
 ``rank(v) = (1-β) + β·Σ incoming`` with each u emitting ``rank(u)/d_out(u)``.
@@ -7,7 +7,8 @@ The summarized version runs the same update only for the hot set K, in a
 compacted id space, with the frozen big-vertex contribution ``b_in`` added
 each iteration and every cold rank carried over unchanged.
 
-Every iteration is one :func:`repro_torch.core.backend.push`.  The loops
+Every iteration is one :func:`repro_torch.core.backend.push`, per shard
+when the summary was built through a sharded layout.  The loops
 run on the host and read the step size back each iteration to keep the JAX
 package's trip count exactly (``num_iters`` steps unless the change reaches
 ``tol``): one device-to-host sync per iteration.  The batched sweep
@@ -21,8 +22,10 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import backend as B
+from repro_torch.core.semiring import PLUS_TIMES
 from repro_torch.graph.graph import GraphState, inv_out_degree
 
 
@@ -183,6 +186,15 @@ class SummaryBuffers:
     record how ``ek_w``/``b_in`` were baked.  ``ek_w`` stays in the
     semiring's dtype whatever the full layout stores (as in the
     reference).
+
+    **Sharded form** (built by :func:`build_summary` through a
+    :class:`~repro_torch.core.backend.ShardedEdgeLayout`): the ``ek_*``
+    buffers gain a leading shard axis, ``ek_src``/``ek_dst``/``ek_w``
+    ``[S, H_s]`` and ``ek_row_offsets`` ``[S, K_cap + 1]``, one locally
+    destination-sorted E_K shard each, shard ``j`` owning the local ids
+    ``[j·⌈K_cap/S⌉, (j+1)·⌈K_cap/S⌉)``.  ``hot_ids``, ``b_in`` and the
+    counters stay whole.  ``mesh``/``axes`` carry the device mesh: on R
+    ranks each holds its ``S / R`` rows and ``total_shards`` is S.
     """
 
     hot_ids: torch.Tensor         # int32[K_cap]
@@ -197,6 +209,161 @@ class SummaryBuffers:
     overflow: torch.Tensor        # bool 0-d
     weight_mode: str = "inv_out"
     semiring: str = "plus_times"
+    mesh: Optional[object] = None
+    axes: Tuple[str, ...] = ()
+    total_shards: Optional[int] = None
+
+    @property
+    def sharded(self) -> bool:
+        """True for the stacked per-shard E_K form."""
+        return self.ek_src.dim() == 2
+
+    @property
+    def num_shards(self) -> Optional[int]:
+        """Shard count of the sharded form, ``None`` for flat summaries."""
+        if not self.sharded:
+            return None
+        return (self.ek_src.shape[0] if self.total_shards is None
+                else self.total_shards)
+
+
+def _build_summary_sharded(
+    state: GraphState,
+    ranks_prev: torch.Tensor,
+    hot_mask: torch.Tensor,
+    *,
+    hot_node_capacity: int,
+    hot_edge_capacity: int,
+    weight: str,
+    layout: B.ShardedEdgeLayout,
+    s,
+    shard_bucket_capacity: Optional[int] = None,
+) -> SummaryBuffers:
+    """Summary construction over a sharded layout: a bucket sort over the
+    shard axis, in which no stage gathers the whole edge stream.
+
+    1. **local selection**: each shard masks its own sorted stream for
+       E_K / E_B and relabels endpoints through the whole-graph
+       ``local_of`` vector;
+    2. **local destination sort**: one stable sort per shard by local
+       destination groups its E_K edges into S buckets of ``W =
+       ⌈K_cap/S⌉`` local ids each, sorted within each bucket;
+    3. **capacity-padded exchange**: each (source shard, bucket) block is
+       padded to ``C = ⌈H_cap/S⌉`` slots (``shard_bucket_capacity``
+       overrides C) and the ``[S_in, S_out, C]`` stack is exchanged on its
+       leading axes, ``all_to_all_single`` across a mesh of more than one
+       rank and a transpose otherwise; shard ``j`` then holds every E_K
+       edge into its bucket;
+    4. **local merge**: one stable sort per shard merges its S sorted
+       blocks, and ``ek_row_offsets`` come from a per-shard
+       ``searchsorted``.
+
+    A block over C raises ``overflow`` beside the |K| and |E_K| checks,
+    and the caller falls back to exact recomputation.  ``b_in`` is the
+    sharded push under the E_B mask.  The counters are summed over the
+    mesh, so every rank sees the same ``num_ek``, ``num_eb`` and
+    ``overflow``.  The E_K weights keep the layout's storage dtype, as in
+    the reference.
+    """
+    dev = state.device
+    n_cap = state.node_capacity
+    k_cap, h_cap = hot_node_capacity, hot_edge_capacity
+    B.require_placed(layout, "build_summary")
+    num_shards = layout.num_shards
+    rows, e_pad = layout.dst.shape
+    if shard_bucket_capacity is None:
+        bucket_cap = -(-h_cap // num_shards)  # C, per (source shard, bucket)
+    elif shard_bucket_capacity < 1:
+        raise ValueError(f"shard_bucket_capacity must be >= 1; got "
+                         f"{shard_bucket_capacity}")
+    else:
+        bucket_cap = shard_bucket_capacity
+    bucket_w = -(-k_cap // num_shards)      # W, local ids per bucket
+    # analysis: allow(AST-HOST-SYNC): a numpy identity, no device read
+    s_zero = s.zero.item()
+    _, n_ranks = B.mesh_rank_and_size(layout.mesh)
+
+    # ---- hot-vertex relabelling: whole-graph node space, as flat -----------
+    hot_ids = compact_indices(hot_mask, k_cap)
+    num_hot = hot_mask.sum(dtype=torch.int32)
+    local_valid = torch.arange(k_cap, dtype=torch.int32, device=dev) < num_hot
+    local_of = _set_drop(torch.zeros(n_cap, dtype=torch.int32, device=dev),
+                         hot_ids, torch.arange(k_cap, dtype=torch.int32,
+                                               device=dev))
+
+    # ---- 1. per-shard E_K / E_B selection over the sorted streams ---------
+    dst_c = layout.dst.clamp(max=n_cap - 1)
+    src_hot = hot_mask[layout.src]
+    dst_hot = hot_mask[dst_c]
+    ek_mask = layout.valid & src_hot & dst_hot
+    eb_mask = layout.valid & ~src_hot & dst_hot
+
+    # the frozen big-vertex boundary: the sharded push under the E_B mask;
+    # [B, N] ranks_prev (a serving wave) gives b_in [B, K_cap]
+    b_in_global = B.push(ranks_prev, layout, mask=eb_mask, semiring=s)
+    b_in = torch.where(local_valid,
+                       b_in_global[..., hot_ids.clamp(max=n_cap - 1)], s_zero)
+
+    # ---- 2. local relabel and destination sort ------------------------------
+    lsrc = torch.where(ek_mask, local_of[layout.src], 0)
+    ldst = torch.where(ek_mask, local_of[dst_c], k_cap)  # sentinel last
+    ek_w = torch.where(ek_mask, layout.weight, s_zero)
+    ldst, perm = torch.sort(ldst, dim=1, stable=True)
+    lsrc, ek_w = lsrc.gather(1, perm), ek_w.gather(1, perm)
+
+    # ---- 3. capacity-padded blocks and the exchange -------------------------
+    bounds = (torch.arange(num_shards + 1, dtype=torch.int32, device=dev)
+              * bucket_w).clamp(max=k_cap)
+    off = torch.searchsorted(ldst, bounds.expand(rows, -1).contiguous(),
+                             side="left", out_int32=True)
+    n_block = off[:, 1:] - off[:, :-1]                 # [S_in, S_out]
+    lane = torch.arange(bucket_cap, dtype=torch.int32, device=dev)
+    idx = (off[:, :-1, None] + lane).clamp(max=e_pad - 1).reshape(
+        rows, num_shards * bucket_cap).long()
+    block_valid = lane < n_block.clamp(max=bucket_cap)[:, :, None]
+
+    def exchange(x, fill):
+        """[S_in, E_pad] stream -> [S_out, S_in·C] received blocks."""
+        g = torch.where(block_valid,
+                        x.gather(1, idx).reshape(rows, num_shards,
+                                                 bucket_cap), fill)
+        send = g.transpose(0, 1)                       # [buckets, S_in, C]
+        if n_ranks == 1:
+            return send.reshape(rows, num_shards * bucket_cap)
+        # bucket chunk j goes to rank j; rank i's source shards come back
+        # in rank order
+        recv = torch.empty_like(send, memory_format=torch.contiguous_format)
+        dist.all_to_all_single(recv, send.contiguous(),
+                               group=layout.mesh.get_group())
+        return recv.reshape(n_ranks, rows, rows, bucket_cap).transpose(
+            0, 1).reshape(rows, num_shards * bucket_cap)
+
+    ek_src2 = exchange(lsrc, 0)
+    ek_dst2 = exchange(ldst, k_cap)
+    ek_w2 = exchange(ek_w, s_zero)
+
+    # ---- 4. local merge sort and row offsets --------------------------------
+    ek_dst2, perm2 = torch.sort(ek_dst2, dim=1, stable=True)
+    ek_src2, ek_w2 = ek_src2.gather(1, perm2), ek_w2.gather(1, perm2)
+    ek_row_offsets = torch.searchsorted(
+        ek_dst2, torch.arange(k_cap + 1, dtype=torch.int32,
+                              device=dev).expand(rows, -1).contiguous(),
+        side="left", out_int32=True)
+
+    # the counters over every rank's shards, in one collective
+    counts = torch.stack([ek_mask.sum(dtype=torch.int32),
+                          eb_mask.sum(dtype=torch.int32),
+                          (n_block > bucket_cap).sum(dtype=torch.int32)])
+    if layout.mesh is not None:
+        counts = PLUS_TIMES.all_reduce(counts, layout.mesh)
+    num_ek, num_eb = counts[0], counts[1]
+    return SummaryBuffers(
+        hot_ids=hot_ids, num_hot=num_hot, ek_src=ek_src2, ek_dst=ek_dst2,
+        ek_w=ek_w2, ek_row_offsets=ek_row_offsets, num_ek=num_ek,
+        b_in=b_in, num_eb=num_eb,
+        overflow=(num_hot > k_cap) | (num_ek > h_cap) | (counts[2] > 0),
+        weight_mode=weight, semiring=s.name, mesh=layout.mesh,
+        axes=layout.axes, total_shards=layout.total_shards)
 
 
 def build_summary(
@@ -208,9 +375,10 @@ def build_summary(
     hot_edge_capacity: int,
     weight: str = "inv_out",
     reverse: bool = False,
-    layout: Optional[B.EdgeLayout] = None,
+    layout: Optional[B.AnyEdgeLayout] = None,
     semiring: str = "plus_times",
     lengths: Optional[torch.Tensor] = None,
+    shard_bucket_capacity: Optional[int] = None,
 ) -> SummaryBuffers:
     """Construct the big-vertex summary (§3.1) into bounded buffers.
 
@@ -220,11 +388,14 @@ def build_summary(
     pass runs as one masked push (without one it is an unsorted
     :func:`~repro_torch.core.backend.push_coo`).  ``ranks_prev`` is the
     vector the frozen contribution is computed from.
+
+    Handed a :class:`~repro_torch.core.backend.ShardedEdgeLayout`, the
+    construction itself runs sharded (:func:`_build_summary_sharded`) and
+    gives the stacked per-shard E_K form, whose summarized sweeps then
+    push per shard; ``shard_bucket_capacity`` tightens its per-(shard,
+    bucket) slot count.  The layout's baked weights are then the only
+    source of the E_K weights: ``lengths`` does not override them.
     """
-    if layout is not None and not isinstance(layout, B.EdgeLayout):
-        raise NotImplementedError(
-            "sharded summary construction is not ported yet (ROADMAP queue "
-            "1 entry 15)")
     if weight == "length" and lengths is None and layout is None:
         lengths = state.edge_len
     s = B.validate_weight_spec(weight, reverse=reverse, semiring=semiring,
@@ -232,6 +403,11 @@ def build_summary(
                                edge_capacity=state.edge_capacity)
     B.require_layout(layout, weight=weight, reverse=reverse,
                      who="build_summary", semiring=s)
+    if isinstance(layout, B.ShardedEdgeLayout):
+        return _build_summary_sharded(
+            state, ranks_prev, hot_mask, hot_node_capacity=hot_node_capacity,
+            hot_edge_capacity=hot_edge_capacity, weight=weight, layout=layout,
+            s=s, shard_bucket_capacity=shard_bucket_capacity)
     dev = state.device
     n_cap, e_cap = state.node_capacity, state.edge_capacity
     k_cap, h_cap = hot_node_capacity, hot_edge_capacity

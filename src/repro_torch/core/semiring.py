@@ -19,8 +19,9 @@ name           ⊕      ⊗      dtype     workload
 
 ``zero`` is ⊕'s identity (what padding and masked edges contribute) and
 ``one`` is ⊗'s identity (the weight a ``"unit"`` layout bakes); for integer
-dtypes ±∞ means the dtype's extrema.  The cross-device ⊕ (``merge``,
-``all_reduce``) belongs to the sharded push, which is not ported yet.
+dtypes ±∞ means the dtype's extrema.  ``merge`` (⊕ of two shards'
+partials on one device) and ``all_reduce`` (the same across the ranks of a
+device mesh) complete the sharded push.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from typing import Dict, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 #: ⊕ reduce kinds the backends implement.
 ADD_OPS = ("sum", "min", "max")
@@ -119,19 +121,26 @@ class Semiring:
                                    reduce="amin" if self.add == "min"
                                    else "amax", include_self=True)
 
-    def merge(self, x, y):
-        """⊕ of two shards' partial pushes: part of the sharded push, not
-        ported yet."""
-        raise NotImplementedError(
-            "Semiring.merge belongs to the sharded push (ROADMAP queue 1 "
-            "entry 15)")
+    def merge(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """⊕ of two partial reduces, elementwise: how two shards' partial
+        pushes combine on one device."""
+        if self.add == "sum":
+            return x + y
+        if self.add == "min":
+            return torch.minimum(x, y)
+        return torch.maximum(x, y)
 
-    def all_reduce(self, x, axis_name):
-        """Cross-device ⊕ all-reduce: part of the sharded push, not ported
-        yet."""
-        raise NotImplementedError(
-            "Semiring.all_reduce belongs to the sharded push (ROADMAP queue "
-            "1 entry 15)")
+    def all_reduce(self, x: torch.Tensor, group) -> torch.Tensor:
+        """⊕ all-reduce of ``x`` across ``group`` (a 1-D ``DeviceMesh`` or
+        a process group): the cross-rank merge of per-shard partial
+        pushes, ``torch.distributed.all_reduce`` with SUM, MIN or MAX.
+        Reduces ``x`` in place and returns it."""
+        if hasattr(group, "get_group"):
+            group = group.get_group()
+        op = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
+              "max": dist.ReduceOp.MAX}[self.add]
+        dist.all_reduce(x, op=op, group=group)
+        return x
 
 
 _REGISTRY: Dict[str, Semiring] = {}

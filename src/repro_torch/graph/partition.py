@@ -1,0 +1,331 @@
+"""Edge partitioning over a device mesh (PyTorch port of
+``repro.graph.partition``, its layout half).
+
+The sharded engine cuts the edge buffer into shards while node vectors
+stay whole on every rank: a push is one partial push per shard plus one
+all-reduce of the dense result.  Two layers live here:
+
+- the **sharded edge layouts** the propagation backend consumes
+  (:func:`build_sharded_layout`): the edge buffer cut into contiguous slot
+  ranges, each destination-sorted on its own, so no sort ever crosses a
+  shard boundary;
+- **shard rebalancing** (:func:`rebalance_sharded_layout` and the pieces
+  it is built from): streaming appends land at the high-water mark, so the
+  contiguous cut fills its tail shards first and removals hollow out
+  arbitrary ones.  The engine measures per-shard live-edge counts after
+  each applied update batch and, past ``EngineConfig.rebalance_threshold``,
+  recuts the partition with a live-balanced slot assignment
+  (:func:`balanced_shard_slots`) that the next layout build gathers its
+  streams by.  Any valid partition gives the same push (bitwise for the
+  min/max semirings), so rebalancing only moves load.
+
+The mesh is a 1-D ``torch.distributed.device_mesh.DeviceMesh``.  Each rank
+holds the whole graph state and keeps the rows of its own
+``num_shards / R`` shards (:func:`place_sharded_layout`).  A mesh with more
+than one dimension is the multi-axis layout of ROADMAP queue 1 entry 16
+and raises.  ``edge_sharding``/``graph_shardings`` place the raw graph
+buffers with the sharding rules, which come with the training half of
+entry 15.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import backend as B
+from repro_torch.graph.graph import GraphState, inv_out_degree
+
+
+def host_edge_slice(num_edges: int, process: int,
+                    num_processes: int) -> Tuple[int, int]:
+    """Contiguous per-host ingestion range (multi-host streaming loaders)."""
+    per = (num_edges + num_processes - 1) // num_processes
+    lo = min(process * per, num_edges)
+    return lo, min(lo + per, num_edges)
+
+
+# ---------------------------------------------------------------------------
+# Sharded edge layouts (the sharded push's input)
+# ---------------------------------------------------------------------------
+
+
+def shard_slots(edge_capacity: int, num_shards: int) -> np.ndarray:
+    """int32[S, E_s] original edge slot per (shard, position): the
+    contiguous cut :func:`build_sharded_layout` makes before its per-shard
+    sorts.  Shard ``s`` owns slots ``[s·E_s, (s+1)·E_s)``; positions past
+    ``edge_capacity`` are padding (sentinel ``edge_capacity``)."""
+    e_s = -(-edge_capacity // num_shards)
+    slots = np.arange(num_shards * e_s, dtype=np.int32)
+    return np.where(slots < edge_capacity, slots,
+                    edge_capacity).astype(np.int32).reshape(num_shards, e_s)
+
+
+def _build_shards(state: GraphState, *, num_shards: int, weight: str,
+                  reverse: bool, chunk: int, semiring: str,
+                  lengths: Optional[torch.Tensor] = None,
+                  slots: Optional[torch.Tensor] = None,
+                  weight_dtype: Optional[str] = None) -> B.ShardedEdgeLayout:
+    """The array work of :func:`build_sharded_layout`: bake the weights in
+    slot order, cut the slots into shards (contiguously, or by ``slots``),
+    and sort each shard by destination on its own."""
+    if weight == "length" and lengths is None:
+        lengths = state.edge_len
+    s = B.validate_weight_spec(weight, reverse=reverse, semiring=semiring,
+                               lengths=lengths,
+                               edge_capacity=state.edge_capacity)
+    dev = state.device
+    e_cap, n_cap = state.edge_capacity, state.node_capacity
+    mask = state.edge_mask()
+    e_src, e_dst = (state.dst, state.src) if reverse else (state.src,
+                                                           state.dst)
+    # the ⊗-operand of build_layout, here in slot order
+    w = B.bake_weights(s, weight, mask, e_src, inv_deg=inv_out_degree(state),
+                       lengths=lengths, weight_dtype=weight_dtype)
+    # analysis: allow(AST-HOST-SYNC): a numpy identity, no device read
+    zero = s.zero.item()
+
+    e_s = -(-e_cap // num_shards)
+    if slots is None:
+        pad = num_shards * e_s - e_cap
+
+        def cut(x, cval):
+            return torch.nn.functional.pad(x, (0, pad), value=cval).reshape(
+                num_shards, e_s)
+    else:
+        # a rebalanced partition: one gather per buffer migrates the slots
+        ok = slots < e_cap
+        sl = slots.clamp(max=e_cap - 1).long()
+
+        def cut(x, cval):
+            return torch.where(ok, x[sl], cval)
+
+    src2 = cut(e_src, 0)
+    dst2 = cut(torch.where(mask, e_dst, n_cap), n_cap)  # invalid sorts last
+    w2 = cut(w, zero)
+    valid2 = cut(mask, False)
+    order2 = cut(torch.arange(e_cap, dtype=torch.int32, device=dev), e_cap)
+
+    # S independent stable destination sorts, one per row
+    dst2, perm = torch.sort(dst2, dim=1, stable=True)
+    src2, w2, valid2, order2 = (x.gather(1, perm)
+                                for x in (src2, w2, valid2, order2))
+    row_offsets = torch.searchsorted(
+        dst2, torch.arange(n_cap + 1, dtype=torch.int32, device=dev).expand(
+            num_shards, n_cap + 1).contiguous(), side="left", out_int32=True)
+
+    # the chunk slack of a single layout, per shard
+    extra = B.padded_length(e_s, chunk) - e_s
+    pad2 = lambda x, cval: torch.nn.functional.pad(x, (0, extra), value=cval)
+    dst_p = pad2(dst2, n_cap)
+    valid_p = pad2(valid2, False)
+    rank = (B.stream_rank(dst_p, valid_p, row_offsets)
+            if s.add != "sum" else None)
+    return B.ShardedEdgeLayout(
+        pad2(src2, 0), dst_p, pad2(w2, zero), valid_p, row_offsets,
+        pad2(order2, e_cap), rank, weight_mode=weight, reverse=reverse,
+        pad_chunk=chunk, semiring=s.name)
+
+
+def build_sharded_layout(
+    state: GraphState,
+    *,
+    mesh=None,
+    axes: Optional[Tuple[str, ...]] = None,
+    num_shards: Optional[int] = None,
+    weight: str = "inv_out",
+    reverse: bool = False,
+    chunk: Optional[int] = None,
+    semiring: str = "plus_times",
+    lengths: Optional[torch.Tensor] = None,
+    slots=None,
+    weight_dtype: Optional[str] = None,
+) -> B.ShardedEdgeLayout:
+    """Edge-partitioned, per-shard destination-sorted propagation layout.
+
+    The sharded sibling of :func:`repro_torch.core.backend.build_layout`,
+    over the same ``weight``/``reverse``/``semiring``/``lengths`` specs;
+    the edge stream is first cut into ``num_shards`` slot ranges and each
+    shard sorted on its own.
+
+    ``mesh`` is a 1-D ``DeviceMesh`` (``axes`` names its dimension and
+    defaults to it); ``num_shards`` defaults to its size and must be a
+    multiple of it.  With ``mesh=None`` (``num_shards`` required) every
+    shard is pushed here: the reference semantics, and how a single device
+    runs S-way partitioning.  ``slots`` (int32[S, ⌈E_cap/S⌉], sentinel
+    ``E_cap`` in padding, every live slot exactly once) replaces the
+    contiguous cut of :func:`shard_slots`, e.g. by
+    :func:`balanced_shard_slots`.
+
+    Returns every shard's rows, ``[num_shards, E_pad]`` each;
+    :func:`place_sharded_layout` keeps this rank's.
+    """
+    if mesh is not None:
+        names = tuple(mesh.mesh_dim_names or ())
+        axes = tuple(axes) if axes is not None else names
+        for a in axes:
+            if a not in names:
+                raise ValueError(f"mesh axis {a!r} not in mesh {names}")
+        n_dev = mesh_shard_count(mesh, axes)
+        if num_shards is None:
+            num_shards = n_dev
+        if num_shards < 1 or num_shards % n_dev:
+            raise ValueError(
+                f"num_shards={num_shards} must be a positive multiple of "
+                f"the {n_dev} devices on mesh axes {axes}")
+    elif num_shards is None:
+        raise ValueError("build_sharded_layout needs mesh= or num_shards=")
+    else:
+        axes = ()
+    if slots is not None:
+        want = (num_shards, -(-state.edge_capacity // num_shards))
+        if tuple(slots.shape) != want:
+            raise ValueError(
+                f"slots assignment shape {tuple(slots.shape)} does not "
+                f"match {want} for num_shards={num_shards}, "
+                f"edge_capacity={state.edge_capacity}")
+        slots = torch.as_tensor(slots, dtype=torch.int32, device=state.device)
+    layout = _build_shards(
+        state, num_shards=num_shards, weight=weight, reverse=reverse,
+        chunk=B.CHUNK if chunk is None else chunk, semiring=semiring,
+        lengths=lengths, slots=slots, weight_dtype=weight_dtype)
+    if mesh is not None:
+        layout = dataclasses.replace(layout, mesh=mesh, axes=axes)
+    return layout
+
+
+# ---------------------------------------------------------------------------
+# Shard rebalancing (streaming keeps the contiguous cut tail-heavy)
+# ---------------------------------------------------------------------------
+
+
+def mesh_shard_count(mesh, axes: Optional[Tuple[str, ...]] = None) -> int:
+    """The ranks of a 1-D device mesh: the shard count a mesh engine cuts
+    its layouts into unless ``num_shards`` asks for more.  A mesh of more
+    than one dimension raises (ROADMAP queue 1 entry 16)."""
+    if mesh.ndim != 1:
+        raise NotImplementedError(
+            f"a {mesh.ndim}-D device mesh is the multi-axis layout of "
+            f"ROADMAP queue 1 entry 16; the sharded graph engine takes a "
+            f"1-D mesh")
+    return mesh.size()
+
+
+def shard_live_counts(state: GraphState, slots: torch.Tensor) -> torch.Tensor:
+    """int32[S]: live edges per shard under a slot assignment, the balance
+    signal measured after each applied update batch."""
+    e_cap = state.edge_capacity
+    ok = slots < e_cap
+    live = ok & state.edge_mask()[slots.clamp(max=e_cap - 1).long()]
+    return live.sum(dim=1, dtype=torch.int32)
+
+
+def shard_imbalance(counts: torch.Tensor) -> torch.Tensor:
+    """Scalar imbalance of per-shard live counts, ``(max − min) /
+    max(mean, 1)``: 0 for an even partition, about S when one shard holds
+    everything."""
+    c = counts.to(torch.float32)
+    return (c.max() - c.min()) / c.mean().clamp(min=1.0)
+
+
+def balanced_shard_slots(state: GraphState, *,
+                         num_shards: int) -> torch.Tensor:
+    """A live-balanced slot→shard assignment (int32[S, ⌈E_cap/S⌉]).
+
+    Live slots are dealt round-robin across shards in slot order (counts
+    differ by at most one), then dead and padding slots continue the same
+    deal, so the slots the next appends fill are spread across shards as
+    well.  Prefix sums only; feed it to :func:`build_sharded_layout` as
+    ``slots``."""
+    e_cap = state.edge_capacity
+    dev = state.device
+    e_s = -(-e_cap // num_shards)
+    mask = state.edge_mask()
+    m = mask.to(torch.int32)
+    live_rank = torch.cumsum(m, 0, dtype=torch.int32) - m
+    dead_rank = torch.cumsum(1 - m, 0, dtype=torch.int32) - (1 - m)
+    seq = torch.where(mask, live_rank, m.sum(dtype=torch.int32) + dead_rank)
+    flat = (seq % num_shards) * e_s + seq // num_shards
+    out = torch.full((num_shards * e_s,), e_cap, dtype=torch.int32,
+                     device=dev)
+    out[flat.long()] = torch.arange(e_cap, dtype=torch.int32, device=dev)
+    return out.reshape(num_shards, e_s)
+
+
+def rebalance_decision(state: GraphState, slots: torch.Tensor,
+                       threshold: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rebalance verdict on the device: ``(should_rebalance bool 0-d,
+    imbalance f32 0-d)`` for the current assignment.  Nothing is read to
+    the host here; the engine reads the pair once per applied batch, and
+    the async pipeline leaves it on the device until the snapshot it was
+    measured on is promoted (a recut then applies to the next epoch's
+    layouts)."""
+    imbalance = shard_imbalance(shard_live_counts(state, slots))
+    return imbalance > threshold, imbalance
+
+
+def rebalance_sharded_layout(
+    state: GraphState,
+    *,
+    num_shards: int,
+    slots: Optional[torch.Tensor] = None,
+    threshold: float = 1.0,
+) -> Tuple[torch.Tensor, bool, float]:
+    """Recut the edge partition when live-edge imbalance exceeds
+    ``threshold``.
+
+    ``slots`` is the current assignment (default: the contiguous cut of
+    :func:`shard_slots`).  Returns ``(slots', rebalanced, imbalance)``:
+    the assignment to build the next layouts with, whether it changed, and
+    the imbalance measured (one read of the verdict pair, between steps,
+    once per applied batch).  The migration happens at the next
+    :func:`build_sharded_layout`, which gathers the streams by the new
+    assignment."""
+    if slots is None:
+        slots = torch.from_numpy(
+            shard_slots(state.edge_capacity, num_shards)).to(state.device)
+    should, imbalance = rebalance_decision(state, slots, threshold)
+    should, imbalance = torch.stack([should.to(torch.float32),
+                                     imbalance]).tolist()
+    if not should:
+        return slots, False, imbalance
+    return balanced_shard_slots(state, num_shards=num_shards), True, imbalance
+
+
+def place_sharded_layout(
+        layout: B.ShardedEdgeLayout) -> B.ShardedEdgeLayout:
+    """Keep this rank's rows of a mesh layout: on a mesh of R ranks, rank
+    r's ``num_shards / R`` consecutive shards, on the device they were
+    built on (the rank's own).  The engine does it once per layout build,
+    so no push slices the streams again; a push or a summary refuses a
+    mesh layout that is not placed.  No-op without a mesh."""
+    if layout.mesh is None or layout.total_shards is not None:
+        return layout
+    rank, size = B.mesh_rank_and_size(layout.mesh)
+    per = layout.num_shards // size
+    if per == layout.num_shards:
+        return dataclasses.replace(layout, total_shards=per)
+    lo, hi = rank * per, (rank + 1) * per
+    cut = lambda x: None if x is None else x[lo:hi].contiguous()
+    return dataclasses.replace(
+        layout, src=cut(layout.src), dst=cut(layout.dst),
+        weight=cut(layout.weight), valid=cut(layout.valid),
+        row_offsets=cut(layout.row_offsets), order=cut(layout.order),
+        rank=cut(layout.rank), total_shards=layout.num_shards)
+
+
+__all__ = [
+    "balanced_shard_slots",
+    "build_sharded_layout",
+    "host_edge_slice",
+    "mesh_shard_count",
+    "place_sharded_layout",
+    "rebalance_decision",
+    "rebalance_sharded_layout",
+    "shard_imbalance",
+    "shard_live_counts",
+    "shard_slots",
+]

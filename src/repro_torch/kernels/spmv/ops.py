@@ -19,12 +19,15 @@ amortizes away.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.backend import EdgeLayout, build_layout, push
+from repro_torch.core.backend import (AnyEdgeLayout, EdgeLayout, build_layout,
+                                      push)
 from repro_torch.graph.graph import GraphState
+from repro_torch.graph.partition import (build_sharded_layout,
+                                         place_sharded_layout)
 
 
 def semiring_push(state: GraphState, values: torch.Tensor, *,
@@ -40,12 +43,27 @@ def semiring_push(state: GraphState, values: torch.Tensor, *,
     return push(values, layout, semiring=semiring)
 
 
-def sharded_semiring_push(*args, **kwargs) -> torch.Tensor:
-    """:func:`semiring_push` over a device mesh: part of the sharded push,
-    not ported yet."""
-    raise NotImplementedError(
-        "sharded_semiring_push belongs to the sharded push (ROADMAP queue 1 "
-        "entry 15)")
+def sharded_semiring_push(state: GraphState, values: torch.Tensor, *,
+                          mesh=None, axes: Optional[Tuple[str, ...]] = None,
+                          num_shards: Optional[int] = None,
+                          semiring: str = "plus_times",
+                          weight: str = "unit",
+                          layout: Optional[AnyEdgeLayout] = None,
+                          slots: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """:func:`semiring_push` over edge shards: builds (or accepts) a
+    :class:`~repro_torch.core.backend.ShardedEdgeLayout` and runs one
+    kernel push per shard, the partials merged by ⊕ and, with a ``mesh``
+    (a 1-D ``DeviceMesh``), all-reduced over it.  ``mesh=None`` with
+    ``num_shards`` runs every shard here.  ``slots`` replaces the
+    contiguous cut with an explicit slot→shard assignment (see
+    :func:`repro_torch.graph.partition.balanced_shard_slots`).  Builds the
+    layout on every call without ``layout=``."""
+    if layout is None:
+        layout = place_sharded_layout(build_sharded_layout(
+            state, mesh=mesh, axes=axes, num_shards=num_shards,
+            weight=weight, semiring=semiring, slots=slots))
+    return push(values, layout, semiring=semiring)
 
 
 def pagerank_push(state: GraphState, ranks: torch.Tensor, *,

@@ -17,7 +17,9 @@ port of ``repro.serve.graph``).
   the bank in place), runs one batched fused step per non-empty lane with a
   ``row_mask`` that freezes vacant rows, and harvests rows whose
   convergence signal reached the request's tolerance or whose wave budget
-  is spent.  Every push of a wave is one launch of a batched kernel.
+  is spent.  Every push of a wave is one launch of a batched kernel, one
+  per edge shard on a mesh engine (``EngineConfig.mesh``), whose applied
+  updates may also recut the shard partition at the wave boundary.
 - Summary overflow keeps the engine's contract: the wave's batch result is
   discarded and every live row is recomputed exactly, row by row.
 
@@ -340,6 +342,7 @@ class GraphServingEngine:
             return
         applied, _, _ = eng._apply_pending()
         if applied:
+            eng._maybe_rebalance()
             self._layouts.clear()
 
     def _refill(self, lane: _Lane, state) -> None:
@@ -457,6 +460,7 @@ class GraphServingEngine:
                 delta_hop_cap=cfg.delta_hop_cap, degree_mode=cfg.degree_mode,
                 expand_both=cfg.expand_both,
                 layouts=self._spec_layouts(lane.template, snap),
+                shard_bucket_capacity=cfg.shard_hot_edge_capacity,
                 with_drift=ctl is not None)
             new_bank, qs, row_delta = out[:3]
             # one transfer: the overflow flag and the wave's sizes

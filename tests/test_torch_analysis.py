@@ -18,10 +18,11 @@ Three parts, mirroring ``tests/test_analysis.py`` for the JAX package:
   1e-6), and ``findings.check``/``render_report`` giving the same
   partitions.
 
-Left out, with the sharded programs (ROADMAP queue 1 entry 15): the HLO
-collective tests (``test_hlo_catches_oversized_all_gather``,
-``test_hlo_within_budget_is_clean``) and
-``test_rebalance_decision_stays_on_device``.
+The meshless sharded programs run against the reference's shard loop, and
+``test_rebalance_decision_stays_on_device`` is ported.  Left out, with the
+mesh programs (ROADMAP queue 1 entry 16): the HLO collective tests
+(``test_hlo_catches_oversized_all_gather``,
+``test_hlo_within_budget_is_clean``).
 """
 
 import ast
@@ -749,18 +750,23 @@ PORT_OF = {"push[segment_sum,plus_times]": "push[plus_times]",
            "push[pallas,plus_times]": "push[plus_times]",
            "push[segment_sum,min_plus]": "push[min_plus]",
            "push[pallas,min_plus]": "push[min_plus]",
-           "push_batched[pallas,plus_times]": "push_batched[plus_times]"}
+           "push_batched[pallas,plus_times]": "push_batched[plus_times]",
+           "push_sharded[segment_sum,loop]": "push_sharded[loop]"}
 BITWISE = ("push[min_plus]", "fused_query_step[sssp]")
+#: the reference's mesh programs the port runs meshless, on the shard loop
+MESHLESS = ("build_summary[sharded]", "fused_query_step[pagerank,sharded]")
 
 
 def test_catalog_covers_the_reference_on_one_device():
     ref = [p.name for p in JPR.catalog(JPR.GraphSpec())]
     port = [p.name for p in PR.catalog(device="cpu")]
-    assert len(port) == len(set(port)) == 14
+    assert len(port) == len(set(port)) == 17
     want = {PORT_OF.get(n, n) for n in ref if n not in PR.OMITTED}
-    assert set(port) == want
+    assert set(port) == want | set(MESHLESS)
     assert "push_sharded[segment_sum,loop]" in ref
-    assert set(PR.OMITTED) >= {n for n in ref if "sharded" in n}
+    # only the programs that need a mesh of two or more devices wait
+    assert set(PR.OMITTED) == {"push_sharded[segment_sum,mesh]",
+                               "push_sharded[pallas,mesh]"}
 
 
 @pytest.fixture(scope="module")
@@ -806,6 +812,7 @@ def _fresh(args):
 @pytest.mark.parametrize("ref_name", [
     "push[segment_sum,plus_times]", "push[segment_sum,min_plus]",
     "push_batched[pallas,plus_times]", "push_coo[plus_times]",
+    "push_sharded[segment_sum,loop]",
     "build_summary", "fused_query_step[pagerank]", "fused_query_step[sssp]",
     "fused_query_step[pagerank,drift]", "serving_wave[pagerank,batched]",
     "serving_wave[pagerank,batched,drift]", "serving_wave[ppr,seed-cold]",
@@ -825,8 +832,16 @@ def test_catalog_program_matches_reference(catalogs, ref_name):
     else:
         rp = ref_cat[ref_name]
         want = rp.fn(*_fresh(rp.args))
-    got = port.run()
+    _assert_same_leaves(port.run(), want, bitwise=port.name in BITWISE)
+
+
+def _assert_same_leaves(got, want, *, bitwise: bool,
+                        ignore: tuple = ()) -> None:
+    """Every leaf of a port result against the reference's: integers and
+    masks bitwise, floats bitwise or at ``TOL``.  Reference leaves named
+    in ``ignore`` (metadata the port does not carry) are left out."""
     w, g = _leaves(want), _leaves(got)
+    w = {k: v for k, v in w.items() if k.rsplit(".", 1)[-1] not in ignore}
     assert set(g) == set(w), (sorted(g), sorted(w))
     for k in w:
         a, b = g[k], w[k]
@@ -834,12 +849,53 @@ def test_catalog_program_matches_reference(catalogs, ref_name):
             # a host scalar of the port (an iteration count, a drift of a
             # step without drift) against the reference's 0-d array
             np.testing.assert_array_equal(np.asarray(b).item(), a, err_msg=k)
-        elif b.dtype.kind != "f" or port.name in BITWISE:
+        elif b.dtype.kind != "f" or bitwise:
             assert a.dtype == b.dtype, (k, a.dtype, b.dtype)
             np.testing.assert_array_equal(a, b, err_msg=k)
         else:
             assert a.dtype == b.dtype and a.shape == b.shape, k
             np.testing.assert_allclose(a, b, err_msg=k, **TOL)
+
+
+@pytest.mark.parametrize("name", MESHLESS)
+def test_meshless_sharded_program_matches_reference(catalogs, name):
+    # the reference runs these two on a mesh only: here its flat program
+    # of the same inputs, handed the reference's meshless shard loop
+    from repro.graph.partition import build_sharded_layout as jbuild
+
+    ref_cat, port_cat = catalogs
+    port = port_cat[name]
+    rp = ref_cat[name.split("[")[0] if name.startswith("build")
+                 else "fused_query_step[pagerank]"]
+    lay = jbuild(rp.args[0], num_shards=port.spec.num_shards,
+                 weight="inv_out", semiring="plus_times")
+    kw = ({"layout": lay} if name.startswith("build")
+          else {"layouts": (lay,)})
+    # the reference stamps the layout's chunk on a sharded summary; the
+    # port's summaries keep the kernels' default geometry
+    _assert_same_leaves(port.run(), rp.fn(*_fresh(rp.args), **kw),
+                        bitwise=False, ignore=("tile_chunk",))
+
+
+def test_rebalance_decision_stays_on_device():
+    from repro_torch.graph.generators import gnm_edges
+    from repro_torch.graph.graph import from_edges
+    from repro_torch.graph.partition import (rebalance_decision,
+                                             rebalance_sharded_layout,
+                                             shard_slots)
+
+    src, dst = gnm_edges(64, 256, seed=3)
+    state = from_edges(src, dst, 64, 1024, device="cpu")
+    slots = torch.from_numpy(shard_slots(state.edge_capacity, 4))
+    should, imb = rebalance_decision(state, slots, 1.0)
+    # the verdict pair is a device computation, not a host float
+    assert isinstance(should, torch.Tensor) and should.dtype == torch.bool
+    assert isinstance(imb, torch.Tensor) and imb.dtype == torch.float32
+    # the wrapper agrees with the raw decision
+    _, rebalanced, imbalance = rebalance_sharded_layout(
+        state, num_shards=4, slots=slots, threshold=1.0)
+    assert rebalanced == bool(should)
+    assert imbalance == pytest.approx(float(imb))
 
 
 def test_in_place_apply_gets_fresh_inputs(catalogs):

@@ -135,9 +135,31 @@ def test_spmv_push_ref_matches_reference():
         out.numpy(), TB.push(torch.from_numpy(x), tl).numpy())
 
 
-def test_sharded_semiring_push_waits_for_sharding():
-    with pytest.raises(NotImplementedError, match="entry 15"):
-        OPS.sharded_semiring_push(None, None)
+@pytest.mark.parametrize("semiring,weight,dtype", [
+    ("plus_times", "unit", "float32"), ("min_plus", "length", "float32"),
+    ("min_min", "unit", "int32")])
+def test_sharded_semiring_push_waits_for_sharding(semiring, weight, dtype):
+    # the sharded op against the reference's meshless shard loop, also
+    # at an explicit (rebalanced) slot assignment
+    from repro.graph import partition as JP
+    from repro.kernels.spmv.ops import sharded_semiring_push
+    from repro_torch.graph import partition as TP
+
+    js, ts = _graphs(lengths=weight == "length")
+    x = _values(ts.node_capacity, None, dtype)
+    want = sharded_semiring_push(js, jnp.asarray(x), num_shards=4,
+                                 semiring=semiring, weight=weight,
+                                 backend="segment_sum")
+    got = OPS.sharded_semiring_push(ts, torch.from_numpy(x), num_shards=4,
+                                    semiring=semiring, weight=weight)
+    _match(got, want, bitwise=semiring != "plus_times")
+    slots = TP.balanced_shard_slots(ts, num_shards=4)
+    np.testing.assert_array_equal(
+        slots.numpy(), np.asarray(JP.balanced_shard_slots(js, num_shards=4)))
+    got = OPS.sharded_semiring_push(ts, torch.from_numpy(x), num_shards=4,
+                                    semiring=semiring, weight=weight,
+                                    slots=slots)
+    _match(got, want, bitwise=semiring != "plus_times")
 
 
 def _normal(rng, shape):

@@ -146,8 +146,12 @@ def test_import_pulls_in_neither_jax_nor_the_reference():
     ("mesh", object()), ("num_shards", 2), ("shard_hot_edge_capacity", 8),
 ])
 def test_unported_knobs_raise(knob, value):
+    # the mesh knobs are ported: a mesh must be a DeviceMesh, and the shard
+    # knobs need one (tests/test_torch_sharded.py drives them)
     src, dst = barabasi_albert_edges(100, 2, 0, 0.3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    err, match = ((TypeError, "DeviceMesh") if knob == "mesh"
+                  else (ValueError, "requires mesh"))
+    with pytest.raises(err, match=match):
         repro_torch.session((src, dst), device="cpu", **{knob: value})
 
 
@@ -201,7 +205,7 @@ def test_backend_names_and_serving_raise():
             t = srv.submit("sssp", sources=(0,))
             srv.run()
             assert t.done
-    with pytest.raises(NotImplementedError, match="entry 15"):
+    with pytest.raises(ValueError, match="num_shards requires mesh"):
         repro_torch.serve_session((src, dst), device="cpu", num_shards=2)
     with pytest.raises(KeyError):
         repro_torch.session((src, dst), "no-such-algorithm", device="cpu")

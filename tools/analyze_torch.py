@@ -16,8 +16,10 @@ violations) are warnings — delete them.
 
 ``--device`` defaults to the card, as every entry point of the port does,
 and raises where there is none; ``--device cpu`` runs the catalog through
-the kernels' plain versions.  The sharded programs wait for ROADMAP queue
-1 entry 15 and are reported as omitted.  ``--update-baseline`` rewrites the
+the kernels' plain versions.  The catalog runs the meshless sharded
+programs; the ones that need a mesh of two or more devices wait for
+ROADMAP queue 1 entry 16 and are reported as omitted.
+``--update-baseline`` rewrites the
 baseline to accept the current findings (scoped to the run's device type
 where an entry is new) — review the diff and fill in the reason strings
 before committing.
@@ -72,7 +74,7 @@ def main(argv=None) -> int:
 
         spec = PR.GraphSpec()
         cat = PR.catalog(spec, device=device)
-        notes.append("sharded programs omitted (ROADMAP queue 1 entry 15): "
+        notes.append("mesh programs omitted (ROADMAP queue 1 entry 16): "
                      + ", ".join(PR.OMITTED))
         print(f"program catalog: {len(cat)} programs at "
               f"N={spec.node_capacity} E={spec.edge_capacity} "
