@@ -5,8 +5,9 @@
 
 Builds the five kernel sources (``src/repro_torch/kernels/*/csrc``: the
 SpMV push and the min/max push, each in a single and a batched form and
-once per merge-path tile, the flash attention forward and backward and
-decode attention; one ``nvcc`` per source and tile, started together) and holds
+once per merge-path tile, the flash attention forward and backward, each
+also with ``-DATTN_DYNAMIC`` for its dynamic-offset entry, and decode
+attention; one ``nvcc`` per source, tile and define, started together) and holds
 every kernel against its plain version at the shapes its path gives it,
 each batched row also bitwise against the single kernel and each push
 against a second launch of itself (the shapes include every edge of the
@@ -188,7 +189,28 @@ and the LM paths:
   Seamless 1,024 decoder tokens over 1,500 frames, InternVL2 256 patches
   + 1,792 tokens, its loss over the text positions), the encoder's
   gradients, which reach it only through cross attention, among the
-  checked leaves.
+  checked leaves;
+- ``blocked_attention``'s dynamic offsets (``attention-dynamic``): the
+  model's entry point under autograd with ``q_offset``, ``kv_offset`` and
+  ``kv_valid_len`` as int32 tensors on the card, at Qwen2-0.5B's heads
+  and Granite-34B's, Skv a multiple of the tile and no multiple, the valid
+  length inside the last tile: one launch each of the flash kernels'
+  dynamic forward and backward entries, no host read (CUDA's sync debug
+  mode), the f32 output, lse and gradients against the f64 plain versions
+  in f32 and bf16, timed beside ``scaled_dot_product_attention`` with the
+  same mask;
+- the sharding substrate on a 1-rank NCCL mesh (``sharding``):
+  ``lm-train``'s step-10 checkpoint restored by ``elastic_reshard`` onto
+  the 1 x 1 ``("data", "model")`` mesh with ``param_pspecs`` under
+  ``RULES_SINGLE_POD`` (bitwise), one step's gradient tree through the
+  int8 ``compressed_mean`` (mean + error = g, mean within 1% of max |g|)
+  and a batch placed by ``shard_batch``;
+- Granite-34B (88 layers, MQA 48/1) and Yi-9B (48 layers, 32/4) served
+  whole at full width, their weights in bf16, 8 requests of 4,096 + 32 on
+  4 slots (``lm-serve-granite``, ``lm-serve-yi``), after the attention
+  kernels at their shapes (prefill B = 1, S = 4,096; decode over a full
+  4,160-slot cache at B = 4, Granite's six row chunks each reading the
+  cache), each with wave 0's ``lm-teacher-forced`` replay.
 
 It prints one JSON line per phase.  The line before the last lists the
 kernels, with each one's launches on every graph path; the last is
@@ -1644,6 +1666,8 @@ KERNELS = {"spmv_push": "spmv", "spmv_reduce_push": "spmv",
            "spmv_push_batched": "spmv", "spmv_reduce_push_batched": "spmv",
            "flash_attention": "flash_attention",
            "flash_attention_bwd": "flash_attention",
+           "flash_attention_dynamic": "flash_attention",
+           "flash_attention_bwd_dynamic": "flash_attention",
            "decode_attention": "decode_attention"}
 KERNEL_NAMES = tuple(KERNELS)
 
@@ -4563,14 +4587,16 @@ def flat_tree(tree, prefix="") -> dict:
     return {prefix: tree}
 
 
-def lm_train_path(dev) -> tuple:
+def lm_train_path(dev, on_checkpoint=None) -> tuple:
     """Train Qwen2-0.5B at full width and depth on the card
     (``SyntheticLMData(lag=1)`` over TRAIN_DATA_VOCAB ids, B = 4, S = 2048,
     AdamW, remat, the cosine schedule) through the donated
     ``make_train_step``, ``RestartableLoop`` and
     ``CheckpointManager``: one step's gradients with the kernels against
     the same step through the plain attention, TRAIN_STEPS steps whose
-    loss must fall, and a resume from the step-10 checkpoint.  Returns
+    loss must fall, and a resume from the step-10 checkpoint;
+    ``on_checkpoint(ckpt, step)``, if given, then gets the checkpoint
+    manager and that step, before the checkpoints are removed.  Returns
     (rows, launch counts of the TRAIN_STEPS-step run)."""
     import shutil
     import tempfile
@@ -4718,6 +4744,9 @@ def lm_train_path(dev) -> tuple:
         if max(diffs.values()) > TRAIN_RESUME_RTOL:
             raise AssertionError(f"the resumed run disagrees: {rows[-1]}")
         del state, restored
+        if on_checkpoint is not None:
+            torch.cuda.empty_cache()
+            on_checkpoint(ckpt, TRAIN_CKPT_EVERY)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -5108,6 +5137,396 @@ def train_family_steps(phase, cfg, reduced, data, dev) -> tuple:
 ANALYSIS_RTOL, ANALYSIS_ATOL = 1e-5, 1e-6
 
 
+# ---- Granite-34B and Yi-9B served whole, blocked_attention's dynamic
+# offsets, the sharding substrate of training ----------------------------
+# every row below draws from a generator of its own, so that the rows
+# before them read what they read before these were added
+GRANITE_YI_SEED = SEED + 29
+# the attention kernels at the two dense models' serving shapes: MQA
+# (Granite-34B: 48 query heads on 1 KV head, whose decode takes six row
+# chunks of 8 heads, each reading the cache) and GQA (Yi-9B: 32 on 4),
+# hd 128
+DENSE_ATTENTION_CHECKS = (
+    ("Granite-34B causal prefill, B=1, S=4096, MQA 48/1, hd 128", "flash",
+     (1, 4096, 48, 1, 128, 128, True, None)),
+    ("Yi-9B causal prefill, B=1, S=4096, 32/4, hd 128", "flash",
+     (1, 4096, 32, 4, 128, 128, True, None)),
+    ("Granite-34B decode over a full 4160-slot cache, B=4, G=48", "decode",
+     (4, 4160, 48, 1, 128, 128, 4160)),
+    ("Yi-9B decode over a full 4160-slot cache, B=4, G=8", "decode",
+     (4, 4160, 32, 4, 128, 128, 4160)),
+)
+# (phase, arch): both whole at their published widths, 8 requests of
+# 4,096 prompt and 32 new tokens on 4 slots over a 4,160-slot cache
+DENSE_SERVING = (("lm-serve-granite", "granite_34b"),
+                 ("lm-serve-yi", "yi_9b"))
+DENSE_SHAPE = dict(requests=8, slots=4, prompt_len=4096, new_tokens=32,
+                   max_len=4160)
+# blocked_attention's dynamic offsets through the flash kernels' dynamic
+# entries: (tag, (B, Sq, Skv, H, KV, hd, causal, window), (q_offset,
+# kv_offset, kv_valid_len)) at Qwen2-0.5B's heads (14/2 x 64) and
+# Granite-34B's (48/1 x 128); Skv a multiple of the bf16 kernels' 64-key
+# tile and no multiple, kv_valid_len inside the last tile each time
+DYNAMIC_CHECKS = (
+    ("Qwen2-0.5B heads, 512 queries at 3,584 over 4,096 keys, valid 4,070",
+     (1, 512, 4096, 14, 2, 64, True, None), (3584, 0, 4070)),
+    ("Qwen2-0.5B heads, 256 queries at 5,000 over 3,001 keys at 2,200, "
+     "window 1,024, valid 5,190", (2, 256, 3001, 14, 2, 64, True, 1024),
+     (5000, 2200, 5190)),
+    ("Granite-34B heads, 1,024 queries at 3,136 over 4,160 keys, valid "
+     "4,100", (1, 1024, 4160, 48, 1, 128, True, None), (3136, 0, 4100)),
+    ("Granite-34B heads, not causal, 128 queries over 2,500 keys at 100, "
+     "valid 2,598", (1, 128, 2500, 48, 1, 128, False, None),
+     (0, 100, 2598)),
+)
+# the sharding phase's limits: compressed_mean on one rank sends each
+# leaf's int8 rounding, so mean + new error = g to f32 rounding (the sum
+# of two f32 values of up to |g|: 2^-23 of the largest, doubled), and the
+# mean is within one int8 step of g, max |block| / 127 <= max |g| / 100
+SHARD_ERR_RTOL = 2 * 2.0 ** -23
+SHARD_MEAN_SHARE = 1e-2
+
+
+def lm_serve_dense_path(phase, arch, dev, rng) -> tuple:
+    """A dense model whole at full width (:func:`serve_path` at
+    DENSE_SHAPE), its weights drawn in f32 and stored in bf16 (the engine's
+    dtype: the numbers an f32 tree would cast to; Granite-34B's two
+    stacked MLP leaves a layer at a time, ``SLICED_INIT_ELEMENTS``), then
+    wave 0 replayed through the plain attention versions
+    (:func:`lm_teacher_forced`).  Returns (rows, counts)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(arch), param_dtype="bfloat16")
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    row, engine, prompts, counts = serve_path(phase, cfg, dev=dev, rng=rng,
+                                              **DENSE_SHAPE)
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for name, t in flat_tree(engine.params).items()
+                       if name != "/embed/tok" or cfg.tie_embeddings)
+    row.update(param_dtype=cfg.param_dtype, d_ff=cfg.d_ff,
+               head_dim=cfg.resolved_head_dim,
+               mlp="gated (SwiGLU)" if cfg.mlp_gated else "GELU, ungated",
+               held_by_earlier_phases_gb=held_gb,
+               weight_bytes=weight_bytes,
+               decode_step_weight_bound_ms=weight_bytes / HBM_BYTES_PER_S
+               * 1e3,
+               weight_bound_note="every weight a decode step reads (the "
+                                 "embedding table but its gathered rows) "
+                                 "over HBM's rate")
+    replay = lm_teacher_forced(engine, prompts, dev)
+    del engine
+    torch.cuda.empty_cache()
+    return [row, replay], counts
+
+
+def dynamic_allowed(sq, skv, causal, window, offsets, dev):
+    """The (Sq, Skv) boolean mask of a dynamic-offset call: query ``i`` at
+    ``q_offset + i``, key ``j`` at ``kv_offset + j``, keys ``j < Skv`` and
+    at positions below ``kv_valid_len``."""
+    q_off, kv_off, valid = offsets
+    i = q_off + torch.arange(sq, device=dev)[:, None]
+    kpos = kv_off + torch.arange(skv, device=dev)[None, :]
+    ok = kpos < valid
+    if causal:
+        ok = ok & (kpos <= i)
+    if window is not None:
+        ok = ok & (kpos > i - window)
+    return ok
+
+
+def check_dynamic_attention(tag, shape, offsets, dtype, rng, dev,
+                            timed) -> dict:
+    """One dynamic-offset call through the model's entry point
+    (``models.layers.blocked_attention`` under autograd, the offsets 0-d
+    int32 tensors on the card) and its backward: the layer's output and
+    gradients bitwise those of the dynamic wrappers called directly, whose
+    f32 output, lse and gradients are held against the f64 plain versions
+    at the flash backward's limits (``check_flash_backward``), and the
+    host reads of the driven call counted (CUDA's sync debug mode: none
+    may happen).  Timed rows add each entry's device time beside its
+    bound, the plain version and ``scaled_dot_product_attention`` with the
+    same mask.  Returns the row, with ``driven_launches`` (the entry
+    point's own launches, before any check's)."""
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.models import layers as L
+
+    b, sq, skv, h, kv, hd, causal, window = shape
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.standard_normal(d).astype(np.float32))
+               .to(dev, dt) for d in ((b, sq, h, hd), (b, skv, kv, hd),
+                                      (b, skv, kv, hd)))
+    dout = torch.from_numpy(rng.standard_normal((b, sq, h, hd)).astype(
+        np.float32)).to(dev)
+    offs = FA.Offsets(*(torch.tensor(x, dtype=torch.int32, device=dev)
+                        for x in offsets))
+    opts = dict(causal=causal, window=window)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+
+    def driven():
+        out = L.blocked_attention(qg, kg, vg, q_offset=offs.q_offset,
+                                  kv_offset=offs.kv_offset,
+                                  kv_valid_len=offs.kv_valid_len, **opts)
+        out.backward(dout.to(dt))
+        return out
+
+    torch.cuda.synchronize()
+    before = launch_counts()
+    layer_out, syncs = count_syncs(driven)
+    torch.cuda.synchronize()
+    driven_launches = {n: c - before[n] for n, c in launch_counts().items()}
+    if syncs:
+        raise AssertionError(f"dynamic attention, {tag}: the call read the "
+                             f"host at {syncs}")
+    # the layer's backward casts dO to f32 as FlashAttention does
+    out, lse = FA.flash_attention_dynamic(q, k, v, offs, **opts)
+    grads = FA.flash_attention_bwd_dynamic(
+        q, k, v, out, lse, dout.to(dt).float(), offs, **opts)
+    row = {"phase": "attention-dynamic", "shape": tag, "dims": list(shape),
+           "offsets": list(offsets), "dtype": dtype,
+           "host_reads": len(syncs), "driven_launches": driven_launches,
+           "layer_bitwise_vs_wrappers": bool(
+               torch.equal(layer_out, out.to(dt))
+               and all(torch.equal(t.grad, g)
+                       for t, g in zip((qg, kg, vg), grads)))}
+    ref_out, ref_lse = FA.flash_attention_plain(
+        q, k, v, dtype=torch.float64, return_lse=True, q_block=512,
+        kv_block=1024, offsets=offs, **opts)
+    shares = {}
+    row["lse_max_abs_err"], shares["lse"] = max_excess(lse, ref_lse,
+                                                       BWD_LSE_TOL)
+    row["out_f32_max_abs_err"], shares["out_f32"] = max_excess(
+        out, ref_out, BWD_OUT_TOL[dtype])
+    del ref_out, ref_lse
+    refs = FA.flash_attention_bwd_plain(
+        q, k, v, out, lse, dout.to(dt).float(), dtype=torch.float64,
+        q_block=512, kv_block=1024, offsets=offs, **opts)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        scale = float(r.abs().max())
+        err, shares[name] = max_excess(g, r, BWD_GRAD_ATOL * scale,
+                                       BWD_GRAD_RTOL[dtype])
+        row[f"{name}_max_abs_err"], row[f"{name}_max_abs_ref"] = err, scale
+        if g.dtype != dt or not bool(torch.isfinite(g).all()):
+            shares[name] = float("inf")
+    del refs
+    row.update(share_of_limit=shares, tolerance={
+        "lse": BWD_LSE_TOL, "out_f32": BWD_OUT_TOL[dtype],
+        "grads": {"atol": f"{BWD_GRAD_ATOL} * max|ref|",
+                  "rtol": BWD_GRAD_RTOL[dtype]}},
+        max_abs_err=max(row[f"{n}_max_abs_err"] for n in ("dq", "dk", "dv")),
+        fwd_max_abs_err=row["out_f32_max_abs_err"])
+    if max(shares.values()) > 1 or not row["layer_bitwise_vs_wrappers"]:
+        raise AssertionError(f"dynamic attention, {tag}: {row}")
+    if timed:
+        import torch.nn.functional as F
+
+        mask = dynamic_allowed(sq, skv, causal, window, offsets, dev)
+        pairs = int(mask.sum()) * b
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        sdpa_fwd = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        qr, kr, vr = (t.clone().requires_grad_() for t in (qt, kt, vt))
+        gt = dout.to(dt).transpose(1, 2).contiguous()
+
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask,
+                                               enable_gqa=True)
+            return torch.autograd.grad(o, (qr, kr, vr), gt)
+
+        fwd = lambda: FA.flash_attention_dynamic(q, k, v, offs, **opts)
+        bwd = lambda: FA.flash_attention_bwd_dynamic(
+            q, k, v, out, lse, dout, offs, **opts)
+        elt = q.element_size()
+        fwd_ops = 2 * 2 * hd * h * pairs
+        fwd_bytes = (elt * (b * sq * h * hd + 2 * b * skv * kv * hd)
+                     + 4 * (b * sq * h * hd + b * h * sq))
+        bwd_ops = 2 * 5 * hd * h * pairs
+        bwd_bytes = (2 * elt * (b * sq * h * hd + 2 * b * skv * kv * hd)
+                     + 4 * (2 * b * sq * h * hd + b * h * sq))
+        bound = lambda nbytes, ops: {
+            "bytes": nbytes, "operations": ops,
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / BF16_FLOPS) * 1e3,
+            "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
+                         >= ops / BF16_FLOPS else "operations")}
+        row.update(
+            pairs=pairs,
+            fwd={"kernel_ms": graph_ms(fwd), "kernel_eager_ms": cuda_ms(fwd),
+                 "plain_ms": graph_ms(lambda: FA.flash_attention_plain(
+                     q, k, v, return_lse=True, q_block=512, kv_block=1024,
+                     offsets=offs, **opts), reps=3),
+                 "library_ms": graph_ms(sdpa_fwd),
+                 **bound(fwd_bytes, fwd_ops)},
+            bwd={"kernel_ms": graph_ms(bwd),
+                 "kernel_eager_ms": cuda_ms(bwd, reps=5),
+                 "plain_ms": graph_ms(lambda: FA.flash_attention_bwd_plain(
+                     q, k, v, out, lse, dout, q_block=512, kv_block=1024,
+                     offsets=offs, **opts), reps=3),
+                 "library_ms": cuda_ms(sdpa_fwd_bwd, reps=10),
+                 "library": "scaled_dot_product_attention forward + "
+                            "backward with the same boolean mask, eager",
+                 **bound(bwd_bytes, bwd_ops)},
+            library="scaled_dot_product_attention(attn_mask=the call's "
+                    "mask, enable_gqa=True)",
+            timing="device time of 20 calls (plain: 3) replayed from one "
+                   "CUDA graph, each call's int32[3] of offsets built on the "
+                   "card included; *_eager_ms and the backward's library_ms: "
+                   "eager calls back to back between two events")
+        for part in ("fwd", "bwd"):
+            row[part]["roofline_share"] = (row[part]["bound_ms"]
+                                           / row[part]["kernel_ms"])
+    return row
+
+
+def attention_dynamic_path(dev, rng) -> tuple:
+    """Every DYNAMIC_CHECKS row in f32 (the CUDA cores' entries) and bf16
+    (the tensor cores', timed) through :func:`check_dynamic_attention`.
+    Returns (rows, the driven calls' launches)."""
+    rows, counts = [], dict.fromkeys(KERNEL_NAMES, 0)
+    for tag, shape, offsets in DYNAMIC_CHECKS:
+        for dtype in ("float32", "bfloat16"):
+            row = check_dynamic_attention(tag, shape, offsets, dtype, rng,
+                                          dev, timed=dtype == "bfloat16")
+            for name, n in row["driven_launches"].items():
+                counts[name] += n
+            rows.append(row)
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want.update(flash_attention_dynamic=len(rows),
+                flash_attention_bwd_dynamic=len(rows))
+    if counts != want:
+        raise AssertionError(f"the dynamic calls launched {counts}, expected "
+                             f"{want}")
+    return rows, counts
+
+
+def sharding_path(ckpt, step, dev) -> list:
+    """The sharding substrate of training on a 1-rank NCCL mesh (the 1 x 1
+    ``("data", "model")`` local mesh, its group destroyed at the end):
+    ``lm-train``'s checkpoint of ``step`` restored by ``elastic_reshard``
+    onto the mesh with ``param_pspecs`` under ``RULES_SINGLE_POD``, each
+    leaf bitwise the plain restore; one step's gradient tree of the
+    restored Qwen2-0.5B (``loss_and_grads``, what the donated step
+    computes before its update) through ``compressed_mean``, per leaf
+    mean + new error = g to f32 rounding and the mean within
+    SHARD_MEAN_SHARE max|g| of g; a batch placed by ``shard_batch``."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import (DataConfig, SyntheticLMData,
+                                           shard_batch)
+    from repro_torch.launch.mesh import axis_sizes, make_local_mesh
+    from repro_torch.models.params import abstract_params, param_pspecs
+    from repro_torch.sharding.rules import (RULES_SINGLE_POD, NamedSharding,
+                                            named_sharding, to_placements)
+    from repro_torch.train.compression import (BLOCK, compressed_mean,
+                                               compression_ratio,
+                                               init_error_state)
+    from repro_torch.train.fault_tolerance import elastic_reshard
+    from repro_torch.train.step import loss_and_grads
+
+    t0 = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    torch.cuda.set_device(dev.index or 0)
+    mesh = make_local_mesh("cuda")
+    rows = []
+    try:
+        specs = param_pspecs(cfg, RULES_SINGLE_POD)
+        target = {"params": abstract_params(cfg)}
+        shardings = {"params": _map_tree(lambda s: NamedSharding(mesh, s),
+                                         specs)}
+        t1 = time.perf_counter()
+        placed = elastic_reshard(ckpt, step, target, shardings)
+        torch.cuda.synchronize()
+        reshard_s = time.perf_counter() - t1
+        plain = ckpt.restore(step, target, dev)
+        flat_placed, flat_plain = (flat_tree(placed["params"]),
+                                   flat_tree(plain["params"]))
+        flat_specs = flat_tree(specs)
+        bad = [k for k, t in flat_placed.items()
+               if not isinstance(t, DTensor)
+               or t.placements != to_placements(flat_specs[k], mesh)
+               or not torch.equal(t.to_local(), flat_plain[k])]
+        rows.append({"phase": "sharding-reshard", "model": cfg.name,
+                     "checkpoint_step": step, "mesh": axis_sizes(mesh),
+                     "rules": "RULES_SINGLE_POD", "leaves": len(flat_placed),
+                     "sharded_leaves": sum(1 for s in flat_specs.values()
+                                           if s),
+                     "bitwise": not bad, "reshard_s": reshard_s})
+        if bad:
+            raise AssertionError(f"elastic_reshard: leaves {bad[:5]} differ "
+                                 f"from the plain restore")
+        del plain, flat_plain
+        params = _map_tree(lambda t: t.to_local(), placed["params"])
+        data = SyntheticLMData(DataConfig(TRAIN_DATA_VOCAB, TRAIN_SEQ,
+                                          TRAIN_BATCH, seed=SEED, lag=1),
+                               host_batch=TRAIN_BATCH)
+        host = data.batch_at(step + 1)
+        batch = shard_batch(host, dev)
+        grads = loss_and_grads(params, cfg, batch, remat=True)[2]
+        del params, placed
+        leaves = flat_tree(grads)
+        as_rank = lambda t: DTensor.from_local(t[None], mesh,
+                                               named_sharding(
+                                                   mesh, "batch").placements)
+        g_tree = {k: as_rank(t) for k, t in leaves.items()}
+        t1 = time.perf_counter()
+        mean, new_err = compressed_mean(g_tree, init_error_state(g_tree),
+                                        mesh, axis="data")
+        torch.cuda.synchronize()
+        mean_s = time.perf_counter() - t1
+        worst_err = worst_mean = 0.0
+        for k, g in leaves.items():
+            m, e = mean[k].to_local()[0], new_err[k].to_local()[0]
+            top = float(g.abs().max())
+            worst_err = max(worst_err, float((m + e - g).abs().max())
+                            / max(top, 1e-30))
+            worst_mean = max(worst_mean, float((m - g).abs().max())
+                             / max(top, 1e-30))
+        numel = sum(t.numel() for t in leaves.values())
+        payload = sum(t.numel() + 4 * -(-t.numel() // BLOCK)
+                      for t in leaves.values())
+        rows.append({"phase": "sharding-compressed-mean", "model": cfg.name,
+                     "leaves": len(leaves), "elements": numel,
+                     "payload_bytes": payload, "f32_bytes": 4 * numel,
+                     "payload_over_f32": payload / (4 * numel),
+                     "compression_ratio": compression_ratio(),
+                     "max_mean_plus_err_minus_g_over_max_g": worst_err,
+                     "max_mean_minus_g_over_max_g": worst_mean,
+                     "limits": {"mean + err - g": SHARD_ERR_RTOL,
+                                "mean - g": SHARD_MEAN_SHARE},
+                     "seconds": mean_s})
+        if worst_err > SHARD_ERR_RTOL or worst_mean > SHARD_MEAN_SHARE:
+            raise AssertionError(f"compressed_mean: {rows[-1]}")
+        del grads, mean, new_err, g_tree, leaves
+        sh = {"tokens": named_sharding(mesh, "batch", None)}
+        placed_batch = shard_batch(host, sh)
+        ok = (isinstance(placed_batch["tokens"], DTensor)
+              and placed_batch["tokens"].placements == sh["tokens"].placements
+              and np.array_equal(placed_batch["tokens"].to_local().cpu()
+                                 .numpy(), host["tokens"])
+              and all(placed_batch[k] is host[k] for k in host
+                      if k != "tokens"))
+        rows.append({"phase": "sharding-batch", "keys": sorted(host),
+                     "placed": ["tokens"], "placements": str(
+                         sh["tokens"].placements), "bitwise": ok})
+        if not ok:
+            raise AssertionError(f"shard_batch: {rows[-1]}")
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    rows.append({"phase": "sharding-total",
+                 "wall_s": time.perf_counter() - t0})
+    return rows
+
+
+def _map_tree(fn, tree):
+    """``fn`` of every leaf of a tree of nested dicts."""
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
 def same_outputs(card, cpu, what: str) -> float:
     """Hold a program's card result to its CPU result leaf by leaf:
     integer and boolean leaves bitwise, float leaves within
@@ -5391,6 +5810,7 @@ def ops_path(dev) -> tuple:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
               file=sys.stderr)
@@ -5424,7 +5844,9 @@ def main() -> int:
     t0 = time.perf_counter()
     jobs = [(source, K.tile_defines(tile))
             for source in (K.SOURCE, K.REDUCE_SOURCE) for tile in K.TILES]
-    jobs += [(FA.SOURCE, ()), (FA.BWD_SOURCE, ()), (DA.SOURCE, ())]
+    jobs += [(FA.SOURCE, ()), (FA.BWD_SOURCE, ()), (DA.SOURCE, ()),
+             (FA.SOURCE, FA.DYNAMIC_DEFINES),
+             (FA.BWD_SOURCE, FA.DYNAMIC_DEFINES)]
     with ThreadPoolExecutor(len(jobs)) as pool:
         libs = list(pool.map(lambda job: build_library(*job), jobs))
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -5652,6 +6074,17 @@ def main() -> int:
         attn_rows.append(check_attention_kernel(tag, family, shape,
                                                 frontend_rng, dev))
         emit(attn_rows[-1])
+    # the rows and phases below draw from a generator of their own
+    granite_yi_rng = np.random.default_rng(GRANITE_YI_SEED)
+    for tag, family, shape in DENSE_ATTENTION_CHECKS:
+        attn_rows.append(check_attention_kernel(tag, family, shape,
+                                                granite_yi_rng, dev))
+        if family == "decode":
+            # a row chunk of the kernel's grid per 8 heads of a group, each
+            # reading the whole cache
+            attn_rows[-1]["cache_reads_per_call"] = DA.launch_grid(
+                1, shape[2], shape[3])[1] // shape[3]
+        emit(attn_rows[-1])
 
     # ---- 8. LM serving: Qwen2-0.5B at full width ---------------------------
     t0 = time.perf_counter()
@@ -5680,10 +6113,25 @@ def main() -> int:
         emit(bwd_rows[-1])
     torch.cuda.empty_cache()
 
-    # ---- 9c. LM training: Qwen2-0.5B at full width -------------------------
+    # ---- 9b'. blocked_attention's dynamic offsets -------------------------
     t0 = time.perf_counter()
-    train_rows, train_counts = lm_train_path(dev)
-    for row in train_rows:
+    reset_launch_counts()
+    dynamic_rows, dynamic_counts = attention_dynamic_path(dev, granite_yi_rng)
+    for row in dynamic_rows:
+        emit(row)
+    emit({"phase": "attention-dynamic-total", "launches": dynamic_counts,
+          "host_reads": sum(r["host_reads"] for r in dynamic_rows),
+          "wall_s": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+
+    # ---- 9c. LM training: Qwen2-0.5B at full width -------------------------
+    # then the sharding substrate on its checkpoint
+    t0 = time.perf_counter()
+    sharding_rows = []
+    train_rows, train_counts = lm_train_path(
+        dev, on_checkpoint=lambda ckpt, step: sharding_rows.extend(
+            sharding_path(ckpt, step, dev)))
+    for row in train_rows + sharding_rows:
         emit(row)
     emit({"phase": "lm-train-total", "wall_s": time.perf_counter() - t0})
     torch.cuda.empty_cache()
@@ -5715,6 +6163,16 @@ def main() -> int:
         t0 = time.perf_counter()
         rows, family_counts[f"{phase}:{arch}"] = lm_train_family_path(
             phase, arch, *shape, dev)
+        for row in rows:
+            emit(row)
+        emit({"phase": f"{phase}-total", "model": arch,
+              "wall_s": time.perf_counter() - t0})
+
+    # ---- 9f. Granite-34B and Yi-9B served whole ----------------------------
+    for phase, arch in DENSE_SERVING:
+        t0 = time.perf_counter()
+        rows, family_counts[f"{phase}:{arch}"] = lm_serve_dense_path(
+            phase, arch, dev, granite_yi_rng)
         for row in rows:
             emit(row)
         emit({"phase": f"{phase}-total", "model": arch,
@@ -5752,6 +6210,9 @@ def main() -> int:
                if c.get(kernel)}
         return {"launches": sum(per.values()), "launches_by_path": per}
 
+    timed = next(r for r in dynamic_rows if "fwd" in r)
+    # the script's own time, its builds included, against its 1,200 s
+    emit({"phase": "script-total", "wall_s": time.perf_counter() - t_start})
     sums = [r for r in batched_rows if r["kernel"] == "spmv_push_batched"]
     mins = [r for r in batched_rows
             if r["kernel"] == "spmv_reduce_push_batched"]
@@ -5858,7 +6319,40 @@ def main() -> int:
                     "fwd_lse_ms": r["fwd_lse_ms"],
                     "fwd_lse_bound_ms": r["fwd_lse_bound"]["bound_ms"],
                     "library_fwd_ms": r["library_fwd_ms"]}
-                   for r in bwd_rows if "kernel_ms" in r]}]})
+                   for r in bwd_rows if "kernel_ms" in r]}, *[{
+        "name": name, "route": "cuda", "source": source,
+        "defines": list(FA.DYNAMIC_DEFINES), "replaces": replaces,
+        "reference_path": "src/repro/models/layers.py:308 "
+                          "(_blocked_attention_ref, the dynamic-offset path)",
+        "launches": dynamic_counts[name],
+        "launches_by_path": {"attention-dynamic": dynamic_counts[name]},
+        "host_reads": sum(r["host_reads"] for r in dynamic_rows),
+        "check": check,
+        "max_abs_err": max(r[err] for r in dynamic_rows),
+        "ms": timed[part]["kernel_ms"], "plain_ms": timed[part]["plain_ms"],
+        "bound_ms": timed[part]["bound_ms"],
+        "bound_by": timed[part]["bound_by"],
+        "library_ms": timed[part]["library_ms"],
+        "shapes": [{"shape": r["shape"], "ms": r[part]["kernel_ms"],
+                    "eager_ms": r[part]["kernel_eager_ms"],
+                    "plain_ms": r[part]["plain_ms"],
+                    "bound_ms": r[part]["bound_ms"],
+                    "bound_by": r[part]["bound_by"],
+                    "library_ms": r[part]["library_ms"],
+                    "roofline_share": r[part]["roofline_share"]}
+                   for r in dynamic_rows if part in r]}
+        for name, part, err, source, replaces, check in (
+            ("flash_attention_dynamic", "fwd", "fwd_max_abs_err",
+             "src/repro_torch/kernels/flash_attention/csrc/"
+             "flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:85",
+             "pass (the f32 output and lse, f32 and bf16, vs the f64 plain "
+             "version; the layer's call bitwise the wrapper's)"),
+            ("flash_attention_bwd_dynamic", "bwd", "max_abs_err",
+             "src/repro_torch/kernels/flash_attention/csrc/"
+             "flash_attention_bwd.cu", "src/repro/models/layers.py:174",
+             "pass (dq, dk, dv, f32 and bf16, vs the f64 plain version; "
+             "the layer's autograd bitwise the wrapper's)"))]]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.sharding.rules import place
 
 
 def _process_count_and_index() -> tuple:
@@ -114,12 +115,19 @@ class Prefetcher:
         self._done = True
 
 
-def shard_batch(batch: Dict[str, np.ndarray],
-                device=None) -> Dict[str, torch.Tensor]:
-    """A host batch as tensors on ``device`` (the card unless another
-    device is named): one process's slice, since the port runs one
-    process per card (the reference's per-key shardings wait for ROADMAP
-    queue 1 entry 15)."""
-    device = resolve_device(device)
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+def shard_batch(batch: Dict[str, np.ndarray], shardings: Any = None, *,
+                device=None) -> Dict[str, Any]:
+    """Place a host batch: with ``shardings`` (a dict, key ->
+    ``NamedSharding``) each key with an entry becomes a DTensor on its
+    mesh, this rank holding its own shard of the host array, and a key
+    without one is returned as it is, as the reference's
+    ``jax.device_put`` per key.  Otherwise every key becomes a tensor on
+    one device, one process's slice: ``device``, or ``shardings`` itself
+    when it names a device (``shard_batch(batch, "cpu")``), else the
+    card."""
+    if not isinstance(shardings, dict):
+        device = resolve_device(shardings if device is None else device)
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                for k, v in batch.items()}
+    return {k: v if shardings.get(k) is None else place(v, shardings[k])
             for k, v in batch.items()}

@@ -23,9 +23,9 @@ The mesh is a 1-D ``torch.distributed.device_mesh.DeviceMesh``.  Each rank
 holds the whole graph state and keeps the rows of its own
 ``num_shards / R`` shards (:func:`place_sharded_layout`).  A mesh with more
 than one dimension is the multi-axis layout of ROADMAP queue 1 entry 16
-and raises.  ``edge_sharding``/``graph_shardings`` place the raw graph
-buffers with the sharding rules, which come with the training half of
-entry 15.
+and raises.  :func:`edge_sharding`/:func:`graph_shardings` give the raw
+graph buffers' shardings under the sharding rules: edge buffers over the
+mesh by the ``edges`` rule, node vectors replicated.
 """
 
 from __future__ import annotations
@@ -38,6 +38,27 @@ import torch
 
 from repro_torch.core import backend as B
 from repro_torch.graph.graph import GraphState, inv_out_degree
+from repro_torch.sharding.rules import (NamedSharding, guarded_pspec,
+                                        mesh_axis_names, rules_for_mesh)
+
+
+def edge_sharding(mesh, edge_capacity: int) -> NamedSharding:
+    """The sharding of an edge-capacity buffer: the ``edges`` logical axis
+    laid over the mesh (a ``DeviceMesh`` with dim names) per its rules,
+    where the capacity divides."""
+    sizes = dict(zip(mesh_axis_names(mesh), mesh.mesh.shape))
+    return NamedSharding(mesh, guarded_pspec(
+        (edge_capacity,), ("edges",), rules_for_mesh(mesh), sizes))
+
+
+def graph_shardings(mesh, state: GraphState) -> GraphState:
+    """A ``GraphState`` of shardings: edge buffers by
+    :func:`edge_sharding`, node vectors and the edge count replicated."""
+    e = edge_sharding(mesh, state.edge_capacity)
+    n = NamedSharding(mesh, ())
+    return GraphState(src=e, dst=e, edge_alive=e, num_edges=n,
+                      out_deg=n, in_deg=n, node_active=n,
+                      edge_len=None if state.edge_len is None else e)
 
 
 def host_edge_slice(num_edges: int, process: int,

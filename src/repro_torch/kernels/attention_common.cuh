@@ -173,6 +173,42 @@ __device__ __forceinline__ float log_sum_exp(float m, float l) {
   return l > 0.0f ? m + logf(fmaxf(l, 1e-30f)) : __int_as_float(0x7f800000);
 }
 
+// blocked_attention's dynamic offsets, read on the device from int32[3]
+// (q_offset, kv_offset, kv_valid_len), so that no launch waits on a host
+// read: query row i sits at q_offset + i, key j at kv_offset + j, the
+// causal and window masks compare those positions, and keys at kv_offset +
+// j >= kv_valid_len are masked, as are the keys j >= Skv past the inputs.
+// A kernel works in the keys' local coordinates: each query position is
+// shifted by q_offset - kv_offset, and keys j >= lim = clamp(kv_valid_len
+// - kv_offset, 0, Skv) are masked.  The shift is clamped to +-2^29: with
+// Sq, Skv and the window below 2^28 (the wrapper's limits) that moves no
+// mask, and every position stays far from int overflow.
+struct Offsets {
+  int shift;
+  int lim;
+};
+
+__device__ __forceinline__ Offsets read_offsets(const int* dyn, int skv) {
+  const long long q = __ldg(dyn), kv = __ldg(dyn + 1), valid = __ldg(dyn + 2);
+  const long long bound = 1ll << 29;
+  const long long shift = q - kv < -bound ? -bound : q - kv > bound ? bound
+                                                                    : q - kv;
+  const long long lim = valid - kv < 0 ? 0 : valid - kv > skv ? skv
+                                                             : valid - kv;
+  return {static_cast<int>(shift), static_cast<int>(lim)};
+}
+
+// Whether a query at (shifted) position `pos` may attend to some key j <
+// lim.  Under dynamic offsets a row may see none; such a row outputs 0 with
+// lse = +inf (the kernels clear its l), where the reference's scan outputs
+// the mean of every value it walked, the padding's zeros among them.
+__device__ __forceinline__ bool sees_a_key(int pos, int lim, int causal,
+                                           int window) {
+  const int hi = causal ? min(lim, pos + 1) : lim;
+  const int lo = window > 0 ? max(0, pos - window + 1) : 0;
+  return lo < hi;
+}
+
 }  // namespace attn
 
 // The (head dim, value head dim) pairs the attention kernels (flash

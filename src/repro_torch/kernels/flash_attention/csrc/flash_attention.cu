@@ -84,6 +84,20 @@
 // exp2 of (s - m) log2(e)), so nothing needs converting.  Without the
 // pointer the launch is the kLse = false instantiation, the same code,
 // grid and shared memory as before the training path existed.
+//
+// Dynamic offsets (kDynamic, built with -DATTN_DYNAMIC into a library of
+// its own): the path of the reference's blocked_attention that takes
+// q_offset, kv_offset and kv_valid_len (_blocked_attention_ref), read on
+// the device from int32[3] (attn::read_offsets), so no call reads a value
+// back to the host.  The query rows' positions are shifted by q_offset -
+// kv_offset and keys at or past lim = clamp(kv_valid_len - kv_offset, 0,
+// Skv) are masked; the tile skipping above then follows the offsets, and a
+// row that sees no key at all outputs 0 (lse +inf).  Only the padding is
+// masked past Skv: the reference's scan also masks the last kv_offset
+// real keys when Skv is no multiple of its tile, a fault the port does not
+// copy.  Every dynamic launch writes lse and an f32 output (kLse), so the
+// same launch serves inference and autograd; the static instantiations
+// (kDynamic = false: no shift, lim = Skv) are the code they were.
 
 #include <type_traits>
 
@@ -117,14 +131,14 @@ constexpr size_t smem_bytes() {
          (kRows * HD + HD * kKStride + kKeys * VD + kRows * kKeys);
 }
 
-template <int HD, int VD, bool kLse>
+template <int HD, int VD, bool kLse, bool kDynamic>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_f32_kernel(const float* __restrict__ q,
                      const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
-                     float* __restrict__ lse, int sq, int skv, int num_heads,
-                     int num_kv, int groups, int causal, int window,
-                     float scale) {
+                     float* __restrict__ lse, const int* __restrict__ dyn,
+                     int sq, int skv, int num_heads, int num_kv, int groups,
+                     int causal, int window, float scale) {
   constexpr int kVec = Elem<float>::kPerVec;
   constexpr int kCols = (VD + 31) / 32;  // value columns per lane
   extern __shared__ float4 smem4[];
@@ -141,8 +155,16 @@ flash_fwd_f32_kernel(const float* __restrict__ q,
   const int64_t rows_total = static_cast<int64_t>(sq) * groups;
   const int64_t f0 = static_cast<int64_t>(blockIdx.x) * kRows;
   const int64_t f_end = f0 + kRows < rows_total ? f0 + kRows : rows_total;
-  const int pos_lo = static_cast<int>(f0 / groups);
-  const int pos_hi = static_cast<int>((f_end - 1) / groups);
+  // positions in the keys' coordinates, and the keys past which all are
+  // masked: no shift and Skv on the static path
+  int shift = 0, lim = skv;
+  if constexpr (kDynamic) {
+    const attn::Offsets o = attn::read_offsets(dyn, skv);
+    shift = o.shift;
+    lim = o.lim;
+  }
+  const int pos_lo = static_cast<int>(f0 / groups) + shift;
+  const int pos_hi = static_cast<int>((f_end - 1) / groups) + shift;
 
   // the block's query rows, widened to f32 and scaled (as the reference
   // does: q.astype(f32) * scale)
@@ -169,7 +191,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q,
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const int64_t f_row = f0 + warp * kRowsPerWarp + i;
     const int64_t f = f_row < rows_total ? f_row : rows_total - 1;
-    row_pos[i] = static_cast<int>(f / groups);
+    row_pos[i] = static_cast<int>(f / groups) + shift;
     m[i] = kNegInf;
     l[i] = 0.0f;
 #pragma unroll
@@ -177,7 +199,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q,
   }
 
   // the kv tiles some row of the block may attend to
-  const int kv_end = causal ? min(skv, pos_hi + 1) : skv;
+  const int kv_end = causal ? min(lim, pos_hi + 1) : lim;
   const int kv_first = window > 0 ? max(0, pos_lo - window + 1) : 0;
   const float* qw = qs + warp * kRowsPerWarp * HD;
   float* pw = ps + warp * kRowsPerWarp * kKeys;
@@ -237,7 +259,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) {
       const int pos = row_pos[i];
-      const bool ok = key < skv && (!causal || key <= pos) &&
+      const bool ok = key < lim && (!causal || key <= pos) &&
                       (window <= 0 || key > pos - window);
       const float si = ok ? s[i] : kNegInf;
       const float m_new = fmaxf(m[i], attn::warp_max(si));
@@ -282,6 +304,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q,
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const int64_t f = f0 + warp * kRowsPerWarp + i;
     if (f >= rows_total) continue;
+    if constexpr (kDynamic) {
+      if (!attn::sees_a_key(row_pos[i], lim, causal, window)) l[i] = 0.0f;
+    }
     const int64_t pos = f / groups;
     const int64_t h = static_cast<int64_t>(kvh) * groups + f % groups;
     float* dst = out + ((b * sq + pos) * num_heads + h) * VD;
@@ -349,12 +374,13 @@ __device__ __forceinline__ bool allowed(int key, int pos, int skv, int causal,
 // 8-wide accumulator tile.  Each warp owns m_tiles() such 16-row tiles,
 // which share every K and V fragment it loads.
 // The output is bf16, or f32 with kLse (the training residual).
-template <int HD, int VD, bool kLse>
+template <int HD, int VD, bool kLse, bool kDynamic>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
                       std::conditional_t<kLse, float, bf16>* __restrict__ out,
-                      float* __restrict__ lse, int batch, int sq, int skv,
+                      float* __restrict__ lse, const int* __restrict__ dyn,
+                      int batch, int sq, int skv,
                       int num_heads, int num_kv, int groups, int q_tiles,
                       int causal, int window, float scale) {
   constexpr int HK = hd_mma<HD>();  // q . k columns, zero past HD
@@ -381,8 +407,16 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int64_t rows_total = static_cast<int64_t>(sq) * groups;
   const int64_t f0 = qt * kRows;
   const int64_t f_end = f0 + kRows < rows_total ? f0 + kRows : rows_total;
-  const int pos_lo = static_cast<int>(f0 / groups);
-  const int pos_hi = static_cast<int>((f_end - 1) / groups);
+  // positions in the keys' coordinates, and the keys past which all are
+  // masked: no shift and Skv on the static path
+  int shift = 0, lim = skv;
+  if constexpr (kDynamic) {
+    const attn::Offsets o = attn::read_offsets(dyn, skv);
+    shift = o.shift;
+    lim = o.lim;
+  }
+  const int pos_lo = static_cast<int>(f0 / groups) + shift;
+  const int pos_hi = static_cast<int>((f_end - 1) / groups) + shift;
 
   // the block's query rows, as they are (bf16), zero past HD
   for (int i = tid; i < kRows * (HK / 8); i += kWarps * 32) {
@@ -416,7 +450,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
 
   // the kv tiles some row of the block may attend to
-  const int kv_end = causal ? min(skv, pos_hi + 1) : skv;
+  const int kv_end = causal ? min(lim, pos_hi + 1) : lim;
   const int kv_first = window > 0 ? max(0, pos_lo - window + 1) : 0;
   const int t_begin = kv_first / kKeys * kKeys;
   const int n_tiles =
@@ -443,7 +477,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int r = 0; r < 2; ++r) {
       const int64_t f = f0 + row0 + g + 8 * r;
       row_pos[mi][r] = static_cast<int>(
-          (f < rows_total ? f : rows_total - 1) / groups);
+          (f < rows_total ? f : rows_total - 1) / groups) + shift;
       m[mi][r] = kNegInf;
       l[mi][r] = 0.0f;
     }
@@ -490,7 +524,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     // scale, then mask where some (row, key) pair of the tile is masked
-    const bool edge = t0 + kKeys > skv || (causal && t0 + kKeys - 1 > pos_lo) ||
+    const bool edge = t0 + kKeys > lim || (causal && t0 + kKeys - 1 > pos_lo) ||
                       (window > 0 && t0 <= pos_hi - window);
 #pragma unroll
     for (int mi = 0; mi < M; ++mi) {
@@ -500,7 +534,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 4; ++e) {
           s[mi][n][e] *= scale;
           if (edge && !allowed(t0 + n * 8 + 2 * t + (e & 1),
-                               row_pos[mi][e >> 1], skv, causal, window)) {
+                               row_pos[mi][e >> 1], lim, causal, window)) {
             s[mi][n][e] = kNegInf;
           }
         }
@@ -583,6 +617,11 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int r = 0; r < 2; ++r) {
       const int64_t f = f0 + (warp * M + mi) * 16 + g + 8 * r;
       if (f >= rows_total) continue;
+      if constexpr (kDynamic) {
+        if (!attn::sees_a_key(row_pos[mi][r], lim, causal, window)) {
+          l[mi][r] = 0.0f;
+        }
+      }
       const int64_t pos = f / groups;
       const int64_t h = static_cast<int64_t>(kvh) * groups + f % groups;
       auto* dst = out + ((b * sq + pos) * num_heads + h) * VD + 2 * t;
@@ -614,13 +653,13 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 }  // namespace tc
 
-template <int HD, int VD, bool kLse>
+template <int HD, int VD, bool kLse, bool kDynamic>
 int launch_f32(const void* q, const void* k, const void* v, void* out,
-               float* lse, int batch, int sq, int skv, int num_heads,
-               int num_kv, int causal, int window, float scale,
+               float* lse, const int* dyn, int batch, int sq, int skv,
+               int num_heads, int num_kv, int causal, int window, float scale,
                cudaStream_t stream) {
   constexpr size_t smem = simt::smem_bytes<HD, VD>();
-  auto kernel = simt::flash_fwd_f32_kernel<HD, VD, kLse>;
+  auto kernel = simt::flash_fwd_f32_kernel<HD, VD, kLse, kDynamic>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -634,19 +673,19 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
                   num_kv, batch);
   kernel<<<grid, simt::kWarps * 32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), lse, sq, skv,
-      num_heads, num_kv, groups, causal, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, dyn, sq,
+      skv, num_heads, num_kv, groups, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD, int VD, bool kLse>
+template <int HD, int VD, bool kLse, bool kDynamic>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
-                float* lse, int batch, int sq, int skv, int num_heads,
-                int num_kv, int causal, int window, float scale,
+                float* lse, const int* dyn, int batch, int sq, int skv,
+                int num_heads, int num_kv, int causal, int window, float scale,
                 cudaStream_t stream) {
   using Out = std::conditional_t<kLse, float, __nv_bfloat16>;
   constexpr size_t smem = tc::smem_bytes<HD, VD>();
-  auto kernel = tc::flash_fwd_bf16_kernel<HD, VD, kLse>;
+  auto kernel = tc::flash_fwd_bf16_kernel<HD, VD, kLse, kDynamic>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -664,7 +703,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
   kernel<<<static_cast<unsigned>(blocks), tc::kWarps * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<Out*>(out), lse,
+      static_cast<const __nv_bfloat16*>(v), static_cast<Out*>(out), lse, dyn,
       batch, sq, skv, num_heads, num_kv, groups, static_cast<int>(q_tiles),
       causal, window, scale);
   return static_cast<int>(cudaGetLastError());
@@ -672,6 +711,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
+#ifndef ATTN_DYNAMIC
 // dtype: 0 f32 (CUDA cores), 1 bf16 (tensor cores).  window <= 0: no
 // window.  lse: null, or (B, H, Sq) f32 for each row's log-sum-exp, and
 // then a bf16 launch writes `out` in f32.  Returns the CUDA error of the
@@ -685,10 +725,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
 #define ATTN_LAUNCH(FN, H, V)                                                \
-  return l ? FN<H, V, true>(q, k, v, out, l, batch, sq, skv, num_heads,      \
-                            num_kv, causal, window, scale, s)                \
-           : FN<H, V, false>(q, k, v, out, l, batch, sq, skv, num_heads,     \
-                             num_kv, causal, window, scale, s);
+  return l ? FN<H, V, true, false>(q, k, v, out, l, nullptr, batch, sq, skv, \
+                                   num_heads, num_kv, causal, window, scale, \
+                                   s)                                        \
+           : FN<H, V, false, false>(q, k, v, out, l, nullptr, batch, sq,     \
+                                    skv, num_heads, num_kv, causal, window,  \
+                                    scale, s);
 #define ATTN_CASE(H, V)                                                     \
   if (hd == H && vd == V) {                                                 \
     if (dtype == 0) ATTN_LAUNCH(launch_f32, H, V)                           \
@@ -699,3 +741,31 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
 #undef ATTN_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
+#else
+// The dynamic-offset entry: `offsets` is int32[3] on the device (q_offset,
+// kv_offset, kv_valid_len), `out` (B, Sq, H, vd) f32 and `lse` (B, H, Sq)
+// f32 whatever the dtype.  Otherwise as flash_attention_fwd.
+extern "C" int flash_attention_fwd_dynamic(
+    const void* q, const void* k, const void* v, void* out, void* lse,
+    const void* offsets, int batch, int sq, int skv, int num_heads,
+    int num_kv, int hd, int vd, int causal, int window, float scale,
+    int dtype, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  const int* dyn = static_cast<const int*>(offsets);
+#define ATTN_CASE(H, V)                                                      \
+  if (hd == H && vd == V) {                                                  \
+    if (dtype == 0)                                                          \
+      return launch_f32<H, V, true, true>(q, k, v, out, l, dyn, batch, sq,   \
+                                          skv, num_heads, num_kv, causal,    \
+                                          window, scale, s);                 \
+    if (dtype == 1)                                                          \
+      return launch_bf16<H, V, true, true>(q, k, v, out, l, dyn, batch, sq,  \
+                                           skv, num_heads, num_kv, causal,   \
+                                           window, scale, s);                \
+  }
+  ATTN_FOR_EACH_DIMS(ATTN_CASE)
+#undef ATTN_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+#endif

@@ -92,6 +92,20 @@
 // dq, dk and dv, (dim + 31) / 32 of them, each loop bounded by the dim.
 // Shared memory at (112, 112): 95 KB for the dq pass, 65 KB for the dk/dv
 // pass, both above the 48 KB default and opted in at launch.
+//
+// Dynamic offsets (kDynamic, built with -DATTN_DYNAMIC into a library of
+// its own, beside the forward's): the gradients of flash_attention.cu's
+// dynamic entry, the offsets read on the device from the same int32[3].
+// As in the forward, query positions are shifted by q_offset - kv_offset
+// and keys at or past lim are masked, so both passes' skipping (the dq
+// pass's kv tiles, the dk/dv pass's query rows) follows the offsets; a key
+// block wholly at or past lim walks no rows and stores zeros.  A row that
+// saw no key has lse = +inf from the forward, so its P is 0.  Their dq, dk
+// and dv products add each step's terms into a fresh fragment and that
+// into the accumulator in f32 (mma_fab's kFresh), which holds MQA's long
+// reductions (48 heads over one KV head) to the bf16 limits.  The static
+// instantiations (no shift, lim = Skv, one accumulation chain) are the
+// code they were.
 
 #include "../../attention_common.cuh"
 
@@ -134,15 +148,15 @@ constexpr size_t smem_bytes() {
                           VD * kStride + kRows * kKeys);
 }
 
-template <int HD, int VD>
+template <int HD, int VD, bool kDynamic>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ out,
                     const float* __restrict__ dout,
                     const float* __restrict__ lse, float* __restrict__ delta,
-                    float* __restrict__ dq, int sq, int skv, int num_heads,
-                    int num_kv, int groups, int causal, int window,
-                    float scale) {
+                    float* __restrict__ dq, const int* __restrict__ dyn,
+                    int sq, int skv, int num_heads, int num_kv, int groups,
+                    int causal, int window, float scale) {
   constexpr int kColsQ = (HD + 31) / 32;  // dq columns per lane
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // [kRows][HD], scaled
@@ -161,8 +175,16 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int64_t f0 =
       static_cast<int64_t>(gridDim.x - 1 - blockIdx.x) * kRows;
   const int64_t f_end = f0 + kRows < rows_total ? f0 + kRows : rows_total;
-  const int pos_lo = static_cast<int>(f0 / groups);
-  const int pos_hi = static_cast<int>((f_end - 1) / groups);
+  // positions in the keys' coordinates, and the keys past which all are
+  // masked: no shift and Skv on the static path
+  int shift = 0, lim = skv;
+  if constexpr (kDynamic) {
+    const attn::Offsets o = attn::read_offsets(dyn, skv);
+    shift = o.shift;
+    lim = o.lim;
+  }
+  const int pos_lo = static_cast<int>(f0 / groups) + shift;
+  const int pos_hi = static_cast<int>((f_end - 1) / groups) + shift;
 
   // the warp's rows: q (scaled), dO, lse and delta = rowsum(dO O)
   int row_pos[kRowsPerWarp];
@@ -185,7 +207,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       dot += valid ? d * out[row * VD + c] : 0.0f;
     }
     dot = attn::warp_sum(dot);
-    row_pos[i] = static_cast<int>(pos);
+    row_pos[i] = static_cast<int>(pos) + shift;
     row_delta[i] = dot;
     // an invalid row gets P = exp(s - inf) = 0
     row_lse[i] = valid ? lse[(b * num_heads + h) * sq + pos]
@@ -201,7 +223,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   // the kv tiles some row of the block may attend to
-  const int kv_end = causal ? min(skv, pos_hi + 1) : skv;
+  const int kv_end = causal ? min(lim, pos_hi + 1) : lim;
   const int kv_first = window > 0 ? max(0, pos_lo - window + 1) : 0;
   const float* qw = qs + warp * kRowsPerWarp * HD;
   const float* dow = dos + warp * kRowsPerWarp * VD;
@@ -263,7 +285,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) {
       const float si =
-          allowed(key, row_pos[i], skv, causal, window) ? s[i] : kNegInf;
+          allowed(key, row_pos[i], lim, causal, window) ? s[i] : kNegInf;
       const float p = expf(si - row_lse[i]);
       dsw[i * kKeys + lane] = p * (dp[i] - row_delta[i]);
     }
@@ -329,15 +351,15 @@ constexpr size_t smem_bytes() {
                           2 * kWarps * kRows * kKeysPerWarp);
 }
 
-template <int HD, int VD>
+template <int HD, int VD, bool kDynamic>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, int sq, int skv, int num_heads,
-                     int num_kv, int groups, int causal, int window,
-                     float scale) {
+                     float* __restrict__ dv, const int* __restrict__ dyn,
+                     int sq, int skv, int num_heads, int num_kv, int groups,
+                     int causal, int window, float scale) {
   constexpr int kColsK = (HD + 31) / 32;  // dk columns per lane
   constexpr int kColsV = (VD + 31) / 32;  // dv columns per lane
   constexpr int W = kKeysPerWarp;
@@ -380,12 +402,25 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < kColsV; ++c) acc_v[kk][c] = 0.0f;
   }
 
-  // the query rows some key of the block may be attended by
+  // positions in the keys' coordinates, and the keys past which all are
+  // masked: no shift and Skv on the static path
+  int shift = 0, lim = skv;
+  if constexpr (kDynamic) {
+    const attn::Offsets o = attn::read_offsets(dyn, skv);
+    shift = o.shift;
+    lim = o.lim;
+  }
+  // the query rows some key of the block may be attended by (none when
+  // every key of the block is at or past lim)
   const int64_t rows_total = static_cast<int64_t>(sq) * groups;
-  const int64_t f_lo = causal ? static_cast<int64_t>(k0) * groups : 0;
-  const int64_t f_win = (static_cast<int64_t>(k_last) + window) * groups;
+  const int k_first = kDynamic ? max(k0 - shift, 0) : k0;
+  const int64_t f_lo = causal ? static_cast<int64_t>(k_first) * groups : 0;
+  const int64_t f_win =
+      (static_cast<int64_t>(k_last) + window - shift) * groups;
   const int64_t f_hi =
-      window > 0 && f_win < rows_total ? f_win : rows_total;
+      kDynamic && k0 >= lim                   ? f_lo
+      : window > 0 && f_win < rows_total ? f_win
+                                          : rows_total;
   const float* kw = ks + warp * W * HD;
   const float* vw = vs + warp * W * VD;
   float* pw = ps + warp * kRows * W;
@@ -466,13 +501,13 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     const int64_t f_row = fc + lane;
     const int pos = static_cast<int>(
-        (f_row < rows_total ? f_row : rows_total - 1) / groups);
+        (f_row < rows_total ? f_row : rows_total - 1) / groups) + shift;
     const float row_lse = lse_s[lane], row_delta = delta_s[lane];
 #pragma unroll
     for (int kk = 0; kk < W; ++kk) {
       const int key = k0 + warp * W + kk;
       const float sk =
-          allowed(key, pos, skv, causal, window) ? s[kk] : kNegInf;
+          allowed(key, pos, lim, causal, window) ? s[kk] : kNegInf;
       const float p = expf(sk - row_lse);
       pw[lane * W + kk] = p;
       dsw[lane * W + kk] = p * (dp[kk] - row_delta);
@@ -620,8 +655,15 @@ __device__ __forceinline__ void split_terms(float x, float y,
 // acc[NT][4] += A B over 16 KT columns of A: A the warp's 16 x 16 KT f32
 // accumulator fragment `a` (as the MMA leaves it) entering as kN bf16
 // terms (split_terms); B 16 KT rows of NT * 8 columns at `b`, row-major
-// bf16 in shared memory (stride bs), read with ldmatrix.trans
-template <int KT, int NT, int kN>
+// bf16 in shared memory (stride bs), read with ldmatrix.trans.  With
+// kFresh each 16-column step's kN products go into a zeroed fragment that
+// is then added to acc in f32 (round to nearest): acc's chain through the
+// tensor cores' adds is then one add a step, not kN.  A long reduction
+// (dk and dv of MQA: 49k rows of Granite-34B's 48 heads a key) drifts on
+// the long chain past the bf16 limits (dk 4.4, dv 3.3 of them at 1,024
+// queries over 4,160 keys, 48/1 heads, not causal); the dynamic entries
+// take kFresh, the static ones keep their arithmetic.
+template <int KT, int NT, int kN, bool kFresh = false>
 __device__ __forceinline__ void mma_fab(float (&acc)[NT][4],
                                         const float (&a)[2 * KT][4],
                                         const bf16* b, int bs) {
@@ -640,10 +682,24 @@ __device__ __forceinline__ void mma_fab(float (&acc)[NT][4],
       ldmatrix_x4_trans(bf, b + (kc * 16 + (lane & 7) +
                                  ((lane >> 3) & 1) * 8) * bs +
                                 n2 * 16 + (lane >> 4) * 8);
+      if constexpr (kFresh) {
+        float part[2][4] = {};
 #pragma unroll
-      for (int n = 0; n < kN; ++n) {
-        mma(acc[2 * n2], af[n], bf[0], bf[1]);
-        mma(acc[2 * n2 + 1], af[n], bf[2], bf[3]);
+        for (int n = 0; n < kN; ++n) {
+          mma(part[0], af[n], bf[0], bf[1]);
+          mma(part[1], af[n], bf[2], bf[3]);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[2 * n2][e] += part[0][e];
+          acc[2 * n2 + 1][e] += part[1][e];
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < kN; ++n) {
+          mma(acc[2 * n2], af[n], bf[0], bf[1]);
+          mma(acc[2 * n2 + 1], af[n], bf[2], bf[3]);
+        }
       }
     }
   }
@@ -659,15 +715,16 @@ constexpr size_t dq_smem_bytes() {
 
 // dq pass; also writes delta (B, H, Sq) and dO split into kTerms bf16
 // terms, dout_split (kTerms, B, Sq, H, VD), for the dk/dv pass
-template <int HD, int VD>
+template <int HD, int VD, bool kDynamic>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const float* __restrict__ out,
                     const float* __restrict__ dout,
                     const float* __restrict__ lse, float* __restrict__ delta,
                     bf16* __restrict__ dout_split, bf16* __restrict__ dq,
-                    int batch, int sq, int num_heads, int num_kv, int groups,
-                    int q_tiles, Masks masks, float scale) {
+                    const int* __restrict__ dyn, int batch, int sq,
+                    int num_heads, int num_kv, int groups, int q_tiles,
+                    Masks masks, float scale) {
   constexpr int HK = hd_mma<HD>();  // q . k columns, zero past HD
   constexpr int QS = HK + kPad;      // shared-memory row strides (elements)
   constexpr int VS = VD + kPad;
@@ -693,8 +750,17 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int64_t rows_total = static_cast<int64_t>(sq) * groups;
   const int64_t f0 = qt * kRows;
   const int64_t f_end = f0 + kRows < rows_total ? f0 + kRows : rows_total;
-  const int pos_lo = static_cast<int>(f0 / groups);
-  const int pos_hi = static_cast<int>((f_end - 1) / groups);
+  // positions in the keys' coordinates, and the masks with keys at or past
+  // lim masked: no shift and the call's masks on the static path
+  int shift = 0, lim = skv;
+  if constexpr (kDynamic) {
+    const attn::Offsets o = attn::read_offsets(dyn, skv);
+    shift = o.shift;
+    lim = o.lim;
+  }
+  const Masks mk{lim, masks.causal, masks.window};
+  const int pos_lo = static_cast<int>(f0 / groups) + shift;
+  const int pos_hi = static_cast<int>((f_end - 1) / groups) + shift;
   auto row_of = [&](int64_t f) {  // f's (B, Sq, H) row
     return (b * sq + f / groups) * num_heads +
            static_cast<int64_t>(kvh) * groups + f % groups;
@@ -730,7 +796,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
 
   // the kv tiles some row of the block may attend to
-  const int kv_end = masks.causal ? min(skv, pos_hi + 1) : skv;
+  const int kv_end = masks.causal ? min(lim, pos_hi + 1) : lim;
   const int kv_first =
       masks.window > 0 ? max(0, pos_lo - masks.window + 1) : 0;
   const int t_begin = kv_first / kKeys * kKeys;
@@ -789,7 +855,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int64_t f = f0 + warp * 16 + g + 8 * r;
     const int64_t fc = f < rows_total ? f : rows_total - 1;
-    row_pos[r] = static_cast<int>(fc / groups);
+    row_pos[r] = static_cast<int>(fc / groups) + shift;
     row_lse2[r] = f < rows_total
                       ? lse[(b * num_heads + static_cast<int64_t>(kvh) *
                                                  groups + f % groups) * sq +
@@ -829,7 +895,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // P, masked where some (row, key) pair of the tile is, then dS = P (dP
     // - delta) in place of S
-    const bool edge = t0 + kKeys > skv ||
+    const bool edge = t0 + kKeys > lim ||
                       (masks.causal && t0 + kKeys - 1 > pos_lo) ||
                       (masks.window > 0 && t0 <= pos_hi - masks.window);
 #pragma unroll
@@ -838,7 +904,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
         const float p =
-            edge && !masks.allows(t0 + n * 8 + 2 * t + (e & 1), row_pos[r])
+            edge && !mk.allows(t0 + n * 8 + 2 * t + (e & 1), row_pos[r])
                 ? 0.0f
                 : exp2_ftz(fmaf(s[n][e], c1, -row_lse2[r]));
         s[n][e] = p * (dp[n][e] - row_delta[r]);
@@ -846,7 +912,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     // dq += dS K, dS in its bf16 terms
-    mma_fab<kKeys / 16, HK / 8, kTerms>(acc, s, kt, QS);
+    mma_fab<kKeys / 16, HK / 8, kTerms, kDynamic>(acc, s, kt, QS);
     __syncthreads();  // every warp is done with this buffer
   }
   cp_async_wait<0>();  // no copy outlives the block (none is left pending
@@ -878,15 +944,16 @@ constexpr size_t dkv_smem_bytes() {
 }
 
 // dk/dv pass, from q, the dq pass's dO terms and delta, and lse
-template <int HD, int VD>
+template <int HD, int VD, bool kDynamic>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v,
                      const bf16* __restrict__ dout_split,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int batch, int sq, int num_heads,
-                     int num_kv, int groups, Masks masks, float scale) {
+                     bf16* __restrict__ dv, const int* __restrict__ dyn,
+                     int batch, int sq, int num_heads, int num_kv, int groups,
+                     Masks masks, float scale) {
   constexpr int HK = hd_mma<HD>();
   constexpr int QS = HK + kPad;
   constexpr int VS = VD + kPad;
@@ -931,19 +998,32 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                k0 + j < skv);
   }
 
+  // positions in the keys' coordinates, and the masks with keys at or past
+  // lim masked: no shift and the call's masks on the static path
+  int shift = 0, lim = skv;
+  if constexpr (kDynamic) {
+    const attn::Offsets o = attn::read_offsets(dyn, skv);
+    shift = o.shift;
+    lim = o.lim;
+  }
+  const Masks mk{lim, masks.causal, masks.window};
   // the query rows some key of the block may be attended by (Sq G <
-  // 2^31: the wrapper checks it)
+  // 2^31: the wrapper checks it; none when every key of the block is at
+  // or past lim)
   const int rows_total = sq * groups;
-  const int64_t f_causal = static_cast<int64_t>(k0) * groups;
+  const int64_t f_causal =
+      static_cast<int64_t>(kDynamic ? max(k0 - shift, 0) : k0) * groups;
   const int f_lo = !masks.causal        ? 0
                    : f_causal < rows_total ? static_cast<int>(f_causal)
                                            : rows_total;
   const int64_t f_win =
-      (static_cast<int64_t>(k_last) + masks.window) * groups;
+      (static_cast<int64_t>(k_last) + masks.window - shift) * groups;
   const int f_hi = masks.window > 0 && f_win < rows_total
                        ? static_cast<int>(f_win)
                        : rows_total;
-  const int n_steps = f_hi > f_lo ? (f_hi - f_lo + N - 1) / N : 0;
+  const int n_steps = f_hi > f_lo && !(kDynamic && k0 >= lim)
+                          ? (f_hi - f_lo + N - 1) / N
+                          : 0;
   // q, dO's terms, lse and delta of rows [fc, fc + N), zero past f_hi
   auto load_rows = [&](int fc, int buf) {
     bf16* qd = qs + buf * N * QS;
@@ -1018,15 +1098,16 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     mma_abt<HK, N / 8, 1, 1>(s, kw, QS, 0, qt, QS, 0);
     const int f_last = min(fc + N, f_hi) - 1;
     const bool edge =
-        (masks.causal && key_hi > fc / groups) ||
-        (masks.window > 0 && f_last / groups - k0 >= masks.window);
+        (kDynamic && key_hi >= lim) ||
+        (masks.causal && key_hi > fc / groups + shift) ||
+        (masks.window > 0 && f_last / groups + shift - k0 >= masks.window);
 #pragma unroll
     for (int n = 0; n < N / 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = n * 8 + 2 * t + (e & 1);
-        s[n][e] = edge && !masks.allows(key0 + 8 * (e >> 1),
-                                        (fc + col) / groups)
+        s[n][e] = edge && !mk.allows(key0 + 8 * (e >> 1),
+                                     (fc + col) / groups + shift)
                       ? 0.0f
                       : exp2_ftz(fmaf(s[n][e], c1, -lse_t[col] * kLog2e));
       }
@@ -1034,8 +1115,13 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // dv += P^T dO: P_1 dO_1 + P_2 dO_1, then P_1 dO_2 (P in two terms and
     // dO in two keep 16 bits, which dv's check passes)
-    mma_fab<N / 16, VD / 8, 2>(acc_v, s, dot, VS);
-    mma_fab<N / 16, VD / 8, 1>(acc_v, s, dot + N * VS, VS);
+    if constexpr (kDynamic) {
+      mma_fab<N / 16, VD / 8, 2, true>(acc_v, s, dot, VS);
+      mma_fab<N / 16, VD / 8, 1, true>(acc_v, s, dot + N * VS, VS);
+    } else {
+      mma_fab<N / 16, VD / 8, 2>(acc_v, s, dot, VS);
+      mma_fab<N / 16, VD / 8, 1>(acc_v, s, dot + N * VS, VS);
+    }
 
     // dP^T = V dO^T, dO in its terms; dS^T = P^T (dP^T - delta) in place
     // of P^T
@@ -1055,7 +1141,11 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     // dk += dS^T q, dS in its bf16 terms
-    mma_fab<N / 16, HK / 8, kTerms>(acc_k, s, qt, QS);
+    if constexpr (kDynamic) {
+      mma_fab<N / 16, HK / 8, kTerms, true>(acc_k, s, qt, QS);
+    } else {
+      mma_fab<N / 16, HK / 8, kTerms>(acc_k, s, qt, QS);
+    }
     __syncthreads();  // every warp is done with this buffer
   }
   cp_async_wait<0>();
@@ -1092,11 +1182,11 @@ int allow_smem(Kernel kernel, size_t smem) {
       static_cast<int>(smem)));
 }
 
-template <int HD, int VD>
+template <int HD, int VD, bool kDynamic>
 int launch_f32(const void* q, const void* k, const void* v, const void* out,
                const void* dout, const void* lse, void* delta, void* dq,
-               void* dk, void* dv, int batch, int sq, int skv, int num_heads,
-               int num_kv, int causal, int window, float scale,
+               void* dk, void* dv, const int* dyn, int batch, int sq, int skv,
+               int num_heads, int num_kv, int causal, int window, float scale,
                cudaStream_t stream) {
   const int groups = num_heads / num_kv;
   const int64_t rows = static_cast<int64_t>(sq) * groups;
@@ -1108,7 +1198,7 @@ int launch_f32(const void* q, const void* k, const void* v, const void* out,
   float* dlp = static_cast<float*>(delta);
 
   constexpr size_t smem_dq = simt::dq_pass::smem_bytes<HD, VD>();
-  auto dq_kernel = simt::dq_pass::flash_bwd_dq_kernel<HD, VD>;
+  auto dq_kernel = simt::dq_pass::flash_bwd_dq_kernel<HD, VD, kDynamic>;
   int err = allow_smem(dq_kernel, smem_dq);
   if (err) return err;
   const dim3 grid_dq(static_cast<unsigned>((rows + simt::dq_pass::kRows - 1) /
@@ -1116,13 +1206,13 @@ int launch_f32(const void* q, const void* k, const void* v, const void* out,
                      num_kv, batch);
   dq_kernel<<<grid_dq, simt::dq_pass::kWarps * 32, smem_dq, stream>>>(
       qp, kp, vp, static_cast<const float*>(out), dop, lp, dlp,
-      static_cast<float*>(dq), sq, skv, num_heads, num_kv, groups, causal,
-      window, scale);
+      static_cast<float*>(dq), dyn, sq, skv, num_heads, num_kv, groups,
+      causal, window, scale);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
 
   constexpr size_t smem_dkv = simt::dkv_pass::smem_bytes<HD, VD>();
-  auto dkv_kernel = simt::dkv_pass::flash_bwd_dkv_kernel<HD, VD>;
+  auto dkv_kernel = simt::dkv_pass::flash_bwd_dkv_kernel<HD, VD, kDynamic>;
   err = allow_smem(dkv_kernel, smem_dkv);
   if (err) return err;
   const dim3 grid_dkv(
@@ -1131,17 +1221,18 @@ int launch_f32(const void* q, const void* k, const void* v, const void* out,
       num_kv, batch);
   dkv_kernel<<<grid_dkv, simt::dkv_pass::kWarps * 32, smem_dkv, stream>>>(
       qp, kp, vp, dop, lp, dlp, static_cast<float*>(dk),
-      static_cast<float*>(dv), sq, skv, num_heads, num_kv, groups, causal,
-      window, scale);
+      static_cast<float*>(dv), dyn, sq, skv, num_heads, num_kv, groups,
+      causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HD, int VD>
+template <int HD, int VD, bool kDynamic>
 int launch_bf16(const void* q, const void* k, const void* v, const void* out,
                 const void* dout, const void* lse, void* delta,
-                void* dout_split, void* dq, void* dk, void* dv, int batch,
-                int sq, int skv, int num_heads, int num_kv, int causal,
-                int window, float scale, cudaStream_t stream) {
+                void* dout_split, void* dq, void* dk, void* dv,
+                const int* dyn, int batch, int sq, int skv, int num_heads,
+                int num_kv, int causal, int window, float scale,
+                cudaStream_t stream) {
   using tc::bf16;
   const tc::Masks masks{skv, causal, window};
   const int groups = num_heads / num_kv;
@@ -1160,31 +1251,32 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* out,
   bf16* dsp = static_cast<bf16*>(dout_split);
 
   constexpr size_t smem_dq = tc::dq_smem_bytes<HD, VD>();
-  auto dq_kernel = tc::flash_bwd_dq_kernel<HD, VD>;
+  auto dq_kernel = tc::flash_bwd_dq_kernel<HD, VD, kDynamic>;
   int err = allow_smem(dq_kernel, smem_dq);
   if (err) return err;
   dq_kernel<<<static_cast<unsigned>(q_tiles * pairs), tc::kWarps * 32,
               smem_dq, stream>>>(
       qp, kp, vp, static_cast<const float*>(out),
       static_cast<const float*>(dout), lp, dlp, dsp, static_cast<bf16*>(dq),
-      batch, sq, num_heads, num_kv, groups, static_cast<int>(q_tiles), masks,
-      scale);
+      dyn, batch, sq, num_heads, num_kv, groups, static_cast<int>(q_tiles),
+      masks, scale);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
 
   constexpr size_t smem_dkv = tc::dkv_smem_bytes<HD, VD>();
-  auto dkv_kernel = tc::flash_bwd_dkv_kernel<HD, VD>;
+  auto dkv_kernel = tc::flash_bwd_dkv_kernel<HD, VD, kDynamic>;
   err = allow_smem(dkv_kernel, smem_dkv);
   if (err) return err;
   dkv_kernel<<<static_cast<unsigned>(k_tiles * pairs), tc::kWarps * 32,
                smem_dkv, stream>>>(
       qp, kp, vp, dsp, lp, dlp, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-      batch, sq, num_heads, num_kv, groups, masks, scale);
+      dyn, batch, sq, num_heads, num_kv, groups, masks, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+#ifndef ATTN_DYNAMIC
 // dtype: 0 f32 (CUDA cores), 1 bf16 (tensor cores) for q, k, v, dq, dk,
 // dv; out, dout (B, Sq, H, vd), lse and the scratch delta (B, H, Sq) are
 // f32.  dout_split: bf16 only, a scratch (3, B, Sq, H, vd) for dO's three
@@ -1200,16 +1292,37 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    int vd, int causal, int window, float scale,
                                    int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* dyn = nullptr;
+#else
+// The dynamic-offset entry: `offsets` is the forward's int32[3] on the
+// device (q_offset, kv_offset, kv_valid_len).  Otherwise as the static
+// entry flash_attention_bwd.
+extern "C" int flash_attention_bwd_dynamic(
+    const void* q, const void* k, const void* v, const void* out,
+    const void* dout, const void* lse, void* delta, void* dout_split,
+    void* dq, void* dk, void* dv, const void* offsets, int batch, int sq,
+    int skv, int num_heads, int num_kv, int hd, int vd, int causal,
+    int window, float scale, int dtype, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* dyn = static_cast<const int*>(offsets);
+#endif
+#ifdef ATTN_DYNAMIC
+  constexpr bool kDynamic = true;
+#else
+  constexpr bool kDynamic = false;
+#endif
 #define ATTN_CASE(H, V)                                                      \
   if (hd == H && vd == V) {                                                  \
     if (dtype == 0)                                                          \
-      return launch_f32<H, V>(q, k, v, out, dout, lse, delta, dq, dk, dv,    \
-                              batch, sq, skv, num_heads, num_kv, causal,     \
-                              window, scale, s);                             \
+      return launch_f32<H, V, kDynamic>(q, k, v, out, dout, lse, delta, dq,  \
+                                        dk, dv, dyn, batch, sq, skv,         \
+                                        num_heads, num_kv, causal, window,   \
+                                        scale, s);                           \
     if (dtype == 1 && dout_split)                                            \
-      return launch_bf16<H, V>(q, k, v, out, dout, lse, delta, dout_split,   \
-                               dq, dk, dv, batch, sq, skv, num_heads,        \
-                               num_kv, causal, window, scale, s);            \
+      return launch_bf16<H, V, kDynamic>(q, k, v, out, dout, lse, delta,     \
+                                         dout_split, dq, dk, dv, dyn, batch, \
+                                         sq, skv, num_heads, num_kv, causal, \
+                                         window, scale, s);                  \
   }
   ATTN_FOR_EACH_DIMS(ATTN_CASE)
 #undef ATTN_CASE

@@ -25,6 +25,19 @@ products as three bf16 terms each and P as two, f32 on the CUDA cores)
 and :class:`FlashAttention` ties the two into autograd.
 :func:`flash_attention_bwd_plain` ports the reference's ``flash_bwd``.
 
+Dynamic offsets: :func:`flash_attention_dynamic` and
+:func:`flash_attention_bwd_dynamic` launch the same sources built with
+``-DATTN_DYNAMIC`` (a library of their own), which read ``q_offset``,
+``kv_offset`` and ``kv_valid_len`` (:class:`Offsets`) on the device: the
+path of the reference's ``blocked_attention`` that takes them
+(``_blocked_attention_ref``), under autograd through the same
+:class:`FlashAttention`.  Query row ``i`` sits at ``q_offset + i``, key
+``j`` at ``kv_offset + j``; the masks compare those positions, keys at
+``kv_offset + j >= kv_valid_len`` are masked, and so are only the keys ``j
+>= Skv`` past the inputs (the reference's scan also masks the last
+``kv_offset`` real keys when Skv is no multiple of its tile; the port does
+not copy that fault).  A row that sees no key outputs 0.
+
 On a CUDA tensor each wrapper launches its kernel or raises; only a tensor
 that lies on the CPU takes the plain version.  The sources are built at
 first use by :mod:`repro_torch.kernels.build`; nothing is compiled or
@@ -35,7 +48,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -59,6 +72,50 @@ _ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 9
              + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
 _BWD_ARGTYPES = ((ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 9
                  + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+# the dynamic entries take the offsets' pointer after their last tensor
+_DYN_ARGTYPES = _ARGTYPES[:5] + (ctypes.c_void_p,) + _ARGTYPES[5:]
+_DYN_BWD_ARGTYPES = _BWD_ARGTYPES[:11] + (ctypes.c_void_p,) + _BWD_ARGTYPES[11:]
+#: the define that builds the dynamic entries (one library per source)
+DYNAMIC_DEFINES = ("ATTN_DYNAMIC=1",)
+#: the dynamic entries take Sq, Skv and a window below this (the kernels
+#: clamp the offsets' difference to 2^29, which then moves no mask)
+DYNAMIC_LIMIT = 1 << 28
+_INT32_MAX = 2**31 - 1
+
+
+class Offsets(NamedTuple):
+    """``blocked_attention``'s dynamic offsets: the position of the first
+    query row and of the first key, each a Python int or a 0-d integer
+    tensor on the call's device, and the position at which keys stop being
+    valid (a 0-d integer tensor, an int, or None for no such limit)."""
+    q_offset: Any = 0
+    kv_offset: Any = 0
+    kv_valid_len: Any = None
+
+
+def offsets_tensor(offsets: Offsets, device: torch.device) -> torch.Tensor:
+    """int32[3] on ``device``, ``(q_offset, kv_offset, kv_valid_len)``
+    (no limit: 2^31 - 1), built without reading anything back to the host:
+    the dynamic kernels read it there."""
+    parts = []
+    for name, x in zip(Offsets._fields, offsets):
+        if x is None:
+            x = _INT32_MAX
+        if isinstance(x, torch.Tensor):
+            if x.numel() != 1 or x.dtype.is_floating_point or (
+                    x.device != device):
+                raise ValueError(f"flash attention: {name} must be an int or "
+                                 f"a one-element integer tensor on {device}; "
+                                 f"got {x.dtype} {tuple(x.shape)} on "
+                                 f"{x.device}")
+            parts.append(x.reshape(()).to(torch.int32))
+        else:
+            if not -2**31 <= int(x) <= _INT32_MAX:
+                raise ValueError(f"flash attention: {name} {x} is beyond "
+                                 f"int32")
+            parts.append(torch.full((), int(x), dtype=torch.int32,
+                                    device=device))
+    return torch.stack(parts)
 
 
 def _shapes(who: str, q, k, v):
@@ -145,6 +202,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                      scale=scale, q_block=q_block,
                                      kv_block=kv_block,
                                      return_lse=return_lse)
+    out, lse, launched = _launch_fwd(who, q, k, v, causal, window, scale,
+                                     return_lse, None)
+    flash_attention.launches += launched
+    if return_lse:
+        flash_attention.lse_launches += launched
+        return out, lse
+    return out
+
+
+def _launch_fwd(who, q, k, v, causal, window, scale, return_lse, offsets):
+    """Check the CUDA operands, allocate ``(out, lse)`` and launch the
+    static entry, or the dynamic one on ``offsets`` (int32[3] on the
+    device): ``(out, lse, launched)``, lse None without ``return_lse``,
+    ``launched`` 0 for an empty output, else 1."""
+    b, sq, h, hd, skv, kvh, vd = _shapes(who, q, k, v)
     _check_cuda_operands(who, (("q", q), ("k", k), ("v", v)), q.dtype)
     _check_kernel_shape(who, q, b, sq, h, hd, skv, kvh, vd)
     out = torch.empty((b, sq, h, vd), device=q.device,
@@ -152,22 +224,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     if out.numel() == 0:
-        return (out, lse) if return_lse else out
-    fn = load_entry(SOURCE, "flash_attention_fwd", _ARGTYPES)
+        return out, lse, 0
+    args = (b, sq, skv, h, kvh, hd, vd, int(causal),
+            0 if window is None else int(window), float(scale),
+            DTYPE_CODES[q.dtype], current_stream(q.device))
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 None if lse is None else lse.data_ptr(),
-                 b, sq, skv, h, kvh, hd, vd, int(causal),
-                 0 if window is None else int(window), float(scale),
-                 DTYPE_CODES[q.dtype], current_stream(q.device))
+        if offsets is None:
+            fn = load_entry(SOURCE, "flash_attention_fwd", _ARGTYPES)
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), None if lse is None else lse.data_ptr(),
+                     *args)
+        else:
+            fn = load_entry(SOURCE, "flash_attention_fwd_dynamic",
+                            _DYN_ARGTYPES, DYNAMIC_DEFINES)
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), lse.data_ptr(), offsets.data_ptr(),
+                     *args)
     if err:
         raise RuntimeError(f"{who}: kernel launch failed with CUDA error "
                            f"{err}")
-    flash_attention.launches += 1
-    if return_lse:
-        flash_attention.lse_launches += 1
-        return out, lse
-    return out
+    return out, lse, 1
 
 
 #: kernel launches since the last reset (plain integers): all of them, and
@@ -176,13 +252,53 @@ flash_attention.launches = 0
 flash_attention.lse_launches = 0
 
 
+def _check_dynamic(who: str, sq: int, skv: int, window) -> None:
+    if max(sq, skv, window or 0) >= DYNAMIC_LIMIT:
+        raise ValueError(f"{who}: the dynamic entries take Sq, Skv and the "
+                         f"window below {DYNAMIC_LIMIT}; got {sq}, {skv}, "
+                         f"{window}")
+
+
+def flash_attention_dynamic(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, offsets: Offsets, *,
+                            causal: bool = True,
+                            window: Optional[int] = None,
+                            scale: Optional[float] = None,
+                            q_block: int = 128, kv_block: int = 512):
+    """``(out, lse)``: :func:`flash_attention` with ``return_lse=True`` at
+    dynamic :class:`Offsets` (the module's docstring says what they mean),
+    ``out`` f32 ``(B, Sq, H, vd)`` and ``lse`` ``(B, H, Sq)`` whatever q's
+    dtype.  CUDA tensors launch the dynamic entry, which reads the offsets
+    on the device (counted in ``flash_attention_dynamic.launches``); CPU
+    tensors take :func:`flash_attention_plain` with ``offsets``."""
+    who = "flash_attention_dynamic"
+    b, sq, h, hd, skv, kvh, vd = _shapes(who, q, k, v)
+    _check_window(who, window)
+    _check_dynamic(who, sq, skv, window)
+    scale = hd ** -0.5 if scale is None else scale
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     scale=scale, q_block=q_block,
+                                     kv_block=kv_block, return_lse=True,
+                                     offsets=offsets)
+    out, lse, launched = _launch_fwd(who, q, k, v, causal, window, scale,
+                                     True, offsets_tensor(offsets, q.device))
+    flash_attention_dynamic.launches += launched
+    return out, lse
+
+
+#: dynamic-entry launches since the last reset
+flash_attention_dynamic.launches = 0
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           window: Optional[int] = None,
                           scale: Optional[float] = None, q_block: int = 128,
                           kv_block: int = 512,
                           dtype: Optional[torch.dtype] = None,
-                          return_lse: bool = False):
+                          return_lse: bool = False,
+                          offsets: Optional[Offsets] = None):
     """The plain PyTorch version of :func:`flash_attention`: the
     reference's tiled online-softmax scan (``repro/models/layers.py``'s
     static-offset flash path, ``_blocked_attention_ref``'s tiles), over
@@ -195,6 +311,12 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`flash_attention` does, ``out`` in the compute dtype and ``lse =
     l > 0 ? m + log(max(l, 1e-30)) : inf`` ``(B, H, Sq)``, as the
     reference's ``fwd_impl`` saves them.
+
+    With ``offsets`` it is the plain version of
+    :func:`flash_attention_dynamic` (the reference's
+    ``_blocked_attention_ref`` without its fault): positions ``q_offset +
+    i`` and ``kv_offset + j``, keys at ``kv_offset + j >= kv_valid_len``
+    masked, and a row that sees no key outputs 0 with lse ``+inf``.
     """
     b, sq, h, hd, skv, kvh, vd = _shapes("flash_attention_plain", q, k, v)
     _check_window("flash_attention_plain", window)
@@ -214,21 +336,23 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qb = q.reshape(b, nq, q_block, kvh, groups, hd).permute(1, 0, 3, 4, 2, 5)
     kb = k.reshape(b, nk, kv_block, kvh, hd).permute(1, 0, 3, 2, 4)
     vb = v.reshape(b, nk, kv_block, kvh, vd).permute(1, 0, 3, 2, 4)
+    q0, k0, valid = (0, 0, None) if offsets is None else offsets
     outs, lses = [], []
     for qi in range(nq):
         qs = qb[qi].to(ct) * scale
-        q_pos = qi * q_block + torch.arange(q_block, device=dev)
+        q_pos = q0 + qi * q_block + torch.arange(q_block, device=dev)
+        # rows that saw an allowed key (a dynamic row may see none)
+        seen = (None if offsets is None else
+                torch.zeros(q_block, dtype=torch.bool, device=dev))
         acc = torch.zeros((b, kvh, groups, q_block, vd), dtype=ct, device=dev)
         m_run = torch.full((b, kvh, groups, q_block), NEG_INF, dtype=ct,
                            device=dev)
         l_run = torch.zeros((b, kvh, groups, q_block), dtype=ct, device=dev)
         for ki in range(nk):
-            k_pos = ki * kv_block + torch.arange(kv_block, device=dev)
-            mask = (k_pos < skv)[None, :].expand(q_block, kv_block)
-            if causal:
-                mask = mask & (k_pos[None, :] <= q_pos[:, None])
-            if window is not None:
-                mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+            j = ki * kv_block + torch.arange(kv_block, device=dev)
+            mask = _mask(q_pos, k0 + j, j < skv, causal, window, valid)
+            if offsets is not None:
+                seen = seen | mask.any(dim=-1)
             s = torch.einsum("bkgqd,bkcd->bkgqc", qs, kb[ki].to(ct))
             s = torch.where(mask, s, NEG_INF)
             m_new = torch.maximum(m_run, s.amax(dim=-1))
@@ -238,6 +362,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             acc = acc * corr[..., None] + torch.einsum(
                 "bkgqc,bkcd->bkgqd", p, vb[ki].to(ct))
             m_run = m_new
+        if offsets is not None:
+            l_run = torch.where(seen, l_run, 0.0)
         l_ = l_run[..., None]
         outs.append(torch.where(l_ > 0, acc / torch.clamp(l_, min=1e-30),
                                 0.0))
@@ -251,6 +377,19 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.stack(lses)                    # (nq, B, KV, G, qb)
     lse = lse.permute(1, 2, 3, 0, 4).reshape(b, h, sq_p)[:, :, :sq]
     return out.to(out_dtype), lse
+
+
+def _mask(q_pos, k_pos, in_range, causal, window, valid):
+    """(q_blk, k_blk) allowed pairs: keys in range (``j < Skv``), the
+    causal and window masks on the positions, and ``k_pos < valid``."""
+    mask = in_range[None, :].expand(q_pos.shape[0], k_pos.shape[0])
+    if causal:
+        mask = mask & (k_pos[None, :] <= q_pos[:, None])
+    if window is not None:
+        mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+    if valid is not None:
+        mask = mask & (k_pos < valid)[None, :]
+    return mask
 
 
 def _compute_dtype(q: torch.Tensor, dtype: Optional[torch.dtype]):
@@ -293,16 +432,58 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`flash_attention_bwd_plain` over ``q_block`` by ``kv_block``
     tiles.
     """
-    who = "flash_attention_bwd"
+    grads, launched = _flash_bwd(
+        "flash_attention_bwd", q, k, v, out, lse, dout, causal=causal,
+        window=window, scale=scale, q_block=q_block, kv_block=kv_block,
+        offsets=None)
+    flash_attention_bwd.launches += launched
+    return grads
+
+
+#: calls that launched the backward's two passes since the last reset
+flash_attention_bwd.launches = 0
+
+
+def flash_attention_bwd_dynamic(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, out: torch.Tensor,
+                                lse: torch.Tensor, dout: torch.Tensor,
+                                offsets: Offsets, *, causal: bool = True,
+                                window: Optional[int] = None,
+                                scale: Optional[float] = None,
+                                q_block: int = 128, kv_block: int = 512):
+    """``(dq, dk, dv)``: :func:`flash_attention_bwd` of
+    :func:`flash_attention_dynamic` at the same :class:`Offsets`.  CUDA
+    tensors launch the backward's dynamic entry (counted in
+    ``flash_attention_bwd_dynamic.launches``), whose two passes skip by
+    the offsets; CPU tensors take :func:`flash_attention_bwd_plain` with
+    ``offsets``."""
+    grads, launched = _flash_bwd(
+        "flash_attention_bwd_dynamic", q, k, v, out, lse, dout,
+        causal=causal, window=window, scale=scale, q_block=q_block,
+        kv_block=kv_block, offsets=offsets)
+    flash_attention_bwd_dynamic.launches += launched
+    return grads
+
+
+#: dynamic-entry calls since the last reset
+flash_attention_bwd_dynamic.launches = 0
+
+
+def _flash_bwd(who, q, k, v, out, lse, dout, *, causal, window, scale,
+               q_block, kv_block, offsets):
+    """The two backward wrappers: ``((dq, dk, dv), launched)``."""
     b, sq, h, hd, skv, kvh, vd = _shapes(who, q, k, v)
     _check_window(who, window)
     _check_residuals(who, b, sq, h, vd, out, lse, dout)
+    if offsets is not None:
+        _check_dynamic(who, sq, skv, window)
     scale = hd ** -0.5 if scale is None else scale
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout,
                                          causal=causal, window=window,
                                          scale=scale, q_block=q_block,
-                                         kv_block=kv_block)
+                                         kv_block=kv_block,
+                                         offsets=offsets), 0
     _check_cuda_operands(who, (("q", q), ("k", k), ("v", v)), q.dtype)
     _check_cuda_operands(who, (("out", out), ("lse", lse), ("dout", dout)),
                          torch.float32)
@@ -312,29 +493,31 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_kernel_shape(who, q, b, sq, h, hd, skv, kvh, vd)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
-        return dq, dk.zero_(), dv.zero_()
+        return (dq, dk.zero_(), dv.zero_()), 0
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     dout_split = (torch.empty((3, b, sq, h, vd), dtype=torch.bfloat16,
                               device=q.device)
                   if q.dtype == torch.bfloat16 else None)
-    fn = load_entry(BWD_SOURCE, "flash_attention_bwd", _BWD_ARGTYPES)
+    tensors = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+               dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+               None if dout_split is None else dout_split.data_ptr(),
+               dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    args = (b, sq, skv, h, kvh, hd, vd, int(causal),
+            0 if window is None else int(window), float(scale),
+            DTYPE_CODES[q.dtype], current_stream(q.device))
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                 None if dout_split is None else dout_split.data_ptr(),
-                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 b, sq, skv, h, kvh, hd, vd, int(causal),
-                 0 if window is None else int(window), float(scale),
-                 DTYPE_CODES[q.dtype], current_stream(q.device))
+        if offsets is None:
+            fn = load_entry(BWD_SOURCE, "flash_attention_bwd", _BWD_ARGTYPES)
+            err = fn(*tensors, *args)
+        else:
+            dyn = offsets_tensor(offsets, q.device)
+            fn = load_entry(BWD_SOURCE, "flash_attention_bwd_dynamic",
+                            _DYN_BWD_ARGTYPES, DYNAMIC_DEFINES)
+            err = fn(*tensors, dyn.data_ptr(), *args)
     if err:
         raise RuntimeError(f"{who}: kernel launch failed with CUDA error "
                            f"{err}")
-    flash_attention_bwd.launches += 1
-    return dq, dk, dv
-
-
-#: calls that launched the backward's two passes since the last reset
-flash_attention_bwd.launches = 0
+    return (dq, dk, dv), 1
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -344,7 +527,8 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               window: Optional[int] = None,
                               scale: Optional[float] = None,
                               q_block: int = 128, kv_block: int = 512,
-                              dtype: Optional[torch.dtype] = None):
+                              dtype: Optional[torch.dtype] = None,
+                              offsets: Optional[Offsets] = None):
     """The plain PyTorch version of :func:`flash_attention_bwd`: the
     reference's ``flash_bwd`` (``repro/models/layers.py::_make_flash``),
     its two tiled passes over ``q_block`` by ``kv_block`` tiles: ``delta =
@@ -354,7 +538,9 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
 
     It computes in f32 (f64 inputs in f64) and returns q's dtype;
     ``dtype=torch.float64`` computes and returns f64, the oracle the kernel
-    is held against.
+    is held against.  With ``offsets``, the masks of
+    :func:`flash_attention_dynamic` (those of
+    :func:`flash_attention_plain` with ``offsets``).
     """
     who = "flash_attention_bwd_plain"
     b, sq, h, hd, skv, kvh, vd = _shapes(who, q, k, v)
@@ -385,15 +571,12 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     vb = pad_k(v.to(ct)).reshape(b, nk, kv_block, kvh, vd).permute(
         1, 0, 3, 2, 4)
     delta = (dob * ob).sum(dim=-1)             # (nq, B, KV, G, qb)
+    q0, k0, valid = (0, 0, None) if offsets is None else offsets
 
     def probs(qi, ki):
-        q_pos = qi * q_block + torch.arange(q_block, device=dev)
-        k_pos = ki * kv_block + torch.arange(kv_block, device=dev)
-        mask = (k_pos < skv)[None, :].expand(q_block, kv_block)
-        if causal:
-            mask = mask & (k_pos[None, :] <= q_pos[:, None])
-        if window is not None:
-            mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+        q_pos = q0 + qi * q_block + torch.arange(q_block, device=dev)
+        j = ki * kv_block + torch.arange(kv_block, device=dev)
+        mask = _mask(q_pos, k0 + j, j < skv, causal, window, valid)
         s = torch.einsum("bkgqd,bkcd->bkgqc", qb[qi] * scale, kb[ki])
         s = torch.where(mask, s, NEG_INF)
         return torch.exp(s - lb[qi][..., None])
@@ -438,24 +621,35 @@ class FlashAttention(torch.autograd.Function):
     dtype, as the reference casts its f32 result) and saves ``(q, k, v,
     out, lse)``; the backward recomputes P from ``lse`` with
     :func:`flash_attention_bwd`, the kernel on CUDA tensors, the plain
-    version on CPU ones."""
+    version on CPU ones.  With :class:`Offsets` (the reference
+    differentiates its dynamic scan by autodiff) the two calls are
+    :func:`flash_attention_dynamic` and :func:`flash_attention_bwd_dynamic`
+    at those offsets."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale, q_block, kv_block):
+    def forward(ctx, q, k, v, causal, window, scale, q_block, kv_block,
+                offsets=None):
         opts = dict(causal=causal, window=window, scale=scale,
                     q_block=q_block, kv_block=kv_block)
-        out, lse = flash_attention(q, k, v, return_lse=True, **opts)
+        if offsets is None:
+            out, lse = flash_attention(q, k, v, return_lse=True, **opts)
+        else:
+            out, lse = flash_attention_dynamic(q, k, v, offsets, **opts)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.opts = opts
+        ctx.opts, ctx.offsets = opts, offsets
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
-                                         dout.float().contiguous(),
-                                         **ctx.opts)
-        return dq, dk, dv, None, None, None, None, None
+        dout = dout.float().contiguous()
+        if ctx.offsets is None:
+            dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                             **ctx.opts)
+        else:
+            dq, dk, dv = flash_attention_bwd_dynamic(
+                q, k, v, out, lse, dout, ctx.offsets, **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention_differentiable(q: torch.Tensor, k: torch.Tensor,
@@ -463,8 +657,11 @@ def flash_attention_differentiable(q: torch.Tensor, k: torch.Tensor,
                                    window: Optional[int] = None,
                                    scale: Optional[float] = None,
                                    q_block: int = 128,
-                                   kv_block: int = 512) -> torch.Tensor:
+                                   kv_block: int = 512,
+                                   offsets: Optional[Offsets] = None
+                                   ) -> torch.Tensor:
     """:class:`FlashAttention` applied: the attention output in f32, with
-    gradients to q, k and v through the backward kernel."""
+    gradients to q, k and v through the backward kernel (at dynamic
+    ``offsets`` if given)."""
     return FlashAttention.apply(q, k, v, causal, window, scale, q_block,
-                                kv_block)
+                                kv_block, offsets)

@@ -24,8 +24,8 @@ import torch.nn.functional as F
 from repro_torch.kernels.decode_attention.kernel import (
     decode_attention as decode_attention_kernel)
 from repro_torch.kernels.flash_attention.kernel import (
-    flash_attention, flash_attention_differentiable)
-from repro_torch.models.params import NOT_PORTED_ENTRY
+    Offsets, flash_attention, flash_attention_differentiable,
+    flash_attention_dynamic)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -89,39 +89,49 @@ def blocked_attention(
     *,
     causal: bool = True,
     window: Optional[int] = None,
-    q_offset: int = 0,
-    kv_offset: int = 0,
-    kv_valid_len: Optional[torch.Tensor] = None,
+    q_offset=0,                      # int or 0-d int tensor: q[0]'s position
+    kv_offset=0,                     # int or 0-d int tensor: k[0]'s position
+    kv_valid_len: Optional[torch.Tensor] = None,  # keys at >= this masked
     q_block: int = 512,
     kv_block: int = 1024,
     softmax_scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Exact attention with GQA, causal and window masks; returns (B, Sq, H,
-    vd) in q's dtype with f32 accumulation.  The static-offset path only
-    (every model call): on the card it is one launch of the flash kernel;
-    ``q_block``/``kv_block`` tile its plain version.  Dynamic offsets or a
-    valid length raise.
+    vd) in q's dtype with f32 accumulation.  At static zero offsets (every
+    model call) it is one launch of the flash kernel on the card;
+    ``q_block``/``kv_block`` tile its plain version.
+
+    ``q_offset``, ``kv_offset`` (Python ints or 0-d int tensors on q's
+    device) and ``kv_valid_len`` (a 0-d int tensor) take the reference's
+    dynamic path (``_blocked_attention_ref``): query ``i`` at ``q_offset +
+    i``, key ``j`` at ``kv_offset + j``, the masks on those positions and
+    keys at ``kv_offset + j >= kv_valid_len`` masked.  On the card that is
+    one launch of the flash kernel's dynamic entry, which reads the offsets
+    there (no host read).  Only the keys past Skv are masked as padding:
+    the reference also masks the last ``kv_offset`` real keys when Skv is
+    no multiple of ``kv_block``, which the port does not copy (ROADMAP
+    queue 3 item 15); and a row that sees no key outputs 0.
 
     Where autograd records (grad enabled, and q, k or v requires grad) the
     call goes through :class:`FlashAttention`, as the reference's static
     path goes through its ``custom_vjp``: the forward keeps its f32 output
     and log-sum-exp, the cast to q's dtype comes after, and the backward
-    is the flash backward kernel.  Otherwise the launch writes no
-    log-sum-exp."""
-    if not (isinstance(q_offset, int) and q_offset == 0
-            and isinstance(kv_offset, int) and kv_offset == 0
-            and kv_valid_len is None):
-        raise NotImplementedError(
-            f"blocked_attention: only static zero offsets are ported (the "
-            f"model path); dynamic offsets and kv_valid_len are not "
-            f"({NOT_PORTED_ENTRY})")
+    is the flash backward kernel (its dynamic entry at dynamic offsets).
+    Otherwise a static launch writes no log-sum-exp."""
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     opts = dict(causal=causal, window=window, scale=softmax_scale,
                 q_block=q_block, kv_block=kv_block)
+    static = (isinstance(q_offset, int) and q_offset == 0
+              and isinstance(kv_offset, int) and kv_offset == 0
+              and kv_valid_len is None)
+    offsets = None if static else Offsets(q_offset, kv_offset, kv_valid_len)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return flash_attention_differentiable(q, k, v, **opts).to(q.dtype)
-    return flash_attention(q, k, v, **opts)
+        return flash_attention_differentiable(
+            q, k, v, offsets=offsets, **opts).to(q.dtype)
+    if static:
+        return flash_attention(q, k, v, **opts)
+    return flash_attention_dynamic(q, k, v, offsets, **opts)[0].to(q.dtype)
 
 
 def decode_attention(

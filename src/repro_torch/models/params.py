@@ -8,8 +8,10 @@ and ``init_params`` materializes it.  Per-layer weights keep the
 reference's stacked ``[L, ...]`` leaves (the hybrid's one shared block is
 unstacked; an encoder-decoder's encoder is stacked over its own
 ``encoder_layers``), so that ``convert.lm_params_from_numpy`` maps the JAX tree one
-for one.  The reference's logical sharding names wait for the sharding
-slice (ROADMAP queue 1 entry 15).
+for one.  Every leaf carries the reference's logical axis names, from
+which :func:`param_pspecs` derives its sharding spec under a rule table
+(:mod:`repro_torch.sharding.rules`); :func:`abstract_params` gives the
+tree's shapes and dtypes without allocating.
 """
 
 from __future__ import annotations
@@ -20,14 +22,12 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.models.config import ModelConfig
-
-#: the ROADMAP entry that holds what of the model path the port does not
-#: have
-NOT_PORTED_ENTRY = "ROADMAP queue 1 entry 17b"
+from repro_torch.sharding.rules import AxisRules, logical_to_pspec
 
 
 class ParamDef(NamedTuple):
     shape: Tuple[int, ...]
+    logical: Tuple[Optional[str], ...]   # logical axis per dim
     init: str = "normal"          # normal | zeros | ones | small_normal
     dtype: Optional[str] = None   # override cfg.param_dtype
 
@@ -39,11 +39,12 @@ PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
 
 
 def require_ported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is of a family the port builds."""
+    """Raise unless ``cfg`` is of a family the port builds (every family
+    of the reference)."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported "
-            f"({NOT_PORTED_ENTRY}); the port builds {PORTED_FAMILIES}")
+            f"{cfg.name}: unknown model family {cfg.family!r}; the port "
+            f"builds {PORTED_FAMILIES}")
 
 
 def _attn_defs(cfg: ModelConfig, layers: Optional[int],
@@ -53,16 +54,17 @@ def _attn_defs(cfg: ModelConfig, layers: Optional[int],
     d, h, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     hd = cfg.resolved_head_dim
     lead = () if layers is None else (layers,)
+    ll = () if layers is None else ("layers",)
     defs = {
-        "wq": ParamDef(lead + (d, h * hd)),
-        "wk": ParamDef(lead + (d, kv * hd)),
-        "wv": ParamDef(lead + (d, kv * hd)),
-        "wo": ParamDef(lead + (h * hd, d)),
+        "wq": ParamDef(lead + (d, h * hd), ll + ("embed_p", "heads")),
+        "wk": ParamDef(lead + (d, kv * hd), ll + ("embed_p", "kv_heads")),
+        "wv": ParamDef(lead + (d, kv * hd), ll + ("embed_p", "kv_heads")),
+        "wo": ParamDef(lead + (h * hd, d), ll + ("heads", "embed_p")),
     }
     if cfg.qkv_bias and not cross:
-        defs["bq"] = ParamDef(lead + (h * hd,), "zeros")
-        defs["bk"] = ParamDef(lead + (kv * hd,), "zeros")
-        defs["bv"] = ParamDef(lead + (kv * hd,), "zeros")
+        defs["bq"] = ParamDef(lead + (h * hd,), ll + ("heads",), "zeros")
+        defs["bk"] = ParamDef(lead + (kv * hd,), ll + ("kv_heads",), "zeros")
+        defs["bv"] = ParamDef(lead + (kv * hd,), ll + ("kv_heads",), "zeros")
     return defs
 
 
@@ -73,14 +75,21 @@ def _mla_defs(cfg: ModelConfig, layers: int) -> Dict[str, ParamDef]:
     m, d, h = cfg.mla, cfg.d_model, cfg.sharded_heads
     qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
     return {
-        "q_a": ParamDef((layers, d, m.q_lora_rank)),
-        "q_norm": ParamDef((layers, m.q_lora_rank), "ones"),
-        "q_b": ParamDef((layers, m.q_lora_rank, h * qk_dim)),
-        "kv_a": ParamDef((layers, d, m.kv_lora_rank + m.qk_rope_head_dim)),
-        "kv_norm": ParamDef((layers, m.kv_lora_rank), "ones"),
+        "q_a": ParamDef((layers, d, m.q_lora_rank),
+                        ("layers", "embed_p", None)),
+        "q_norm": ParamDef((layers, m.q_lora_rank), ("layers", None),
+                           "ones"),
+        "q_b": ParamDef((layers, m.q_lora_rank, h * qk_dim),
+                        ("layers", None, "heads")),
+        "kv_a": ParamDef((layers, d, m.kv_lora_rank + m.qk_rope_head_dim),
+                         ("layers", "embed_p", None)),
+        "kv_norm": ParamDef((layers, m.kv_lora_rank), ("layers", None),
+                            "ones"),
         "kv_b": ParamDef((layers, m.kv_lora_rank,
-                          h * (m.qk_nope_head_dim + m.v_head_dim))),
-        "wo": ParamDef((layers, h * m.v_head_dim, d)),
+                          h * (m.qk_nope_head_dim + m.v_head_dim)),
+                         ("layers", None, "heads")),
+        "wo": ParamDef((layers, h * m.v_head_dim, d),
+                       ("layers", "heads", "embed_p")),
     }
 
 
@@ -88,22 +97,26 @@ def _mlp_defs(cfg: ModelConfig,
               layers: Optional[int]) -> Dict[str, ParamDef]:
     d, ff = cfg.d_model, cfg.d_ff
     lead = () if layers is None else (layers,)
+    ll = () if layers is None else ("layers",)
     defs = {
-        "w_up": ParamDef(lead + (d, ff)),
-        "w_down": ParamDef(lead + (ff, d)),
+        "w_up": ParamDef(lead + (d, ff), ll + ("embed_p", "ff")),
+        "w_down": ParamDef(lead + (ff, d), ll + ("ff", "embed_p")),
     }
     if cfg.mlp_gated:
-        defs["w_gate"] = ParamDef(lead + (d, ff))
+        defs["w_gate"] = ParamDef(lead + (d, ff), ll + ("embed_p", "ff"))
     return defs
 
 
 def _moe_defs(cfg: ModelConfig, layers: int) -> Dict[str, ParamDef]:
     d, ff, e = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
     return {
-        "router": ParamDef((layers, d, e)),
-        "w_gate": ParamDef((layers, e, d, ff)),
-        "w_up": ParamDef((layers, e, d, ff)),
-        "w_down": ParamDef((layers, e, ff, d)),
+        "router": ParamDef((layers, d, e), ("layers", "embed_p", None)),
+        "w_gate": ParamDef((layers, e, d, ff),
+                           ("layers", "experts", "embed_p", "ff")),
+        "w_up": ParamDef((layers, e, d, ff),
+                         ("layers", "experts", "embed_p", "ff")),
+        "w_down": ParamDef((layers, e, ff, d),
+                           ("layers", "experts", "ff", "embed_p")),
     }
 
 
@@ -115,19 +128,23 @@ def _ssm_defs(cfg: ModelConfig, layers: int) -> Dict[str, ParamDef]:
     gn = s.n_groups * s.d_state
     cdim = s.conv_dim(d)
     return {
-        "in_proj": ParamDef((layers, d, 2 * di + 2 * gn + nh)),  # z x B C dt
-        "conv_w": ParamDef((layers, s.conv_kernel, cdim), "small_normal"),
-        "conv_b": ParamDef((layers, cdim), "zeros"),
-        "a_log": ParamDef((layers, nh), "ones"),
-        "d_skip": ParamDef((layers, nh), "ones"),
-        "dt_bias": ParamDef((layers, nh), "zeros"),
-        "norm": ParamDef((layers, di), "ones"),
-        "out_proj": ParamDef((layers, di, d)),
+        "in_proj": ParamDef((layers, d, 2 * di + 2 * gn + nh),  # z x B C dt
+                            ("layers", "embed_p", "conv_dim")),
+        "conv_w": ParamDef((layers, s.conv_kernel, cdim),
+                           ("layers", None, "conv_dim"), "small_normal"),
+        "conv_b": ParamDef((layers, cdim), ("layers", "conv_dim"), "zeros"),
+        "a_log": ParamDef((layers, nh), ("layers", "ssm_heads"), "ones"),
+        "d_skip": ParamDef((layers, nh), ("layers", "ssm_heads"), "ones"),
+        "dt_bias": ParamDef((layers, nh), ("layers", "ssm_heads"), "zeros"),
+        "norm": ParamDef((layers, di), ("layers", "conv_dim"), "ones"),
+        "out_proj": ParamDef((layers, di, d),
+                             ("layers", "conv_dim", "embed_p")),
     }
 
 
 def _block_norms(layers: int, d: int, n: int = 2) -> Dict[str, ParamDef]:
-    return {f"norm{i}": ParamDef((layers, d), "ones") for i in range(n)}
+    return {f"norm{i}": ParamDef((layers, d), ("layers", None), "ones")
+            for i in range(n)}
 
 
 def build_defs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -136,11 +153,13 @@ def build_defs(cfg: ModelConfig) -> Dict[str, Any]:
     require_ported(cfg)
     d, v, L = cfg.d_model, cfg.vocab_size, cfg.num_layers
     defs: Dict[str, Any] = {
-        "embed": {"tok": ParamDef((v, d), "small_normal")},
-        "final_norm": ParamDef((d,), "ones"),
+        "embed": {"tok": ParamDef((v, d), ("vocab", "embed_p"),
+                                  "small_normal")},
+        "final_norm": ParamDef((d,), (None,), "ones"),
     }
     if not cfg.tie_embeddings:
-        defs["lm_head"] = ParamDef((d, v), "small_normal")
+        defs["lm_head"] = ParamDef((d, v), ("embed_p", "vocab"),
+                                   "small_normal")
     if cfg.family in ("ssm", "hybrid"):
         defs["blocks"] = {"ssm": _ssm_defs(cfg, L), **_block_norms(L, d, 1)}
     elif cfg.encoder_layers > 0:
@@ -150,7 +169,7 @@ def build_defs(cfg: ModelConfig) -> Dict[str, Any]:
         defs["encoder"] = {"attn": _attn_defs(cfg, eL),
                            "mlp": _mlp_defs(cfg, eL),
                            **_block_norms(eL, d, 2)}
-        defs["enc_final_norm"] = ParamDef((d,), "ones")
+        defs["enc_final_norm"] = ParamDef((d,), (None,), "ones")
         defs["blocks"] = {"attn": _attn_defs(cfg, L),
                           "cross": _attn_defs(cfg, L, cross=True),
                           "mlp": _mlp_defs(cfg, L),
@@ -166,8 +185,8 @@ def build_defs(cfg: ModelConfig) -> Dict[str, Any]:
         # layers
         defs["shared"] = {"attn": _attn_defs(cfg, None),
                           "mlp": _mlp_defs(cfg, None),
-                          "norm0": ParamDef((d,), "ones"),
-                          "norm1": ParamDef((d,), "ones")}
+                          "norm0": ParamDef((d,), (None,), "ones"),
+                          "norm1": ParamDef((d,), (None,), "ones")}
     return defs
 
 
@@ -184,6 +203,16 @@ def _tree_map_defs(f: Callable[[Tuple[str, ...], ParamDef], Any],
     return out
 
 
+#: a leaf of more elements than this is drawn a slice of its leading
+#: (stacked-layer) dim at a time into a tensor of its own dtype, without a
+#: whole f32 draw and its scaled copy (Granite-34B's stacked MLP leaves,
+#: 88 x 6,144 x 24,576 = 13.3G elements, would take 53 GB each in f32).
+#: Every smaller leaf is drawn whole as before, so every model served or
+#: trained with no leaf above this size keeps its numbers: the largest
+#: such leaf is Zamba2-7B's stacked in_proj at its 81 layers (4.23G).
+SLICED_INIT_ELEMENTS = 2**32
+
+
 def _init_leaf(pd: ParamDef, cfg: ModelConfig, generator: torch.Generator,
                device: torch.device) -> torch.Tensor:
     dtype = getattr(torch, pd.dtype or cfg.param_dtype)
@@ -194,6 +223,13 @@ def _init_leaf(pd: ParamDef, cfg: ModelConfig, generator: torch.Generator,
     scale = 0.02 if pd.init == "small_normal" else (
         1.0 / math.sqrt(max(pd.shape[-2] if len(pd.shape) >= 2
                             else pd.shape[-1], 1)))
+    if math.prod(pd.shape) > SLICED_INIT_ELEMENTS and len(pd.shape) > 1:
+        out = torch.empty(pd.shape, dtype=dtype, device=device)
+        for part in out:
+            part.copy_(torch.randn(part.shape, generator=generator,
+                                   dtype=torch.float32, device=device)
+                       .mul_(scale))
+        return out
     x = torch.randn(pd.shape, generator=generator, dtype=torch.float32,
                     device=device)
     return (x * scale).to(dtype)
@@ -217,6 +253,27 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     return _tree_map_defs(
         lambda path, pd: (pd.shape,
                           getattr(torch, pd.dtype or cfg.param_dtype)),
+        build_defs(cfg))
+
+
+def abstract_params(cfg: ModelConfig) -> Dict[str, Any]:
+    """The tree of every leaf as a tensor on the ``meta`` device: its
+    shape and dtype, nothing allocated (the reference's
+    ``ShapeDtypeStruct`` tree)."""
+    return _tree_map_defs(
+        lambda path, pd: torch.empty(
+            pd.shape, dtype=getattr(torch, pd.dtype or cfg.param_dtype),
+            device="meta"),
+        build_defs(cfg))
+
+
+def param_pspecs(cfg: ModelConfig, rules: AxisRules) -> Dict[str, Any]:
+    """The tree of every leaf's sharding spec under ``rules``
+    (:func:`repro_torch.sharding.rules.logical_to_pspec` of its logical
+    names; :func:`repro_torch.sharding.rules.to_placements` makes DTensor
+    placements of one)."""
+    return _tree_map_defs(
+        lambda path, pd: logical_to_pspec(pd.logical, rules),
         build_defs(cfg))
 
 

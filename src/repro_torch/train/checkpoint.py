@@ -1,21 +1,30 @@
 """Async, restartable checkpoints: the port of ``repro.train.checkpoint``,
-with its on-disk layout for one process:
+with its on-disk layout:
 
     <dir>/step_<N>/
-        proc0.npz                # every leaf, as ``<key with '.'>__shard0``
-        proc0_index.json         # {"shards": {key: [...]}, "meta": {...}}
-    <dir>/step_<N>.COMMITTED     # commit marker, written last
+        proc<R>.npz              # this rank's shards, ``<key with '.'>__shard0``
+        proc<R>_index.json       # {"shards": {key: [...]}, "meta": {...}}
+    <dir>/step_<N>.COMMITTED     # commit marker, written last by rank 0
 
 Keys name each leaf by its path as ``jax.tree_util`` spells it (dict keys
 in sorted order, NamedTuple field names, sequence indices, joined by
-``/``), and a leaf is one shard covering the whole array.  So either
-package restores what the other wrote: ``{"params": ..., "opt":
-AdamWState(...)}`` has the same keys in both.
+``/``).  A plain tensor is one shard covering the whole array; a DTensor
+leaf is written by each rank as its local shard with that shard's global
+index (``[start, stop, step]`` per dim), as the reference writes a
+``jax.Array``'s addressable shards.  So either package restores what the
+other wrote: ``{"params": ..., "opt": AdamWState(...)}`` has the same keys
+in both.
 
 Saves snapshot every tensor to host memory at once and write on a
 background thread (``wait()`` joins it and raises what it raised); a step
 is visible only after its marker is written; ``keep_last_k`` keeps the
-newest committed steps.
+newest committed steps.  With more than one rank (an initialised
+``torch.distributed`` group) a save is written at once, then the ranks
+meet in a barrier and rank 0 commits: no collective runs on another
+thread, and no rank's files are missing from a committed step.
+``restore`` reassembles every leaf from all ranks' shards and, with
+``shardings``, places it on a mesh (``elastic_reshard``: onto another mesh
+than the one that saved it).
 """
 
 from __future__ import annotations
@@ -30,8 +39,17 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.sharding.rules import NamedSharding, local_index, place
 
 SEP = "/"
+
+
+def _rank_and_world() -> Tuple[int, int]:
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
 def _children(tree: Any) -> Optional[List[Tuple[str, Any]]]:
@@ -46,15 +64,17 @@ def _children(tree: Any) -> Optional[List[Tuple[str, Any]]]:
     return None
 
 
-def _flatten_with_paths(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
-    """``(key, leaf)`` for every leaf, keys as the reference names them."""
-    kids = _children(tree)
+def _flatten_with_paths(tree: Any, prefix: str = "",
+                        is_leaf=None) -> List[Tuple[str, Any]]:
+    """``(key, leaf)`` for every leaf, keys as the reference names them;
+    ``is_leaf(node)`` ends the walk at a node."""
+    kids = None if is_leaf is not None and is_leaf(tree) else _children(tree)
     if kids is None:
         return [(prefix, tree)]
     out = []
     for seg, child in kids:
         out += _flatten_with_paths(child, f"{prefix}{SEP}{seg}" if prefix
-                                   else seg)
+                                   else seg, is_leaf)
     return out
 
 
@@ -74,7 +94,11 @@ def _unflatten(tree: Any, leaves: Dict[str, Any], prefix: str = "") -> Any:
 
 def _to_host(leaf: Any) -> np.ndarray:
     """A copy of ``leaf`` in host memory that later writes to it do not
-    reach."""
+    reach (a DTensor's: its local shard)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(leaf, DTensor):
+        leaf = leaf.to_local()
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
             raise TypeError("checkpoint: bf16 tensors have no numpy dtype; "
@@ -95,11 +119,18 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, tree: Any) -> None:
-        """Snapshot every leaf to host memory now, then write (on a
-        background thread by default)."""
+        """Snapshot every leaf to host memory now (a DTensor's local shard
+        with its global index), then write (on a background thread by
+        default, with one rank)."""
+        from torch.distributed.tensor import DTensor
+
         self.wait()
-        leaves = [(key, _to_host(leaf))
-                  for key, leaf in _flatten_with_paths(tree)]
+        leaves = []
+        for key, leaf in _flatten_with_paths(tree):
+            idx = (local_index(leaf.shape, leaf.device_mesh, leaf.placements)
+                   if isinstance(leaf, DTensor) else None)
+            spec = str(tuple(leaf.placements)) if idx is not None else None
+            leaves.append((key, _to_host(leaf), idx, list(leaf.shape), spec))
 
         def work():
             try:
@@ -107,7 +138,7 @@ class CheckpointManager:
             except BaseException as e:   # surfaced on the next wait()
                 self._error = e
 
-        if self.async_save:
+        if self.async_save and _rank_and_world()[1] == 1:
             self._thread = threading.Thread(target=work, daemon=True)
             self._thread.start()
         else:
@@ -115,28 +146,33 @@ class CheckpointManager:
             self._raise_if_failed()
 
     def _write(self, step: int, leaves) -> None:
+        rank, world = _rank_and_world()
         step_dir = self.dir / f"step_{step:08d}"
-        tmp_dir = self.dir / f".tmp_step_{step:08d}_p0"
+        tmp_dir = self.dir / f".tmp_step_{step:08d}_p{rank}"
         tmp_dir.mkdir(parents=True, exist_ok=True)
         payload, shards, meta = {}, {}, {}
-        for key, arr in leaves:
+        for key, arr, idx, shape, spec in leaves:
             name = f"{key.replace(SEP, '.')}__shard0"
             payload[name] = arr
-            # one shard covering the array: a full slice per dimension
-            shards[key] = [{"file_key": name,
-                            "index": [[None, None, None]] * arr.ndim}]
-            meta[key] = {"shape": list(arr.shape), "dtype": str(arr.dtype),
-                         "pspec": None}
-        np.savez(tmp_dir / "proc0.npz", **payload)
-        (tmp_dir / "proc0_index.json").write_text(
+            # a plain tensor: one shard covering it, a full slice per dim
+            index = ([[None, None, None]] * arr.ndim if idx is None
+                     else [[s.start, s.stop, None] for s in idx])
+            shards[key] = [{"file_key": name, "index": index}]
+            meta[key] = {"shape": shape, "dtype": str(arr.dtype),
+                         "pspec": spec}
+        np.savez(tmp_dir / f"proc{rank}.npz", **payload)
+        (tmp_dir / f"proc{rank}_index.json").write_text(
             json.dumps({"shards": shards, "meta": meta}))
         step_dir.mkdir(parents=True, exist_ok=True)
         for f in tmp_dir.iterdir():
             os.replace(f, step_dir / f.name)
         tmp_dir.rmdir()
-        (self.dir / f"step_{step:08d}.COMMITTED").write_text(
-            json.dumps({"step": step, "time": time.time()}))
-        self._gc()
+        if world > 1:
+            dist.barrier()
+        if rank == 0:
+            (self.dir / f"step_{step:08d}.COMMITTED").write_text(
+                json.dumps({"step": step, "time": time.time()}))
+            self._gc()
 
     def wait(self) -> None:
         if self._thread is not None:
@@ -168,26 +204,39 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, target: Any, device=None) -> Any:
-        """New tensors with ``target``'s structure (a tree of tensors),
-        each leaf read from the committed checkpoint of ``step`` and
-        placed on ``device``, by default the target leaf's device.  The
-        saved shape must be the target's; shards (a checkpoint written by
-        several JAX processes) are assembled by their indices."""
+    def restore(self, step: int, target: Any, device=None, *,
+                shardings: Optional[Any] = None) -> Any:
+        """New tensors with ``target``'s structure (a tree of tensors, on
+        the ``meta`` device too: only shapes are read), each leaf read from
+        the committed checkpoint of ``step``: every rank's shards (JAX
+        processes' or the port's ranks') assembled by their indices.  The
+        saved shape must be the target's.  ``shardings``, a tree of the
+        same structure whose leaves are
+        :class:`~repro_torch.sharding.rules.NamedSharding` (or None),
+        makes each such leaf a DTensor on that mesh, this rank holding its
+        own shard; the others are placed on ``device``, by default the
+        target leaf's device."""
         step_dir = self.dir / f"step_{step:08d}"
         if not (self.dir / f"step_{step:08d}.COMMITTED").exists():
             raise FileNotFoundError(f"no committed checkpoint at step {step}")
+        leaves = _flatten_with_paths(target)
+        wanted = {key for key, _ in leaves}
         by_key: Dict[str, List[Tuple[Any, np.ndarray]]] = {}
         for idx_file in sorted(step_dir.glob("proc*_index.json")):
             proc = idx_file.name.split("_")[0]
             index = json.loads(idx_file.read_text())
             with np.load(step_dir / f"{proc}.npz") as data:
+                # only the target's leaves are read from the archive
                 for key, shards in index["shards"].items():
+                    if key not in wanted:
+                        continue
                     for sh in shards:
                         by_key.setdefault(key, []).append(
                             (sh["index"], data[sh["file_key"]]))
+        placed = (dict(_flatten_with_paths(shardings, is_leaf=_is_placement))
+                  if shardings is not None else {})
         out = {}
-        for key, leaf in _flatten_with_paths(target):
+        for key, leaf in leaves:
             shards = by_key[key]
             shape = tuple(leaf.shape)
             full = np.zeros(shape, dtype=shards[0][1].dtype)
@@ -199,8 +248,16 @@ class CheckpointManager:
             if full.shape != shape:
                 raise ValueError(f"checkpoint {key}: saved {full.shape}, "
                                  f"target {shape}")
+            if placed.get(key) is not None:
+                out[key] = place(full, placed[key])
+                continue
             dev = device if device is not None else getattr(
                 leaf, "device", "cpu")
             # np.array: a contiguous copy that keeps a 0-d leaf 0-d
             out[key] = torch.from_numpy(np.array(full)).to(dev)
         return _unflatten(target, out)
+
+
+def _is_placement(x) -> bool:
+    """A ``shardings`` leaf: a ``NamedSharding`` or None."""
+    return x is None or isinstance(x, NamedSharding)

@@ -5,10 +5,10 @@
 - ``PreemptionGuard``: a flag set on SIGTERM, so the loop checkpoints and
   exits cleanly;
 - ``RestartableLoop``: periodic async saves, save on preemption, resume
-  from the latest committed step, bounded retry of a failing step.
-
-``elastic_reshard`` (a checkpoint restored onto another mesh) waits for
-the port's sharding (ROADMAP queue 1 entry 15) and raises.
+  from the latest committed step, bounded retry of a failing step;
+- ``elastic_reshard``: a checkpoint restored onto another mesh, placed by
+  the given shardings (the checkpoint holds global shapes and each rank's
+  shards with their indices, not a device layout).
 """
 
 from __future__ import annotations
@@ -158,10 +158,12 @@ class RestartableLoop:
         return state
 
 
-def elastic_reshard(*args, **kwargs):
-    """A checkpoint restored onto another mesh: waits for the port's
-    sharding."""
-    raise NotImplementedError(
-        "elastic_reshard is not ported yet: it needs the port's sharding "
-        "(ROADMAP queue 1 entry 15); CheckpointManager.restore places a "
-        "checkpoint on one device")
+def elastic_reshard(ckpt: CheckpointManager, step: int, state_template: Any,
+                    new_shardings: Any) -> Any:
+    """Load a checkpoint onto a different mesh (elastic rescale).
+
+    Placement is entirely determined by ``new_shardings`` (a tree of
+    ``NamedSharding`` against the new mesh,
+    :meth:`CheckpointManager.restore`), so a checkpoint saved by N ranks
+    restores onto M, or onto one process."""
+    return ckpt.restore(step, state_template, shardings=new_shardings)

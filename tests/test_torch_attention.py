@@ -12,6 +12,7 @@ rtol = atol = 1e-5 (the tiles' sums are taken in another order), bf16
 2e-2 (one bf16 rounding of outputs of order 1).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,7 +25,9 @@ from repro_torch.kernels.decode_attention.kernel import (
     CLUSTER, ROWS_PER_BLOCK, decode_attention, decode_attention_plain,
     launch_grid)
 from repro_torch.kernels.flash_attention.kernel import (
-    flash_attention, flash_attention_plain)
+    Offsets, flash_attention, flash_attention_dynamic,
+    flash_attention_plain)
+from repro_torch.kernels.flash_attention.ref import blocked_attention_ref
 from repro_torch.models import layers as TL
 
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -209,8 +212,9 @@ def test_shape_and_option_checks():
         flash_attention(q, q, q, window=0)
     with pytest.raises(ValueError, match=r"\(B, 1, H, hd\)"):
         decode_attention(q, q, q, 4)
-    with pytest.raises(NotImplementedError, match="static"):
-        TL.blocked_attention(q, q, q, q_offset=3)
+    # a dynamic offset takes the dynamic path: the call runs
+    out = TL.blocked_attention(q, q, q, q_offset=3)
+    assert out.shape == q.shape and out.dtype == q.dtype
     with pytest.raises(ValueError, match="device"):
         flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
 
@@ -239,3 +243,133 @@ def test_decode_launch_plan(b, h, kv, want):
     chunks, g = grid[1] // kv, h // kv
     assert grid[1] == kv * chunks
     assert (chunks - 1) * ROWS_PER_BLOCK < g <= chunks * ROWS_PER_BLOCK
+
+
+# ----------------------------------------------------- dynamic offsets
+#: B, Sq, Skv, H, KV, hd, causal, window, (q_offset, kv_offset,
+#: kv_valid_len), q_block, kv_block: Skv a multiple of kv_block, so the
+#: reference's padding fault (below) stays out of the comparison; every
+#: query row sees a key
+DYNAMIC = {
+    "decode-like-g2": (2, 16, 128, 4, 2, 16, True, None, (200, 100, None),
+                       8, 64),
+    "valid-len-window": (1, 24, 128, 4, 2, 16, True, 50, (200, 100, 180),
+                         8, 32),
+    "not-causal-valid": (2, 12, 128, 4, 4, 16, False, None, (0, 64, 150),
+                         4, 64),
+    "mqa-g8": (1, 24, 64, 8, 1, 32, True, None, (37, 5, None), 8, 32),
+}
+
+
+def _dynamic_inputs(case, dtype, seed=7):
+    b, sq, skv, h, kv, hd = DYNAMIC[case][:6]
+    rng = np.random.default_rng(seed)
+    return [_pair(_normal(rng, shape), dtype)
+            for shape in ((b, sq, h, hd), (b, skv, kv, hd), (b, skv, kv, hd))]
+
+
+def _offsets(case):
+    """The reference's offsets as int32 arrays; the port's as 0-d int32
+    tensors, but for one case's q_offset, a Python int."""
+    q_off, kv_off, valid = DYNAMIC[case][8]
+    j = {"q_offset": jnp.int32(q_off), "kv_offset": jnp.int32(kv_off),
+         "kv_valid_len": None if valid is None else jnp.int32(valid)}
+    t = lambda x: torch.tensor(x, dtype=torch.int32)
+    port = {"q_offset": q_off if case == "mqa-g8" else t(q_off),
+            "kv_offset": t(kv_off),
+            "kv_valid_len": None if valid is None else t(valid)}
+    return j, port
+
+
+def _dynamic_opts(case):
+    causal, window, _, q_block, kv_block = DYNAMIC[case][6:]
+    return dict(causal=causal, window=window, q_block=q_block,
+                kv_block=kv_block)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(DYNAMIC))
+def test_dynamic_offsets_match_the_reference(case, dtype):
+    (jq, tq), (jk, tk), (jv, tv) = _dynamic_inputs(case, dtype)
+    joff, toff = _offsets(case)
+    opts = _dynamic_opts(case)
+    want = JL.blocked_attention(jq, jk, jv, **joff, **opts)
+    got = TL.blocked_attention(tq, tk, tv, **toff, **opts)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(dtype))
+    # the plain version of the dynamic path, at the call's tiles and at
+    # others; the wrapper's f32 output and lse
+    ref = blocked_attention_ref(tq, tk, tv, **toff, **opts)
+    assert torch.equal(ref, got)
+    other = blocked_attention_ref(tq, tk, tv, **toff,
+                                  **{**opts, "q_block": 16, "kv_block": 16})
+    np.testing.assert_allclose(_np(other), _np(got), **_tol(dtype))
+    out, lse = flash_attention_dynamic(tq, tk, tv, Offsets(**toff), **opts)
+    assert out.dtype == torch.float32 and lse.shape == (
+        tq.shape[0], tq.shape[2], tq.shape[1])
+    assert torch.equal(out.to(tq.dtype), got)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(DYNAMIC))
+def test_dynamic_offsets_gradients_match_jax_vjp(case, dtype):
+    (jq, tq), (jk, tk), (jv, tv) = _dynamic_inputs(case, dtype, seed=11)
+    dout = _normal(np.random.default_rng(12), tuple(tq.shape))
+    jdout, tdout = _pair(dout, dtype)
+    joff, toff = _offsets(case)
+    opts = _dynamic_opts(case)
+    _, vjp = jax.vjp(lambda q, k, v: JL.blocked_attention(
+        q, k, v, **joff, **opts), jq, jk, jv)
+    want = vjp(jdout)
+    ts = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    TL.blocked_attention(*ts, **toff, **opts).backward(tdout)
+    for name, t, w in zip("qkv", ts, want):
+        assert t.grad.dtype == t.dtype, name
+        scale = max(float(np.abs(_np(w)).max()), 1.0)
+        tol = (dict(rtol=1e-5, atol=1e-5 * scale) if dtype == "float32"
+               else dict(rtol=0.0, atol=0.05 * scale))
+        np.testing.assert_allclose(_np(t.grad), _np(w), **tol,
+                                   err_msg=f"d{name}")
+
+
+def test_dynamic_offsets_pin_the_reference_padding_fault():
+    # Skv = 100, no multiple of kv_block = 64, at kv_offset 150: the
+    # reference's padding mask compares Skv against absolute positions
+    # and drops the last 150 real keys as well; the port masks only the
+    # padding and agrees with a naive softmax over the 100 keys
+    b, sq, skv, h, kv, hd = 1, 8, 100, 4, 2, 16
+    q_off, kv_off = 200, 150
+    rng = np.random.default_rng(2)
+    q, k, v = (_normal(rng, s) for s in ((b, sq, h, hd), (b, skv, kv, hd),
+                                          (b, skv, kv, hd)))
+    g = h // kv
+    s = np.einsum("bqkgd,bckd->bkgqc",
+                  q.reshape(b, sq, kv, g, hd).astype(np.float64), k) / 4.0
+    ok = (kv_off + np.arange(skv))[None, :] <= (q_off + np.arange(sq))[:, None]
+    s = np.where(ok, s, -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    naive = np.einsum("bkgqc,bckd->bqkgd", p, v).reshape(b, sq, h, hd)
+    opts = dict(causal=True, q_block=8, kv_block=64)
+    got = TL.blocked_attention(
+        *(torch.from_numpy(a) for a in (q, k, v)),
+        q_offset=torch.tensor(q_off, dtype=torch.int32),
+        kv_offset=torch.tensor(kv_off, dtype=torch.int32), **opts)
+    np.testing.assert_allclose(got.numpy(), naive, rtol=1e-5, atol=1e-5)
+    want = JL.blocked_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                q_offset=jnp.int32(q_off),
+                                kv_offset=jnp.int32(kv_off), **opts)
+    assert np.abs(np.asarray(want) - naive).max() > 0.5
+
+
+def test_dynamic_row_that_sees_no_key_is_zero():
+    # kv_valid_len = 0 masks every key: the output and every gradient are 0
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(_normal(rng, (1, 8, 2, 16))).requires_grad_()
+               for _ in range(3))
+    out = TL.blocked_attention(q, k, v, kv_offset=torch.tensor(
+        0, dtype=torch.int32), kv_valid_len=torch.tensor(0, dtype=torch.int32),
+        q_block=4, kv_block=4)
+    assert not out.any()
+    out.sum().backward()
+    assert not any(t.grad.any() for t in (q, k, v))

@@ -446,6 +446,84 @@ def test_flash_bwd_kernel_matches_plain_version(cuda_device, name, dtype):
     assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
+#: the dynamic entries (blocked_attention's dynamic offsets): B, Sq, Skv,
+#: H, KV, hd, vd, causal, window, (q_offset, kv_offset, kv_valid_len):
+#: rows before every key (q_offset < kv_offset, causal: rows that see no
+#: key output 0), the valid length inside a tile and before the first key,
+#: key tiles wholly past it, a window, G = 1 and 7, hd 128 MQA
+FLASH_DYNAMIC_CASES = {
+    "decode-like-g7": (2, 40, 300, 14, 2, 64, 64, True, None,
+                       (500, 240, None)),
+    "rows-before-keys": (1, 100, 200, 4, 4, 32, 32, True, None,
+                         (0, 50, None)),
+    "valid-mid-tile-window": (1, 130, 257, 8, 2, 64, 64, True, 40,
+                              (400, 300, 520)),
+    "valid-before-every-key": (1, 20, 70, 4, 2, 32, 32, False, None,
+                               (0, 30, 10)),
+    "keys-past-valid-not-causal": (2, 33, 500, 6, 3, 64, 32, False, None,
+                                   (7, 0, 130)),
+    "mqa-hd128": (1, 65, 190, 48, 1, 128, 128, True, None,
+                  (1000, 900, 1085)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(FLASH_DYNAMIC_CASES))
+def test_flash_dynamic_entries_match_plain_version(cuda_device, name, dtype):
+    """The dynamic entries, offsets as int32 tensors on the card, against
+    the plain version with the same offsets in f64: the forward's f32
+    output and lse, the backward's gradients, and the layer's call under
+    autograd bitwise the wrappers'."""
+    from repro_torch.models import layers as L
+
+    b, sq, skv, h, kv, hd, vd, causal, window, offs = (
+        FLASH_DYNAMIC_CASES[name])
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(13)
+    q, k, v = (torch.from_numpy(rng.standard_normal(d).astype(np.float32))
+               .to(cuda_device, dt) for d in ((b, sq, h, hd),
+                                              (b, skv, kv, hd),
+                                              (b, skv, kv, vd)))
+    # dO as the layer's backward gets it: the gradient of its output, in
+    # q's dtype, widened
+    dout = torch.from_numpy(rng.standard_normal((b, sq, h, vd)).astype(
+        np.float32)).to(cuda_device, dt).float()
+    offsets = FA.Offsets(*(None if x is None else torch.tensor(
+        x, dtype=torch.int32, device=cuda_device) for x in offs))
+    # the layer's tiles (the kernel has its own; its plain version's
+    # answer depends on them in the last bits)
+    opts = dict(causal=causal, window=window, q_block=512, kv_block=1024)
+    f0 = FA.flash_attention_dynamic.launches
+    out, lse = FA.flash_attention_dynamic(q, k, v, offsets, **opts)
+    assert FA.flash_attention_dynamic.launches == f0 + 1
+    ref_out, ref_lse = flash_attention_plain(
+        q, k, v, dtype=torch.float64, return_lse=True, offsets=offsets,
+        **opts)
+    np.testing.assert_allclose(lse.double().cpu().numpy(),
+                               ref_lse.cpu().numpy(), rtol=1e-5, atol=1e-5)
+    out_tol = 1e-5 if dtype == "float32" else 2e-5
+    np.testing.assert_allclose(out.double().cpu().numpy(),
+                               ref_out.cpu().numpy(), rtol=out_tol,
+                               atol=out_tol)
+    b0 = FA.flash_attention_bwd_dynamic.launches
+    got = FA.flash_attention_bwd_dynamic(q, k, v, out, lse, dout, offsets,
+                                         **opts)
+    assert FA.flash_attention_bwd_dynamic.launches == b0 + 1
+    want = flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                     dtype=torch.float64, offsets=offsets,
+                                     **opts)
+    _check_grads(got, want, 1e-5 if dtype == "float32" else 5e-3)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    layer = L.blocked_attention(qg, kg, vg, q_offset=offsets.q_offset,
+                                kv_offset=offsets.kv_offset,
+                                kv_valid_len=offsets.kv_valid_len,
+                                causal=causal, window=window)
+    layer.backward(dout.to(dt))
+    assert torch.equal(layer, out.to(dt))
+    assert all(torch.equal(t.grad, g) for t, g in zip((qg, kg, vg), got))
+
+
 @pytest.mark.gpu
 def test_flash_bwd_wrapper_rejects_what_it_cannot_take(cuda_device,
                                                      monkeypatch):

@@ -41,6 +41,8 @@ B, S, CACHE = 2, 24, 40
 CASES = {
     "qwen2": ("qwen2_0_5b", {}),
     "yi": ("yi_9b", {}),
+    # MQA (8 query heads on 1 KV head) and the ungated GELU MLP
+    "granite": ("granite_34b", {}),
     "qwen2-window16": ("qwen2_0_5b", {"sliding_window": 16}),
 }
 

@@ -47,9 +47,8 @@ from repro_torch.launch import train as launch_train
 from repro_torch.models import params as TP
 from repro_torch.train import checkpoint as TC
 from repro_torch.train import optimizer as TO
-from repro_torch.train.compression import compressed_mean
 from repro_torch.train.fault_tolerance import (LoopConfig, RestartableLoop,
-                                               StepTimer, elastic_reshard)
+                                               StepTimer)
 from repro_torch.train import step as TS
 from repro_torch.train.loss import cross_entropy
 from repro_torch.train.step import (loss_and_grads, make_eval_step,
@@ -604,9 +603,3 @@ def test_restartable_loop_raises_after_retries(tmp_path):
 
     with pytest.raises(RuntimeError):
         loop.run({"w": torch.zeros(1)}, bad)
-
-
-def test_mesh_pieces_raise_naming_their_entry():
-    for fn in (compressed_mean, elastic_reshard):
-        with pytest.raises(NotImplementedError, match="entry 15"):
-            fn()
