@@ -3026,8 +3026,10 @@ def sharded_path(stream, plan, dev, rng) -> tuple:
     unsharded session on the same card (min/max bitwise, sums at
     ``SHARD_TOL``), then the push's device time sharded and not, and the
     kernels on a shard.  The unsharded runs come first; the launch counts
-    are set to 0 before the sharded ones.  Returns (rows, launch counts,
-    (sum, reduce, batched) kernel-check rows)."""
+    are set to 0 before the sharded ones.  Last, in the same group, the
+    dry run's 2-D mesh sessions (:func:`nd_mesh_runs`).  Returns (rows,
+    launch counts, (sum, reduce, batched) kernel-check rows, (the 2-D mesh
+    rows, their launch counts))."""
     import repro_torch
     import torch.distributed as dist
 
@@ -3069,6 +3071,7 @@ def sharded_path(stream, plan, dev, rng) -> tuple:
         # ---- PageRank: the main path's stream ---------------------------
         sess, rows, res = drive_sharded(stream, "pagerank", {}, QUERIES,
                                         QUERIES - 1, dev, **shard)
+        pagerank_1d = (rows, res)
         pushes = check_sharded_pushes("PageRank", rows)
         c0 = launch_counts()
         cmp = compare_pagerank(flat_rows, flat_res, rows, res, exact_at)
@@ -3183,11 +3186,15 @@ def sharded_path(stream, plan, dev, rng) -> tuple:
                     "replay_launches_left_out": replay,
                     "sharded_runs_s": drive_s,
                     "wall_s": time.perf_counter() - t0})
+        del sessions
+        nd = nd_mesh_runs(stream, dev, {"flat": (flat_rows, flat_res),
+                                        "trav": trav,
+                                        "pagerank_1d": pagerank_1d})
     finally:
         dist.destroy_process_group()
-    del sess, sessions, flat
+    del sess, flat
     torch.cuda.empty_cache()
-    return out, counts, checks
+    return out, counts, checks, nd
 
 # ---- the LM serving path (Qwen2-0.5B) -----------------------------------
 LM_ARCH = "qwen2_0_5b"
@@ -5595,8 +5602,10 @@ def analysis_path(dev) -> tuple:
     mode — ``"error"`` where the baseline lists no host read of the
     program on the card, ``"warn"`` (warnings counted) where it does —
     with the peak allocation (MEM-TEMP), and its result held to the CPU
-    run's.  Then the rebuild scenarios on the card (after warm-up: zero
-    builds, loads and tuning runs): both loops untuned, both under
+    run's; the mesh programs as rank 0 of a fake group of four under the
+    dispatch cost counter (COL-*).  Then the rebuild scenarios on the card
+    (after warm-up: zero builds, loads and tuning runs): both loops
+    untuned, both under
     ``autotune="full"`` from an empty tuner cache (the warm-up must time
     the served key once), and the sync loop under ``"cached"`` from the
     saved cache (the loaded tile, no timing); then the AST lint.  Any
@@ -5609,6 +5618,8 @@ def analysis_path(dev) -> tuple:
     from repro_torch.analysis import findings as F
     from repro_torch.analysis import programs as PR
     from repro_torch.kernels.spmv import autotune as AT
+    from repro_torch.launch.dispatch_cost import CostCounter
+    from repro_torch.launch.mesh import destroy_mesh, init_fake_mesh
 
     baseline = F.load_baseline(BASELINE)
     spec = PR.GraphSpec()
@@ -5646,6 +5657,27 @@ def analysis_path(dev) -> tuple:
                 prog.budgets.temp_bytes_max,
             "findings": len(rec.findings()) + len(mem),
             "vs_cpu_share_of_tolerance": err})
+    # the mesh programs, as rank 0 of a fake group of four (a 2 x 2 mesh on
+    # the card): their largest collective of each kind against the budgets
+    mesh = init_fake_mesh((2, 2), ("data", "model"), device_type="cuda")
+    try:
+        for prog in PR.catalog(spec, device=dev, mesh=mesh):
+            if not prog.name.endswith(",mesh]"):
+                continue
+            inputs = prog.inputs()
+            with CostCounter() as cc:
+                prog.fn(*inputs)
+                torch.cuda.synchronize()
+            got = memory_audit.audit_cost(cc.cost, prog.budgets,
+                                          program=prog.name)
+            found += got
+            rows.append({"phase": "analysis-collective",
+                         "program": prog.name,
+                         "collectives": dict(cc.cost.coll_counts),
+                         "largest_bytes": dict(cc.cost.coll_max),
+                         "findings": len(got)})
+    finally:
+        destroy_mesh()
     catalog_s = time.perf_counter() - t0
     counts = launch_counts()
     for k in ("spmv_push", "spmv_reduce_push", "spmv_push_batched"):
@@ -5689,7 +5721,7 @@ def analysis_path(dev) -> tuple:
             AT.clear_cache()
     counts = launch_counts()
     found += ast_lint.lint_files()
-    passes = ("dispatch", "memory", "rebuild", "ast")
+    passes = ("dispatch", "memory", "collective", "rebuild", "ast")
     new, matched, stale = F.check(found, baseline, passes_run=passes,
                                   device="cuda")
     rows.append({"phase": "analysis-gate", "programs": len(cpu),
@@ -5807,6 +5839,299 @@ def ops_path(dev) -> tuple:
         if not counts[kname]:
             raise AssertionError(f"the ops launched no {kname}")
     return rows, counts
+
+
+# ---- the pod-scale dry run (slice R) ---------------------------------------
+#: the LM cells run on the card at full width on a 1 x 1 mesh: (shape, the
+#: global batch it is cut to); decode with its cache full.  No batch of 1:
+#: the specs shard a batch of 1 over the mesh's size-1 data axis, and
+#: DTensor will not flatten a sharded dim of size 1 into a product's rows
+DRYRUN_LM_CELLS = (("train_4k", 2), ("prefill_32k", 2), ("decode_32k", 8))
+DRYRUN_SEED = 30
+
+
+def nd_mesh_runs(stream, dev, ref) -> tuple:
+    """The sharded engine on the 1 x 1 ``("data", "model")`` mesh (both
+    axes flattened into the edge-shard axis) at ``SHARDS`` shards, inside
+    the sharded phase's 1-rank NCCL group: PageRank bitwise the 1-D mesh's
+    session (itself held to the unsharded one) and within ``SHARD_TOL`` of
+    the unsharded session where the hot sets agree, SSSP and CC bitwise
+    the unsharded sessions.  ``ref`` holds the sharded phase's runs.  The
+    counts are set to 0 before the runs and read after.  Returns (rows,
+    launch counts)."""
+    from repro_torch.launch.mesh import make_local_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_local_mesh("cuda")
+    shard = dict(mesh=mesh, num_shards=SHARDS)
+    out = []
+    reset_launch_counts()
+    sess, rows, res = drive_sharded(stream, "pagerank", {}, QUERIES,
+                                    QUERIES - 1, dev, **shard)
+    pushes = check_sharded_pushes("2-D mesh PageRank", rows)
+    for a, b, x, y in zip(ref["pagerank_1d"][0], rows, ref["pagerank_1d"][1],
+                          res):
+        if (a["num_hot"], a["num_ek"], a["iterations"]) != (
+                b["num_hot"], b["num_ek"], b["iterations"]) or \
+                not np.array_equal(x.view(np.uint8), y.view(np.uint8)):
+            raise AssertionError(f"2-D mesh PageRank query {b['query']} "
+                                 f"differs from the 1-D mesh's")
+    agree = 0
+    for a, b, x, y in zip(ref["flat"][0], rows, ref["flat"][1], res):
+        if (a["num_hot"], a["num_ek"]) == (b["num_hot"], b["num_ek"]):
+            np.testing.assert_allclose(y, x, **SHARD_TOL)
+            agree += 1
+    out.append({"phase": "dryrun-nd-mesh", "algorithm": "pagerank",
+                "mesh": "1 x 1 (data, model), 1-rank NCCL",
+                "shards": SHARDS, "queries": len(rows),
+                "bitwise_vs_1d_mesh": True,
+                "within_tol_vs_unsharded": agree, "sharded_pushes": pushes})
+    del sess
+    for name, per_iter in (("sssp", 1), ("connected-components", 2)):
+        s, rows, res = drive_sharded(stream, name, dict(TRAVERSAL)[name],
+                                     TRAVERSAL_QUERIES, TRAVERSAL_EXACT_EVERY,
+                                     dev, r=TRAVERSAL_R, **shard)
+        want_rows, want_res = ref["trav"][name]
+        for a, b, x, y in zip(want_rows, rows, want_res, res):
+            if (a["num_hot"], a["num_ek"], a["iterations"]) != (
+                    b["num_hot"], b["num_ek"], b["iterations"]) or \
+                    not np.array_equal(x.view(np.uint8), y.view(np.uint8)):
+                raise AssertionError(f"2-D mesh {name} query {b['query']} "
+                                     f"differs from the unsharded one")
+        out.append({"phase": "dryrun-nd-mesh", "algorithm": name,
+                    "queries": len(rows), "bitwise_vs_unsharded": True,
+                    "sharded_pushes": check_sharded_pushes(
+                        f"2-D mesh {name}", rows, per_iter)})
+        del s
+    counts = launch_counts()
+    out.append({"phase": "dryrun-nd-mesh-total", "launches": counts,
+                "wall_s": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def dryrun_graph_path(dev) -> tuple:
+    """The veilgraph dry run cell at the reference's full size (N = 2^25,
+    E = 2^30) as rank 0 of the single-pod mesh on a fake group of 256 on
+    the card (``repro_torch.launch.dryrun.run_veilgraph_cell``: its three
+    gates, its record), then one shard push of rank 0's layout timed
+    against the record's modeled bytes.  The counts are set to 0 before
+    the cell.  Returns (rows, launch counts)."""
+    import torch.distributed as dist
+
+    from repro_torch.core import backend as B
+    from repro_torch.graph.partition import build_sharded_layout
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import destroy_mesh, fake_production_mesh
+    from repro_torch.launch.roofline import push_roofline_check
+
+    if dist.is_initialized():
+        raise AssertionError("the graph dry run starts its own fake group")
+    t0 = time.perf_counter()
+    mesh = fake_production_mesh(device_type="cuda")
+    try:
+        reset_launch_counts()
+        rec = D.run_veilgraph_cell(mesh, "single")
+        counts = launch_counts()
+        if rec["status"] != "ok":
+            raise AssertionError(f"veilgraph dry run cell: {rec['error']}\n"
+                                 f"{rec['traceback']}")
+        nodes, edges = 2**25, 2**30
+        state, _, _ = D.random_graph(nodes, edges, device=dev)
+        layout = build_sharded_layout(state, mesh=mesh, placed=True)
+        e_pad = layout.src.shape[1]
+        del state
+        torch.cuda.empty_cache()
+        values = torch.ones(nodes, dtype=torch.float32, device=dev)
+        push_ms = cuda_ms(lambda: B.push(values, layout), reps=10)
+        model = push_roofline_check(edge_capacity=e_pad, num_segments=nodes)
+        rf = rec["roofline"]
+        coll = rf["collective_breakdown"]
+        pushes = counts["spmv_push"]
+        row = {"phase": "dryrun-graph", "mesh": "single (16, 16), rank 0 of "
+               "a fake group of 256", "nodes": nodes, "edges": edges,
+               "shard_edges": e_pad, "launches": counts,
+               "spmv_push_launches": pushes,
+               "argument_bytes": rf["memory_stats"]["argument_bytes"],
+               "temp_bytes": rf["memory_stats"]["temp_bytes"],
+               "flops_per_device": rf["flops_per_device"],
+               "bytes_per_device": rf["bytes_per_device"],
+               "collective_bytes": {k: v for k, v in coll.items()
+                                    if k != "counts"},
+               "collective_counts": coll["counts"],
+               "coll_max": rec["coll_max"],
+               "compute_s": rf["compute_s"], "memory_s": rf["memory_s"],
+               "collective_s": rf["collective_s"],
+               "dominant": rf["dominant"],
+               "push_coo_calls": rec["push_coo_calls"],
+               "max_all_gather_bytes": rec["max_all_gather_bytes"],
+               "push_baselines_within_10pct": len(rec["push_roofline"]),
+               "query_stats": rec["query_stats"], "cell_step_s":
+               rec["step_s"], "cell_setup_s": rec["setup_s"],
+               "shard_push_ms": push_ms,
+               "shard_push_modeled_hbm_bytes": model["hbm_bytes"],
+               "shard_push_bound_ms": model["bound_time_s"] * 1e3,
+               "shard_push_bound_by": model["bound_by"],
+               "wall_s": time.perf_counter() - t0}
+        if pushes < 1:
+            raise AssertionError("the graph cell launched no spmv_push")
+        del layout, values
+    finally:
+        destroy_mesh()
+        torch.cuda.empty_cache()
+    return [row], counts
+
+
+def _dryrun_inputs(cfg, arch, shape, dev, rng):
+    """The cell's arguments on the card: parameters from a seed, the AdamW
+    state of a train cell, the batch's ids, a decode cell's cache full of
+    seeded bf16 values at its last position."""
+    from repro_torch.launch.specs import cell_spec
+    from repro_torch.models.params import init_params
+    from repro_torch.train.optimizer import adamw_init
+
+    cell = cell_spec(cfg, arch, shape, {}, {})
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        DRYRUN_SEED), dev)
+    ids = lambda *s: torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, s, dtype=np.int32)).to(dev)
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        return cell, (params, adamw_init(params),
+                      {"tokens": ids(b, s), "labels": ids(b, s)})
+    if shape.kind == "prefill":
+        return cell, (params, {"tokens": ids(b, s)})
+    gen = torch.Generator(device=dev).manual_seed(DRYRUN_SEED + 1)
+
+    def fill(tree):
+        return {k: fill(v) if isinstance(v, dict) else
+                torch.randn(v.shape, generator=gen, device=dev).to(v.dtype)
+                for k, v in tree.items()}
+    return cell, (params, fill(cell.args[1]), ids(b, 1),
+                  torch.tensor(s - 1, dtype=torch.int32, device=dev))
+
+
+def dryrun_lm_path(dev) -> tuple:
+    """Qwen2-0.5B at full width on a 1 x 1 ``("data", "model")`` NCCL mesh
+    with DTensor parameters and inputs at the cell specs' placements, under
+    the rule table: one step of each cell of ``DRYRUN_LM_CELLS`` (global
+    batches cut to fit one card) bitwise the plain-tensor step on the card
+    (a train cell's loss and every gradient first, then the donated step's
+    parameters, moments and metrics; a prefill's logits and caches; a
+    decode step's logits and caches), with the flash forward, backward and
+    decode launches of the DTensor steps counted (their kernels run on the
+    local shards, through ``local_map``), and the cost counter's roofline
+    record of that step beside the step's device time (CUDA events around
+    a second DTensor step).  Returns (rows, launch counts)."""
+    import dataclasses
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import roofline as RL
+    from repro_torch.launch.dispatch_cost import CostCounter
+    from repro_torch.launch.mesh import destroy_mesh, make_local_mesh
+    from repro_torch.launch.specs import cell_spec
+    from repro_torch.models.config import SHAPES
+    from repro_torch.sharding.rules import (axis_rules, rules_for_mesh,
+                                            to_placements)
+    from repro_torch.train.optimizer import AdamWState, tree_leaves
+    from repro_torch.train.step import loss_and_grads
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    rng = np.random.default_rng(DRYRUN_SEED)
+    mesh = make_local_mesh("cuda")
+    rules = rules_for_mesh(mesh)
+    sizes = {"data": 1, "model": 1}
+    totals = {k: 0 for k in KERNEL_NAMES}
+    out = []
+
+    def place(tree, specs):
+        if isinstance(tree, AdamWState):
+            return AdamWState(*(place(t, s) for t, s in zip(tree, specs)))
+        if isinstance(tree, dict):
+            return {k: place(tree[k], specs[k]) for k in tree}
+        return DTensor.from_local(tree.clone(), mesh,
+                                  to_placements(specs, mesh))
+
+    def local(tree):
+        """Every tensor of a tree (tuples, an AdamWState, dicts), local."""
+        if isinstance(tree, (tuple, list)):
+            return [t for x in tree for t in local(x)]
+        return [t.to_local() if isinstance(t, DTensor) else t
+                for t in tree_leaves(tree)]
+
+    def bitwise(tag, a, b):
+        a, b = local(a), local(b)
+        if len(a) != len(b) or not all(same_bits(x, y)
+                                       for x, y in zip(a, b)):
+            raise AssertionError(f"dry run {tag}: the DTensor step differs "
+                                 f"from the plain one")
+        return len(a)
+
+    try:
+        with axis_rules(rules):
+            for name, batch in DRYRUN_LM_CELLS:
+                t0 = time.perf_counter()
+                shape = dataclasses.replace(SHAPES[name], global_batch=batch)
+                cell, args = _dryrun_inputs(cfg, LM_ARCH, shape, dev, rng)
+                specs = cell_spec(cfg, LM_ARCH, shape, rules, sizes).in_pspecs
+                dargs = tuple(place(a, s) for a, s in zip(args, specs))
+                row = {"phase": "dryrun-lm", "model": LM_ARCH, "cell": name,
+                       "global_batch": batch,
+                       "global_batch_reference": SHAPES[name].global_batch,
+                       "seq_len": shape.seq_len,
+                       "mesh": "1 x 1 (data, model), 1-rank NCCL"}
+                if shape.kind == "train":
+                    loss, _, grads = loss_and_grads(args[0], cfg, args[2])
+                    loss_d, _, grads_d = loss_and_grads(dargs[0], cfg,
+                                                        dargs[2])
+                    row["gradients_bitwise"] = bitwise(
+                        f"{name} gradients", [loss, grads], [loss_d, grads_d])
+                    del grads, grads_d
+                torch.cuda.synchronize()
+                plain = cell.step_fn(*args)
+                reset_launch_counts()
+                with CostCounter() as cc:
+                    got = cell.step_fn(*dargs)
+                    torch.cuda.synchronize()
+                counts = launch_counts()
+                row["outputs_bitwise"] = bitwise(name, plain, got)
+                if shape.kind == "train":
+                    row["state_bitwise"] = bitwise(
+                        f"{name} parameters and moments", args[:2], dargs[:2])
+                for k in KERNEL_NAMES:
+                    totals[k] += counts[k]
+                want = {"train": ("flash_attention", "flash_attention_bwd"),
+                        "prefill": ("flash_attention",),
+                        "decode": ("decode_attention",)}[shape.kind]
+                if any(counts[k] < cfg.num_layers for k in want):
+                    raise AssertionError(f"dry run {name}: launches {counts}")
+                del plain, got
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                again = cell.step_fn(*dargs)
+                end.record()
+                torch.cuda.synchronize()
+                del again
+                rf = RL.analyze(cc.cost, arch=LM_ARCH, shape=shape,
+                                mesh_name="1x1", chips=1, cfg=cfg,
+                                memory_stats={"temp_bytes":
+                                              cc.cost.peak_bytes})
+                row.update(launches={k: v for k, v in counts.items() if v},
+                           step_device_ms=start.elapsed_time(end),
+                           roofline=rf.to_dict(),
+                           wall_s=time.perf_counter() - t0)
+                out.append(row)
+                del args, dargs, cell
+                torch.cuda.empty_cache()
+    finally:
+        destroy_mesh()
+    out.append({"phase": "dryrun-lm-total", "launches": totals,
+                "wall_s": time.perf_counter() - t_phase})
+    return out, totals
 
 
 def main() -> int:
@@ -6037,9 +6362,13 @@ def main() -> int:
         emit(row)
 
     # ---- 6e. the sharded engine on a 1-rank mesh ---------------------------
-    rows, by_path["sharded"], (sums, reduces, batched) = sharded_path(
+    rows, by_path["sharded"], (sums, reduces, batched), nd = sharded_path(
         stream, plan, dev, np.random.default_rng(SHARDED_SEED))
     for row in rows + sums + reduces + batched:
+        emit(row)
+    # the dry run's n-D mesh: its sessions ran last in the sharded group
+    nd_rows, by_path["dryrun-nd-mesh"] = nd
+    for row in nd_rows:
         emit(row)
     checks += sums
     reduce_rows += reduces
@@ -6177,6 +6506,19 @@ def main() -> int:
             emit(row)
         emit({"phase": f"{phase}-total", "model": arch,
               "wall_s": time.perf_counter() - t0})
+
+    # ---- 9g. the pod-scale dry run ----------------------------------------
+    # the graph cell at full size as rank 0 of a fake group of 256, then
+    # Qwen2-0.5B's cells on DTensor parameters over a 1 x 1 NCCL mesh
+    t0 = time.perf_counter()
+    rows, by_path["dryrun-graph"] = dryrun_graph_path(dev)
+    for row in rows:
+        emit(row)
+    rows, family_counts["dryrun-lm"] = dryrun_lm_path(dev)
+    for row in rows:
+        emit(row)
+    emit({"phase": "dryrun-total", "wall_s": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
 
     # ---- 10. summary --------------------------------------------------------
     main_check, reduce_main = checks[0], reduce_rows[0]

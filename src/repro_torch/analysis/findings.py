@@ -2,7 +2,8 @@
 (PyTorch port of ``repro.analysis.findings``).
 
 Every pass (:mod:`~repro_torch.analysis.dispatch_lint`,
-:mod:`~repro_torch.analysis.memory_audit`,
+:mod:`~repro_torch.analysis.memory_audit` (the memory and collective
+passes),
 :mod:`~repro_torch.analysis.rebuild`, :mod:`~repro_torch.analysis.ast_lint`)
 emits :class:`Finding` rows; callers compare them against the committed
 baseline (``src/repro_torch/analysis/baseline.json``) with :func:`check`:
@@ -16,7 +17,8 @@ baseline (``src/repro_torch/analysis/baseline.json``) with :func:`check`:
 
 Keys are ``"RULE::where"`` where ``where`` is a *stable* location: a
 ``program:file:function`` triple for the dispatch rules, ``program:temp``
-for the memory rule, ``scenario:event`` for the rebuild rule and
+for the memory rule, ``program:kind`` for the collective rules,
+``scenario:event`` for the rebuild rule and
 ``path:scope`` for source rules — never a line number, so baselines
 survive unrelated edits.
 
@@ -45,7 +47,8 @@ class Finding:
     measured value and the budget or contract it violated.
     """
 
-    pass_id: str   # "dispatch" | "memory" | "rebuild" | "ast"
+    pass_id: str   # "dispatch" | "memory" | "collective" | "rebuild"
+    #                | "ast"
     rule: str      # e.g. "DSP-F64", "MEM-TEMP"
     where: str     # stable location, e.g. "push_coo[plus_times]:temp"
     detail: str    # actionable message (measured vs budget, contract text)
@@ -114,7 +117,7 @@ def load_baseline(path: Optional[Path]) -> List[BaselineEntry]:
 
 #: rule-id prefix → the pass that emits it (``DSP-F64`` → ``dispatch``, …)
 _RULE_PASS = {"DSP": "dispatch", "MEM": "memory", "RB": "rebuild",
-              "AST": "ast"}
+              "AST": "ast", "COL": "collective"}
 
 
 def pass_of_rule(rule: str) -> Optional[str]:

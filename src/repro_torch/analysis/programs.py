@@ -21,9 +21,16 @@ so the reference's ``push[segment_sum,*]`` and ``push[pallas,*]`` are one
 program each here (``push[plus_times]``: the SpMV kernel on the card, its
 plain version on the CPU).  The meshless sharded programs run the
 reference's shard loop (``push_sharded[loop]``, ``build_summary[sharded]``,
-``fused_query_step[pagerank,sharded]``, at ``spec.num_shards`` shards); the
-mesh ones (:data:`OMITTED`) wait for ROADMAP queue 1 entry 16, and
-``tools/analyze_torch.py`` reports them.
+``fused_query_step[pagerank,sharded]``, at ``spec.num_shards`` shards).
+Given a mesh of two or more ranks, :func:`catalog` adds the mesh programs
+(the reference's ``catalog(mesh=...)``): ``push_sharded[pallas,mesh]`` is
+the push the engine runs (the kernel on the card, its plain version on the
+CPU), ``push_sharded[segment_sum,mesh]`` the sorted segment reduce a
+semiring without a kernel entry takes (``graph.csr.gather_push``), each a
+shard's partials merged and all-reduced over the mesh, with
+``build_summary[sharded,mesh]`` and ``fused_query_step[pagerank,sharded,
+mesh]``; ``tools/analyze_torch.py``'s collective pass records them on a
+fake process group and holds their collectives to the budgets.
 
 :func:`run_rebuild_scenario` and :func:`run_async_rebuild_scenario` are
 the rebuild pass's canned engine loops (the reference's retrace
@@ -50,12 +57,13 @@ from repro_torch.core.fused import fused_query_step, fused_query_step_batched
 from repro_torch.core.pagerank import build_summary
 from repro_torch.device import resolve_device
 from repro_torch.graph import generators
+from repro_torch.graph.csr import gather_push
 from repro_torch.graph.graph import GraphState, add_edges, clone, from_edges
 from repro_torch.graph.partition import build_sharded_layout
 
-#: the reference's programs that need a mesh of two or more devices (ROADMAP
-#: queue 1 entry 16); the port runs their meshless forms
-OMITTED = ("push_sharded[segment_sum,mesh]", "push_sharded[pallas,mesh]")
+#: the reference's programs the port does not run (none: the mesh programs
+#: join the catalog given a mesh of two or more ranks)
+OMITTED: tuple = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,10 +152,26 @@ def _bank(algo_state: Dict[str, torch.Tensor], batch: int) -> Dict:
             for k, v in algo_state.items()}
 
 
-def catalog(spec: Optional[GraphSpec] = None, *,
-            device=None) -> List[Program]:
-    """Build the one-device program catalog at ``spec`` on ``device`` (the
-    card unless another device is named)."""
+def _segment_sum_sharded(values: torch.Tensor,
+                         layout: B.ShardedEdgeLayout) -> torch.Tensor:
+    """The sharded push through the sorted segment reduce
+    (``gather_push``) of each held shard, merged and all-reduced over the
+    layout's mesh: the path of a semiring without a kernel entry."""
+    s = B.resolve_semiring(layout.semiring)
+    part = None
+    for i in range(layout.row_offsets.shape[0]):
+        view = B._shard_view(layout, i)
+        one = gather_push(view, values, view.num_segments,
+                          weight=view.weight, semiring=s)
+        part = one if part is None else s.merge(part, one)
+    return s.all_reduce(part, layout.mesh)
+
+
+def catalog(spec: Optional[GraphSpec] = None, *, device=None,
+            mesh=None) -> List[Program]:
+    """Build the program catalog at ``spec`` on ``device`` (the card unless
+    another device is named); with ``mesh`` (a ``DeviceMesh`` of two or
+    more ranks on the device's type) also the mesh programs."""
     spec = spec or GraphSpec()
     dev = resolve_device(device)
     state = build_graph(spec, device=dev)
@@ -262,6 +286,28 @@ def catalog(spec: Optional[GraphSpec] = None, *,
         (state, new_src, new_dst), spec))
     progs.append(Program(
         "epoch[snapshot_counts]", snapshot_counts, (state,), spec))
+
+    # --- mesh-sharded variants ---------------------------------------------
+    if mesh is not None and mesh.size() >= 2:
+        sh_mesh = build_sharded_layout(
+            state, mesh=mesh, num_shards=spec.num_shards, weight="inv_out",
+            semiring="plus_times", placed=True)
+        progs.append(Program(
+            "push_sharded[segment_sum,mesh]", _segment_sum_sharded,
+            (ranks, sh_mesh), spec))
+        progs.append(Program(
+            "push_sharded[pallas,mesh]",
+            functools.partial(B.push, semiring="plus_times"),
+            (ranks, sh_mesh), spec))
+        progs.append(Program(
+            "build_summary[sharded,mesh]",
+            functools.partial(build_summary, layout=sh_mesh, **caps),
+            (state, ranks, state.node_active), spec))
+        progs.append(Program(
+            "fused_query_step[pagerank,sharded,mesh]",
+            functools.partial(fused_query_step, algo=pagerank, mesh=mesh,
+                              **caps),
+            _query_args(state, pagerank), spec))
     return progs
 
 

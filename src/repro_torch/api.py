@@ -215,8 +215,9 @@ def session(
     ``weight_dtype="bfloat16"``/``"float16"`` stores the f32 semirings'
     edge weights narrow (the kernels accumulate in f32).
 
-    ``mesh=`` (a 1-D ``torch.distributed.device_mesh.DeviceMesh`` on the
-    session's device type, its dimension named by ``mesh_axes=``) runs
+    ``mesh=`` (a ``torch.distributed.device_mesh.DeviceMesh`` on the
+    session's device type; the edge shards run over its dims named by
+    ``mesh_axes=``, every dim by default, flattened into one) runs
     the engine sharded: every full-graph layout is cut into
     ``num_shards=`` edge shards (default one a rank; a multiple of the
     mesh's size loops the surplus on each rank, so one card runs S-way

@@ -52,6 +52,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from repro_torch.core.semiring import Semiring, resolve_semiring
+from repro_torch.sharding.rules import flat_mesh
 from repro_torch.graph.csr import gather_push, sort_by_dst
 from repro_torch.graph.graph import GraphState, inv_out_degree
 from repro_torch.kernels.spmv.kernel import (REDUCE_ENTRIES, spmv_push,
@@ -120,8 +121,9 @@ class ShardedEdgeLayout:
     certificate, every live slot in exactly one shard.  ``merge_tile`` is
     the merge-path tile every shard's push takes.
 
-    ``mesh`` (a 1-D ``torch.distributed.device_mesh.DeviceMesh``) and
-    ``axes`` (its dimension's name) say where the shard axis lives:
+    ``mesh`` (a 1-D ``torch.distributed.device_mesh.DeviceMesh``: the
+    mesh axes ``axes`` of the engine's mesh, flattened) says where the
+    shard axis lives:
     ``mesh=None`` runs every shard here and merges the partials on this
     device.  With a mesh of R ranks each rank pushes ``num_shards / R`` of
     them and the partials meet in the semiring's all-reduce.
@@ -164,10 +166,12 @@ AnyEdgeLayout = Union[EdgeLayout, ShardedEdgeLayout]
 
 
 def mesh_rank_and_size(mesh) -> Tuple[int, int]:
-    """``(this rank's coordinate, ranks)`` on a 1-D device mesh; ``(0, 1)``
+    """``(this rank's coordinate, ranks)`` over every dim of a device mesh
+    (row-major, as its flattened edge-shard axis counts them); ``(0, 1)``
     without one."""
     if mesh is None:
         return 0, 1
+    mesh = flat_mesh(mesh)
     return mesh.get_local_rank(), mesh.size()
 
 

@@ -20,7 +20,7 @@ sorts run on a side CUDA stream.  ``autotune`` picks each layout's
 merge-path tile (:mod:`repro_torch.kernels.spmv.autotune`) and
 ``weight_dtype`` stores the f32 semirings' full-graph edge weights as
 bfloat16/float16; both are resolved at layout-build time, so every sweep
-through a layout inherits them.  ``mesh`` (a 1-D ``DeviceMesh``) cuts
+through a layout inherits them.  ``mesh`` (a ``DeviceMesh``) cuts
 every full-graph layout into ``num_shards`` locally sorted edge shards, so
 each O(E) sweep and each summary construction runs per shard and meets in
 the semiring's all-reduce over the mesh (:mod:`repro_torch.graph.
@@ -54,7 +54,6 @@ from repro_torch.graph import graph as G
 from repro_torch.graph.partition import (balanced_shard_slots,
                                          build_sharded_layout,
                                          mesh_shard_count,
-                                         place_sharded_layout,
                                          rebalance_decision,
                                          rebalance_sharded_layout,
                                          shard_slots)
@@ -103,12 +102,13 @@ class EngineConfig:
     # dtype) or "bfloat16"/"float16" (f32 semirings only; integer algebras
     # keep theirs).  Accumulation stays f32; summary weights stay f32.
     weight_dtype: Optional[str] = None
-    # a 1-D torch.distributed DeviceMesh for sharded execution: every
-    # full-graph layout is cut into num_shards locally sorted edge shards,
-    # each rank pushes its num_shards / mesh.size() of them in a loop and
-    # the partials meet in the semiring's all-reduce over the mesh's
-    # process group (graph/partition.py).  Its device type must be the
-    # engine's.  mesh_axes names the mesh's dimension.  None = one layout.
+    # a torch.distributed DeviceMesh for sharded execution: every
+    # full-graph layout is cut into num_shards locally sorted edge shards
+    # over the mesh's mesh_axes (every dim by default, flattened into one
+    # edge-shard axis), each rank pushes its num_shards / ranks of them in
+    # a loop and the partials meet in the semiring's all-reduce over them
+    # (graph/partition.py).  Its device type must be the engine's.  None =
+    # one layout.
     mesh: Optional[object] = None
     mesh_axes: Optional[Tuple[str, ...]] = None
     # edge shards of a mesh engine: None = one per rank; a multiple of the
@@ -144,9 +144,10 @@ class EngineConfig:
 
 
 def _check_mesh(config: EngineConfig, device: torch.device) -> None:
-    """The mesh knobs: a 1-D ``DeviceMesh`` on the engine's device type
-    (a mesh of more dimensions raises, ROADMAP queue 1 entry 16), and
-    ``num_shards``/``shard_hot_edge_capacity`` only with one."""
+    """The mesh knobs: a ``DeviceMesh`` on the engine's device type (its
+    ``mesh_axes``, every dim by default, flattened into the edge-shard
+    axis), and ``num_shards``/``shard_hot_edge_capacity`` only with
+    one."""
     mesh = config.mesh
     if mesh is None:
         for name in ("num_shards", "shard_hot_edge_capacity"):
@@ -489,11 +490,11 @@ class VeilGraphEngine:
             layout = B.build_layout(state, weight=w, reverse=rev, semiring=s,
                                     weight_dtype=self._weight_dtype_for(s))
         else:
-            layout = place_sharded_layout(build_sharded_layout(
+            layout = build_sharded_layout(
                 state, mesh=cfg.mesh, axes=cfg.mesh_axes,
                 num_shards=self._num_shards(), weight=w, reverse=rev,
                 semiring=s, slots=self._shard_slots,
-                weight_dtype=self._weight_dtype_for(s)))
+                weight_dtype=self._weight_dtype_for(s), placed=True)
         tile = self._tuned_geometry(s, layout)
         return (layout if tile is None
                 else dataclasses.replace(layout, merge_tile=tile))

@@ -32,8 +32,7 @@ from repro_torch.core.backend import normalize_layout_spec
 from repro_torch.core.control import drift_signals
 from repro_torch.core.hotset import _frontier_sweep, select_hot_set
 from repro_torch.graph.graph import GraphState
-from repro_torch.graph.partition import (build_sharded_layout,
-                                         place_sharded_layout)
+from repro_torch.graph.partition import build_sharded_layout
 
 
 class QueryStepStats(NamedTuple):
@@ -74,9 +73,8 @@ def _mesh_layouts(state: GraphState, algo, layouts, mesh, mesh_axes):
     if layouts is not None or mesh is None:
         return layouts
     return tuple(
-        place_sharded_layout(build_sharded_layout(
-            state, mesh=mesh, axes=mesh_axes, weight=w, reverse=rev,
-            semiring=sr))
+        build_sharded_layout(state, mesh=mesh, axes=mesh_axes, weight=w,
+                             reverse=rev, semiring=sr, placed=True)
         for w, rev, sr in map(normalize_layout_spec, algo.layout_specs))
 
 
@@ -125,7 +123,7 @@ def fused_query_step(
 
     ``layouts`` is the cached layout tuple matching ``algo.layout_specs``,
     single or (a mesh engine's) sharded.  With ``layouts=None`` and a
-    ``mesh`` (a 1-D ``DeviceMesh``, over ``mesh_axes``) the sharded
+    ``mesh`` (a ``DeviceMesh``, over ``mesh_axes``) the sharded
     layouts are built here; ``shard_bucket_capacity`` goes to the sharded
     summaries.  Returns ``(new_algo_state, QueryStepStats)``; the caller
     discards the new state and recomputes exactly when ``used_fallback``

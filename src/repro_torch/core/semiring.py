@@ -33,6 +33,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.sharding.rules import flat_mesh
+
 #: ⊕ reduce kinds the backends implement.
 ADD_OPS = ("sum", "min", "max")
 #: ⊗ combine kinds.
@@ -131,12 +133,12 @@ class Semiring:
         return torch.maximum(x, y)
 
     def all_reduce(self, x: torch.Tensor, group) -> torch.Tensor:
-        """⊕ all-reduce of ``x`` across ``group`` (a 1-D ``DeviceMesh`` or
-        a process group): the cross-rank merge of per-shard partial
-        pushes, ``torch.distributed.all_reduce`` with SUM, MIN or MAX.
-        Reduces ``x`` in place and returns it."""
+        """⊕ all-reduce of ``x`` across ``group`` (a ``DeviceMesh``, all of
+        whose ranks take part, or a process group): the cross-rank merge of
+        per-shard partial pushes, ``torch.distributed.all_reduce`` with
+        SUM, MIN or MAX.  Reduces ``x`` in place and returns it."""
         if hasattr(group, "get_group"):
-            group = group.get_group()
+            group = flat_mesh(group).get_group()
         op = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
               "max": dist.ReduceOp.MAX}[self.add]
         dist.all_reduce(x, op=op, group=group)

@@ -19,11 +19,13 @@ all-reduce of the dense result.  Two layers live here:
   streams by.  Any valid partition gives the same push (bitwise for the
   min/max semirings), so rebalancing only moves load.
 
-The mesh is a 1-D ``torch.distributed.device_mesh.DeviceMesh``.  Each rank
-holds the whole graph state and keeps the rows of its own
-``num_shards / R`` shards (:func:`place_sharded_layout`).  A mesh with more
-than one dimension is the multi-axis layout of ROADMAP queue 1 entry 16
-and raises.  :func:`edge_sharding`/:func:`graph_shardings` give the raw
+The mesh is a ``torch.distributed.device_mesh.DeviceMesh`` of one or more
+dimensions; a layout's edge shards run over the product of its axes
+(``mesh_axes``, every axis by default), which :func:`build_sharded_layout`
+flattens into one 1-D mesh (``sharding.rules.flat_mesh``), so every push,
+summary and rebalance below sees one edge-shard axis.  Each rank holds the
+whole graph state and keeps the rows of its own ``num_shards / R`` shards
+(:func:`place_sharded_layout`).  :func:`edge_sharding`/:func:`graph_shardings` give the raw
 graph buffers' shardings under the sharding rules: edge buffers over the
 mesh by the ``edges`` rule, node vectors replicated.
 """
@@ -38,8 +40,9 @@ import torch
 
 from repro_torch.core import backend as B
 from repro_torch.graph.graph import GraphState, inv_out_degree
-from repro_torch.sharding.rules import (NamedSharding, guarded_pspec,
-                                        mesh_axis_names, rules_for_mesh)
+from repro_torch.sharding.rules import (NamedSharding, flat_mesh,
+                                        guarded_pspec, mesh_axis_names,
+                                        rules_for_mesh)
 
 
 def edge_sharding(mesh, edge_capacity: int) -> NamedSharding:
@@ -89,10 +92,14 @@ def _build_shards(state: GraphState, *, num_shards: int, weight: str,
                   reverse: bool, chunk: int, semiring: str,
                   lengths: Optional[torch.Tensor] = None,
                   slots: Optional[torch.Tensor] = None,
-                  weight_dtype: Optional[str] = None) -> B.ShardedEdgeLayout:
+                  weight_dtype: Optional[str] = None,
+                  rows: Optional[Tuple[int, int]] = None
+                  ) -> B.ShardedEdgeLayout:
     """The array work of :func:`build_sharded_layout`: bake the weights in
     slot order, cut the slots into shards (contiguously, or by ``slots``),
-    and sort each shard by destination on its own."""
+    and sort each shard by destination on its own; ``rows`` ``(lo, hi)``
+    builds shards ``lo..hi-1`` only (each shard's rows are those of the
+    whole build)."""
     if weight == "length" and lengths is None:
         lengths = state.edge_len
     s = B.validate_weight_spec(weight, reverse=reverse, semiring=semiring,
@@ -110,16 +117,18 @@ def _build_shards(state: GraphState, *, num_shards: int, weight: str,
     zero = s.zero.item()
 
     e_s = -(-e_cap // num_shards)
+    lo, hi = (0, num_shards) if rows is None else rows
     if slots is None:
-        pad = num_shards * e_s - e_cap
-
         def cut(x, cval):
-            return torch.nn.functional.pad(x, (0, pad), value=cval).reshape(
-                num_shards, e_s)
+            part = x[lo * e_s:hi * e_s]
+            return torch.nn.functional.pad(
+                part, (0, (hi - lo) * e_s - part.shape[0]),
+                value=cval).reshape(hi - lo, e_s)
     else:
         # a rebalanced partition: one gather per buffer migrates the slots
-        ok = slots < e_cap
-        sl = slots.clamp(max=e_cap - 1).long()
+        held = slots[lo:hi]
+        ok = held < e_cap
+        sl = held.clamp(max=e_cap - 1).long()
 
         def cut(x, cval):
             return torch.where(ok, x[sl], cval)
@@ -136,7 +145,7 @@ def _build_shards(state: GraphState, *, num_shards: int, weight: str,
                                 for x in (src2, w2, valid2, order2))
     row_offsets = torch.searchsorted(
         dst2, torch.arange(n_cap + 1, dtype=torch.int32, device=dev).expand(
-            num_shards, n_cap + 1).contiguous(), side="left", out_int32=True)
+            hi - lo, n_cap + 1).contiguous(), side="left", out_int32=True)
 
     # the chunk slack of a single layout, per shard
     extra = B.padded_length(e_s, chunk) - e_s
@@ -164,6 +173,7 @@ def build_sharded_layout(
     lengths: Optional[torch.Tensor] = None,
     slots=None,
     weight_dtype: Optional[str] = None,
+    placed: bool = False,
 ) -> B.ShardedEdgeLayout:
     """Edge-partitioned, per-shard destination-sorted propagation layout.
 
@@ -172,9 +182,10 @@ def build_sharded_layout(
     the edge stream is first cut into ``num_shards`` slot ranges and each
     shard sorted on its own.
 
-    ``mesh`` is a 1-D ``DeviceMesh`` (``axes`` names its dimension and
-    defaults to it); ``num_shards`` defaults to its size and must be a
-    multiple of it.  With ``mesh=None`` (``num_shards`` required) every
+    ``mesh`` is a ``DeviceMesh`` whose ``axes`` (default: every dim) the
+    shards run over, flattened into the 1-D mesh the layout carries;
+    ``num_shards`` defaults to their product and must be a multiple of
+    it.  With ``mesh=None`` (``num_shards`` required) every
     shard is pushed here: the reference semantics, and how a single device
     runs S-way partitioning.  ``slots`` (int32[S, ⌈E_cap/S⌉], sentinel
     ``E_cap`` in padding, every live slot exactly once) replaces the
@@ -182,15 +193,22 @@ def build_sharded_layout(
     :func:`balanced_shard_slots`.
 
     Returns every shard's rows, ``[num_shards, E_pad]`` each;
-    :func:`place_sharded_layout` keeps this rank's.
+    :func:`place_sharded_layout` keeps this rank's.  With a mesh and
+    ``placed`` it builds this rank's rows only: the placed layout, without
+    the other ranks' sorts and row offsets (the engine's build; at a
+    pod's shard count the whole build's ``[S, N + 1]`` row offsets alone
+    would not fit a card).
     """
     if mesh is not None:
         names = tuple(mesh.mesh_dim_names or ())
-        axes = tuple(axes) if axes is not None else names
-        for a in axes:
-            if a not in names:
-                raise ValueError(f"mesh axis {a!r} not in mesh {names}")
+        if axes is not None:
+            axes = tuple(axes)
+            for a in axes:
+                if a not in names:
+                    raise ValueError(f"mesh axis {a!r} not in mesh {names}")
         n_dev = mesh_shard_count(mesh, axes)
+        mesh = flat_mesh(mesh, axes)
+        axes = axes if axes is not None else names
         if num_shards is None:
             num_shards = n_dev
         if num_shards < 1 or num_shards % n_dev:
@@ -209,12 +227,19 @@ def build_sharded_layout(
                 f"match {want} for num_shards={num_shards}, "
                 f"edge_capacity={state.edge_capacity}")
         slots = torch.as_tensor(slots, dtype=torch.int32, device=state.device)
+    rows = None
+    if mesh is not None and placed:
+        rank, size = B.mesh_rank_and_size(mesh)
+        per = num_shards // size
+        rows = (rank * per, (rank + 1) * per)
     layout = _build_shards(
         state, num_shards=num_shards, weight=weight, reverse=reverse,
         chunk=B.CHUNK if chunk is None else chunk, semiring=semiring,
-        lengths=lengths, slots=slots, weight_dtype=weight_dtype)
+        lengths=lengths, slots=slots, weight_dtype=weight_dtype, rows=rows)
     if mesh is not None:
-        layout = dataclasses.replace(layout, mesh=mesh, axes=axes)
+        layout = dataclasses.replace(
+            layout, mesh=mesh, axes=axes,
+            total_shards=num_shards if placed else None)
     return layout
 
 
@@ -224,15 +249,17 @@ def build_sharded_layout(
 
 
 def mesh_shard_count(mesh, axes: Optional[Tuple[str, ...]] = None) -> int:
-    """The ranks of a 1-D device mesh: the shard count a mesh engine cuts
-    its layouts into unless ``num_shards`` asks for more.  A mesh of more
-    than one dimension raises (ROADMAP queue 1 entry 16)."""
-    if mesh.ndim != 1:
-        raise NotImplementedError(
-            f"a {mesh.ndim}-D device mesh is the multi-axis layout of "
-            f"ROADMAP queue 1 entry 16; the sharded graph engine takes a "
-            f"1-D mesh")
-    return mesh.size()
+    """The ranks over ``axes`` (default: every mesh axis): the shard count a
+    mesh engine cuts its layouts into unless ``num_shards`` asks for
+    more.  The one definition :func:`build_sharded_layout` and the
+    engine's rebalance path both go through."""
+    if axes is None:
+        return mesh.size()
+    names = mesh_axis_names(mesh)
+    n = 1
+    for a in axes:
+        n *= mesh.size(names.index(a))
+    return n
 
 
 def shard_live_counts(state: GraphState, slots: torch.Tensor) -> torch.Tensor:

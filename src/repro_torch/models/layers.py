@@ -26,6 +26,7 @@ from repro_torch.kernels.decode_attention.kernel import (
 from repro_torch.kernels.flash_attention.kernel import (
     Offsets, flash_attention, flash_attention_differentiable,
     flash_attention_dynamic)
+from repro_torch.sharding.rules import ws
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -160,13 +161,15 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     g = x @ w_gate.to(x.dtype)
     u = x @ w_up.to(x.dtype)
-    return (F.silu(g) * u) @ w_down.to(x.dtype)
+    h = ws(F.silu(g) * u, "batch", "ctx", "ff")
+    return h @ w_down.to(x.dtype)
 
 
 def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor,
              w_down: torch.Tensor) -> torch.Tensor:
     # jax.nn.gelu's default is the tanh approximation
-    h = F.gelu(x @ w_up.to(x.dtype), approximate="tanh")
+    h = ws(F.gelu(x @ w_up.to(x.dtype), approximate="tanh"), "batch", "ctx",
+           "ff")
     return h @ w_down.to(x.dtype)
 
 

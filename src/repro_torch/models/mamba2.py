@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm
+from repro_torch.sharding import per_shard as PS
 
 
 def _segsum(x: torch.Tensor) -> torch.Tensor:
@@ -37,15 +38,47 @@ def _segsum(x: torch.Tensor) -> torch.Tensor:
     return d.masked_fill(~mask, float("-inf"))
 
 
-def _split_proj(p, x: torch.Tensor, cfg: ModelConfig):
-    """(z, x, BC, dt, d_inner, G·N, heads) from the input projection."""
+def _split(zxbcdt: torch.Tensor, cfg: ModelConfig):
+    """(z, x, BC, dt, d_inner, G·N, heads) of the input projection's
+    output."""
     s = cfg.ssm
     di = s.d_inner(cfg.d_model)
     gn = s.n_groups * s.d_state
     nh = s.num_heads(cfg.d_model)
-    zxbcdt = x @ p["in_proj"].to(x.dtype)
     z, xh, bc, dt = zxbcdt.split([di, di, 2 * gn, nh], dim=-1)
     return z, xh, bc, dt, di, gn, nh
+
+
+#: the small per-layer leaves an SSD region reads whole on every rank
+_REGION_LEAVES = ("conv_w", "conv_b", "dt_bias", "a_log", "d_skip", "norm")
+
+
+def _per_batch_shard(fn, cfg: ModelConfig, p, zxbcdt: torch.Tensor,
+                     caches=(), outs: int = 1):
+    """``fn(zxbcdt, caches..., leaves)`` as an SSD region: per batch
+    shard on DTensor inputs (the heads of each shard whole: the
+    reference's ``ws`` of x over ``ssm_heads`` is the region's spec
+    here, which keeps them on every rank), the leaves of
+    :data:`_REGION_LEAVES` replicated; on plain tensors, the call itself.
+    ``caches`` are updated in place (a cache laid out otherwise is
+    redistributed for the call and written back)."""
+    leaves = tuple(p[k] for k in _REGION_LEAVES)
+    mesh = PS.mesh_of(zxbcdt)
+    spec = None if mesh is None else PS.batch_spec(mesh, zxbcdt.shape)
+    held = [PS.held_as(c, None if spec is None
+                       else spec + (None,) * (c.ndim - len(spec)), mesh)
+            for c in caches]
+    out = PS.run(
+        lambda z, *rest: fn(z, *rest[:len(caches)],
+                            dict(zip(_REGION_LEAVES, rest[len(caches):]))),
+        (zxbcdt, *(h for h, _ in held), *leaves),
+        (spec,) + tuple(None if spec is None else
+                        spec + (None,) * (c.ndim - len(spec))
+                        for c in caches) + ((),) * len(leaves),
+        spec if outs == 1 else [spec] * outs)
+    for _, back in held:
+        back()
+    return out
 
 
 def _causal_conv_full(xbc: torch.Tensor, w: torch.Tensor,
@@ -74,18 +107,34 @@ def _heads(m: torch.Tensor, groups: int, nh: int) -> torch.Tensor:
     return m.repeat_interleave(nh // groups, dim=-2)
 
 
-def _gated_out(p, y: torch.Tensor, z: torch.Tensor, x: torch.Tensor,
-               cfg: ModelConfig) -> torch.Tensor:
-    y = rms_norm(y.to(x.dtype) * F.silu(z), p["norm"], cfg.norm_eps)
-    return y @ p["out_proj"].to(x.dtype)
+def _gated_norm(p, y: torch.Tensor, z: torch.Tensor, dtype: torch.dtype,
+                cfg: ModelConfig) -> torch.Tensor:
+    return rms_norm(y.to(dtype) * F.silu(z), p["norm"], cfg.norm_eps)
 
 
 def mamba2_full(p: Dict[str, torch.Tensor], x: torch.Tensor,
                 cfg: ModelConfig) -> torch.Tensor:
     """Full-sequence SSD.  x: (B, S, d) -> (B, S, d)."""
+    return mamba2_from_proj(p, x @ p["in_proj"].to(x.dtype), x.dtype, cfg)
+
+
+def mamba2_from_proj(p: Dict[str, torch.Tensor], zxbcdt: torch.Tensor,
+                     dtype: torch.dtype, cfg: ModelConfig) -> torch.Tensor:
+    """:func:`mamba2_full` from the input projection's output (B, S, ·) of
+    an input in ``dtype`` (a prefill takes its final state from the same
+    projection, where XLA merges the reference's two)."""
+    y = _per_batch_shard(lambda zx, lp: _ssd(lp, zx, dtype, cfg), cfg, p,
+                         zxbcdt)
+    return y @ p["out_proj"].to(dtype)
+
+
+def _ssd(p, zxbcdt: torch.Tensor, dtype: torch.dtype,
+         cfg: ModelConfig) -> torch.Tensor:
+    """The SSD chunked scan of one shard's projection output (B, S, ·):
+    the gated, normed output (B, S, d_inner) in ``dtype``."""
     s_cfg = cfg.ssm
-    b, s, _ = x.shape
-    z, xh, bc, dt, di, gn, nh = _split_proj(p, x, cfg)
+    b, s, _ = zxbcdt.shape
+    z, xh, bc, dt, di, gn, nh = _split(zxbcdt, cfg)
     xbc = _causal_conv_full(torch.cat([xh, bc], -1), p["conv_w"],
                             p["conv_b"])
     xh, bmat, cmat = xbc.split([di, gn, gn], dim=-1)
@@ -131,7 +180,8 @@ def mamba2_full(p: Dict[str, torch.Tensor], x: torch.Tensor,
 
     # 3. between chunks: the state entering each chunk
     chunk_decay = torch.exp(da_cum[..., -1])                  # (B,H,nc)
-    h = torch.zeros((b, nh, hp, n), dtype=torch.float32, device=x.device)
+    h = torch.zeros((b, nh, hp, n), dtype=torch.float32,
+                    device=zxbcdt.device)
     h_prevs = []
     for c in range(nc):
         h_prevs.append(h)
@@ -148,7 +198,7 @@ def mamba2_full(p: Dict[str, torch.Tensor], x: torch.Tensor,
     y = y.permute(0, 1, 3, 2, 4).reshape(b, s, nh, hp)
     y = y + xh.reshape(b, s, nh, hp).float() * p["d_skip"].float()[:, None]
     y = y.reshape(b, s, di)[:, :s_orig]
-    return _gated_out(p, y, z[:, :s_orig], x, cfg)
+    return _gated_norm(p, y, z[:, :s_orig], dtype, cfg)
 
 
 def mamba2_init_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
@@ -169,10 +219,23 @@ def mamba2_decode(p: Dict[str, torch.Tensor], x: torch.Tensor,
     """One-token recurrent step, x: (B, 1, d).  Updates ``cache`` (its
     ``conv`` (B, k-1, C) and ``ssm`` (B, H, P, N) tensors) in place and
     returns it with the output."""
+    y = _per_batch_shard(
+        lambda zx, conv, ssm, lp: _recur(lp, zx, conv, ssm, x.dtype, cfg),
+        cfg, p, x @ p["in_proj"].to(x.dtype),
+        caches=(cache["conv"], cache["ssm"]))
+    return y @ p["out_proj"].to(x.dtype), cache
+
+
+def _recur(p, zxbcdt: torch.Tensor, conv: torch.Tensor, ssm: torch.Tensor,
+           dtype: torch.dtype, cfg: ModelConfig) -> torch.Tensor:
+    """One shard's recurrent step from its projection output (B, 1, ·):
+    updates the ``conv`` and ``ssm`` caches in place, returns the gated,
+    normed output (B, 1, d_inner) in ``dtype``."""
     s_cfg = cfg.ssm
-    b = x.shape[0]
-    z, xh, bc, dt, di, gn, nh = _split_proj(p, x, cfg)
+    b = zxbcdt.shape[0]
+    z, xh, bc, dt, di, gn, nh = _split(zxbcdt, cfg)
     n, hp = s_cfg.d_state, s_cfg.head_dim
+    cache = {"conv": conv, "ssm": ssm}
 
     # the conv window: the cached k-1 inputs and the new one
     hist = torch.cat([cache["conv"],
@@ -191,4 +254,4 @@ def mamba2_decode(p: Dict[str, torch.Tensor], x: torch.Tensor,
     h.mul_(torch.exp(dt1 * a)[..., None, None]).add_(dbx)
     y = torch.matmul(h, cvec[..., None])[..., 0]              # (B,H,P)
     y = y + xh_h * p["d_skip"].float()[None, :, None]
-    return _gated_out(p, y.reshape(b, 1, di), z, x, cfg), cache
+    return _gated_norm(p, y.reshape(b, 1, di), z, dtype, cfg)

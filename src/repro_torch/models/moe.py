@@ -37,6 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import per_shard as PS
+from repro_torch.sharding.rules import ws
 
 
 def capacity(cfg: ModelConfig, seq_len: int) -> int:
@@ -100,10 +102,18 @@ def experts(p: Dict[str, torch.Tensor], buf: torch.Tensor, num_experts: int,
     sink slot stays zero."""
     dt = buf.dtype
     y = torch.zeros_like(buf)
+    # a DTensor buffer's batch dim is sharded: its products take the
+    # expert's slots batch-major, whose rows flatten to one sharded dim
+    sharded = PS.is_dtensor(buf)
     for e in range(num_experts):
         xe = buf[e * cap:(e + 1) * cap]
+        if sharded:
+            xe = xe.transpose(0, 1)
         h = F.silu(xe @ p["w_gate"][e].to(dt)) * (xe @ p["w_up"][e].to(dt))
-        y[e * cap:(e + 1) * cap] = h @ p["w_down"][e].to(dt)
+        h = ws(h, *((("batch", None) if sharded else (None, "batch"))
+                    + ("ff",)))
+        ye = h @ p["w_down"][e].to(dt)
+        y[e * cap:(e + 1) * cap] = ye.transpose(0, 1) if sharded else ye
     return y
 
 
@@ -124,10 +134,25 @@ def moe_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor,
     ``(E, f, d)``."""
     e, k = cfg.moe.num_experts, cfg.moe.top_k
     cap = capacity(cfg, x.shape[1])
-    top_w, top_i = route(router_probs(p, x), k)
-    slot, ok = assign(top_i, e, cap)
-    y = experts(p, dispatch(x, slot, k, e * cap), e, cap)
-    return combine(y, slot, top_w, ok, k)
+
+    def route_and_dispatch(x, probs):
+        top_w, top_i = route(probs, k)
+        slot, ok = assign(top_i, e, cap)
+        return dispatch(x, slot, k, e * cap), slot, ok, top_w
+
+    # the routing, dispatch and combine run per batch shard (on DTensor
+    # activations); the experts' products are DTensor matmuls
+    mesh = PS.mesh_of(x)
+    spec = None if mesh is None else PS.batch_spec(mesh, x.shape)
+    buf_spec = None if spec is None else (None,) + spec
+    buf, slot, ok, top_w = PS.run(route_and_dispatch,
+                                  (x, router_probs(p, x)), (spec, spec),
+                                  [buf_spec, spec, spec, spec])
+    buf = ws(buf, None, "batch", None)
+    y = experts(p, buf, e, cap)
+    out = PS.run(lambda y, slot, top_w, ok: combine(y, slot, top_w, ok, k),
+                 (y, slot, top_w, ok), (buf_spec, spec, spec, spec), spec)
+    return ws(out, "batch", "ctx", "embed")
 
 
 def moe_load_balance_loss(p: Dict[str, torch.Tensor], x: torch.Tensor,

@@ -46,6 +46,27 @@ from repro_torch.models.layers import (blocked_attention, decode_attention,
                                        mlp_apply_dense, rms_norm)
 from repro_torch.models.moe import moe_mlp
 from repro_torch.models.params import require_ported
+from repro_torch.sharding import per_shard as PS
+from repro_torch.sharding.rules import axis_rules, get_rules, ws
+
+
+def _norm(x: torch.Tensor, scale: torch.Tensor,
+          cfg: ModelConfig) -> torch.Tensor:
+    """``rms_norm`` of the residual stream, the result with its sequence
+    whole (``ctx``): between blocks the stream keeps the reference's
+    ``ctx_res`` sharding, and the reference's GSPMD gathers the sequence
+    around attention and the MLP; DTensor's products want it gathered
+    first.  On a plain tensor, ``rms_norm`` itself."""
+    return ws(rms_norm(x, scale, cfg.norm_eps), "batch", "ctx", "embed")
+
+
+def _res(h: torch.Tensor) -> torch.Tensor:
+    """A mixer's output (attention, MLP, SSM) as the residual stream holds
+    it (``ctx_res``) before it is added: on DTensors the add's gradient
+    then reaches the mixer's products with the sequence whole again (the
+    redistribution is autograd's to invert, where the add's own implicit
+    one is not).  On a plain tensor, ``h`` itself."""
+    return ws(h, "batch", "ctx_res", "embed")
 
 
 def _layers(params: Dict[str, Any], cfg: ModelConfig,
@@ -107,39 +128,37 @@ def _attn_apply_full(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def _dense_block_full(lp: Dict[str, Any], x: torch.Tensor,
                       cfg: ModelConfig) -> torch.Tensor:
-    x = x + _attn_apply_full(lp["attn"],
-                             rms_norm(x, lp["norm0"], cfg.norm_eps), cfg)
-    return x + _mlp_apply(lp["mlp"], rms_norm(x, lp["norm1"], cfg.norm_eps),
-                          cfg)
+    x = x + _res(_attn_apply_full(lp["attn"], _norm(x, lp["norm0"], cfg),
+                                  cfg))
+    x = x + _res(_mlp_apply(lp["mlp"], _norm(x, lp["norm1"], cfg), cfg))
+    return ws(x, "batch", "ctx_res", "embed")
 
 
 def _ssm_block_full(lp: Dict[str, Any], x: torch.Tensor,
                     cfg: ModelConfig) -> torch.Tensor:
-    return x + m2.mamba2_full(lp["ssm"], rms_norm(x, lp["norm0"],
-                                                  cfg.norm_eps), cfg)
+    return ws(x + _res(m2.mamba2_full(lp["ssm"], _norm(x, lp["norm0"], cfg),
+                                      cfg)),
+              "batch", "ctx_res", "embed")
 
 
 def _shared_mlp(sp: Dict[str, Any], x: torch.Tensor,
                 cfg: ModelConfig) -> torch.Tensor:
     """The hybrid shared block's second half: x + its dense MLP."""
-    return x + mlp_apply_dense(sp["mlp"], rms_norm(x, sp["norm1"],
-                                                   cfg.norm_eps),
-                               cfg.mlp_gated)
+    return x + _res(mlp_apply_dense(sp["mlp"], _norm(x, sp["norm1"], cfg),
+                                    cfg.mlp_gated))
 
 
 def _shared_block_full(sp: Dict[str, Any], x: torch.Tensor,
                        cfg: ModelConfig) -> torch.Tensor:
-    x = x + attn.gqa_full(sp["attn"], rms_norm(x, sp["norm0"], cfg.norm_eps),
-                          cfg)
+    x = x + _res(attn.gqa_full(sp["attn"], _norm(x, sp["norm0"], cfg), cfg))
     return _shared_mlp(sp, x, cfg)
 
 
 def _encoder_block(lp: Dict[str, Any], x: torch.Tensor,
                    cfg: ModelConfig) -> torch.Tensor:
-    x = x + attn.gqa_full(lp["attn"], rms_norm(x, lp["norm0"], cfg.norm_eps),
+    x = x + attn.gqa_full(lp["attn"], _norm(x, lp["norm0"], cfg),
                           cfg, causal=False)
-    return x + mlp_apply_dense(lp["mlp"], rms_norm(x, lp["norm1"],
-                                                   cfg.norm_eps),
+    return x + mlp_apply_dense(lp["mlp"], _norm(x, lp["norm1"], cfg),
                                cfg.mlp_gated)
 
 
@@ -159,34 +178,44 @@ def _cross_attend(p: Dict[str, torch.Tensor], x: torch.Tensor,
     """Cross attention: queries from the decoder's x (B, S, d) over the
     keys and values of :func:`_cross_kv`, unmasked (on the card one flash
     launch at Sq = S, Skv = S_enc)."""
-    b, s, _ = x.shape
-    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, cfg.num_heads,
-                                          cfg.resolved_head_dim)
-    out = blocked_attention(q, k, v, causal=False, q_block=cfg.q_block,
-                            kv_block=cfg.kv_block)
-    return out.reshape(b, s, -1) @ p["wo"].to(x.dtype)
+    def attend(q, k, v):
+        b, s, _ = q.shape
+        out = blocked_attention(
+            q.reshape(b, s, -1, cfg.resolved_head_dim), k, v, causal=False,
+            q_block=cfg.q_block, kv_block=cfg.kv_block)
+        return out.reshape(b, s, -1)
+
+    spec, spec4 = attn.head_specs(cfg, x, cfg.num_kv_heads)
+    out = PS.run(attend, (x @ p["wq"].to(x.dtype), k, v),
+                 (spec, spec4, spec4), spec)
+    return out @ p["wo"].to(x.dtype)
 
 
 def _decoder_block_full(lp: Dict[str, Any], x: torch.Tensor,
                         cfg: ModelConfig,
                         memory: torch.Tensor) -> torch.Tensor:
-    x = x + attn.gqa_full(lp["attn"], rms_norm(x, lp["norm0"], cfg.norm_eps),
-                          cfg)
-    x = x + _cross_attend(lp["cross"], rms_norm(x, lp["norm1"], cfg.norm_eps),
-                          *_cross_kv(lp["cross"], memory, cfg),
-                          cfg)
-    return x + mlp_apply_dense(lp["mlp"], rms_norm(x, lp["norm2"],
-                                                   cfg.norm_eps),
-                               cfg.mlp_gated)
+    x = x + _res(attn.gqa_full(lp["attn"], _norm(x, lp["norm0"], cfg), cfg))
+    x = x + _res(_cross_attend(lp["cross"], _norm(x, lp["norm1"], cfg),
+                               *_cross_kv(lp["cross"], memory, cfg), cfg))
+    return x + _res(mlp_apply_dense(lp["mlp"], _norm(x, lp["norm2"], cfg),
+                                    cfg.mlp_gated))
 
 
 def _run(block, remat: bool, *args) -> torch.Tensor:
     """``block(*args)``; with ``remat`` under ``torch.utils.checkpoint``
     (non-reentrant): the backward recomputes the block and its forward
     saves nothing inside it, the reference's ``jax.checkpoint`` with
-    ``nothing_saveable``."""
+    ``nothing_saveable``.  The recompute runs under the forward's sharding
+    rules: autograd runs a card's backward on a thread of its own, which
+    the thread-local rules would not reach, and its ``ws`` would do
+    nothing."""
     if remat:
-        return torch.utils.checkpoint.checkpoint(block, *args,
+        rules = get_rules()
+
+        def ruled(*a):
+            with axis_rules(rules):
+                return block(*a)
+        return torch.utils.checkpoint.checkpoint(ruled, *args,
                                                  use_reentrant=False)
     return block(*args)
 
@@ -200,19 +229,31 @@ def encode(params: Dict[str, Any], cfg: ModelConfig, frames: torch.Tensor,
     if frames is None:
         raise ValueError(f"{cfg.name}: an encoder-decoder needs its encoder "
                          f"frames (encoder_embeds, a batch's 'frames')")
-    x = frames.to(getattr(torch, cfg.activation_dtype))
+    x = ws(frames.to(getattr(torch, cfg.activation_dtype)), "batch", "ctx",
+           "embed")
     for lp in _layers(params, cfg, "encoder"):
         x = _run(_encoder_block, remat, lp, x, cfg)
-    return rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
+    return _norm(x, params["enc_final_norm"], cfg)
 
 
-def _mamba_final_state(p, x: torch.Tensor,
-                       cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+def _mamba_final_state(p, x: torch.Tensor, cfg: ModelConfig,
+                       zxbcdt: Optional[torch.Tensor] = None
+                       ) -> Dict[str, torch.Tensor]:
     """The exact (conv, ssm) state after the sequence x (B, S, d), both
-    f32: the last k-1 conv inputs, and Σ_s decay-to-end · dt · x ⊗ B."""
+    f32: the last k-1 conv inputs, and Σ_s decay-to-end · dt · x ⊗ B
+    (from x's input projection ``zxbcdt`` where the caller has it)."""
+    if zxbcdt is None:
+        zxbcdt = x @ p["in_proj"].to(x.dtype)
+    conv, ssm = m2._per_batch_shard(
+        lambda zx, lp: _final_state(lp, zx, cfg), cfg, p, zxbcdt, outs=2)
+    return {"conv": conv, "ssm": ssm}
+
+
+def _final_state(p, zxbcdt: torch.Tensor, cfg: ModelConfig):
+    """One shard's (conv, ssm) state from its projection output."""
     s_cfg = cfg.ssm
-    b, s, _ = x.shape
-    z, xh, bc, dt, di, gn, nh = m2._split_proj(p, x, cfg)
+    b, s, _ = zxbcdt.shape
+    z, xh, bc, dt, di, gn, nh = m2._split(zxbcdt, cfg)
     xbc = torch.cat([xh, bc], -1)
     # a copy: a view of the tail would keep the whole (B, S, C) input alive
     # with the cache (f32's .float() is no copy)
@@ -229,29 +270,31 @@ def _mamba_final_state(p, x: torch.Tensor,
     state = torch.matmul(                                     # per group
         xw.reshape(b, s, g, -1).permute(0, 2, 3, 1),          # (B,G,hpg·P,S)
         bmat.reshape(b, s, g, -1).float().transpose(1, 2))    # (B,G,S,N)
-    return {"conv": conv_state,
-            "ssm": state.reshape(b, nh, s_cfg.head_dim, s_cfg.d_state)}
+    return conv_state, state.reshape(b, nh, s_cfg.head_dim, s_cfg.d_state)
 
 
 def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
            prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     # gather first, then cast: the same values as the reference's cast of
-    # the whole table, without casting it
-    x = params["embed"]["tok"][tokens.long()].to(
-        getattr(torch, cfg.activation_dtype))
+    # the whole table, without casting it (a DTensor table through
+    # embedding, which DTensor places, the same gather)
+    tok = params["embed"]["tok"]
+    rows = (torch.nn.functional.embedding(tokens.long(), tok)
+            if PS.is_dtensor(tok) else tok[tokens.long()])
+    x = rows.to(getattr(torch, cfg.activation_dtype))
     if prefix_embeds is not None:
         # the frontend stub: precomputed patch embeddings before the tokens
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
-    return x
+    return ws(x, "batch", "ctx_res", "embed")
 
 
 def _head(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = _norm(x, params["final_norm"], cfg)
     if cfg.tie_embeddings:
         w = params["embed"]["tok"].to(x.dtype).T
     else:
         w = params["lm_head"].to(x.dtype)
-    return x @ w
+    return ws(x @ w, "batch", "ctx", "vocab")
 
 
 def lm_forward(params: Dict[str, Any], cfg: ModelConfig,
@@ -342,15 +385,17 @@ def lm_prefill(params: Dict[str, Any], cfg: ModelConfig,
     memory = (encode(params, cfg, encoder_embeds)
               if cfg.encoder_layers > 0 else None)
     for l, lp in enumerate(_layers(params, cfg)):
-        h_in = rms_norm(x, lp["norm0"], cfg.norm_eps)
+        h_in = _norm(x, lp["norm0"], cfg)
         if cfg.family in ("ssm", "hybrid"):
-            x = x + m2.mamba2_full(lp["ssm"], h_in, cfg)
+            # one input projection for the mixer and its final state
+            zx = h_in @ lp["ssm"]["in_proj"].to(h_in.dtype)
+            x = x + m2.mamba2_from_proj(lp["ssm"], zx, h_in.dtype, cfg)
             caches.setdefault("ssm", []).append(
-                _mamba_final_state(lp["ssm"], h_in, cfg))
+                _mamba_final_state(lp["ssm"], h_in, cfg, zx))
             if _shared_after(cfg, l):
                 sp = params["shared"]
                 h, c = attn.gqa_prefill(
-                    sp["attn"], rms_norm(x, sp["norm0"], cfg.norm_eps), cfg,
+                    sp["attn"], _norm(x, sp["norm0"], cfg), cfg,
                     cache_len)
                 x = _shared_mlp(sp, x + h, cfg)
                 caches.setdefault("attn", []).append(c)
@@ -359,11 +404,9 @@ def lm_prefill(params: Dict[str, Any], cfg: ModelConfig,
             h, c = attn.gqa_prefill(lp["attn"], h_in, cfg, cache_len)
             x = x + h
             k, v = _cross_kv(lp["cross"], memory, cfg)
-            x = x + _cross_attend(lp["cross"], rms_norm(x, lp["norm1"],
-                                                        cfg.norm_eps),
+            x = x + _cross_attend(lp["cross"], _norm(x, lp["norm1"], cfg),
                                   k, v, cfg)
-            x = x + mlp_apply_dense(lp["mlp"], rms_norm(x, lp["norm2"],
-                                                        cfg.norm_eps),
+            x = x + mlp_apply_dense(lp["mlp"], _norm(x, lp["norm2"], cfg),
                                     cfg.mlp_gated)
             caches.setdefault("self", []).append(c)
             # constant through the decode steps, in bf16 as the reference
@@ -375,7 +418,7 @@ def lm_prefill(params: Dict[str, Any], cfg: ModelConfig,
         else:
             h, c = attn.gqa_prefill(lp["attn"], h_in, cfg, cache_len)
         x = x + h
-        x = x + _mlp_apply(lp["mlp"], rms_norm(x, lp["norm1"], cfg.norm_eps),
+        x = x + _mlp_apply(lp["mlp"], _norm(x, lp["norm1"], cfg),
                            cfg)
         caches.setdefault("mla" if cfg.mla is not None else "kv",
                           []).append(c)
@@ -398,7 +441,7 @@ def lm_decode_step(params: Dict[str, Any], cfg: ModelConfig,
     if cfg.encoder_layers > 0:
         return _encdec_decode(params, cfg, cache, x, pos), cache
     for l, lp in enumerate(_layers(params, cfg)):
-        h_in = rms_norm(x, lp["norm0"], cfg.norm_eps)
+        h_in = _norm(x, lp["norm0"], cfg)
         if cfg.family in ("ssm", "hybrid"):
             h, _ = m2.mamba2_decode(lp["ssm"], h_in, _at(cache["ssm"], l),
                                     cfg)
@@ -407,7 +450,7 @@ def lm_decode_step(params: Dict[str, Any], cfg: ModelConfig,
                 sp = params["shared"]
                 app = (l + 1) // cfg.hybrid_period - 1
                 h, _ = attn.gqa_decode(
-                    sp["attn"], rms_norm(x, sp["norm0"], cfg.norm_eps),
+                    sp["attn"], _norm(x, sp["norm0"], cfg),
                     _at(cache["attn"], app), pos, cfg)
                 x = _shared_mlp(sp, x + h, cfg)
             continue
@@ -418,7 +461,7 @@ def lm_decode_step(params: Dict[str, Any], cfg: ModelConfig,
             h, _ = attn.gqa_decode(lp["attn"], h_in, _at(cache["kv"], l),
                                    pos, cfg)
         x = x + h
-        x = x + _mlp_apply(lp["mlp"], rms_norm(x, lp["norm1"], cfg.norm_eps),
+        x = x + _mlp_apply(lp["mlp"], _norm(x, lp["norm1"], cfg),
                            cfg)
     return _head(params, cfg, x), cache
 
@@ -428,22 +471,26 @@ def _encdec_decode(params: Dict[str, Any], cfg: ModelConfig,
                    pos: torch.Tensor) -> torch.Tensor:
     """An encoder-decoder's decode step (``lm_decode_step``): the logits
     (B, 1, V); the self caches are updated in place."""
-    b = x.shape[0]
-    # every cross slot is filled: cache_len is the encoder's length, made
-    # on the device (a fill, no host copy) so that a step can be captured
-    enc_len = pos.new_full((), cache["cross"]["k"].shape[2])
+    def cross(q, k, v, pos):
+        b = q.shape[0]
+        # every cross slot is filled: cache_len is the encoder's length,
+        # made on the device (a fill, no host copy) so that a step can be
+        # captured
+        out = decode_attention(
+            q.reshape(b, 1, -1, cfg.resolved_head_dim), k.to(q.dtype),
+            v.to(q.dtype), cache_len=pos.new_full((), k.shape[1]))
+        return out.reshape(b, 1, -1)
+
+    spec, spec4 = attn.head_specs(cfg, x, cfg.num_kv_heads)
     for l, lp in enumerate(_layers(params, cfg)):
-        h, _ = attn.gqa_decode(lp["attn"], rms_norm(x, lp["norm0"],
-                                                    cfg.norm_eps),
+        h, _ = attn.gqa_decode(lp["attn"], _norm(x, lp["norm0"], cfg),
                                _at(cache["self"], l), pos, cfg)
         x = x + h
         cp, cc = lp["cross"], _at(cache["cross"], l)
-        q = (rms_norm(x, lp["norm1"], cfg.norm_eps) @ cp["wq"].to(x.dtype)
-             ).reshape(b, 1, cfg.num_heads, cfg.resolved_head_dim)
-        out = decode_attention(q, cc["k"].to(x.dtype), cc["v"].to(x.dtype),
-                               cache_len=enc_len)
-        x = x + out.reshape(b, 1, -1) @ cp["wo"].to(x.dtype)
-        x = x + mlp_apply_dense(lp["mlp"], rms_norm(x, lp["norm2"],
-                                                    cfg.norm_eps),
+        q = _norm(x, lp["norm1"], cfg) @ cp["wq"].to(x.dtype)
+        out = PS.run(cross, (q, cc["k"], cc["v"], pos),
+                     (spec, spec4, spec4, ()), spec)
+        x = x + out @ cp["wo"].to(x.dtype)
+        x = x + mlp_apply_dense(lp["mlp"], _norm(x, lp["norm2"], cfg),
                                 cfg.mlp_gated)
     return _head(params, cfg, x)

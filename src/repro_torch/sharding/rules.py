@@ -18,9 +18,9 @@ DTensor nests in the mesh's dim order: the order every table's specs
 name them in (``NamedSharding`` nests in the spec's order), but for the
 ZeRO-1 table's ``ff_zero``, which no parameter uses.
 
-:func:`ws` is the reference's ``with_sharding_constraint`` by logical names.
-The port's model code does not call it yet (ROADMAP queue 1 entry 15);
-it redistributes a DTensor and leaves a plain tensor as it is.
+:func:`ws` is the reference's ``with_sharding_constraint`` by logical names,
+called at the reference's sites of the model code: it redistributes a
+DTensor and leaves a plain tensor as it is.
 """
 
 from __future__ import annotations
@@ -107,6 +107,26 @@ def mesh_axis_names(mesh) -> Tuple[str, ...]:
         raise ValueError("the sharding rules need a DeviceMesh with "
                          "mesh_dim_names")
     return tuple(names)
+
+
+def flat_mesh(mesh, axes: Optional[Sequence[str]] = None):
+    """A 1-D ``DeviceMesh`` over ``axes`` of ``mesh`` (default: every dim),
+    its ranks in the mesh's row-major order: the mesh itself when it is
+    1-D and ``axes`` names its dim (or none), one axis's submesh, or the
+    axes flattened into one (``DeviceMesh._flatten``, which the mesh
+    caches; the dims need names)."""
+    if axes is None and mesh.ndim == 1:
+        return mesh
+    names = mesh_axis_names(mesh)
+    axes = tuple(axes) if axes is not None else names
+    for a in axes:
+        if a not in names:
+            raise ValueError(f"mesh axis {a!r} not in mesh {names}")
+    if axes == names and mesh.ndim == 1:
+        return mesh
+    if len(axes) == 1:
+        return mesh[axes[0]]
+    return mesh[axes]._flatten()
 
 
 def rules_for_mesh(mesh) -> AxisRules:
@@ -216,14 +236,19 @@ def named_sharding(mesh, *logical: Optional[str]) -> NamedSharding:
 def ws(x, *logical: Optional[str]):
     """The reference's sharding constraint by logical axis names: ``x`` as
     it is without rules or for a plain tensor; a DTensor redistributed to
-    the placements of its names on its own mesh."""
+    the placements of its names on its own mesh, each axis applied where
+    it divides the dim (``guarded_pspec``: GSPMD pads an uneven dim, which
+    DTensor's views and products do not take; a decode step's one
+    position stays whole)."""
     from torch.distributed.tensor import DTensor
 
     rules = get_rules()
     if not rules or not isinstance(x, DTensor):
         return x
-    spec = logical_to_pspec(logical, rules)
-    return x.redistribute(x.device_mesh, to_placements(spec, x.device_mesh))
+    mesh = x.device_mesh
+    sizes = dict(zip(mesh_axis_names(mesh), mesh.mesh.shape))
+    spec = guarded_pspec(x.shape, logical, rules, sizes)
+    return x.redistribute(mesh, to_placements(spec, mesh))
 
 
 def local_index(shape, mesh, placements) -> Tuple[slice, ...]:

@@ -19,6 +19,8 @@ from typing import (Any, Callable, Iterator, List, NamedTuple, Optional,
 
 import torch
 
+from repro_torch.sharding.per_shard import is_dtensor
+
 #: ``adamw_update_`` updates a leaf of more elements one slice of its
 #: leading axes at a time (an expert, a layer, a run of rows), so that its
 #: temporaries stay a few times a slice: 64M elements, 256 MB in f32
@@ -157,8 +159,9 @@ def adamw_update_(grads: List[Optional[torch.Tensor]], state: AdamWState,
     """:func:`adamw_update` of the gradients times ``grad_scale`` (the
     clip), with ``params`` and ``state`` donated: each leaf's new
     parameter, ``mu`` and ``nu`` are written into the tensors given, leaf
-    by leaf in sorted key order and a leaf of more than
-    :data:`DONATE_SLICE_ELEMENTS` one slice at a time, computed by the same
+    by leaf in sorted key order and a plain leaf of more than
+    :data:`DONATE_SLICE_ELEMENTS` one slice at a time (a DTensor leaf, each
+    rank's shard, whole), computed by the same
     arithmetic (bitwise the functional step's).  ``grads`` holds the
     gradient leaves in that order; each entry is set to None once its
     leaf is written, so the step holds about 16 bytes a parameter (p, g,
@@ -177,7 +180,10 @@ def adamw_update_(grads: List[Optional[torch.Tensor]], state: AdamWState,
     try:
         for i, (p, m, v) in enumerate(leaves):
             g, grads[i] = grads[i], None
-            for idx in _chunks(tuple(p.shape), DONATE_SLICE_ELEMENTS):
+            # a DTensor leaf is updated whole: its arithmetic runs on each
+            # rank's own shard, and a slice of a sharded dim is no view
+            for idx in (((),) if is_dtensor(p) else
+                        _chunks(tuple(p.shape), DONATE_SLICE_ELEMENTS)):
                 new_p, new_m, new_v = _upd(g[idx] * grad_scale, m[idx],
                                            v[idx], p[idx], lr, c1, c2, b1,
                                            b2, eps, weight_decay)

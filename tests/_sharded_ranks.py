@@ -1,9 +1,11 @@
-"""The rank body of ``tests/test_torch_sharded.py``'s two-rank test.
+"""The rank bodies of ``tests/test_torch_sharded.py``'s spawned tests.
 
 A module of its own, importing only torch and the port, so that each
-spawned rank starts without loading JAX.  Each rank joins a gloo group of
-two, builds the mesh layout of its two shards (of four), and pickles its
-push and its sharded summary to ``{out}.{rank}``.
+spawned rank starts without loading JAX.  In :func:`run` each rank joins a
+gloo group of two, builds the mesh layout of its two shards (of four), and
+pickles its push and its sharded summary to ``{out}.{rank}``; in
+:func:`run_nd` each of four ranks of a 2 x 2 mesh pickles its one shard's
+rows and its push.
 """
 
 import pickle
@@ -71,6 +73,34 @@ def run(rank: int, init: str, out: str) -> None:
                 g, mesh=mesh, num_shards=4, weight=weight,
                 semiring=semiring))
             res[semiring] = summarize(g, x, hot, weight, semiring, layout)
+        with open(f"{out}.{rank}", "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+#: the layout rows each rank of the 2 x 2 run returns
+LAYOUT_FIELDS = ("src", "dst", "weight", "valid", "row_offsets", "order")
+
+
+def run_nd(rank: int, init: str, out: str) -> None:
+    """One rank of the four-rank run on a 2 x 2 ``("data", "model")``
+    mesh: its edge shards run over both axes flattened (four shards, one a
+    rank), built placed; pickles its rows and its all-reduced push."""
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=4)
+    try:
+        mesh = init_device_mesh("cpu", (2, 2),
+                                mesh_dim_names=("data", "model"))
+        res = {"coordinate": mesh.get_coordinate()}
+        for weight, semiring in CASES:
+            g, x, _ = inputs(weight)
+            layout = TP.build_sharded_layout(
+                g, mesh=mesh, weight=weight, semiring=semiring, placed=True)
+            res[semiring] = {
+                "num_shards": layout.num_shards, "axes": layout.axes,
+                **{f: getattr(layout, f).numpy() for f in LAYOUT_FIELDS},
+                "push": TB.push(x, layout, semiring=semiring).numpy()}
         with open(f"{out}.{rank}", "wb") as f:
             pickle.dump(res, f)
     finally:

@@ -19,10 +19,12 @@ Three parts, mirroring ``tests/test_analysis.py`` for the JAX package:
   partitions.
 
 The meshless sharded programs run against the reference's shard loop, and
-``test_rebalance_decision_stays_on_device`` is ported.  Left out, with the
-mesh programs (ROADMAP queue 1 entry 16): the HLO collective tests
-(``test_hlo_catches_oversized_all_gather``,
-``test_hlo_within_budget_is_clean``).
+``test_rebalance_decision_stays_on_device`` is ported.  The reference's HLO
+collective tests (``test_hlo_catches_oversized_all_gather``,
+``test_hlo_within_budget_is_clean``, ``test_hlo_catches_peak_temp``,
+``test_spec_budgets_are_ordered``) hold the COL rules to a trace the
+dispatch cost counter recorded on a fake process group; the mesh programs
+join the catalog on one.
 """
 
 import ast
@@ -49,6 +51,8 @@ from repro_torch.analysis import memory_audit as MA
 from repro_torch.analysis import programs as PR
 from repro_torch.analysis.rebuild import RebuildMonitor
 from repro_torch.kernels import build
+from repro_torch.launch.dispatch_cost import CostCounter
+from repro_torch.launch.mesh import destroy_mesh, init_fake_mesh
 from repro_torch.kernels.spmv import autotune as AT
 
 REPO = Path(__file__).resolve().parents[1]
@@ -350,8 +354,70 @@ def test_spec_budgets_and_thresholds_match_reference():
     assert spec.edge_threshold == ref.edge_threshold == spec.edge_capacity // 2
     assert spec.en_threshold == ref.en_threshold == (
         spec.edge_capacity * spec.node_capacity // 2)
-    assert MA.budgets_for_spec(spec).temp_bytes_max == \
-        JH.budgets_for_spec(ref).temp_bytes_max
+    # every budget the reference derives, the collective ones too
+    assert dataclasses.asdict(MA.budgets_for_spec(spec)) == \
+        dataclasses.asdict(JH.budgets_for_spec(ref))
+    for e_cap in (16384, 2**30):
+        assert dataclasses.asdict(MA.budgets_for_graph(e_cap)) == \
+            dataclasses.asdict(JH.budgets_for_graph(e_cap))
+
+
+# ---------------------------------------------------------------------------
+# injected collective violations (recorded on a fake group of four ranks)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def gather_trace():
+    """The cost of one all-gather of a 128 KiB int32 buffer from each of
+    four ranks (512 KiB: an edge stream of 16,384 slots replicated 8x),
+    recorded by the dispatch cost counter as rank 0 of a fake group."""
+    import torch.distributed as dist
+
+    init_fake_mesh((4,), ("shards",), device_type="cpu")
+    try:
+        x = torch.zeros(32768, dtype=torch.int32)
+        out = torch.empty(4 * 32768, dtype=torch.int32)
+        with CostCounter() as cc:
+            dist.all_gather_into_tensor(out, x)
+        yield cc.cost
+    finally:
+        destroy_mesh()
+
+
+def test_col_catches_oversized_all_gather(gather_trace):
+    # budget: one 4-byte edge buffer at E_cap = 16384, 64 KiB
+    budgets = MA.CollectiveBudgets(all_gather_max=4.0 * 16384)
+    found = MA.audit_cost(gather_trace, budgets, program="fab[ag]")
+    assert len(found) == 1 and found[0].rule == "COL-ALLGATHER-BYTES"
+    assert found[0].pass_id == "collective"
+    assert "5.243e+05" in found[0].detail  # measured bytes
+    assert "6.554e+04" in found[0].detail  # the budget it broke
+    assert _new(found)
+
+
+def test_col_within_budget_is_clean(gather_trace):
+    budgets = MA.CollectiveBudgets(all_gather_max=1e9)
+    assert MA.audit_cost(gather_trace, budgets, program="fab[ag]") == []
+    assert MA.audit_cost(gather_trace, MA.CollectiveBudgets(),
+                         program="fab[ag]") == []
+
+
+def test_col_catches_peak_temp(gather_trace):
+    budgets = MA.CollectiveBudgets(temp_bytes_max=1e6)
+    found = MA.audit_cost(gather_trace, budgets, program="fab[temp]",
+                          temp_bytes=2e9)
+    assert [f.rule for f in found] == ["MEM-TEMP"]
+
+
+def test_col_spec_budgets_are_ordered():
+    spec = PR.GraphSpec()
+    b = MA.budgets_for_spec(spec)
+    # bucket exchange << edge buffer << temp scratch: the budgets separate
+    assert b.all_to_all_max < b.all_gather_max < b.temp_bytes_max
+    assert spec.edge_threshold == spec.edge_capacity // 2
+    assert spec.en_threshold == spec.edge_capacity * spec.node_capacity // 2
+    assert F.pass_of_rule("COL-ALLGATHER-BYTES") == "collective"
 
 
 # ---------------------------------------------------------------------------
@@ -725,7 +791,8 @@ def test_analyze_torch_all_cpu_exits_zero(tmp_path, capsys):
     assert _load_front_door().main(["--all", "--device", "cpu", "--report",
                                     str(report)]) == 0
     out = capsys.readouterr().out
-    assert "analyze: OK" in out and "omitted" in out
+    # the collective pass ran the mesh programs (a fake group of four)
+    assert "analyze: OK" in out and "push_sharded[pallas,mesh]" in out
     import json
     rep = json.loads(report.read_text())
     assert rep["ok"] and rep["device"] == "cpu" and rep["new"] == []
@@ -764,9 +831,19 @@ def test_catalog_covers_the_reference_on_one_device():
     want = {PORT_OF.get(n, n) for n in ref if n not in PR.OMITTED}
     assert set(port) == want | set(MESHLESS)
     assert "push_sharded[segment_sum,loop]" in ref
-    # only the programs that need a mesh of two or more devices wait
-    assert set(PR.OMITTED) == {"push_sharded[segment_sum,mesh]",
-                               "push_sharded[pallas,mesh]"}
+    # nothing waits: the reference's mesh programs join the catalog given a
+    # mesh of two or more ranks (a fake group of four here)
+    assert PR.OMITTED == ()
+    mesh = init_fake_mesh((2, 2), ("data", "model"), device_type="cpu")
+    try:
+        meshed = [p.name for p in PR.catalog(device="cpu", mesh=mesh)]
+    finally:
+        destroy_mesh()
+    assert meshed[:17] == port
+    assert set(meshed[17:]) == {
+        "push_sharded[segment_sum,mesh]", "push_sharded[pallas,mesh]",
+        "build_summary[sharded,mesh]",
+        "fused_query_step[pagerank,sharded,mesh]"}
 
 
 @pytest.fixture(scope="module")

@@ -207,10 +207,14 @@ def test_sharded_push_guards(mesh):
     with pytest.raises(ValueError, match="slots assignment shape"):
         TP.build_sharded_layout(tg, num_shards=4,
                                 slots=torch.zeros(3, 100, dtype=torch.int32))
-    # the multi-axis mesh is ROADMAP queue 1 entry 16
+    # a multi-axis mesh: its axes flatten into one edge-shard axis (every
+    # axis by default, or the ones named); an unnamed one has none to name
     mesh2 = init_device_mesh("cpu", (1, 1), mesh_dim_names=("a", "b"))
-    with pytest.raises(NotImplementedError, match="entry 16"):
-        TP.build_sharded_layout(tg, mesh=mesh2)
+    for axes in (None, ("a", "b"), ("b",)):
+        flat = TP.build_sharded_layout(tg, mesh=mesh2, axes=axes)
+        assert flat.mesh.ndim == 1 and flat.num_shards == 1
+    with pytest.raises(ValueError, match="mesh_dim_names"):
+        TP.build_sharded_layout(tg, mesh=init_device_mesh("cpu", (1, 1)))
 
 
 def test_mesh_layout_reduces_over_the_mesh(mesh):
@@ -483,7 +487,8 @@ def test_mesh_knob_checks(mesh):
     with mock.patch.object(DeviceMesh, "device_type", "cuda"), \
             pytest.raises(ValueError, match="'cuda' mesh"):
         repro_torch.session((src, dst), device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="entry 16"):
+    # a mesh of more dims shards over their product; it needs dim names
+    with pytest.raises(ValueError, match="mesh_dim_names"):
         repro_torch.session((src, dst), device="cpu",
                             mesh=init_device_mesh("cpu", (1, 1)))
 
@@ -612,3 +617,110 @@ def test_two_rank_push_and_summary_exchange(tmp_path):
                 if w.ndim == 2:  # this rank's two E_K shards
                     w = w[2 * rank:2 * rank + 2]
                 np.testing.assert_array_equal(one[f], w, err_msg=f)
+
+
+# ------------------------------------------------------- the 2-D mesh and DTensor
+def test_two_by_two_mesh_push_matches_reference(tmp_path):
+    # four gloo ranks on a 2 x 2 ("data", "model") mesh: the edge shards run
+    # over both axes flattened, one a rank in row-major order; each rank's
+    # rows are the reference's meshless shard loop's row at S = 4, and its
+    # push the all-reduced whole
+    import _sharded_ranks as R
+
+    out = str(tmp_path / "res")
+    mp.spawn(R.run_nd, args=(f"file://{tmp_path / 'store'}", out), nprocs=4,
+             join=True)
+    src, dst, lengths, x, _ = R.arrays()
+    for rank in range(4):
+        with open(f"{out}.{rank}", "rb") as f:
+            got = pickle.load(f)
+        assert tuple(got["coordinate"]) == divmod(rank, 2)
+        for weight, semiring in R.CASES:
+            jg = jfrom_edges(src, dst, R.N, R.E_CAP,
+                             weights=lengths if weight == "length" else None)
+            jl = JP.build_sharded_layout(jg, num_shards=4, weight=weight,
+                                         semiring=semiring)
+            one = got[semiring]
+            assert one["num_shards"] == 4
+            assert one["axes"] == ("data", "model")
+            for f in R.LAYOUT_FIELDS:
+                np.testing.assert_array_equal(
+                    one[f], np.asarray(getattr(jl, f))[rank:rank + 1],
+                    err_msg=f)
+            _match(one["push"], JB.push(jnp.asarray(x), jl,
+                                        semiring=semiring,
+                                        backend="segment_sum"), semiring)
+
+
+def test_dtensor_steps_match_the_plain_steps(mesh):
+    # the dense smoke model's train, prefill and decode steps on DTensor
+    # parameters and inputs over a 1 x 1 ("data", "model") mesh, under the
+    # rules: bitwise the plain-tensor steps (every ws, per-shard region and
+    # the vocab-sharded loss on the one rank's whole tensors)
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.specs import param_pspecs_guarded
+    from repro_torch.models.params import init_params
+    from repro_torch.sharding import rules as TR
+    from repro_torch.train import step as ST
+    from repro_torch.train.optimizer import (AdamWState, adamw_init,
+                                             tree_leaves, tree_map)
+
+    cfg = get_smoke_config("qwen2_0_5b")
+    mesh2 = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+    rules, sizes = TR.rules_for_mesh(mesh2), {"data": 1, "model": 1}
+    pspecs = param_pspecs_guarded(cfg, rules, sizes)
+
+    def dt(t, spec=()):
+        return DTensor.from_local(t.clone(), mesh2,
+                                  TR.to_placements(spec, mesh2))
+
+    def dtree(tree, specs):
+        return {k: dtree(v, specs[k]) if isinstance(v, dict) else
+                dt(v, specs[k]) for k, v in tree.items()}
+
+    def local(tree):
+        return [t.to_local() if isinstance(t, DTensor) else t
+                for t in tree_leaves(tree)]
+
+    def same(a, b):
+        a, b = local(a), local(b)
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(5)
+    ids = lambda *s: torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, s).astype(np.int32))
+    batch = {"tokens": ids(2, 32), "labels": ids(2, 32)}
+    bspec = {"tokens": ("data",), "labels": ("data",)}
+    with TR.axis_rules(rules):
+        # train: the donated step writes both states in place
+        p_plain = tree_map(torch.clone, params)
+        o_plain = adamw_init(p_plain)
+        p_dt = dtree(params, pspecs)
+        o_dt = AdamWState(dt(torch.zeros((), dtype=torch.int32)),
+                          *(dtree(m, pspecs) for m in (o_plain.mu,
+                                                       o_plain.nu)))
+        train = ST.make_train_step(cfg)
+        _, _, m_plain = train(p_plain, o_plain, batch)
+        _, _, m_dt = train(p_dt, o_dt, {k: dt(v, bspec[k])
+                                        for k, v in batch.items()})
+        same(p_plain, p_dt)
+        same([o_plain.mu, o_plain.nu], [o_dt.mu, o_dt.nu])
+        same(m_plain, m_dt)
+        # prefill, then one decode step from each path's own caches
+        prefill = ST.make_prefill_step(cfg, cache_len=48)
+        logits, cache = prefill(p_plain, {"tokens": batch["tokens"]})
+        logits_dt, cache_dt = prefill(
+            p_dt, {"tokens": dt(batch["tokens"], ("data",))})
+        same([logits, cache], [logits_dt, cache_dt])
+        serve = ST.make_serve_step(cfg)
+        token, pos = ids(2, 1), torch.tensor(32, dtype=torch.int32)
+        logits, cache = serve(p_plain, cache, token, pos)
+        logits_dt, cache_dt = serve(p_dt, cache_dt, dt(token, ("data",)),
+                                    dt(pos))
+        same([logits, cache], [logits_dt, cache_dt])
+

@@ -6,9 +6,10 @@
     PYTHONPATH=src python tools/analyze_torch.py --all --report FILE.json
 
 Runs the selected passes (default ``--all``: the dispatch lint and the
-memory audit over the program catalog, the rebuild monitor and the
-dispatch lint over the two canned engine loops, each untuned and under
-``autotune="full"``, and the AST lint), compares
+memory audit over the program catalog, the collective audit over its
+mesh programs, the rebuild monitor and the dispatch lint over the two
+canned engine loops, each untuned and under ``autotune="full"``, and the
+AST lint), compares
 every finding against ``src/repro_torch/analysis/baseline.json`` (the
 entries that apply to the run's device type), and exits non-zero iff any
 finding is NOT allowlisted there.  Stale baseline entries (fixed
@@ -16,10 +17,12 @@ violations) are warnings — delete them.
 
 ``--device`` defaults to the card, as every entry point of the port does,
 and raises where there is none; ``--device cpu`` runs the catalog through
-the kernels' plain versions.  The catalog runs the meshless sharded
-programs; the ones that need a mesh of two or more devices wait for
-ROADMAP queue 1 entry 16 and are reported as omitted.
-``--update-baseline`` rewrites the
+the kernels' plain versions.  The collective pass runs the catalog's mesh
+programs as rank 0 of a fake process group of four ranks, a 2 x 2
+``("data", "model")`` mesh on the device's type (the collectives move no
+data; their sizes are what it audits), under a dispatch cost counter, and
+holds the largest collective of each kind to the spec's budgets
+(``COL-*``).  ``--update-baseline`` rewrites the
 baseline to accept the current findings (scoped to the run's device type
 where an entry is new) — review the diff and fill in the reason strings
 before committing.
@@ -33,7 +36,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO / "src"))
 
-_PASSES = ("dispatch", "memory", "rebuild", "ast")
+_PASSES = ("dispatch", "memory", "collective", "rebuild", "ast")
 
 
 def main(argv=None) -> int:
@@ -74,8 +77,6 @@ def main(argv=None) -> int:
 
         spec = PR.GraphSpec()
         cat = PR.catalog(spec, device=device)
-        notes.append("mesh programs omitted (ROADMAP queue 1 entry 16): "
-                     + ", ".join(PR.OMITTED))
         print(f"program catalog: {len(cat)} programs at "
               f"N={spec.node_capacity} E={spec.edge_capacity} "
               f"B={spec.batch} on {device}")
@@ -96,6 +97,31 @@ def main(argv=None) -> int:
             all_findings.extend(got)
             print(f"  {prog.name}: {rec.ops} ops, largest intermediate "
                   f"{rec.largest_bytes} B, {len(got)} finding(s)")
+
+    if "collective" in passes:
+        from repro_torch.analysis import memory_audit
+        from repro_torch.analysis import programs as PR
+        from repro_torch.launch.dispatch_cost import CostCounter
+        from repro_torch.launch.mesh import destroy_mesh, init_fake_mesh
+
+        spec = PR.GraphSpec()
+        mesh = init_fake_mesh((2, 2), ("data", "model"),
+                              device_type=device.type)
+        try:
+            progs = [p for p in PR.catalog(spec, device=device, mesh=mesh)
+                     if p.name.endswith(",mesh]")]
+            for prog in progs:
+                inputs = prog.inputs()
+                with CostCounter() as cc:
+                    prog.fn(*inputs)
+                got = memory_audit.audit_cost(cc.cost, prog.budgets,
+                                              program=prog.name)
+                all_findings.extend(got)
+                print(f"  {prog.name}: collectives "
+                      f"{dict(cc.cost.coll_counts)}, largest "
+                      f"{dict(cc.cost.coll_max)} B, {len(got)} finding(s)")
+        finally:
+            destroy_mesh()
 
     if {"rebuild", "dispatch"} & set(passes):
         from repro_torch.analysis import programs as PR

@@ -9,7 +9,8 @@ started together), makes the synth-web-lg stream and a serving plan from
 SSSP, CC, the forced-imbalance SSSP stream and one serving wave at 8 edge
 shards on a 1-rank NCCL mesh, each against an unsharded session on the
 card, then the sharded and unsharded push times and the kernels on a
-shard's stream.  It prints one JSON line per row (``--out`` also writes
+shard's stream, and last the dry run's sessions on a 1 x 1 ``("data",
+"model")`` mesh.  It prints one JSON line per row (``--out`` also writes
 them all to FILE) and a last line with ``ok`` true, or the failed check,
 the card's name and power limit and the seconds.  It needs a CUDA device
 and ``nvcc``.
@@ -62,14 +63,14 @@ def main() -> int:
     plan = C.serving_plan(s, d, spec.nodes, np.random.default_rng(C.SEED))
     t0 = time.perf_counter()
     try:
-        rows, counts, checks = C.sharded_path(
+        rows, counts, checks, (nd_rows, _) = C.sharded_path(
             stream, plan, torch.device("cuda"),
             np.random.default_rng(C.SHARDED_SEED))
     except AssertionError as e:
         print(json.dumps({"ok": False, "failed": str(e),
                           "nvidia_smi": smi}))
         return 1
-    rows = rows + [r for part in checks for r in part]
+    rows = rows + [r for part in checks for r in part] + nd_rows
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text("".join(json.dumps(r) + "\n" for r in rows))
