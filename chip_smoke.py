@@ -3321,6 +3321,25 @@ def graph_ms(fn, reps: int = 20) -> float:
     return ms
 
 
+def profiled_device_ms(fn) -> float:
+    """The summed device time of the kernels, copies and fills one
+    ``fn()`` call runs, from a ``torch.profiler`` trace of the card alone:
+    a step's device-only time, without the host's gaps between its
+    launches (a DTensor step dispatches each op on the host first).
+    None where the trace shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for evt in prof.key_averages():
+        t = getattr(evt, "device_time_total", None)
+        us += evt.cuda_time_total if t is None else t
+    return us / 1e3 if us > 0 else None
+
+
 def graph_ms_rotating(fns, reps: int = 20) -> float:
     """:func:`graph_ms` of calls that rotate through ``fns``, each on its
     own inputs: with more bytes in all than L2 holds, no call finds its
@@ -5843,11 +5862,84 @@ def ops_path(dev) -> tuple:
 
 # ---- the pod-scale dry run (slice R) ---------------------------------------
 #: the LM cells run on the card at full width on a 1 x 1 mesh: (shape, the
-#: global batch it is cut to); decode with its cache full.  No batch of 1:
-#: the specs shard a batch of 1 over the mesh's size-1 data axis, and
-#: DTensor will not flatten a sharded dim of size 1 into a product's rows
-DRYRUN_LM_CELLS = (("train_4k", 2), ("prefill_32k", 2), ("decode_32k", 8))
+#: global batch it is cut to); decode with its cache full
+DRYRUN_LM_CELLS = (("train_4k", 2), ("prefill_32k", 1), ("decode_32k", 8))
 DRYRUN_SEED = 30
+
+
+def placed_state_check(sess, mesh) -> dict:
+    """One summarized query of a session's algorithm from its engine's
+    graph and state, over layouts of ``SHARDS`` shards on ``mesh``, with
+    every 97th vertex taken as new since the baselines (so the hot set
+    grows through the frontier sweeps): from the whole graph state, and
+    from the state placed as the reference's ``graph_shardings`` lays it
+    out (edge buffers as DTensors, the layouts built from the rank's local
+    buffers, each frontier sweep's counts summed over the edge group); the
+    two bitwise, stats included.  On one rank the rank's slot range is
+    every slot: this runs the placed state's code path (its local buffers,
+    the sweeps' all-reduce over a group of one), not a split of the edges,
+    which ``dryrun-graph`` (rank 0 of 256) and the four-rank CPU tests
+    hold.  Fails unless the placed run made more all-reduces than the
+    whole one (one a frontier sweep)."""
+    from repro_torch.core.backend import normalize_layout_spec
+    from repro_torch.core.fused import fused_query_step
+    from repro_torch.graph.graph import edge_group, edge_slice
+    from repro_torch.graph.partition import (build_sharded_layout,
+                                             place_graph_state)
+    from repro_torch.launch.dispatch_cost import CostCounter
+
+    eng = sess.engine
+    cfg, algo = eng.config, eng.algorithm
+    placed = place_graph_state(eng.state, mesh)
+    dev = eng.state.device
+    scalar = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+    fresh = torch.arange(eng.state.node_capacity, device=dev) % 97 == 0
+    deg_prev = torch.where(fresh, 0, eng.deg_prev)
+    active_prev = eng.active_prev & ~fresh
+    runs = []
+    for st in (eng.state, placed):
+        with CostCounter() as cc:
+            layouts = tuple(
+                build_sharded_layout(st, mesh=mesh, num_shards=SHARDS,
+                                     weight=w, reverse=rev, semiring=sr,
+                                     placed=True)
+                for w, rev, sr in map(normalize_layout_spec,
+                                      algo.layout_specs))
+            new, stats = fused_query_step(
+                st, eng.algo_state, deg_prev, active_prev,
+                scalar(cfg.r), scalar(cfg.delta), algo=algo,
+                hot_node_capacity=cfg.hot_node_capacity,
+                hot_edge_capacity=cfg.hot_edge_capacity, n=cfg.n,
+                delta_hop_cap=cfg.delta_hop_cap,
+                degree_mode=cfg.degree_mode, expand_both=cfg.expand_both,
+                layouts=layouts)
+        runs.append(({k: v.cpu().numpy() for k, v in new.items()},
+                     [int(x) for x in stats[:8]],
+                     int(cc.cost.coll_counts.get("all-reduce", 0))))
+    (want, wstats, w_ar), (got, gstats, g_ar) = runs
+    if wstats != gstats or any(
+            not np.array_equal(got[k].view(np.uint8), want[k].view(np.uint8))
+            for k in want):
+        raise AssertionError(f"{algo.name}: the placed state's query "
+                             f"differs from the whole state's")
+    group = edge_group(placed)
+    held = edge_slice(placed).src.shape[0]
+    if group is None or g_ar <= w_ar or held != placed.edge_capacity:
+        raise AssertionError(
+            f"{algo.name}: the placed state ran no sweep all-reduce over "
+            f"its edge group ({w_ar} all-reduces whole, {g_ar} placed, "
+            f"{held} of {placed.edge_capacity} slots held)")
+    return {"phase": "dryrun-nd-mesh", "check": "placed-state",
+            "algorithm": algo.name, "shards": SHARDS,
+            "mesh": "1 x 1 (data, model), 1-rank NCCL",
+            "edge_slots_held": held,
+            "edge_capacity": placed.edge_capacity,
+            "edge_group_ranks": group.size(),
+            "all_reduces_whole": w_ar, "all_reduces_placed": g_ar,
+            "stats": dict(zip(("num_hot", "num_kr", "num_kn", "num_kdelta",
+                               "num_ek", "num_eb", "iterations",
+                               "used_fallback"), gstats)),
+            "bitwise_vs_whole_state": True}
 
 
 def nd_mesh_runs(stream, dev, ref) -> tuple:
@@ -5856,7 +5948,9 @@ def nd_mesh_runs(stream, dev, ref) -> tuple:
     the sharded phase's 1-rank NCCL group: PageRank bitwise the 1-D mesh's
     session (itself held to the unsharded one) and within ``SHARD_TOL`` of
     the unsharded session where the hot sets agree, SSSP and CC bitwise
-    the unsharded sessions.  ``ref`` holds the sharded phase's runs.  The
+    the unsharded sessions; for PageRank and SSSP a query from the state
+    placed as ``graph_shardings`` lays it out bitwise the whole state's
+    (:func:`placed_state_check`).  ``ref`` holds the sharded phase's runs.  The
     counts are set to 0 before the runs and read after.  Returns (rows,
     launch counts)."""
     from repro_torch.launch.mesh import make_local_mesh
@@ -5886,6 +5980,7 @@ def nd_mesh_runs(stream, dev, ref) -> tuple:
                 "shards": SHARDS, "queries": len(rows),
                 "bitwise_vs_1d_mesh": True,
                 "within_tol_vs_unsharded": agree, "sharded_pushes": pushes})
+    out.append(placed_state_check(sess, mesh))
     del sess
     for name, per_iter in (("sssp", 1), ("connected-components", 2)):
         s, rows, res = drive_sharded(stream, name, dict(TRAVERSAL)[name],
@@ -5902,6 +5997,8 @@ def nd_mesh_runs(stream, dev, ref) -> tuple:
                     "queries": len(rows), "bitwise_vs_unsharded": True,
                     "sharded_pushes": check_sharded_pushes(
                         f"2-D mesh {name}", rows, per_iter)})
+        if name == "sssp":
+            out.append(placed_state_check(s, mesh))
         del s
     counts = launch_counts()
     out.append({"phase": "dryrun-nd-mesh-total", "launches": counts,
@@ -5914,7 +6011,9 @@ def dryrun_graph_path(dev) -> tuple:
     """The veilgraph dry run cell at the reference's full size (N = 2^25,
     E = 2^30) as rank 0 of the single-pod mesh on a fake group of 256 on
     the card (``repro_torch.launch.dryrun.run_veilgraph_cell``: its three
-    gates, its record), then one shard push of rank 0's layout timed
+    gates, its record; rank 0 holds its 2^22 edge slots and the node
+    vectors, as the reference's ``graph_shardings`` place them), then one
+    shard push of rank 0's layout, built from rank 0's slice alone, timed
     against the record's modeled bytes.  The counts are set to 0 before
     the cell.  Returns (rows, launch counts)."""
     import torch.distributed as dist
@@ -5937,7 +6036,7 @@ def dryrun_graph_path(dev) -> tuple:
             raise AssertionError(f"veilgraph dry run cell: {rec['error']}\n"
                                  f"{rec['traceback']}")
         nodes, edges = 2**25, 2**30
-        state, _, _ = D.random_graph(nodes, edges, device=dev)
+        state, _, _ = D.random_graph(nodes, edges, mesh)
         layout = build_sharded_layout(state, mesh=mesh, placed=True)
         e_pad = layout.src.shape[1]
         del state
@@ -5952,6 +6051,7 @@ def dryrun_graph_path(dev) -> tuple:
                "a fake group of 256", "nodes": nodes, "edges": edges,
                "shard_edges": e_pad, "launches": counts,
                "spmv_push_launches": pushes,
+               "edge_slots_held": rec["edge_slots_held"],
                "argument_bytes": rf["memory_stats"]["argument_bytes"],
                "temp_bytes": rf["memory_stats"]["temp_bytes"],
                "flops_per_device": rf["flops_per_device"],
@@ -5966,7 +6066,8 @@ def dryrun_graph_path(dev) -> tuple:
                "push_coo_calls": rec["push_coo_calls"],
                "max_all_gather_bytes": rec["max_all_gather_bytes"],
                "push_baselines_within_10pct": len(rec["push_roofline"]),
-               "query_stats": rec["query_stats"], "cell_step_s":
+               "query_stats": rec["query_stats"], "note": rec["note"],
+               "cell_step_s":
                rec["step_s"], "cell_setup_s": rec["setup_s"],
                "shard_push_ms": push_ms,
                "shard_push_modeled_hbm_bytes": model["hbm_bytes"],
@@ -5975,6 +6076,11 @@ def dryrun_graph_path(dev) -> tuple:
                "wall_s": time.perf_counter() - t0}
         if pushes < 1:
             raise AssertionError("the graph cell launched no spmv_push")
+        if row["argument_bytes"] >= 1e9 or row["edge_slots_held"] != (
+                edges // mesh.size()):
+            raise AssertionError(f"rank 0 holds {row['argument_bytes']} B "
+                                 f"of arguments, {row['edge_slots_held']} "
+                                 f"edge slots: more than its placement")
         del layout, values
     finally:
         destroy_mesh()
@@ -6021,8 +6127,10 @@ def dryrun_lm_path(dev) -> tuple:
     decode step's logits and caches), with the flash forward, backward and
     decode launches of the DTensor steps counted (their kernels run on the
     local shards, through ``local_map``), and the cost counter's roofline
-    record of that step beside the step's device time (CUDA events around
-    a second DTensor step).  Returns (rows, launch counts)."""
+    record of that step beside the step's time: CUDA events around a
+    second DTensor step (the host's dispatch gaps in), and the summed
+    device time of a third step's kernels from a profiler trace
+    (:func:`profiled_device_ms`).  Returns (rows, launch counts)."""
     import dataclasses
 
     from torch.distributed.tensor import DTensor
@@ -6116,12 +6224,17 @@ def dryrun_lm_path(dev) -> tuple:
                 end.record()
                 torch.cuda.synchronize()
                 del again
+                # the same step's kernels alone, without DTensor's host
+                # dispatch between them
+                device_only = profiled_device_ms(
+                    lambda: cell.step_fn(*dargs))
                 rf = RL.analyze(cc.cost, arch=LM_ARCH, shape=shape,
                                 mesh_name="1x1", chips=1, cfg=cfg,
                                 memory_stats={"temp_bytes":
                                               cc.cost.peak_bytes})
                 row.update(launches={k: v for k, v in counts.items() if v},
                            step_device_ms=start.elapsed_time(end),
+                           step_device_only_ms=device_only,
                            roofline=rf.to_dict(),
                            wall_s=time.perf_counter() - t0)
                 out.append(row)

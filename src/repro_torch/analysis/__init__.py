@@ -19,8 +19,11 @@ committed baseline ``src/repro_torch/analysis/baseline.json``:
 
 :mod:`~repro_torch.analysis.programs` holds the catalog the program passes
 run; :mod:`~repro_torch.analysis.findings` the shared finding/baseline
-model.  The collective budgets, the dry run and the HLO cost model wait
-for the sharded programs (ROADMAP queue 1 entries 15 and 17b).
+model.  The collective budgets (``memory_audit.audit_cost`` with
+``budgets_for_graph``) hold the sharded programs' collectives as the
+pod-scale dry run (:mod:`repro_torch.launch.dryrun`) counts them with the
+dispatch cost model (:mod:`repro_torch.launch.dispatch_cost`), the port's
+counterpart of the reference's HLO cost model.
 """
 
 from pathlib import Path

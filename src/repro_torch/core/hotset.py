@@ -4,7 +4,9 @@ port of ``repro.core.hotset``).
 Each stage is a dense masked sweep over the edge list: a frontier
 expansion is one scatter-or along the edges, so K_n costs n sweeps and K_Δ
 at most ``delta_hop_cap``.  The K_Δ loop stops once a sweep adds nothing,
-which the host learns with one device read per sweep.
+which the host learns with one device read per sweep.  On a state placed
+on a mesh each rank sweeps its own edge slots and the ranks meet in one
+``[N]`` all-reduce a sweep.
 """
 
 from __future__ import annotations
@@ -13,7 +15,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.graph.graph import GraphState
+from repro_torch.graph.graph import GraphState, edge_group, edge_slice
+from repro_torch.sharding.rules import flat_sum
 
 
 class HotSetParams(NamedTuple):
@@ -35,20 +38,26 @@ class HotSetStats(NamedTuple):
 
 def _frontier_sweep(state: GraphState, mark: torch.Tensor, *,
                     both: bool) -> torch.Tensor:
-    """One BFS sweep: the vertices reachable in <= 1 hop from ``mark``."""
-    mask = state.edge_mask()
+    """One BFS sweep: the vertices reachable in <= 1 hop from ``mark``.
+    On a sliced state each rank counts its own edges and the counts meet
+    in one all-reduce before ``reach > 0`` (the reduction GSPMD inserts
+    for the reference's segment sum over sharded edges)."""
+    sl = edge_slice(state)
     n = mark.shape[0]
 
     def reach_along(frm, to):
         # a count per receiver stands in for the scatter-or, so duplicate
         # receivers need no ordering
-        hit = (mask & mark[frm]).to(torch.int32)
+        hit = (sl.mask & mark[frm]).to(torch.int32)
         return torch.zeros(n, dtype=torch.int32,
                            device=mark.device).index_add_(0, to.long(), hit)
 
-    reach = reach_along(state.src, state.dst)
+    reach = reach_along(sl.src, sl.dst)
     if both:
-        reach = reach + reach_along(state.dst, state.src)
+        reach = reach + reach_along(sl.dst, sl.src)
+    group = edge_group(state)
+    if group is not None:
+        reach = flat_sum(reach, group)
     return mark | (reach > 0)
 
 

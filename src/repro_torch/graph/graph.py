@@ -20,6 +20,19 @@ Layout (dtypes match the JAX package byte for byte):
 - ``node_active``: bool[node_capacity], True once a vertex appeared in an
   edge.
 - ``edge_len``: optional f32[edge_capacity] per-edge length in slot order.
+
+A state **placed** on a device mesh
+(:func:`repro_torch.graph.partition.place_graph_state`, or built from one
+rank's slot range by :func:`repro_torch.graph.partition.from_edge_slice`)
+holds its edge buffers as ``DTensor`` objects laid out by
+``partition.graph_shardings``: each rank keeps the contiguous slot range
+its placements give it, while ``num_edges`` and the node vectors stay
+whole plain tensors.  ``edge_capacity`` is still the global capacity.
+DTensor has no rule for the index ops an edge pass is built from, so a
+pass over a placed state runs on :func:`edge_slice` (the rank's local
+buffers and the global slot of its first one) and, where its result is
+node-sized, meets the other ranks in one all-reduce over
+:func:`edge_group`.
 """
 
 from __future__ import annotations
@@ -60,10 +73,17 @@ class GraphState(NamedTuple):
         return self.src.device
 
     def edge_mask(self) -> torch.Tensor:
-        """bool[E_cap]: True for live (non-padding, non-tombstone) edges."""
-        in_use = torch.arange(self.edge_capacity, dtype=torch.int32,
-                              device=self.device) < self.num_edges
-        return in_use & self.edge_alive
+        """bool[E_cap]: True for live (non-padding, non-tombstone) edges
+        (on a placed state a DTensor of the same placements, each rank's
+        shard from its own slots)."""
+        sl = edge_slice(self)
+        if not _is_dtensor(self.src):
+            return sl.mask
+        from torch.distributed.tensor import DTensor
+
+        return DTensor.from_local(sl.mask, self.src.device_mesh,
+                                  self.src.placements, shape=self.src.shape,
+                                  stride=self.src.stride(), run_check=False)
 
     def num_live_edges(self) -> torch.Tensor:
         """int32 0-d: edges that are in use and not tombstoned."""
@@ -76,6 +96,76 @@ class GraphState(NamedTuple):
     def total_deg(self) -> torch.Tensor:
         """int32[N_cap]: out-degree + in-degree per vertex."""
         return self.out_deg + self.in_deg
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+class EdgeSlice(NamedTuple):
+    """The edge buffers this rank holds: ``lo`` is the global slot of the
+    first; a state that is not placed (or is replicated) holds them all
+    (``lo`` 0)."""
+
+    lo: int
+    src: torch.Tensor
+    dst: torch.Tensor
+    edge_alive: torch.Tensor
+    edge_len: Optional[torch.Tensor]
+    mask: torch.Tensor  # live slots: global slot id < num_edges, alive
+
+    @property
+    def hi(self) -> int:
+        """One past the global slot of the last local one."""
+        return self.lo + self.src.shape[0]
+
+
+def edge_slice(state: GraphState) -> EdgeSlice:
+    """This rank's edge buffers of ``state`` as plain tensors, with the
+    global slot of the first, and their live mask (global slot ids compared
+    with ``num_edges``)."""
+    src = state.src
+    lo = 0
+    if _is_dtensor(src):
+        from repro_torch.sharding.rules import local_index
+
+        lo = local_index(src.shape, src.device_mesh, src.placements)[0].start
+    local = lambda t: (None if t is None else
+                       t.to_local() if _is_dtensor(t) else t)
+    src, dst, alive = local(state.src), local(state.dst), local(
+        state.edge_alive)
+    in_use = torch.arange(lo, lo + src.shape[0], dtype=torch.int32,
+                          device=src.device) < state.num_edges
+    return EdgeSlice(lo, src, dst, alive, local(state.edge_len),
+                     in_use & alive)
+
+
+def is_sliced(state: GraphState) -> bool:
+    """Whether this rank holds fewer than every edge slot of ``state``."""
+    return (_is_dtensor(state.src)
+            and state.src.to_local().shape[0] < state.edge_capacity)
+
+
+def edge_group(state: GraphState):
+    """The 1-D device mesh over the mesh dims that a placed state's edge
+    slots are split over, the ones ``partition.edge_sharding`` names (a dim
+    of size 1 too, whose one rank holds every slot): the ranks whose
+    node-sized partial results sum to the whole graph's.  None for a state
+    that is not placed, or whose edge buffers the sharding replicates."""
+    if not _is_dtensor(state.src):
+        return None
+    from repro_torch.graph.partition import edge_sharding
+    from repro_torch.sharding.rules import flat_mesh
+
+    mesh = state.src.device_mesh
+    spec = edge_sharding(mesh, state.edge_capacity).spec
+    named = spec[0] if spec else None
+    named = (named,) if isinstance(named, str) else tuple(named or ())
+    if not named:
+        return None
+    return flat_mesh(mesh, [a for a in mesh.mesh_dim_names if a in named])
 
 
 def empty(node_capacity: int, edge_capacity: int, *,

@@ -23,11 +23,18 @@ The mesh is a ``torch.distributed.device_mesh.DeviceMesh`` of one or more
 dimensions; a layout's edge shards run over the product of its axes
 (``mesh_axes``, every axis by default), which :func:`build_sharded_layout`
 flattens into one 1-D mesh (``sharding.rules.flat_mesh``), so every push,
-summary and rebalance below sees one edge-shard axis.  Each rank holds the
-whole graph state and keeps the rows of its own ``num_shards / R`` shards
-(:func:`place_sharded_layout`).  :func:`edge_sharding`/:func:`graph_shardings` give the raw
-graph buffers' shardings under the sharding rules: edge buffers over the
-mesh by the ``edges`` rule, node vectors replicated.
+summary and rebalance below sees one edge-shard axis.  Each rank keeps
+the rows of its own ``num_shards / R`` shards (:func:`place_sharded_layout`).
+:func:`edge_sharding`/:func:`graph_shardings` give the raw graph buffers'
+shardings under the sharding rules: edge buffers over the mesh by the
+``edges`` rule, node vectors replicated.  :func:`place_graph_state` lays a
+state out by them, so that a rank holds only its slot range of the edge
+buffers, and :func:`from_edge_slice` builds that rank's state from its
+slot range alone (a loader that never holds the whole graph).  A placed
+layout builds from such a state with no communication: a rank's shards
+are slot ranges inside its own (:func:`build_sharded_layout`).  The
+engine keeps the whole state (a rebalanced partition moves slots between
+ranks, which a sliced state cannot do here).
 """
 
 from __future__ import annotations
@@ -37,12 +44,20 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core import backend as B
-from repro_torch.graph.graph import GraphState, inv_out_degree
+from repro_torch.graph.graph import (GraphState, edge_group, edge_slice,
+                                     inv_out_degree, is_sliced)
 from repro_torch.sharding.rules import (NamedSharding, flat_mesh,
-                                        guarded_pspec, mesh_axis_names,
+                                        flat_sum, guarded_pspec,
+                                        local_index, mesh_axis_names,
                                         rules_for_mesh)
+
+#: what a sliced state cannot do yet, and where the work is queued
+SLICED_REBALANCE = ("a rebalanced slot assignment moves edges between the "
+                    "ranks' slices, which the port does not do yet (ROADMAP "
+                    "queue 1 entry 15); rebalance on the whole state")
 
 
 def edge_sharding(mesh, edge_capacity: int) -> NamedSharding:
@@ -62,6 +77,92 @@ def graph_shardings(mesh, state: GraphState) -> GraphState:
     return GraphState(src=e, dst=e, edge_alive=e, num_edges=n,
                       out_deg=n, in_deg=n, node_active=n,
                       edge_len=None if state.edge_len is None else e)
+
+
+def edge_slot_range(mesh, edge_capacity: int) -> Tuple[int, int]:
+    """``(lo, hi)``: the global edge slots this rank holds under
+    :func:`edge_sharding` (every slot where the buffer is replicated)."""
+    sh = edge_sharding(mesh, edge_capacity)
+    idx = local_index((edge_capacity,), mesh, sh.placements)[0]
+    return idx.start, idx.stop
+
+
+def _edge_dtensor(local: torch.Tensor, mesh,
+                  edge_capacity: int) -> DTensor:
+    """This rank's slot range ``local`` of an edge buffer as the DTensor
+    :func:`edge_sharding` places (no collective)."""
+    return DTensor.from_local(
+        local, mesh, edge_sharding(mesh, edge_capacity).placements,
+        shape=(edge_capacity,), stride=(1,), run_check=False)
+
+
+def place_graph_state(state: GraphState, mesh) -> GraphState:
+    """``state`` laid out as :func:`graph_shardings` gives (the
+    reference's ``in_shardings``): each edge buffer a ``DTensor`` of which
+    this rank keeps a copy of its own slot range only, ``num_edges`` and
+    the node vectors as they are.  Every rank passes the whole state; no
+    collective runs."""
+    if isinstance(state.src, DTensor):
+        raise ValueError("place_graph_state takes a state that is not "
+                         "placed yet")
+    e_cap = state.edge_capacity
+    lo, hi = edge_slot_range(mesh, e_cap)
+    cut = lambda t: (None if t is None else
+                     _edge_dtensor(t[lo:hi].clone(), mesh, e_cap))
+    return state._replace(src=cut(state.src), dst=cut(state.dst),
+                          edge_alive=cut(state.edge_alive),
+                          edge_len=cut(state.edge_len))
+
+
+def from_edge_slice(mesh, src, dst, *, node_capacity: int,
+                    edge_capacity: int, num_edges: int, weights=None,
+                    degrees=None) -> GraphState:
+    """This rank's placed state (as :func:`place_graph_state` lays it out)
+    from its own slot range alone: ``src``/``dst`` (and ``weights``) hold
+    the edges of the slots ``[lo, min(hi, num_edges))`` of
+    :func:`edge_slot_range`, in slot order; later slots are padding.
+
+    ``degrees`` ``(out_deg, in_deg)`` are the whole graph's, where the
+    caller counted them; without them each rank counts its own slots and
+    the counts meet in one all-reduce over the ranks the edges are split
+    over.  The buffers go to the mesh's device on this rank."""
+    device = (torch.device("cpu") if mesh.device_type == "cpu" else
+              torch.device(mesh.device_type, torch.cuda.current_device()))
+    lo, hi = edge_slot_range(mesh, edge_capacity)
+    m = max(0, min(hi, num_edges) - lo)
+    src = torch.as_tensor(src, dtype=torch.int32).to(device)
+    dst = torch.as_tensor(dst, dtype=torch.int32).to(device)
+    if src.shape != (m,) or dst.shape != (m,):
+        raise ValueError(f"this rank holds slots [{lo}, {hi}) of which "
+                         f"{m} are below num_edges={num_edges}; got src "
+                         f"{tuple(src.shape)}, dst {tuple(dst.shape)}")
+    pad = lambda t, v: torch.nn.functional.pad(t, (0, hi - lo - m), value=v)
+    place = lambda t: _edge_dtensor(t, mesh, edge_capacity)
+    edge_len = None
+    if weights is not None:
+        w = torch.as_tensor(weights, dtype=torch.float32).to(device)
+        if w.shape != (m,):
+            raise ValueError("weights must align with src/dst")
+        edge_len = place(pad(w, 1.0))
+    state = GraphState(
+        src=place(pad(src, 0)), dst=place(pad(dst, 0)),
+        edge_alive=place(torch.ones(hi - lo, dtype=torch.bool,
+                                    device=device)),
+        num_edges=torch.tensor(num_edges, dtype=torch.int32, device=device),
+        out_deg=None, in_deg=None, node_active=None, edge_len=edge_len)
+    if degrees is None:
+        count = lambda ids: torch.bincount(
+            ids.long(), minlength=node_capacity).to(torch.int32)
+        out_deg, in_deg = count(src), count(dst)
+        group = edge_group(state)
+        if group is not None:
+            out_deg, in_deg = flat_sum(torch.stack([out_deg, in_deg]),
+                                       group)
+    else:
+        out_deg, in_deg = (torch.as_tensor(d, dtype=torch.int32).to(device)
+                           for d in degrees)
+    return state._replace(out_deg=out_deg, in_deg=in_deg,
+                          node_active=(out_deg + in_deg) > 0)
 
 
 def host_edge_slice(num_edges: int, process: int,
@@ -99,7 +200,10 @@ def _build_shards(state: GraphState, *, num_shards: int, weight: str,
     slot order, cut the slots into shards (contiguously, or by ``slots``),
     and sort each shard by destination on its own; ``rows`` ``(lo, hi)``
     builds shards ``lo..hi-1`` only (each shard's rows are those of the
-    whole build)."""
+    whole build).  On a placed state the work runs on this rank's slot
+    range (:func:`~repro_torch.graph.graph.edge_slice`), which must hold
+    the rows' slots: the contiguous cut then needs no communication, and
+    ``order`` keeps global slot ids."""
     if weight == "length" and lengths is None:
         lengths = state.edge_len
     s = B.validate_weight_spec(weight, reverse=reverse, semiring=semiring,
@@ -107,9 +211,15 @@ def _build_shards(state: GraphState, *, num_shards: int, weight: str,
                                edge_capacity=state.edge_capacity)
     dev = state.device
     e_cap, n_cap = state.edge_capacity, state.node_capacity
-    mask = state.edge_mask()
-    e_src, e_dst = (state.dst, state.src) if reverse else (state.src,
-                                                           state.dst)
+    es = edge_slice(state)
+    if slots is not None and is_sliced(state):
+        raise NotImplementedError(SLICED_REBALANCE)
+    if isinstance(lengths, DTensor):
+        lengths = lengths.to_local()
+    elif lengths is not None and lengths.shape[0] != es.src.shape[0]:
+        lengths = lengths[es.lo:es.hi]
+    mask = es.mask
+    e_src, e_dst = (es.dst, es.src) if reverse else (es.src, es.dst)
     # the ⊗-operand of build_layout, here in slot order
     w = B.bake_weights(s, weight, mask, e_src, inv_deg=inv_out_degree(state),
                        lengths=lengths, weight_dtype=weight_dtype)
@@ -119,8 +229,17 @@ def _build_shards(state: GraphState, *, num_shards: int, weight: str,
     e_s = -(-e_cap // num_shards)
     lo, hi = (0, num_shards) if rows is None else rows
     if slots is None:
+        first, last = lo * e_s, min(hi * e_s, e_cap)
+        if first < es.lo or last > es.hi:
+            raise ValueError(
+                f"shards {lo}..{hi - 1} hold slots [{first}, {last}), "
+                f"outside this rank's slots [{es.lo}, {es.hi}): a sliced "
+                f"state builds its own rows only (placed=True, num_shards "
+                f"a multiple of the ranks the edges are split over, and "
+                f"edge_capacity a multiple of num_shards)")
+
         def cut(x, cval):
-            part = x[lo * e_s:hi * e_s]
+            part = x[first - es.lo:last - es.lo]
             return torch.nn.functional.pad(
                 part, (0, (hi - lo) * e_s - part.shape[0]),
                 value=cval).reshape(hi - lo, e_s)
@@ -137,7 +256,8 @@ def _build_shards(state: GraphState, *, num_shards: int, weight: str,
     dst2 = cut(torch.where(mask, e_dst, n_cap), n_cap)  # invalid sorts last
     w2 = cut(w, zero)
     valid2 = cut(mask, False)
-    order2 = cut(torch.arange(e_cap, dtype=torch.int32, device=dev), e_cap)
+    order2 = cut(torch.arange(es.lo, es.hi, dtype=torch.int32, device=dev),
+                 e_cap)
 
     # S independent stable destination sorts, one per row
     dst2, perm = torch.sort(dst2, dim=1, stable=True)
@@ -332,6 +452,8 @@ def rebalance_sharded_layout(
     once per applied batch).  The migration happens at the next
     :func:`build_sharded_layout`, which gathers the streams by the new
     assignment."""
+    if is_sliced(state):
+        raise NotImplementedError(SLICED_REBALANCE)
     if slots is None:
         slots = torch.from_numpy(
             shard_slots(state.edge_capacity, num_shards)).to(state.device)
@@ -368,8 +490,13 @@ def place_sharded_layout(
 __all__ = [
     "balanced_shard_slots",
     "build_sharded_layout",
+    "edge_sharding",
+    "edge_slot_range",
+    "from_edge_slice",
+    "graph_shardings",
     "host_edge_slice",
     "mesh_shard_count",
+    "place_graph_state",
     "place_sharded_layout",
     "rebalance_decision",
     "rebalance_sharded_layout",

@@ -24,10 +24,12 @@ op on this rank's local shards and each collective DTensor issues:
   over a seeded random graph of N = 2^25 rows and E = 2^30 edges cut over
   the mesh's 256 or 512 edge shards, with the reference's three gates
   (no ``push_coo`` call, no all-gather of a whole edge buffer, the pinned
-  push shapes within 10% of their modeled bytes).  The fake all-reduce
-  merges nothing, so the answer is not checked here.  The port keeps the
-  whole graph state on every rank, which the record's argument bytes
-  show.
+  push shapes within 10% of their modeled bytes).  Rank 0 holds what
+  the reference's placement gives it: its slot range of the edge buffers
+  (built from that range alone) and the node vectors whole.  The fake
+  all-reduce merges nothing, so the frontier sweeps and the pushes see
+  rank 0's edges only: the record's ``query_stats`` are rank 0's view, and
+  the answer is not checked here.
 
 Every number a record holds is a model of one device, never an answer
 and never a time.  Records go to ``artifacts/dryrun_torch/<mesh>/
@@ -205,29 +207,84 @@ def run_cell(arch: str, shape_name: str, mesh, mesh_name: str,
     return rec
 
 
-def random_graph(nodes: int, edges: int, *, device, seed: int = 0):
-    """A seeded uniform random graph of ``edges`` live edges over ``nodes``
-    vertices as a full ``GraphState`` on ``device`` (made there), and the
-    out-degrees and active flags before its last 1% of edges (the update
-    batch a query follows)."""
-    from repro_torch.graph.graph import GraphState
+#: what the graph record says of its query stats
+GRAPH_NOTE = ("rank 0 holds its slot range of the edge buffers and the node "
+              "vectors whole; the fake group's collectives return at once, "
+              "so query_stats are rank 0's view (its sweeps and pushes over "
+              "its own edges)")
 
-    gen = torch.Generator(device=device).manual_seed(seed)
-    src = torch.randint(0, nodes, (edges,), generator=gen, dtype=torch.int32,
-                        device=device)
-    dst = torch.randint(0, nodes, (edges,), generator=gen, dtype=torch.int32,
-                        device=device)
-    count = lambda ids: torch.bincount(ids, minlength=nodes).to(torch.int32)
-    out_deg, in_deg = count(src), count(dst)
+#: the slots the degree count streams through at a time
+DEGREE_CHUNK = 1 << 26
+
+
+def random_edges(lo: int, hi: int, nodes: int, *, device,
+                 seed: int = 0):
+    """``(src, dst)`` int32 of the edge slots ``[lo, hi)`` of the seeded
+    random graph: each endpoint a function of (seed, slot, which end), a
+    32-bit integer hash (``lowbias32``) of the slot's counter taken modulo
+    ``nodes``, so that any slot range is the same slots of the whole
+    graph, on any device."""
+    mask = 0xFFFFFFFF
+    slot = torch.arange(lo, hi, dtype=torch.int64, device=device)
+
+    def mul32(x, c):
+        # x·c mod 2^32 in int64 without overflow: c in two 16-bit halves
+        return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & mask
+
+    def end(which: int) -> torch.Tensor:
+        x = (slot * 2 + which + seed * 0x9E3779B9) & mask
+        x = x ^ (x >> 16)
+        x = mul32(x, 0x7FEB352D)
+        x = x ^ (x >> 15)
+        x = mul32(x, 0x846CA68B)
+        x = x ^ (x >> 16)
+        return (x % nodes).to(torch.int32)
+    return end(0), end(1)
+
+
+def _streamed_degrees(nodes: int, edges: int, *, device, seed: int):
+    """``(out_deg, in_deg, deg_prev, active_prev)`` of the whole random
+    graph, counted from chunks of :data:`DEGREE_CHUNK` slots made and
+    dropped in turn (a loader would all-reduce its ranks' counts): the
+    degrees now and the out-degrees and activity before the last 1% of
+    the edges (the update batch a query follows)."""
     old = edges - edges // 100
-    deg_prev = count(src[:old])
-    active_prev = (deg_prev + count(dst[:old])) > 0
-    state = GraphState(
-        src=src, dst=dst,
-        edge_alive=torch.ones(edges, dtype=torch.bool, device=device),
-        num_edges=torch.tensor(edges, dtype=torch.int32, device=device),
-        out_deg=out_deg, in_deg=in_deg,
-        node_active=(out_deg + in_deg) > 0)
+    zeros = lambda: torch.zeros(nodes, dtype=torch.int32, device=device)
+    out_deg, in_deg, prev_out, prev_in = (zeros() for _ in range(4))
+    for lo in range(0, edges, DEGREE_CHUNK):
+        hi = min(lo + DEGREE_CHUNK, edges)
+        src, dst = random_edges(lo, hi, nodes, device=device, seed=seed)
+        count = lambda ids: torch.bincount(
+            ids, minlength=nodes).to(torch.int32)
+        out_deg += count(src)
+        in_deg += count(dst)
+        if lo < old:
+            k = min(hi, old) - lo
+            prev_out += count(src[:k])
+            prev_in += count(dst[:k])
+        del src, dst
+    return out_deg, in_deg, prev_out, (prev_out + prev_in) > 0
+
+
+def random_graph(nodes: int, edges: int, mesh, *, seed: int = 0):
+    """This rank's part of a seeded uniform random graph of ``edges`` live
+    edges over ``nodes`` vertices (:func:`random_edges`), made on the
+    mesh's device as the reference's ``graph_shardings`` place it: its
+    slot range of the edge buffers, built from that range alone
+    (:func:`repro_torch.graph.partition.from_edge_slice`), the node
+    vectors whole; and the out-degrees and active flags before the last
+    1% of its edges (the update batch a query follows).  The degrees come
+    from streaming the whole graph in chunks."""
+    from repro_torch.graph.partition import edge_slot_range, from_edge_slice
+
+    device = torch.device(mesh.device_type)
+    out_deg, in_deg, deg_prev, active_prev = _streamed_degrees(
+        nodes, edges, device=device, seed=seed)
+    lo, hi = edge_slot_range(mesh, edges)
+    src, dst = random_edges(lo, hi, nodes, device=device, seed=seed)
+    state = from_edge_slice(mesh, src, dst, node_capacity=nodes,
+                            edge_capacity=edges, num_edges=edges,
+                            degrees=(out_deg, in_deg))
     return state, deg_prev, active_prev
 
 
@@ -261,15 +318,22 @@ def run_veilgraph_cell(mesh, mesh_name: str, *, nodes: int = 2**25,
     - every pinned push shape within 10% of its committed modeled HBM
       bytes (:func:`repro_torch.launch.roofline.check_push_baselines`).
 
-    The record holds the per-device counts, the SpMV launches, the memory
-    (argument bytes: the graph state and the algorithm state this rank
-    holds; temporaries: the counter's peak of what the step made) and a
-    :class:`~repro_torch.launch.roofline.Roofline` at the card's rates."""
+    The state is rank 0's as the reference's ``in_shardings`` place it
+    (:func:`random_graph`: its slot range of the edge buffers, the node
+    vectors whole).  The record holds the per-device
+    counts, the SpMV launches, the memory (argument bytes: the edge slice,
+    the node vectors and the algorithm state this rank holds; temporaries:
+    the counter's peak of what the step made) and a
+    :class:`~repro_torch.launch.roofline.Roofline` at the card's rates.
+    Every collective of the fake group returns at once, so the record's
+    ``query_stats`` are rank 0's view (its frontier sweeps and pushes
+    over its own edges), as the pushes' all-reduce already were."""
     from repro_torch.analysis.memory_audit import audit_cost, \
         budgets_for_graph
     from repro_torch.core import backend as B
     from repro_torch.core.algorithm import make_algorithm
     from repro_torch.core.fused import fused_query_step
+    from repro_torch.graph.graph import edge_slice
     from repro_torch.kernels.spmv import kernel as K
 
     device = torch.device(mesh.device_type)
@@ -278,8 +342,8 @@ def run_veilgraph_cell(mesh, mesh_name: str, *, nodes: int = 2**25,
     t0 = time.time()
     try:
         backend_r = _resolve_backend(backend, device)
-        state, deg_prev, active_prev = random_graph(nodes, edges,
-                                                    device=device, seed=seed)
+        state, deg_prev, active_prev = random_graph(nodes, edges, mesh,
+                                                    seed=seed)
         algo = make_algorithm("pagerank", num_iters=30, tol=1e-6)
         algo_state = algo.init_state(state)
         # the reference's capacities, capped at the graph's own size (a
@@ -343,7 +407,9 @@ def run_veilgraph_cell(mesh, mesh_name: str, *, nodes: int = 2**25,
                    max_all_gather_bytes=cc.cost.coll_max.get("all-gather",
                                                              0.0),
                    coll_max=dict(cc.cost.coll_max), launches=launches,
-                   query_stats=stats_host, push_roofline=push_checks,
+                   query_stats=stats_host, note=GRAPH_NOTE,
+                   edge_slots_held=edge_slice(state).src.shape[0],
+                   push_roofline=push_checks,
                    roofline=rf.to_dict())
         print(f"  veilgraph memory: args={arg_bytes / 2**30:.2f}GiB "
               f"temp={cc.cost.peak_bytes / 2**30:.2f}GiB; "

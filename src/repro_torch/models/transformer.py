@@ -276,11 +276,8 @@ def _final_state(p, zxbcdt: torch.Tensor, cfg: ModelConfig):
 def _embed(params, cfg: ModelConfig, tokens: torch.Tensor,
            prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     # gather first, then cast: the same values as the reference's cast of
-    # the whole table, without casting it (a DTensor table through
-    # embedding, which DTensor places, the same gather)
-    tok = params["embed"]["tok"]
-    rows = (torch.nn.functional.embedding(tokens.long(), tok)
-            if PS.is_dtensor(tok) else tok[tokens.long()])
+    # the whole table, without casting it (a DTensor table per shard)
+    rows = PS.vocab_lookup(params["embed"]["tok"], tokens)
     x = rows.to(getattr(torch, cfg.activation_dtype))
     if prefix_embeds is not None:
         # the frontend stub: precomputed patch embeddings before the tokens

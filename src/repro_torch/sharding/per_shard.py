@@ -24,8 +24,9 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.sharding.rules import (Spec, get_rules, guarded_pspec,
-                                        rules_for_mesh, to_placements)
+from repro_torch.sharding.rules import (Spec, flat_sum, get_rules,
+                                        guarded_pspec, rules_for_mesh,
+                                        to_placements)
 
 
 def is_dtensor(x) -> bool:
@@ -105,6 +106,76 @@ def run(fn: Callable, args: tuple, in_specs: Sequence[Optional[Spec]],
                      device_mesh=mesh, redistribute_inputs=True)(*args)
 
 
+def vocab_lookup(table, ids):
+    """``table[ids]``: the rows of a ``(V, d)`` embedding table.  On a
+    DTensor table, per shard: the table's vocabulary split kept and its
+    other dims gathered, the ids on the ``batch`` rule's axes, each rank
+    taking the rows its vocabulary range holds (zero elsewhere), then one
+    sum over the vocabulary axes, which adds each row to zeros (exact).
+    DTensor's own ``embedding`` marks its output a masked partial whose
+    mask a 2-D mesh mismatches, so the region does not use it."""
+    if not is_dtensor(table):
+        return table[ids.long()]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.sharding.rules import local_index
+
+    mesh = table.device_mesh
+    vocab = tuple(Shard(0) if p == Shard(0) else Replicate()
+                  for p in table.placements)
+    table = table.redistribute(placements=vocab)
+    if not is_dtensor(ids):
+        ids = replicate_like(table, ids)
+    id_pl = to_placements(batch_spec(mesh, ids.shape), mesh)
+    id_pl = tuple(Replicate() if v == Shard(0) else p
+                  for p, v in zip(id_pl, vocab))
+    lo = local_index(table.shape, mesh, vocab)[0].start
+
+    def rows(t, i):
+        i = i.long() - lo
+        hit = (i >= 0) & (i < t.shape[0])
+        got = t[i.clamp(0, max(t.shape[0] - 1, 0))]
+        return torch.where(hit[..., None], got, torch.zeros_like(got))
+    out_pl = tuple(Partial() if v == Shard(0) else p
+                   for p, v in zip(id_pl, vocab))
+    # a rank's table gradient covers its own ids' rows only: a partial
+    # sum over the mesh dims the ids are split over
+    grad_pl = tuple(v if v == Shard(0) else Partial() if p.is_shard()
+                    else Replicate() for p, v in zip(id_pl, vocab))
+    out = local_map(rows, out_placements=(out_pl,),
+                    in_placements=(vocab, id_pl),
+                    in_grad_placements=(grad_pl, id_pl), device_mesh=mesh,
+                    redistribute_inputs=True)(table, ids)
+    return out.redistribute(placements=tuple(
+        Replicate() if p == Partial() else p for p in out_pl))
+
+
+def to_placements_of(x, placements):
+    """DTensor ``x`` redistributed to ``placements``.  Where ``x`` is
+    partial over several mesh dims that ``placements`` replicate, and
+    agrees with it on every other dim, the sum is one all-reduce over
+    those dims flattened, where DTensor's redistribute would run one a
+    dim, in an order the ranks need not share."""
+    placements = tuple(placements)
+    if tuple(x.placements) == placements:
+        return x
+    dims = [i for i, p in enumerate(x.placements) if p.is_partial()]
+    same = all(p == q for i, (p, q) in enumerate(zip(x.placements,
+                                                     placements))
+               if i not in dims)
+    if (len(dims) < 2 or not same
+            or not all(placements[i].is_replicate() for i in dims)):
+        return x.redistribute(placements=placements)
+    from torch.distributed.tensor import DTensor
+
+    mesh = x.device_mesh
+    local = flat_sum(x.to_local(), mesh,
+                     [mesh.mesh_dim_names[i] for i in dims])
+    return DTensor.from_local(local, mesh, placements, shape=x.shape,
+                              stride=x.stride(), run_check=False)
+
+
 def held_as(cache, spec: Spec, mesh):
     """``(view, write_back)`` for a cache leaf a region updates in place:
     on a DTensor whose placements differ from ``spec``'s (a
@@ -124,4 +195,5 @@ def held_as(cache, spec: Spec, mesh):
 
 
 __all__ = ["batch_spec", "guarded_spec", "head_spec", "held_as",
-           "is_dtensor", "mesh_of", "replicate_like", "run"]
+           "is_dtensor", "mesh_of", "replicate_like", "run",
+           "to_placements_of", "vocab_lookup"]

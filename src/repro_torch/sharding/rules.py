@@ -126,7 +126,23 @@ def flat_mesh(mesh, axes: Optional[Sequence[str]] = None):
         return mesh
     if len(axes) == 1:
         return mesh[axes[0]]
-    return mesh[axes]._flatten()
+    # the mesh's own bookkeeping, outside any fake tensor or counting mode
+    # a caller runs under
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes():
+        return mesh[axes]._flatten()
+
+
+def flat_sum(x, mesh, axes: Optional[Sequence[str]] = None):
+    """``x`` summed over the ranks of ``mesh``'s dims ``axes`` (every dim by
+    default): one all-reduce over them flattened (:func:`flat_mesh`), where
+    DTensor would run one a dim, in an order the ranks need not share.
+    Returns a new tensor."""
+    import torch.distributed._functional_collectives as funcol
+
+    return funcol.wait_tensor(funcol.all_reduce(
+        x, "sum", flat_mesh(mesh, axes).get_group()))
 
 
 def rules_for_mesh(mesh) -> AxisRules:
@@ -202,7 +218,11 @@ def guarded_pspec(shape: Sequence[int], logical: Sequence[Optional[str]],
 def to_placements(spec: Spec, mesh) -> tuple:
     """The DTensor placements of ``spec`` on ``mesh``: for each mesh dim,
     ``Shard(d)`` of the tensor dim whose entry names it, else
-    ``Replicate()``.  Raises for an axis the mesh does not have."""
+    ``Replicate()``.  A mesh dim of size 1 splits nothing and is
+    ``Replicate()`` whatever the spec names: the same layout, but a
+    tensor dim of size 1 marked sharded (a batch of one over a ``data``
+    axis of one) could not be flattened by DTensor's views.  Raises for an
+    axis the mesh does not have."""
     from torch.distributed.tensor import Replicate, Shard
 
     names = mesh_axis_names(mesh)
@@ -212,7 +232,8 @@ def to_placements(spec: Spec, mesh) -> tuple:
             if axis not in names:
                 raise ValueError(f"spec {spec} names mesh axis {axis!r}; the "
                                  f"mesh has {names}")
-            out[names.index(axis)] = Shard(d)
+            if mesh.size(names.index(axis)) > 1:
+                out[names.index(axis)] = Shard(d)
     return tuple(out)
 
 

@@ -19,7 +19,8 @@ from typing import (Any, Callable, Iterator, List, NamedTuple, Optional,
 
 import torch
 
-from repro_torch.sharding.per_shard import is_dtensor
+from repro_torch.sharding.per_shard import (is_dtensor, mesh_of,
+                                            to_placements_of)
 
 #: ``adamw_update_`` updates a leaf of more elements one slice of its
 #: leading axes at a time (an expert, a layer, a run of rows), so that its
@@ -62,11 +63,44 @@ def adamw_init(params: Any) -> AdamWState:
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's sum of squares, in f32."""
+    """sqrt of the sum over leaves of each leaf's sum of squares, in f32.
+
+    On DTensor leaves (one mesh) each rank sums the squares of its own
+    shards, a replicated block only on the ranks at coordinate 0 of the
+    mesh dims it is replicated over (so every element is counted once),
+    and the ranks meet in one all-reduce over the flattened mesh; the norm
+    comes back replicated.  A partial leaf is reduced first (a train step
+    hands over gradients already reduced to their parameters'
+    placements).  On a mesh of one rank every term and its order are the
+    plain sum's."""
+    leaves = tree_leaves(tree)
+    mesh = mesh_of(*leaves)
+    coord = None if mesh is None else mesh.get_coordinate()
     total = 0
-    for x in tree_leaves(tree):
+    for x in leaves:
+        if is_dtensor(x):
+            from torch.distributed.tensor import Replicate
+
+            if any(p.is_partial() for p in x.placements):
+                x = to_placements_of(x, [Replicate() if p.is_partial()
+                                         else p for p in x.placements])
+            if any(c and p.is_replicate()
+                   for c, p in zip(coord, x.placements)):
+                continue
+            x = x.to_local()
         total = total + x.float().square().sum()
-    return torch.sqrt(total)
+    if mesh is None:
+        return torch.sqrt(total)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.sharding.rules import flat_sum
+
+    if not isinstance(total, torch.Tensor):
+        total = torch.zeros((), dtype=torch.float32,
+                            device=leaves[0].to_local().device)
+    total = flat_sum(total, mesh)
+    return DTensor.from_local(torch.sqrt(total), mesh,
+                              [Replicate()] * mesh.ndim, run_check=False)
 
 
 def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:

@@ -21,6 +21,7 @@ import torch
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (lm_decode_step, lm_forward,
                                             lm_prefill)
+from repro_torch.sharding.per_shard import is_dtensor, to_placements_of
 from repro_torch.train.loss import cross_entropy
 from repro_torch.train.optimizer import (AdamWState, adamw_update_,
                                          check_not_donated, clip_scale,
@@ -54,7 +55,10 @@ def _loss_and_grad_leaves(params: Dict[str, Any], cfg: ModelConfig,
                           ) -> Tuple[torch.Tensor, torch.Tensor,
                                      List[torch.Tensor]]:
     """(loss, accuracy, the gradient of every leaf of ``params`` in
-    ``tree_leaves`` order)."""
+    ``tree_leaves`` order).  A DTensor gradient comes back at its
+    parameter's placements: the data-parallel reduction the reference's
+    GSPMD inserts (a reduce-scatter or an all-reduce of each partial
+    gradient), before the norm and the update read it."""
     live = tree_map(lambda p: p.detach().requires_grad_(True), params)
     logits = lm_forward(live, cfg, batch["tokens"], remat=remat,
                         **_model_inputs(cfg, batch))
@@ -62,8 +66,11 @@ def _loss_and_grad_leaves(params: Dict[str, Any], cfg: ModelConfig,
                               batch["labels"],
                               batch.get("loss_mask"), z_loss=z_loss)
     del logits
+    leaves = tree_leaves(live)
+    grads = torch.autograd.grad(loss, leaves)
     return (loss.detach(), acc,
-            list(torch.autograd.grad(loss, tree_leaves(live))))
+            [to_placements_of(g, p.placements) if is_dtensor(g) else g
+             for g, p in zip(grads, leaves)])
 
 
 def loss_and_grads(params: Dict[str, Any], cfg: ModelConfig,

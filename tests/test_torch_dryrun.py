@@ -24,7 +24,11 @@
   mesh, and a dense prefill on the (2, 2, 2) one, each ``ok``; the
   counter's per-device counts are of shards.
 - **The veilgraph cell** at small sizes on both fake meshes: its three
-  gates pass.
+  gates pass, and rank 0 holds its slot range of the edge buffers and the
+  node vectors whole (the reference's ``graph_shardings``); a generated
+  slice is the same slots of the whole generated graph; a sliced state's
+  placed layout is the whole-state build's rows; rebalancing a sliced
+  state raises.
 
 The fake process group is started and ended by a module fixture (one per
 mesh shape), since xdist runs a file in one process.
@@ -255,12 +259,93 @@ def test_veilgraph_cell_passes_its_gates(fake_mesh):
     assert coll["counts"]["all-reduce"] >= 1
     assert coll["counts"]["all-to-all"] == 3
     assert rec["coll_max"]["all-reduce"] >= 4 * 2**12
-    # the port holds the whole graph state on every rank
-    assert rf["memory_stats"]["argument_bytes"] >= 9 * 2**16
+    # rank 0 holds what the reference's placement gives it: its E / R
+    # slots of the edge buffers (9 B a slot) and the node vectors whole
+    # (18 B a vertex: the degrees, the activity, the ranks and the
+    # snapshot), well under one whole-state edge buffer
+    slots = 2**16 // mesh.size()
+    assert rec["edge_slots_held"] == slots
+    assert rf["memory_stats"]["argument_bytes"] == 9 * slots + 18 * 2**12 + 4
+    assert rf["memory_stats"]["argument_bytes"] < 4 * 2**16
     assert rec["query_stats"]["num_hot"] > 0
     assert rec["backend"] == "segment_sum"
     with pytest.raises(ValueError, match="the card"):
         D._resolve_backend("pallas", torch.device("cpu"))
+
+
+def test_generated_slice_is_the_whole_graphs_slots(fake_mesh):
+    # rank 0's slice, made from its slot range alone, is the same slots of
+    # the whole generated graph, and its streamed degrees are the whole
+    # graph's
+    from repro_torch.graph.graph import edge_slice
+    from repro_torch.graph.partition import edge_slot_range
+
+    _, mesh = fake_mesh
+    nodes, edges = 2**10, 2**14
+    src, dst = D.random_edges(0, edges, nodes, device="cpu", seed=3)
+    part, deg_prev, active_prev = D.random_graph(nodes, edges, mesh, seed=3)
+    lo, hi = edge_slot_range(mesh, edges)
+    assert (lo, hi) == (0, edges // mesh.size())
+    sl = edge_slice(part)
+    assert part.edge_capacity == edges and sl.lo == lo
+    assert torch.equal(sl.src, src[lo:hi]) and torch.equal(sl.dst,
+                                                           dst[lo:hi])
+    assert bool(sl.mask.all()) and int(part.num_edges) == edges
+    count = lambda ids: torch.bincount(ids, minlength=nodes).to(torch.int32)
+    assert torch.equal(part.out_deg, count(src))
+    assert torch.equal(part.in_deg, count(dst))
+    assert torch.equal(part.node_active, (count(src) + count(dst)) > 0)
+    old = edges - edges // 100
+    assert torch.equal(deg_prev, count(src[:old]))
+    assert torch.equal(active_prev,
+                       (count(src[:old]) + count(dst[:old])) > 0)
+    # any range is the same slots; another seed is another graph
+    mid = D.random_edges(5000, 5100, nodes, device="cpu", seed=3)
+    assert torch.equal(mid[0], src[5000:5100])
+    assert not torch.equal(D.random_edges(0, edges, nodes, device="cpu",
+                                          seed=4)[0], src)
+
+
+def test_sliced_state_layout_rows_and_rebalance(fake_mesh):
+    # a sliced state's placed layout is, field by field, the whole-state
+    # build's rows of this rank; a rebalanced assignment would move edges
+    # between the ranks' slices, which raises
+    from repro_torch.graph import partition as TP
+    from repro_torch.graph.graph import from_edges
+
+    _, mesh = fake_mesh
+    nodes, edges = 2**10, 2**14
+    src, dst = D.random_edges(0, edges, nodes, device="cpu", seed=5)
+    whole = from_edges(src.numpy(), dst.numpy(), nodes, edges, device="cpu")
+    part, _, _ = D.random_graph(nodes, edges, mesh, seed=5)
+    placed = TP.place_graph_state(whole, mesh)
+    assert TP.edge_slot_range(mesh, edges)[1] == placed.src.to_local(
+        ).shape[0] == part.src.to_local().shape[0]
+    for spec in (dict(weight="inv_out"),
+                 dict(weight="unit", reverse=True, semiring="min_min")):
+        for shards in (mesh.size(), 2 * mesh.size()):
+            want = TP.build_sharded_layout(whole, mesh=mesh,
+                                           num_shards=shards, placed=True,
+                                           **spec)
+            for st in (part, placed):
+                got = TP.build_sharded_layout(st, mesh=mesh,
+                                              num_shards=shards,
+                                              placed=True, **spec)
+                assert got.total_shards == shards
+                for f in ("src", "dst", "weight", "valid", "row_offsets",
+                          "order", "rank"):
+                    a, b = getattr(got, f), getattr(want, f)
+                    assert (a is None and b is None) or torch.equal(a, b), f
+    with pytest.raises(ValueError, match="its own rows"):
+        TP.build_sharded_layout(part, mesh=mesh)
+    with pytest.raises(NotImplementedError, match="queue 1 entry 15"):
+        TP.rebalance_sharded_layout(part, num_shards=mesh.size())
+    slots = torch.from_numpy(TP.shard_slots(edges, mesh.size()))
+    with pytest.raises(NotImplementedError, match="queue 1 entry 15"):
+        TP.build_sharded_layout(part, mesh=mesh, slots=slots, placed=True)
+    # the whole state still rebalances
+    assert TP.rebalance_sharded_layout(whole, num_shards=mesh.size())[1] in (
+        True, False)
 
 
 @pytest.mark.parametrize("fake_mesh", ["single"], indirect=True)

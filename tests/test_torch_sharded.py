@@ -652,11 +652,13 @@ def test_two_by_two_mesh_push_matches_reference(tmp_path):
                                         backend="segment_sum"), semiring)
 
 
-def test_dtensor_steps_match_the_plain_steps(mesh):
+@pytest.mark.parametrize("batch", [2, 1])
+def test_dtensor_steps_match_the_plain_steps(mesh, batch):
     # the dense smoke model's train, prefill and decode steps on DTensor
     # parameters and inputs over a 1 x 1 ("data", "model") mesh, under the
     # rules: bitwise the plain-tensor steps (every ws, per-shard region and
-    # the vocab-sharded loss on the one rank's whole tensors)
+    # the vocab-sharded loss on the one rank's whole tensors); a batch of
+    # one sits on the size-1 data axis, which splits nothing
     from torch.distributed.tensor import DTensor
 
     from repro_torch.configs import get_smoke_config
@@ -694,7 +696,7 @@ def test_dtensor_steps_match_the_plain_steps(mesh):
     rng = np.random.default_rng(5)
     ids = lambda *s: torch.from_numpy(
         rng.integers(0, cfg.vocab_size, s).astype(np.int32))
-    batch = {"tokens": ids(2, 32), "labels": ids(2, 32)}
+    data = {"tokens": ids(batch, 32), "labels": ids(batch, 32)}
     bspec = {"tokens": ("data",), "labels": ("data",)}
     with TR.axis_rules(rules):
         # train: the donated step writes both states in place
@@ -705,20 +707,20 @@ def test_dtensor_steps_match_the_plain_steps(mesh):
                           *(dtree(m, pspecs) for m in (o_plain.mu,
                                                        o_plain.nu)))
         train = ST.make_train_step(cfg)
-        _, _, m_plain = train(p_plain, o_plain, batch)
+        _, _, m_plain = train(p_plain, o_plain, data)
         _, _, m_dt = train(p_dt, o_dt, {k: dt(v, bspec[k])
-                                        for k, v in batch.items()})
+                                        for k, v in data.items()})
         same(p_plain, p_dt)
         same([o_plain.mu, o_plain.nu], [o_dt.mu, o_dt.nu])
         same(m_plain, m_dt)
         # prefill, then one decode step from each path's own caches
         prefill = ST.make_prefill_step(cfg, cache_len=48)
-        logits, cache = prefill(p_plain, {"tokens": batch["tokens"]})
+        logits, cache = prefill(p_plain, {"tokens": data["tokens"]})
         logits_dt, cache_dt = prefill(
-            p_dt, {"tokens": dt(batch["tokens"], ("data",))})
+            p_dt, {"tokens": dt(data["tokens"], ("data",))})
         same([logits, cache], [logits_dt, cache_dt])
         serve = ST.make_serve_step(cfg)
-        token, pos = ids(2, 1), torch.tensor(32, dtype=torch.int32)
+        token, pos = ids(batch, 1), torch.tensor(32, dtype=torch.int32)
         logits, cache = serve(p_plain, cache, token, pos)
         logits_dt, cache_dt = serve(p_dt, cache_dt, dt(token, ("data",)),
                                     dt(pos))

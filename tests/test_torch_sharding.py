@@ -122,19 +122,36 @@ def test_logical_specs_and_rules_context():
     assert TR.get_rules() is None
 
 
+class _Mesh2x2:
+    """A stand-in (2, 2) ("data", "model") mesh: the names and sizes the
+    placement rules read, without a process group of four."""
+    mesh_dim_names = ("data", "model")
+    mesh = torch.empty(2, 2)
+
+    def size(self, dim=None):
+        return 4 if dim is None else 2
+
+
 def test_mesh_placements_and_shardings(mesh):
     assert axis_sizes(mesh) == {"data": 1, "model": 1}
     assert TR.rules_for_mesh(mesh) is TR.RULES_SINGLE_POD
     assert TR.rules_for_mesh(None) == {}
-    assert TR.to_placements(("data", None, "model"), mesh) == (
+    wide = _Mesh2x2()
+    assert TR.to_placements(("data", None, "model"), wide) == (
         Shard(0), Shard(2))
-    assert TR.to_placements((None, ("data", "model")), mesh) == (
+    assert TR.to_placements((None, ("data", "model")), wide) == (
         Shard(1), Shard(1))
+    # a mesh dim of size 1 splits nothing: replicated, whatever the spec
+    assert TR.to_placements(("data", None, "model"), mesh) == (
+        Replicate(), Replicate())
     assert TR.to_placements((), mesh) == (Replicate(), Replicate())
     with pytest.raises(ValueError, match="pod"):
         TR.to_placements(("pod",), mesh)
-    sh = TR.named_sharding(mesh, "batch", "embed_p")
+    sh = TR.named_sharding(wide, "batch", "embed_p")
     assert sh.spec == ("data",) and sh.placements == (Shard(0), Replicate())
+    sh = TR.named_sharding(mesh, "batch", "embed_p")
+    assert sh.spec == ("data",) and sh.placements == (Replicate(),
+                                                      Replicate())
     for multi_pod, need in ((False, 256), (True, 512)):
         with pytest.raises(ValueError, match=str(need)):
             make_production_mesh(multi_pod=multi_pod, device_type="cpu")
@@ -146,7 +163,9 @@ def test_mesh_placements_and_shardings(mesh):
     with TR.axis_rules(TR.RULES_SINGLE_POD):
         assert TR.ws(x, "batch", None) is x
         y = TR.ws(d, "batch", "heads")
-    assert y.placements == (Shard(0), Shard(1))
+    # ("data", "model"): (Shard(0), Shard(1)) on a wide mesh, replicated
+    # on this one's size-1 dims
+    assert y.placements == TR.to_placements(("data", "model"), mesh)
     assert torch.equal(y.full_tensor(), x)
 
 
@@ -164,7 +183,9 @@ def test_graph_shardings_structure(mesh):
         else:
             assert got.spec == tuple(want.spec) and got.mesh is mesh, field
     assert edge_sharding(mesh, 1024).spec == (("data", "model"),)
-    assert edge_sharding(mesh, 1024).placements == (Shard(0), Shard(0))
+    assert edge_sharding(mesh, 1024).placements == (Replicate(),
+                                                    Replicate())
+    assert edge_sharding(_Mesh2x2(), 1024).placements == (Shard(0), Shard(0))
 
 
 # ------------------------------------------------------------ compression
@@ -293,8 +314,9 @@ def test_two_rank_checkpoint_restores_in_one_process(two_ranks, mesh):
     shardings = {"emb": TR.NamedSharding(mesh, ("model",)),
                  "w": TR.NamedSharding(mesh, (None, "data")), "scale": None}
     placed = elastic_reshard(ckpt, R.STEP, target, shardings)
-    assert placed["emb"].placements == (Replicate(), Shard(0))
-    assert placed["w"].placements == (Shard(1), Replicate())
+    # (the one-rank mesh's size-1 dims split nothing: replicated)
+    assert placed["emb"].placements == TR.to_placements(("model",), mesh)
+    assert placed["w"].placements == TR.to_placements((None, "data"), mesh)
     for k in ("emb", "w"):
         np.testing.assert_array_equal(placed[k].full_tensor().numpy(),
                                       want[k])
