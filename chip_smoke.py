@@ -72,6 +72,20 @@ drives these paths over the ``synth-web-lg`` stream:
   ≥ 0.95 against an f64 exact replay); every push of these runs is 8
   launches, one a shard.  Then the push's time through 8 shards beside
   one layout's, and the four SpMV kernels on a shard's stream;
+- the mesh engine across four ranks of the one card (``mesh-ranks``):
+  four spawned processes, each its own CUDA context on device 0, joined
+  in a gloo group (CUDA tensors staged through the host; NCCL refuses two
+  ranks on one device) and a 1-D mesh, at 8 shards, two a rank: the
+  PageRank, SSSP, CC and forced-imbalance SSSP streams above, an async
+  PageRank stream and one serving wave, each rank's answers and stats
+  bitwise every other rank's and held to the unsharded runs on the card
+  as above (and the async stream to an unsharded async run); each rank's
+  launches two a sharded push, counted in that rank; no rank builds a
+  kernel or imports JAX, and a rank that raises or outlasts the group's
+  timeout fails the phase;
+- the two examples on the card (``examples``):
+  ``examples/streaming_pagerank_torch.py`` on synth-web-lg (10 queries,
+  the paper's four metrics a query) and ``examples/quickstart_torch.py``;
 - the hot-path analysis gates (``repro_torch.analysis``): every program of
   the catalog (push, push_coo, build_summary, the fused steps and serving
   waves, the apply steps, the epoch counts, at 1,024 vertices and 16,384
@@ -223,6 +237,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import pickle
 import subprocess
 import sys
 import time
@@ -2860,7 +2875,7 @@ def drive_sharded(stream, name, kw, queries, every, dev, **overrides):
             "query": st.query_id, "action": st.action,
             "num_hot": st.num_hot, "num_ek": st.num_ek, "num_eb": st.num_eb,
             "iterations": st.iterations, "overflow": st.overflow_fallback,
-            "rebalanced": st.rebalanced,
+            "rebalanced": st.rebalanced, "epoch": st.epoch,
             "last_imbalance": sess.engine.last_imbalance,
             "wall_ms": st.wall_time_s * 1e3,
             "sharded_pushes": B.trace_count("push[sharded]") - s0,
@@ -2872,22 +2887,22 @@ def drive_sharded(stream, name, kw, queries, every, dev, **overrides):
     return sess, rows, results
 
 
-def check_sharded_pushes(tag, rows, per_iter=1) -> int:
+def check_sharded_pushes(tag, rows, per_iter=1, held=SHARDS) -> int:
     """Every query of a sharded session: its sweeps' pushes (iterations,
     plus the ``b_in`` pass of an approximate query, ``per_iter`` of each)
-    all sharded, each ``SHARDS`` shard pushes and as many launches.
-    Returns the sharded pushes."""
+    all sharded, each ``held`` shard pushes (the shards this rank holds)
+    and as many launches.  Returns the sharded pushes."""
     total = 0
     for r in rows:
         want = per_iter * (r["iterations"]
                            + (r["action"] == "compute-approximate"))
         if (r["sharded_pushes"], r["shard_pushes"], r["launches"]) != (
-                want, SHARDS * want, SHARDS * want):
+                want, held * want, held * want):
             raise AssertionError(f"{tag} query {r['query']}: "
                                  f"{r['sharded_pushes']} sharded pushes, "
                                  f"{r['shard_pushes']} shard pushes, "
                                  f"{r['launches']} launches; {want} sharded "
-                                 f"pushes wanted, {SHARDS} launches each")
+                                 f"pushes wanted, {held} launches each")
         total += want
     return total
 
@@ -3029,7 +3044,8 @@ def sharded_path(stream, plan, dev, rng) -> tuple:
     are set to 0 before the sharded ones.  Last, in the same group, the
     dry run's 2-D mesh sessions (:func:`nd_mesh_runs`).  Returns (rows,
     launch counts, (sum, reduce, batched) kernel-check rows, (the 2-D mesh
-    rows, their launch counts))."""
+    rows, their launch counts), the unsharded runs and the wave's plan for
+    :func:`mesh_ranks_path`)."""
     import repro_torch
     import torch.distributed as dist
 
@@ -3194,7 +3210,413 @@ def sharded_path(stream, plan, dev, rng) -> tuple:
         dist.destroy_process_group()
     del sess, flat
     torch.cuda.empty_cache()
-    return out, counts, checks, nd
+    refs = {"flat": (flat_rows, flat_res), "trav": trav, "wave": flat_wave,
+            "wave_plan": wave_plan}
+    return out, counts, checks, nd, refs
+
+# ---- the mesh engine on four ranks of the one card -----------------------
+MESH_RANKS = 4              # gloo ranks, each with its own CUDA context
+MESH_TIMEOUT_S = 120        # a rank's collective waits at most this long
+MESH_JOIN_S = 600           # every rank must have finished by then
+ASYNC_MESH_QUERIES = 6      # queries of the async PageRank stream
+
+
+@contextlib.contextmanager
+def counted_collectives():
+    """Count the engine's collectives in this process: every
+    ``torch.distributed.all_reduce`` (the semiring's merge and the
+    summary's counters) and ``all_to_all_single`` (the summary's bucket
+    exchange) made inside the block."""
+    import torch.distributed as dist
+
+    counts = {"all_reduce": 0, "all_to_all": 0}
+    all_reduce, all_to_all = dist.all_reduce, dist.all_to_all_single
+
+    def counted_all_reduce(*args, **kwargs):
+        counts["all_reduce"] += 1
+        return all_reduce(*args, **kwargs)
+
+    def counted_all_to_all(*args, **kwargs):
+        counts["all_to_all"] += 1
+        return all_to_all(*args, **kwargs)
+    dist.all_reduce, dist.all_to_all_single = (counted_all_reduce,
+                                               counted_all_to_all)
+    try:
+        yield counts
+    finally:
+        dist.all_reduce, dist.all_to_all_single = all_reduce, all_to_all
+
+
+def mesh_scenarios(stream, wave_plan, shard, dev) -> dict:
+    """The runs of one mesh rank, in order: name -> a function of no
+    arguments returning (rows, answers, extra): the sharded phase's
+    PageRank, SSSP, CC and forced-imbalance SSSP streams, an async
+    PageRank stream and one serving wave."""
+    import repro_torch
+    from repro_torch.graph.partition import shard_live_counts
+
+    edges = stream.init_src.shape[0] + sum(c[0].shape[0] for c in stream)
+
+    def session(name, kw, queries, every, extra=None, **over):
+        def go():
+            sess, rows, res = drive_sharded(stream, name, kw, queries, every,
+                                            dev, **over, **shard)
+            eng = sess.engine
+            out = {"rebalances": eng.rebalances}
+            if extra is not None:
+                out.update(extra(eng))
+            return rows, res, out
+        return go
+
+    def live_counts(eng):
+        return {"live_counts_after": shard_live_counts(
+            eng.state, eng._shard_slots).cpu().numpy().tolist()}
+
+    def wave():
+        with repro_torch.serve_session(stream, slots=BATCH, device=dev,
+                                       **shard) as srv:
+            for name, kw in wave_plan:
+                srv.submit(name, **kw)
+            srv.step()
+            log = [(w.algorithm, w.num_hot, w.num_ek, w.iterations)
+                   for w in srv.wave_log]
+            banks = {lane.template.name: {k: v.cpu().numpy() for k, v
+                                          in lane.bank.items()}
+                     for lane in srv._lanes.values()}
+        return log, banks, {}
+
+    trav = lambda name, **over: session(
+        name, dict(TRAVERSAL)[name], TRAVERSAL_QUERIES,
+        TRAVERSAL_EXACT_EVERY, r=TRAVERSAL_R, **over)
+    return {"pagerank": session("pagerank", {}, QUERIES, QUERIES - 1),
+            "sssp": trav("sssp"),
+            "connected-components": trav("connected-components"),
+            "sssp-imbalance": session(
+                "sssp", dict(TRAVERSAL)["sssp"], TRAVERSAL_QUERIES,
+                TRAVERSAL_EXACT_EVERY, live_counts, r=TRAVERSAL_R,
+                edge_capacity=2 * edges),
+            "pagerank-async": session("pagerank", {}, ASYNC_MESH_QUERIES,
+                                      QUERIES - 1, async_rebuild=True),
+            "serving-wave": wave}
+
+
+def mesh_rank(rank: int, init: str, stream_path: str, wave_plan,
+              out: str) -> None:
+    """One rank of the mesh phase: loads the pickled stream, joins a gloo
+    group of ``MESH_RANKS`` (CUDA tensors are staged through the host by
+    gloo; NCCL refuses two ranks on one device), builds the 1-D
+    ``("shards",)`` mesh and runs
+    :func:`mesh_scenarios` at ``SHARDS`` shards, two a rank, on the card's
+    device 0, each with its launches, pushes and collectives counted from
+    0; pickles the answers and counts to ``{out}.{rank}``.  It loads the
+    kernels the parent built (a build here fails the phase) and imports no
+    JAX."""
+    from datetime import timedelta
+
+    stamps = {"enter": time.time()}
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import backend as B
+    from repro_torch.kernels.build import EVENTS
+
+    with open(stream_path, "rb") as f:
+        stream = pickle.load(f)
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=MESH_RANKS,
+                            timeout=timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        mesh = init_device_mesh("cuda", (MESH_RANKS,),
+                                mesh_dim_names=("shards",))
+        stamps["mesh"] = time.time()
+        res = {}
+        for name, run in mesh_scenarios(
+                stream, wave_plan, dict(mesh=mesh, num_shards=SHARDS),
+                dev).items():
+            reset_launch_counts()
+            B.reset_trace_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with counted_collectives() as coll:
+                rows, answers, extra = run()
+            res[name] = {
+                "rows": rows, "answers": answers, **extra,
+                "launches": launch_counts(),
+                "sharded_pushes": B.trace_count("push[sharded]"),
+                "shard_pushes": B.trace_count("push"),
+                "all_reduces": coll["all_reduce"],
+                "all_to_alls": coll["all_to_all"],
+                "peak_bytes": torch.cuda.max_memory_allocated(),
+                "wall_s": time.perf_counter() - t0}
+        res["builds"] = sorted(k for k in EVENTS if k.startswith("build:"))
+        res["jax_imported"] = "jax" in sys.modules
+        stamps["runs"] = time.time()
+        res["stamps"] = stamps
+        with open(f"{out}.{rank}", "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_mesh_ranks(stream, wave_plan) -> list:
+    """Start ``MESH_RANKS`` ranks of :func:`mesh_rank` (spawned, a
+    ``file://`` store in a temporary directory, no network) and return
+    their pickled results in rank order.  The stream goes to them as a
+    file: passed as an argument, it would be written through each child's
+    pipe while the child starts, one child at a time.  A rank that raises
+    fails the phase; ranks still running after ``MESH_JOIN_S`` are
+    terminated and fail it too."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as d:
+        with open(f"{d}/stream.pkl", "wb") as f:
+            pickle.dump(stream, f)
+        spawned = time.time()
+        ctx = mp.start_processes(
+            mesh_rank, args=(f"file://{d}/store", f"{d}/stream.pkl",
+                             wave_plan, f"{d}/rank"),
+            nprocs=MESH_RANKS, join=False, start_method="spawn")
+        deadline = time.monotonic() + MESH_JOIN_S
+        try:
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"mesh ranks still running after "
+                                       f"{MESH_JOIN_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                p.join()
+        joined = time.time()
+        got = []
+        for rank in range(MESH_RANKS):
+            with open(f"{d}/rank.{rank}", "rb") as f:
+                got.append(pickle.load(f))
+    for res in got:
+        # seconds since the spawn: in the rank's function, its mesh built,
+        # its runs done; and the spawn's end (the ranks' exits joined)
+        res["stamps"] = {k: v - spawned for k, v in
+                         dict(res["stamps"], joined=joined).items()}
+    return got
+
+
+def same_answers(a, b) -> bool:
+    """Two ranks' answers equal, arrays bit for bit, at every level."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_answers(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(same_answers, a, b))
+    if isinstance(a, np.ndarray):
+        return (a.dtype, a.shape) == (b.dtype, b.shape) and \
+            a.tobytes() == b.tobytes()
+    return a == b
+
+
+#: the per-query fields every rank must report alike (its wall time and
+#: peak memory are its own)
+RANK_FIELDS = ("query", "action", "num_hot", "num_ek", "num_eb",
+               "iterations", "overflow", "rebalanced", "last_imbalance",
+               "sharded_pushes", "shard_pushes", "launches")
+
+
+def check_mesh_ranks(got, refs, exact_at, async_exact_at) -> tuple:
+    """Hold the mesh ranks' results: each rank's answers and stats those
+    of every other rank, and rank 0's those of the unsharded runs on the
+    same card (min/max bitwise, sums at ``SHARD_TOL``, PageRank through
+    :func:`compare_pagerank`); the forced-imbalance stream's one recut;
+    each rank's launches ``SHARDS / MESH_RANKS`` a sharded push, and no
+    build in any rank.  Returns (one row per rank and scenario, the
+    comparisons, the launches summed over the ranks)."""
+    held = SHARDS // MESH_RANKS
+    first = got[0]
+    for rank, res in enumerate(got):
+        if res["builds"] or res["jax_imported"]:
+            raise AssertionError(f"mesh rank {rank}: builds {res['builds']}"
+                                 f", JAX imported {res['jax_imported']}")
+        for name, one in res.items():
+            if not isinstance(one, dict) or name == "stamps":
+                continue
+            mine = [{k: r[k] for k in RANK_FIELDS if k in r}
+                    if isinstance(r, dict) else r for r in one["rows"]]
+            theirs = [{k: r[k] for k in RANK_FIELDS if k in r}
+                      if isinstance(r, dict) else r
+                      for r in first[name]["rows"]]
+            if not (same_answers(one["answers"], first[name]["answers"])
+                    and mine == theirs):
+                raise AssertionError(f"mesh rank {rank} {name}: answers or "
+                                     f"stats differ from rank 0's")
+            # every push sharded (the serve session's initial exact sweeps
+            # single, its wave batched), each a launch a shard held
+            made = one["launches"]
+            launches = sum(made[k] for k in KERNEL_NAMES[:4])
+            if launches != held * one["sharded_pushes"] or \
+                    one["shard_pushes"] != held * one["sharded_pushes"] or \
+                    sum(made.values()) != launches:
+                raise AssertionError(
+                    f"mesh rank {rank} {name}: {made} launches and "
+                    f"{one['shard_pushes']} shard pushes for "
+                    f"{one['sharded_pushes']} sharded pushes, {held} a rank")
+            if name in ("pagerank", "sssp", "connected-components",
+                        "sssp-imbalance"):
+                per_iter = 2 if name == "connected-components" else 1
+                check_sharded_pushes(f"mesh rank {rank} {name}", one["rows"],
+                                     per_iter, held)
+    cmp = {}
+    flat_rows, flat_res = refs["flat"]
+    one = first["pagerank"]
+    cmp["pagerank"] = compare_pagerank(flat_rows, flat_res, one["rows"],
+                                       one["answers"], exact_at)
+    for name in ("sssp", "connected-components", "sssp-imbalance"):
+        want_rows, want_res = refs["trav"][name.replace("-imbalance", "")]
+        one = first[name]
+        for a, b, x, y in zip(want_rows, one["rows"], want_res,
+                              one["answers"]):
+            if (a["num_hot"], a["num_ek"], a["iterations"]) != (
+                    b["num_hot"], b["num_ek"], b["iterations"]) or \
+                    not np.array_equal(x.view(np.uint8), y.view(np.uint8)):
+                raise AssertionError(f"mesh {name} query {b['query']} "
+                                     f"differs from the unsharded one")
+        cmp[name] = "bitwise"
+    one = first["sssp-imbalance"]
+    counts = np.asarray(one["live_counts_after"])
+    if one["rebalances"] != 1 or [r["rebalanced"] for r in one["rows"]] != [
+            False, True] + [False] * (len(one["rows"]) - 2):
+        raise AssertionError(f"mesh forced imbalance: {one['rebalances']} "
+                             f"recuts, {[r['rebalanced'] for r in one['rows']]}")
+    if counts.max() - counts.min() > 1:
+        raise AssertionError(f"mesh recut live counts {counts.tolist()}")
+    async_rows, async_res = refs["async"]
+    one = first["pagerank-async"]
+    if [r["epoch"] for r in one["rows"]] != [r["epoch"]
+                                             for r in async_rows]:
+        raise AssertionError("mesh async PageRank: epochs differ")
+    cmp["pagerank-async"] = compare_pagerank(async_rows, async_res,
+                                             one["rows"], one["answers"],
+                                             async_exact_at)
+    want_banks, want_log = refs["wave"]
+    log, banks = first["serving-wave"]["rows"], first["serving-wave"]["answers"]
+    if log != [(a.algorithm, a.num_hot, a.num_ek, a.iterations)
+               for a in want_log]:
+        raise AssertionError(f"mesh serving wave: lanes {log}")
+    for lane, bank in banks.items():
+        for k, t in bank.items():
+            want = want_banks[lane][k].cpu().numpy()
+            if lane == "sssp":
+                if not np.array_equal(t.view(np.uint8), want.view(np.uint8)):
+                    raise AssertionError(f"mesh serving wave {lane}.{k}")
+            else:
+                np.testing.assert_allclose(t, want, err_msg=lane, **SHARD_TOL)
+    cmp["serving-wave"] = "ppr within SHARD_TOL, sssp bitwise"
+    rows, total = [], dict.fromkeys(KERNEL_NAMES, 0)
+    for rank, res in enumerate(got):
+        rows.append({"phase": "mesh-ranks", "rank": rank,
+                     "seconds_since_spawn": res["stamps"]})
+        for name, one in res.items():
+            if not isinstance(one, dict) or name == "stamps":
+                continue
+            per_query = [r for r in one["rows"] if isinstance(r, dict)]
+            recut = [r["query"] for r in per_query if r["rebalanced"]]
+            rows.append({
+                "phase": "mesh-ranks", "rank": rank, "scenario": name,
+                "query_wall_ms": [r["wall_ms"] for r in per_query],
+                "recut_query": recut[0] if recut else None,
+                "launches": {k: v for k, v in one["launches"].items() if v},
+                "sharded_pushes": one["sharded_pushes"],
+                "all_reduces": one["all_reduces"],
+                "all_to_alls": one["all_to_alls"],
+                "peak_bytes": one["peak_bytes"], "wall_s": one["wall_s"]})
+            for k in KERNEL_NAMES:
+                total[k] += one["launches"][k]
+    return rows, cmp, total
+
+
+def mesh_ranks_path(stream, refs, dev) -> tuple:
+    """The mesh engine across ``MESH_RANKS`` ranks on the one card (gloo
+    over CUDA tensors; each rank its own CUDA context on device 0) at
+    ``SHARDS`` shards, two a rank: the sharded phase's streams (PageRank,
+    SSSP, CC, the forced-imbalance SSSP stream and one serving wave) and
+    an async PageRank stream, each rank's answers bitwise every other
+    rank's and rank 0's held to the unsharded runs of
+    :func:`sharded_path` and to an unsharded async run made here.  Returns
+    (rows, the launches summed over the ranks)."""
+    t0 = time.perf_counter()
+    _, async_rows, async_res = drive_sharded(
+        stream, "pagerank", {}, ASYNC_MESH_QUERIES, QUERIES - 1, dev,
+        async_rebuild=True)
+    refs = dict(refs, **{"async": (async_rows, async_res)})
+    exact_at, async_exact = exact_replays(stream, dev), exact_replays(stream,
+                                                                       dev)
+    # the async query q serves the graph of the synchronous query q - 1
+    async_exact_at = lambda q: async_exact(q - 1)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    got = spawn_mesh_ranks(stream, refs["wave_plan"])
+    spawn_s = time.perf_counter() - t1
+    rows, cmp, total = check_mesh_ranks(got, refs, exact_at, async_exact_at)
+    rows.append({"phase": "mesh-ranks-total", "ranks": MESH_RANKS,
+                 "shards": SHARDS, "mesh": f"{MESH_RANKS}-rank gloo, one "
+                 f"card, CUDA tensors", "launches": total,
+                 "against_unsharded": cmp,
+                 "ranks_bitwise_alike": True, "rank_builds": 0,
+                 "spawn_to_join_s": spawn_s,
+                 "wall_s": time.perf_counter() - t0})
+    return rows, total
+
+
+# ---- the two examples on the card ------------------------------------------
+EXAMPLE_QUERIES = 10
+
+
+def examples_path() -> tuple:
+    """``examples/streaming_pagerank_torch.py``'s ``run`` on synth-web-lg
+    (``EXAMPLE_QUERIES`` queries: per query the paper's four metrics) and
+    ``examples/quickstart_torch.py``'s ``main``, both at their default
+    device, the card; each answer's metrics finite, RBO in [0, 1], every
+    push a kernel launch.  Returns (rows, launch counts)."""
+    import io
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "examples"))
+    import quickstart_torch
+    import streaming_pagerank_torch
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = streaming_pagerank_torch.run(dataset="synth-web-lg",
+                                           queries=EXAMPLE_QUERIES,
+                                           verbose=False)
+    run_s = time.perf_counter() - t0
+    out = io.StringIO()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        quickstart_torch.main()
+    quick_s = time.perf_counter() - t1
+    counts = launch_counts()
+    quick = out.getvalue().splitlines()
+    if len(metrics) != EXAMPLE_QUERIES or len(quick) != 11:
+        raise AssertionError(f"examples: {len(metrics)} rows, quickstart "
+                             f"printed {len(quick)} lines")
+    for r in metrics:
+        if not (0.0 <= r["rbo"] <= 1.0 and np.isfinite(r["vertex_ratio"])
+                and np.isfinite(r["edge_ratio"]) and r["speedup"] > 0):
+            raise AssertionError(f"streaming_pagerank_torch row {r}")
+    if counts["spmv_push"] == 0 or sum(counts.values()) != counts[
+            "spmv_push"]:
+        raise AssertionError(f"examples launched {counts}")
+    return [{"phase": "examples", "example": "streaming_pagerank_torch",
+             "dataset": "synth-web-lg", "rows": metrics,
+             "mean_rbo": float(np.mean([r["rbo"] for r in metrics])),
+             "wall_s": run_s},
+            {"phase": "examples", "example": "quickstart_torch",
+             "printed": quick, "wall_s": quick_s},
+            {"phase": "examples-total", "launches": counts,
+             "wall_s": time.perf_counter() - t0}], counts
+
 
 # ---- the LM serving path (Qwen2-0.5B) -----------------------------------
 LM_ARCH = "qwen2_0_5b"
@@ -6475,8 +6897,8 @@ def main() -> int:
         emit(row)
 
     # ---- 6e. the sharded engine on a 1-rank mesh ---------------------------
-    rows, by_path["sharded"], (sums, reduces, batched), nd = sharded_path(
-        stream, plan, dev, np.random.default_rng(SHARDED_SEED))
+    rows, by_path["sharded"], (sums, reduces, batched), nd, refs = \
+        sharded_path(stream, plan, dev, np.random.default_rng(SHARDED_SEED))
     for row in rows + sums + reduces + batched:
         emit(row)
     # the dry run's n-D mesh: its sessions ran last in the sharded group
@@ -6486,6 +6908,20 @@ def main() -> int:
     checks += sums
     reduce_rows += reduces
     batched_rows += batched
+
+    # ---- 6e'. the mesh engine across four ranks of the card ---------------
+    # after the sharded phase has destroyed its 1-rank group
+    rows, by_path["mesh-ranks"] = mesh_ranks_path(stream, refs, dev)
+    for row in rows:
+        emit(row)
+    del refs
+    torch.cuda.empty_cache()
+
+    # ---- 6e''. the two examples ---------------------------------------------
+    rows, by_path["examples"] = examples_path()
+    for row in rows:
+        emit(row)
+    torch.cuda.empty_cache()
 
     # ---- 6f. the analysis gates and the kernels' ops wrappers -------------
     rows, by_path["analysis"] = analysis_path(dev)

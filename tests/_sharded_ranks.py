@@ -12,6 +12,7 @@ and decode steps.
 """
 
 import pickle
+from datetime import timedelta
 
 import numpy as np
 import torch
@@ -24,6 +25,10 @@ from repro_torch.graph import partition as TP
 from repro_torch.graph.generators import gnm_edges
 from repro_torch.graph.graph import from_edges
 
+#: every spawned rank's process-group timeout: a desynchronised rank
+#: fails its collective after this, as one failed test, where gloo's
+#: default of 30 minutes would outlast the whole suite
+TIMEOUT = timedelta(seconds=120)
 #: (weight, semiring) of the two runs: a sum and a min
 CASES = (("inv_out", "plus_times"), ("length", "min_plus"))
 SUMMARY_FIELDS = ("hot_ids", "num_hot", "ek_src", "ek_dst", "ek_w",
@@ -66,7 +71,7 @@ def summarize(g, x, hot, weight, semiring, layout):
 def run(rank: int, init: str, out: str) -> None:
     """One rank of the two-rank run."""
     dist.init_process_group("gloo", init_method=init, rank=rank,
-                            world_size=2)
+                            world_size=2, timeout=TIMEOUT)
     try:
         mesh = init_device_mesh("cpu", (2,), mesh_dim_names=("shards",))
         res = {}
@@ -91,7 +96,7 @@ def run_nd(rank: int, init: str, out: str) -> None:
     mesh: its edge shards run over both axes flattened (four shards, one a
     rank), built placed; pickles its rows and its all-reduced push."""
     dist.init_process_group("gloo", init_method=init, rank=rank,
-                            world_size=4)
+                            world_size=4, timeout=TIMEOUT)
     try:
         mesh = init_device_mesh("cpu", (2, 2),
                                 mesh_dim_names=("data", "model"))
@@ -330,7 +335,7 @@ def run_multirank(rank: int, init: str, out: str) -> None:
     so the four ranks do not crowd out the other tests' processes."""
     torch.set_num_threads(2)
     dist.init_process_group("gloo", init_method=init, rank=rank,
-                            world_size=4)
+                            world_size=4, timeout=TIMEOUT)
     try:
         mesh = init_device_mesh("cpu", (2, 2),
                                 mesh_dim_names=("data", "model"))

@@ -17,6 +17,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from _sharded_ranks import TIMEOUT
 from repro_torch.data.pipeline import shard_batch
 from repro_torch.sharding.rules import NamedSharding
 from repro_torch.train.checkpoint import CheckpointManager
@@ -50,7 +51,7 @@ def arrays():
 def run(rank: int, init: str, out: str, ckpt_dir: str) -> None:
     """One rank of the two-rank run."""
     dist.init_process_group("gloo", init_method=init, rank=rank,
-                            world_size=RANKS)
+                            world_size=RANKS, timeout=TIMEOUT)
     try:
         mesh = init_device_mesh("cpu", (RANKS,), mesh_dim_names=("data",))
         grads, errs, ckpt, batch = arrays()

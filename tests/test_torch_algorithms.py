@@ -28,15 +28,16 @@ from repro.graph import graph as JG
 from repro.stream import stream as jstream
 import repro_torch
 from repro_torch.convert import graph_state_from_numpy
-from repro_torch.core import hits as TH
-from repro_torch.core import katz as TK
 from repro_torch.core import policies as tpolicies
 from repro_torch.graph.generators import barabasi_albert_edges
 from repro_torch.stream import StreamConfig, build_stream
 
-# repro.core re-exports functions that shadow these modules' names
+# repro.core and repro_torch.core re-export functions that shadow these
+# modules' names
 JH = importlib.import_module("repro.core.hits")
 JK = importlib.import_module("repro.core.katz")
+TH = importlib.import_module("repro_torch.core.hits")
+TK = importlib.import_module("repro_torch.core.katz")
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 SAME = ("action", "num_nodes", "num_edges", "num_hot", "num_kr", "num_kn",

@@ -19,11 +19,12 @@ from repro.core import hotset as JH
 from repro.graph import graph as JG
 from repro_torch.convert import algo_state_from_numpy, graph_state_from_numpy
 from repro_torch.core import backend as TB
-from repro_torch.core import pagerank as TP
 from repro_torch.graph.generators import barabasi_albert_edges
 
-# repro.core re-exports the function `pagerank`, which shadows the module
+# repro.core and repro_torch.core re-export the function `pagerank`,
+# which shadows the module
 JP = importlib.import_module("repro.core.pagerank")
+TP = importlib.import_module("repro_torch.core.pagerank")
 
 RANK_TOL = dict(rtol=1e-5, atol=1e-5)
 STRUCT = ("hot_ids", "num_hot", "ek_src", "ek_dst", "ek_row_offsets",

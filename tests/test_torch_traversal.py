@@ -35,15 +35,16 @@ from repro_torch.convert import (edge_layout_from_numpy,
                                  summary_buffers_from_numpy)
 from repro_torch.core import backend as TB
 from repro_torch.core import hotset as TH
-from repro_torch.core import pagerank as TP
 from repro_torch.core import policies as tpolicies
 from repro_torch.core import traversal as TT
 from repro_torch.graph.generators import barabasi_albert_edges
 from repro_torch.kernels.spmv.kernel import spmv_reduce_push_plain
 from repro_torch.stream import StreamConfig, build_stream
 
-# repro.core re-exports the function `pagerank`, which shadows the module
+# repro.core and repro_torch.core re-export the function `pagerank`,
+# which shadows the module
 JP = importlib.import_module("repro.core.pagerank")
+TP = importlib.import_module("repro_torch.core.pagerank")
 
 INT_MAX = np.iinfo(np.int32).max
 SUMMARY_FIELDS = ("hot_ids", "num_hot", "ek_src", "ek_dst", "ek_w",

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run ``chip_smoke.py``'s sharded phase alone on the card and print its rows.
 
-    python3 tools/sharded_phase.py [--out FILE]
+    python3 tools/sharded_phase.py [--out FILE] [--examples]
 
 Builds the two SpMV sources at the default merge tile (one ``nvcc`` each,
 started together), makes the synth-web-lg stream and a serving plan from
@@ -10,10 +10,12 @@ SSSP, CC, the forced-imbalance SSSP stream and one serving wave at 8 edge
 shards on a 1-rank NCCL mesh, each against an unsharded session on the
 card, then the sharded and unsharded push times and the kernels on a
 shard's stream, and last the dry run's sessions on a 1 x 1 ``("data",
-"model")`` mesh.  It prints one JSON line per row (``--out`` also writes
-them all to FILE) and a last line with ``ok`` true, or the failed check,
-the card's name and power limit and the seconds.  It needs a CUDA device
-and ``nvcc``.
+"model")`` mesh.  Then the same streams on four ranks of the card
+(``chip_smoke.mesh_ranks_path``), and with ``--examples`` the two ported
+examples (``chip_smoke.examples_path``).
+It prints one JSON line per row (``--out`` also writes them all to FILE)
+and a last line with ``ok`` true, or the failed check, the card's name
+and power limit and the seconds.  It needs a CUDA device and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ REPO = Path(__file__).resolve().parent.parent
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", type=Path)
+    ap.add_argument("--examples", action="store_true")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -62,15 +65,18 @@ def main() -> int:
                                              num_queries=50))
     plan = C.serving_plan(s, d, spec.nodes, np.random.default_rng(C.SEED))
     t0 = time.perf_counter()
+    dev = torch.device("cuda")
     try:
-        rows, counts, checks, (nd_rows, _) = C.sharded_path(
-            stream, plan, torch.device("cuda"),
-            np.random.default_rng(C.SHARDED_SEED))
+        rows, counts, checks, (nd_rows, _), refs = C.sharded_path(
+            stream, plan, dev, np.random.default_rng(C.SHARDED_SEED))
+        rows = rows + [r for part in checks for r in part] + nd_rows
+        rows += C.mesh_ranks_path(stream, refs, dev)[0]
+        if args.examples:
+            rows += C.examples_path()[0]
     except AssertionError as e:
         print(json.dumps({"ok": False, "failed": str(e),
                           "nvidia_smi": smi}))
         return 1
-    rows = rows + [r for part in checks for r in part] + nd_rows
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text("".join(json.dumps(r) + "\n" for r in rows))
