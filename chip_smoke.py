@@ -3912,6 +3912,10 @@ def check_attention_kernel(tag, kind, shape, rng, dev) -> dict:
         raise AssertionError(f"{kind} attention, {tag}: kernel disagrees with "
                              f"its f64 plain version (f32 max abs err "
                              f"{err_f64}, bf16 {err_bf16})")
+    # sums in a fixed order: a second launch gives the same bits
+    if not torch.equal(out, run(q, k, v)):
+        raise AssertionError(f"{kind} attention, {tag}: two bf16 launches "
+                             f"differ")
     lib_fn, lib_out = library(q, k, v)
     lib_err = float((lib_out(lib_fn()).double() - ref64).abs().max())
     del ref64, out
@@ -3949,7 +3953,7 @@ def check_attention_kernel(tag, kind, shape, rng, dev) -> dict:
             "kernel_ms": kernel_ms, "kernel_eager_ms": eager_ms,
             "kernel_cold_ms": kernel_cold_ms,
             "library_cold_ms": library_cold_ms,
-            "kernel_nodes_per_call": nodes,
+            "kernel_nodes_per_call": nodes, "run_to_run_bitwise": True,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "timing": "device time of 20 calls replayed from one CUDA graph "
                       "(inputs warm in L2); kernel_eager_ms: 20 eager calls "
@@ -4775,6 +4779,18 @@ def lm_serve_frontend_path(phase, arch, requests, slots, prompt_len,
 # Mixtral-8x22B's training attention (lm-train-moe: B = 4, S = 6,144 past
 # its 4,096 window, 48/8 heads of 128)
 MIXTRAL_BWD_SHAPE = (4, 6144, 48, 8, 128, 128, True, 4096)
+# the MQA rows below draw from a generator of their own (MQA_BWD_SEED), so
+# that the rows and phases after them keep their draws
+MQA_BWD_SHAPES = ((1, 1024, 48, 1, 128, 128, False, None, 4160),
+                  (1, 1024, 48, 1, 128, 128, True, None))
+MQA_BWD_SEED = SEED + 33
+# the flash forward's device kernels, by the dtype of the call (the static
+# and the dynamic entries alike), as the kernels line names them
+FLASH_DEVICE_KERNELS = {"device_kernels": {
+    "bfloat16": "hop::flash_fwd_bf16_kernel (wgmma; K/V by TMA into a "
+                "3-stage ring, one producer thread; two consumer "
+                "warpgroups of 64 rows)",
+    "float32": "simt::flash_fwd_f32_kernel (CUDA cores)"}}
 # the flash backward's checks: (tag, (B, S, H, KV, hd, vd, causal,
 # window[, Skv]), dtype, timed); the first is Qwen2-0.5B's training shape, the kernels
 # line's main row; the hybrid's and MLA's training shapes (Zamba2-7B's
@@ -4797,6 +4813,13 @@ FLASH_BWD_CHECKS = (
      (2, 300, 4, 4, 24, 16, True, None), "bfloat16", True),
     ("Mixtral-8x22B training shape, B=4, S=6144, hd 128, G=6, window 4096",
      MIXTRAL_BWD_SHAPE, "bfloat16", True),
+    # the static entry at Granite-34B's heads (MQA, 48 query heads on one
+    # KV head, hd 128), where every key's dk and dv sum 48 x Sq rows: 1,024
+    # queries over 4,160 keys, not causal, and causal at S = 1,024
+    ("Granite-34B heads, static entry, 1,024 over 4,160 keys, not causal",
+     MQA_BWD_SHAPES[0], "bfloat16", False),
+    ("Granite-34B heads, static entry, S=1024, causal", MQA_BWD_SHAPES[1],
+     "bfloat16", False),
 )
 # the backward at the new families' training shapes (lm-train-encdec's
 # encoder, unmasked, and its cross attention, Sq 1,024 over Skv 1,500;
@@ -4949,6 +4972,10 @@ def check_flash_backward(tag, shape, dtype, rng, dev, timed,
     again = FA.flash_attention_bwd(q, k, v, out, lse, dout, **opts)
     row["bitwise_second_launch"] = all(
         torch.equal(x, y) for x, y in zip(grads, again))
+    del again
+    bwd = lambda: FA.flash_attention_bwd(q, k, v, out, lse, dout, **opts)
+    # the two passes, each one kernel node of a captured call
+    row["kernel_nodes_per_call"] = graph_kernel_nodes(bwd)
     row["share_of_limit"] = shares
     row["tolerance"] = {
         "lse": BWD_LSE_TOL, "out_f32": BWD_OUT_TOL[dtype],
@@ -4956,7 +4983,8 @@ def check_flash_backward(tag, shape, dtype, rng, dev, timed,
                   "rtol": BWD_GRAD_RTOL[dtype]}}
     row["passes"] = (max(shares.values()) <= 1
                      and row["bitwise_second_launch"]
-                     and row["out_bitwise_vs_no_lse_launch"])
+                     and row["out_bitwise_vs_no_lse_launch"]
+                     and row["kernel_nodes_per_call"] == 2)
     if strict and not row["passes"]:
         raise AssertionError(f"flash backward, {tag}: {row}")
     row["max_abs_err"] = max(row[f"{n}_max_abs_err"]
@@ -4964,21 +4992,13 @@ def check_flash_backward(tag, shape, dtype, rng, dev, timed,
     if timed:
         import torch.nn.functional as F
 
-        del again
-        bwd = lambda: FA.flash_attention_bwd(q, k, v, out, lse, dout, **opts)
         # the training forward's yardstick: SDPA's forward alone
         mask = window_mask(s, skv, window, dev)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         sdpa_fwd = lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, is_causal=mask is None and causal,
             enable_gqa=True)
-        nodes = graph_kernel_nodes(bwd)
-        if nodes != 2:
-            raise AssertionError(f"flash backward, {tag}: one call captured "
-                                 f"{nodes} kernel nodes, expected its two "
-                                 f"passes")
         row.update(
-            kernel_nodes_per_call=nodes,
             kernel_ms=graph_ms(bwd),
             kernel_eager_ms=cuda_ms(bwd, reps=5),
             fwd_lse_ms=graph_ms(lambda: FA.flash_attention(
@@ -5731,13 +5751,22 @@ def check_dynamic_attention(tag, shape, offsets, dtype, rng, dev,
     out, lse = FA.flash_attention_dynamic(q, k, v, offs, **opts)
     grads = FA.flash_attention_bwd_dynamic(
         q, k, v, out, lse, dout.to(dt).float(), offs, **opts)
+    again = FA.flash_attention_dynamic(q, k, v, offs, **opts)
+    # the forward's kernel nodes, past those that stack the offsets
+    fwd_nodes = (graph_kernel_nodes(
+        lambda: FA.flash_attention_dynamic(q, k, v, offs, **opts))
+        - graph_kernel_nodes(lambda: FA.offsets_tensor(offs, q.device)))
     row = {"phase": "attention-dynamic", "shape": tag, "dims": list(shape),
            "offsets": list(offsets), "dtype": dtype,
            "host_reads": len(syncs), "driven_launches": driven_launches,
            "layer_bitwise_vs_wrappers": bool(
                torch.equal(layer_out, out.to(dt))
                and all(torch.equal(t.grad, g)
-                       for t, g in zip((qg, kg, vg), grads)))}
+                       for t, g in zip((qg, kg, vg), grads))),
+           "fwd_run_to_run_bitwise": bool(
+               torch.equal(out, again[0]) and torch.equal(lse, again[1])),
+           "fwd_kernel_nodes_per_call": fwd_nodes}
+    del again
     ref_out, ref_lse = FA.flash_attention_plain(
         q, k, v, dtype=torch.float64, return_lse=True, q_block=512,
         kv_block=1024, offsets=offs, **opts)
@@ -5764,7 +5793,8 @@ def check_dynamic_attention(tag, shape, offsets, dtype, rng, dev,
                   "rtol": BWD_GRAD_RTOL[dtype]}},
         max_abs_err=max(row[f"{n}_max_abs_err"] for n in ("dq", "dk", "dv")),
         fwd_max_abs_err=row["out_f32_max_abs_err"])
-    if max(shares.values()) > 1 or not row["layer_bitwise_vs_wrappers"]:
+    if (max(shares.values()) > 1 or not row["layer_bitwise_vs_wrappers"]
+            or not row["fwd_run_to_run_bitwise"] or fwd_nodes != 1):
         raise AssertionError(f"dynamic attention, {tag}: {row}")
     if timed:
         import torch.nn.functional as F
@@ -6977,11 +7007,12 @@ def main() -> int:
 
     # ---- 9b. the flash backward against its plain version -----------------
     bwd_rows = []
+    mqa_rng = np.random.default_rng(MQA_BWD_SEED)
     for tag, shape, dtype, timed in FLASH_BWD_CHECKS:
-        # Mixtral's row draws from a generator of its own, so that the
-        # phases after it see the stream they saw before it was added
+        # Mixtral's and the MQA rows draw from generators of their own, so
+        # that the phases after them see the stream they saw before them
         row_rng = (np.random.default_rng(SEED) if shape == MIXTRAL_BWD_SHAPE
-                   else rng)
+                   else mqa_rng if shape in MQA_BWD_SHAPES else rng)
         bwd_rows.append(check_flash_backward(tag, shape, dtype, row_rng, dev,
                                              timed))
         emit(bwd_rows[-1])
@@ -7152,7 +7183,7 @@ def main() -> int:
         "bound_ms": mins[0]["bound_ms"], "bound_by": mins[0]["bound_by"],
         "library_ms": mins[0]["library_ms"], "entries": entries(mins)}, *[{
         "name": row["kernel"], "route": "cuda", "source": source,
-        "replaces": replaces,
+        "replaces": replaces, **device_kernels,
         "launches": lm_counts[row["kernel"]]
         + train_counts[row["kernel"]] + sum(
             c[row["kernel"]] for c in family_counts.values()),
@@ -7173,13 +7204,14 @@ def main() -> int:
                     "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"]}
                    for r in attn_rows if r["kernel"] == row["kernel"]]}
-        for row, source, replaces in (
+        for row, source, replaces, device_kernels in (
             (flash_main, "src/repro_torch/kernels/flash_attention/csrc/"
              "flash_attention.cu",
-             "src/repro/kernels/flash_attention/kernel.py:85"),
+             "src/repro/kernels/flash_attention/kernel.py:85",
+             FLASH_DEVICE_KERNELS),
             (decode_main, "src/repro_torch/kernels/decode_attention/csrc/"
              "decode_attention.cu",
-             "src/repro/kernels/decode_attention/kernel.py:68"))], {
+             "src/repro/kernels/decode_attention/kernel.py:68", {}))], {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention_bwd.cu",
@@ -7213,6 +7245,7 @@ def main() -> int:
                    for r in bwd_rows if "kernel_ms" in r]}, *[{
         "name": name, "route": "cuda", "source": source,
         "defines": list(FA.DYNAMIC_DEFINES), "replaces": replaces,
+        **(FLASH_DEVICE_KERNELS if part == "fwd" else {}),
         "reference_path": "src/repro/models/layers.py:308 "
                           "(_blocked_attention_ref, the dynamic-offset path)",
         "launches": dynamic_counts[name],

@@ -100,12 +100,8 @@
 // and keys at or past lim are masked, so both passes' skipping (the dq
 // pass's kv tiles, the dk/dv pass's query rows) follows the offsets; a key
 // block wholly at or past lim walks no rows and stores zeros.  A row that
-// saw no key has lse = +inf from the forward, so its P is 0.  Their dq, dk
-// and dv products add each step's terms into a fresh fragment and that
-// into the accumulator in f32 (mma_fab's kFresh), which holds MQA's long
-// reductions (48 heads over one KV head) to the bf16 limits.  The static
-// instantiations (no shift, lim = Skv, one accumulation chain) are the
-// code they were.
+// saw no key has lse = +inf from the forward, so its P is 0.  The static
+// instantiations (no shift, lim = Skv) are the same code.
 
 #include "../../attention_common.cuh"
 
@@ -655,15 +651,14 @@ __device__ __forceinline__ void split_terms(float x, float y,
 // acc[NT][4] += A B over 16 KT columns of A: A the warp's 16 x 16 KT f32
 // accumulator fragment `a` (as the MMA leaves it) entering as kN bf16
 // terms (split_terms); B 16 KT rows of NT * 8 columns at `b`, row-major
-// bf16 in shared memory (stride bs), read with ldmatrix.trans.  With
-// kFresh each 16-column step's kN products go into a zeroed fragment that
-// is then added to acc in f32 (round to nearest): acc's chain through the
-// tensor cores' adds is then one add a step, not kN.  A long reduction
-// (dk and dv of MQA: 49k rows of Granite-34B's 48 heads a key) drifts on
-// the long chain past the bf16 limits (dk 4.4, dv 3.3 of them at 1,024
-// queries over 4,160 keys, 48/1 heads, not causal); the dynamic entries
-// take kFresh, the static ones keep their arithmetic.
-template <int KT, int NT, int kN, bool kFresh = false>
+// bf16 in shared memory (stride bs), read with ldmatrix.trans.  Each
+// 16-column step's kN products go into a zeroed fragment that is then
+// added to acc in f32 (round to nearest): acc's chain through the tensor
+// cores' adds is then one add a step, not kN.  A long reduction (dk and
+// dv of MQA: 49k rows of Granite-34B's 48 heads a key) drifts on the long
+// chain past the bf16 limits (dk 4.4, dv 3.3 of them at 1,024 queries
+// over 4,160 keys, 48/1 heads, not causal).
+template <int KT, int NT, int kN>
 __device__ __forceinline__ void mma_fab(float (&acc)[NT][4],
                                         const float (&a)[2 * KT][4],
                                         const bf16* b, int bs) {
@@ -682,24 +677,16 @@ __device__ __forceinline__ void mma_fab(float (&acc)[NT][4],
       ldmatrix_x4_trans(bf, b + (kc * 16 + (lane & 7) +
                                  ((lane >> 3) & 1) * 8) * bs +
                                 n2 * 16 + (lane >> 4) * 8);
-      if constexpr (kFresh) {
-        float part[2][4] = {};
+      float part[2][4] = {};
 #pragma unroll
-        for (int n = 0; n < kN; ++n) {
-          mma(part[0], af[n], bf[0], bf[1]);
-          mma(part[1], af[n], bf[2], bf[3]);
-        }
+      for (int n = 0; n < kN; ++n) {
+        mma(part[0], af[n], bf[0], bf[1]);
+        mma(part[1], af[n], bf[2], bf[3]);
+      }
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc[2 * n2][e] += part[0][e];
-          acc[2 * n2 + 1][e] += part[1][e];
-        }
-      } else {
-#pragma unroll
-        for (int n = 0; n < kN; ++n) {
-          mma(acc[2 * n2], af[n], bf[0], bf[1]);
-          mma(acc[2 * n2 + 1], af[n], bf[2], bf[3]);
-        }
+      for (int e = 0; e < 4; ++e) {
+        acc[2 * n2][e] += part[0][e];
+        acc[2 * n2 + 1][e] += part[1][e];
       }
     }
   }
@@ -912,7 +899,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     // dq += dS K, dS in its bf16 terms
-    mma_fab<kKeys / 16, HK / 8, kTerms, kDynamic>(acc, s, kt, QS);
+    mma_fab<kKeys / 16, HK / 8, kTerms>(acc, s, kt, QS);
     __syncthreads();  // every warp is done with this buffer
   }
   cp_async_wait<0>();  // no copy outlives the block (none is left pending
@@ -1115,13 +1102,8 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // dv += P^T dO: P_1 dO_1 + P_2 dO_1, then P_1 dO_2 (P in two terms and
     // dO in two keep 16 bits, which dv's check passes)
-    if constexpr (kDynamic) {
-      mma_fab<N / 16, VD / 8, 2, true>(acc_v, s, dot, VS);
-      mma_fab<N / 16, VD / 8, 1, true>(acc_v, s, dot + N * VS, VS);
-    } else {
-      mma_fab<N / 16, VD / 8, 2>(acc_v, s, dot, VS);
-      mma_fab<N / 16, VD / 8, 1>(acc_v, s, dot + N * VS, VS);
-    }
+    mma_fab<N / 16, VD / 8, 2>(acc_v, s, dot, VS);
+    mma_fab<N / 16, VD / 8, 1>(acc_v, s, dot + N * VS, VS);
 
     // dP^T = V dO^T, dO in its terms; dS^T = P^T (dP^T - delta) in place
     // of P^T
@@ -1141,11 +1123,7 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     // dk += dS^T q, dS in its bf16 terms
-    if constexpr (kDynamic) {
-      mma_fab<N / 16, HK / 8, kTerms, true>(acc_k, s, qt, QS);
-    } else {
-      mma_fab<N / 16, HK / 8, kTerms>(acc_k, s, qt, QS);
-    }
+    mma_fab<N / 16, HK / 8, kTerms>(acc_k, s, qt, QS);
     __syncthreads();  // every warp is done with this buffer
   }
   cp_async_wait<0>();

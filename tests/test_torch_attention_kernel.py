@@ -53,6 +53,14 @@ FLASH_SHAPES = {
     "zamba2-hd112": (1, 300, 4, 4, 112, 112, True, None),
     "minicpm3-hd96-vd64": (2, 257, 5, 5, 96, 64, True, None),
     "mla-smoke-hd24-vd16": (2, 70, 4, 4, 24, 16, True, None),
+    # the bf16 kernel's tile edges: rows (position, group head) that are
+    # no multiple of its 128-row block at G = 7, 6 and 48, and hd 112 and
+    # (96, 64) with windows that cross its 64-key tiles
+    "g7-rows-700": (1, 100, 14, 2, 64, 64, True, None),
+    "g6-hd128-rows-900": (2, 150, 12, 2, 128, 128, True, None),
+    "g48-mqa-hd128-rows-3696": (1, 77, 48, 1, 128, 128, True, None),
+    "zamba2-hd112-window-100": (1, 400, 4, 4, 112, 112, True, 100),
+    "minicpm3-hd96-vd64-window-70": (2, 300, 5, 5, 96, 64, True, 70),
 }
 
 #: flash cases whose keys are not the queries (an encoder-decoder's cross
@@ -65,6 +73,10 @@ FLASH_CROSS_CASES = {
     "seamless-sq-64-skv-1500": (2, 64, 16, 16, 64, 64, False, None, 1500),
     "sq-300-skv-130-hd112": (1, 300, 4, 4, 112, 112, False, None, 130),
     "causal-sq-70-skv-200": (1, 70, 8, 4, 128, 128, True, None, 200),
+    # Skv one past a multiple of the bf16 kernel's 64-key tile, and one
+    # query at G = 6, hd 128
+    "sq-50-skv-129": (1, 50, 8, 2, 64, 64, False, None, 129),
+    "sq-1-skv-200-g6-hd128": (2, 1, 12, 2, 128, 128, False, None, 200),
 }
 
 #: cases of the bf16 (tensor-core) flash kernel: B, Sq, H, KV, hd, vd,
@@ -131,6 +143,11 @@ FLASH_BWD_CASES = {
     "not-causal-skv-211-sq-100": (1, 100, 6, 2, 64, 32, False, None, 211),
     "seamless-cross-g1-sq-64-skv-1500": (1, 64, 16, 16, 64, 64, False, None,
                                          1500),
+    # MQA at Granite-34B's heads (48/1, hd 128), where every key's dk and dv
+    # sum 48 x Sq rows: the static entry's long reductions
+    "granite-mqa-sq-1024-skv-4160-not-causal": (1, 1024, 48, 1, 128, 128,
+                                                False, None, 4160),
+    "granite-mqa-s-1024-causal": (1, 1024, 48, 1, 128, 128, True, None),
 }
 
 DECODE_SHAPES = {
@@ -464,6 +481,10 @@ FLASH_DYNAMIC_CASES = {
                                    (7, 0, 130)),
     "mqa-hd128": (1, 65, 190, 48, 1, 128, 128, True, None,
                   (1000, 900, 1085)),
+    # offsets that put the first row and the valid length mid-tile (the
+    # rows 200 keys on, the last valid key 253), G = 6 at hd 128
+    "offsets-mid-tile-g6-hd128": (1, 90, 300, 12, 2, 128, 128, True, None,
+                                  (237, 37, 290)),
 }
 
 

@@ -71,15 +71,18 @@ MUTANTS = {
         DECODE, "const int n = max(0, min(__ldg(cache_len), s));",
         "const int n = max(0, min(__ldg(cache_len) + (sizeof(T) == 2), s));",
         "forward"),
+    # the bf16 forward's mask (hop::allowed) lets a row see one key more
+    # at its window's far edge
     "flash-bf16-window-one-key-wider": Mutant(
         FLASH, "(window <= 0 || pos - key < window)",
         "(window <= 0 || pos - key <= window)", "forward"),
-    # P enters P.V rounded once to bf16 (its low term is 0): `split`, the
-    # forward's and decode's two-term split
+    # P enters P.V rounded once to bf16 (its low term is 0): `split`, which
+    # makes the forward's register A fragments of P.V (hop::split_p) and
+    # decode's two terms
     "flash-bf16-p-rounded-once": Mutant(
         COMMON, "  lo = take_bf16x2(x, y);", "  lo = 0u;", "forward"),
     # the dk/dv pass's dS enters dS^T q rounded once (its other terms
-    # dropped)
+    # dropped), in the static and the dynamic entries alike
     "flash-bwd-bf16-ds-rounded-once": Mutant(
         BWD, "mma_fab<N / 16, HK / 8, kTerms>(acc_k, s, qt, QS);",
         "mma_fab<N / 16, HK / 8, 1>(acc_k, s, qt, QS);", "backward"),

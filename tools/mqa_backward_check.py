@@ -5,9 +5,10 @@ one: each gradient's worst share of ``chip_smoke.py``'s fixed bf16 limit
 ``flash-bwd-kernel`` rows' limit) and how many elements pass it.
 
 At Granite-34B's heads (48 query heads on one KV head, hd 128) every key's
-dk and dv sum G x Sq rows; the static entry adds them in one chain of
-tensor-core adds, the dynamic entries through a fresh fragment a step
-(``flash_attention_bwd.cu``'s ``mma_fab`` with ``kFresh``).  The cases:
+dk and dv sum G x Sq rows; both entries add each 16-column step's
+products into a fresh fragment and that into the sum in f32
+(``flash_attention_bwd.cu``'s ``mma_fab``), where one chain of
+tensor-core adds drifted past the limits.  The cases:
 1,024 queries over 4,160 keys not causal, and causal at S = 1,024, both
 entries (the dynamic one at zero offsets, where it computes the static
 masks), then the dynamic entry at G = 8 and at ``chip_smoke.py``'s
